@@ -1,0 +1,121 @@
+"""Build, load and launch the port's CUDA kernels.
+
+The kernels are CUDA C++ under ``modem_tpu_torch/csrc/``, each behind a plain
+C entry point that launches it on the stream it is given and returns
+``cudaGetLastError()``. At first use, :func:`library` compiles all of them
+with ``nvcc`` for ``sm_90a`` into one shared library under
+``modem_tpu_torch/_build/`` (named by a hash of the sources and flags, so an
+edited source rebuilds) and loads it with ``ctypes``. Nothing is built or
+loaded when the package is imported.
+
+A :class:`Kernel` is one entry point with its launch count: it counts a
+launch only where the C function ran and reported success.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: argument types of each C entry point (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "modem_tx_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P, _P],
+    "modem_rx_lut_hard": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _P, _P],
+    "modem_rx_lut_soft": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _P, _P],
+    "modem_chain_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P],
+}
+
+_library: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build_library() -> Path:
+    """Compile ``csrc/*.cu`` into ``_build/libmodem_kernels_<hash>.so``
+    unless that file exists; the compiler's output (``ptxas`` register and
+    shared-memory counts) goes to the ``.log`` beside it."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.name.encode() + path.read_bytes())
+    so = BUILD_DIR / f"libmodem_kernels_{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build_library()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.modem_error_string.argtypes = [ctypes.c_int]
+        lib.modem_error_string.restype = ctypes.c_char_p
+        _library = lib
+    return _library
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+               device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on the CUDA
+    ``device``."""
+    if (device.type != "cuda" or t.device != device or t.dtype != dtype
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{name}: the kernel takes a contiguous {dtype} CUDA tensor on "
+            f"{device}, got {t.dtype} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+class Kernel:
+    """One C entry point of the kernel library and its launch count."""
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.launches = 0
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; the last argument the C
+        function takes, the stream, is added here."""
+        fn = getattr(library(), self.symbol)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(*args, stream)
+        if rc != 0:
+            msg = library().modem_error_string(rc).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
+        self.launches += 1

@@ -1,0 +1,1 @@
+"""Signal-processing ops of the port: plain PyTorch versions and the CUDA kernels' wrappers."""

@@ -1,0 +1,191 @@
+"""The port's CUDA kernels (K1 loopback, K2 TX, K3 RX hard and soft) against
+their plain PyTorch versions on the card. Marked ``cuda``: every test skips
+without a CUDA device. On the card (``--noconftest`` because the suite's
+conftest imports jax, which the port's machine need not have)::
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
+
+Tolerances: decisions exactly; waveforms and soft points ``atol=1e-5``
+(``nvcc`` contracts multiply-adds to FMA, the plain version does not).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from modem_tpu_torch import Rates, qpsk_reference_chain
+from modem_tpu_torch.models.psk import BPSK
+from modem_tpu_torch.ops import chain_kernel, txrx
+from modem_tpu_torch.ops.filters import rrc_taps
+
+pytestmark = pytest.mark.cuda
+
+ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _qpsk():
+    s = np.arange(4)
+    return np.stack([2.0 * (s >> 1) - 1, 2.0 * (s & 1) - 1], -1) * np.sqrt(0.5)
+
+
+def _mpsk(m):
+    ph = 2 * np.pi * np.arange(m) / m + 0.1
+    return np.stack([np.cos(ph), np.sin(ph)], -1)
+
+
+def _qam64():
+    lv = 2.0 * np.arange(8) - 7.0
+    return np.stack(np.meshgrid(lv, lv, indexing="ij"), -1).reshape(64, 2) / 7.0
+
+
+# (name, lut, sps, span, symbol shape)
+CASES = [
+    ("qpsk_3x500", _qpsk(), 8, 8, (3, 500)),
+    ("qpsk_batch_2x3x90", _qpsk(), 8, 8, (2, 3, 90)),
+    ("qpsk_short_1", _qpsk(), 8, 8, (2, 1)),
+    ("qpsk_short_31", _qpsk(), 8, 8, (2, 31)),
+    ("qpsk_tile_edge_257", _qpsk(), 8, 8, (2, 257)),
+    ("bpsk_sps4_span6", BPSK(0.0, 1.0).lut, 4, 6, (2, 300)),
+    ("8psk_sps16_span4", _mpsk(8), 16, 4, (2, 200)),
+    ("64qam_sps2_span10", _qam64(), 2, 10, (2, 600)),
+]
+IDS = [c[0] for c in CASES]
+
+
+def _setup(case, dev, sentinels=True):
+    _, lut, sps, span, shape = case
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    syms = rng.integers(0, len(lut), shape).astype(np.int32)
+    if sentinels and shape[-1] > 20:
+        syms[..., 0, :16] = -1  # the streaming loopback's first block
+        syms[..., -1, -3:] = -1
+    taps = torch.as_tensor(rrc_taps(sps, span, 0.35), device=dev)
+    lut = torch.as_tensor(np.asarray(lut, np.float32), device=dev)
+    return torch.as_tensor(syms, device=dev), lut, taps, sps, span
+
+
+def _launches(kernel, fn, *args, **kwargs):
+    before = kernel.launches
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_tx_kernel(case, dev):
+    syms, lut, taps, sps, span = _setup(case, dev)
+    got = _launches(txrx.TX_KERNEL, txrx.fused_tx, syms, lut, taps, sps, span)
+    want = txrx.tx_plain(syms, lut, taps, sps, span)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_rx_kernel_hard(case, dev):
+    syms, lut, taps, sps, span = _setup(case, dev, sentinels=False)
+    wi, wq = txrx.tx_plain(syms, lut, taps, sps, span)
+    k = syms.shape[-1]
+    got = _launches(txrx.RX_HARD_KERNEL, txrx.fused_rx, (wi, wq), k, lut,
+                    taps, sps, span)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, txrx.rx_plain(wi, wq, k, lut, taps, sps, span,
+                                          False))
+    assert torch.equal(got, syms)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_rx_kernel_soft(case, dev):
+    syms, lut, taps, sps, span = _setup(case, dev)
+    wi, wq = txrx.tx_plain(syms, lut, taps, sps, span)
+    g = torch.Generator(device=dev).manual_seed(0)
+    wi = wi + 0.3 * torch.randn(wi.shape, generator=g, device=dev)
+    wq = wq + 0.3 * torch.randn(wq.shape, generator=g, device=dev)
+    k = syms.shape[-1]
+    got = _launches(txrx.RX_SOFT_KERNEL, txrx.fused_rx, (wi, wq), k, lut,
+                    taps, sps, span, soft=True)
+    want = txrx.rx_plain(wi, wq, k, lut, taps, sps, span, True)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_chain_kernel(case, dev):
+    syms, lut, taps, sps, span = _setup(case, dev)
+    got = _launches(chain_kernel.CHAIN_KERNEL, chain_kernel.fused_pulse_chain,
+                    syms, lut, taps, sps, span)
+    want = chain_kernel.chain_plain(syms, lut, taps, sps, span)
+    # positions without a symbol (-1) decide a tie of rounding noise
+    real = syms >= 0
+    assert torch.equal(got[real], want[real])
+    assert torch.equal(got[real], syms[real])
+
+
+def test_rx_reads_zero_beyond_the_waveform(dev):
+    """A waveform exactly (K+span)*sps long, and one longer."""
+    syms, lut, taps, sps, span = _setup(CASES[0], dev, sentinels=False)
+    wi, wq = txrx.tx_plain(syms, lut, taps, sps, span)
+    k = syms.shape[-1]
+    ones = torch.ones(wi.shape[:-1] + (5,), device=dev)
+    for a, b in ((wi, wq), (torch.cat([wi, ones], -1), torch.cat([wq, ones], -1))):
+        for soft in (False, True):
+            got = txrx.fused_rx((a, b), k, lut, taps, sps, span, soft=soft)
+            want = txrx.rx_plain(a, b, k, lut, taps, sps, span, soft)
+            if soft:
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+            else:
+                assert torch.equal(got, want)
+
+
+def test_flagship_chain_on_card(dev):
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    bits = torch.randint(0, 2, (16, 2 * 1024), generator=g, device=dev,
+                         dtype=torch.int32)
+    assert torch.equal(chain.roundtrip_fused(bits), bits)
+    wave = chain.tx_fused(bits)
+    for f, s in zip(wave, chain.tx(bits)):
+        torch.testing.assert_close(f, s, atol=ATOL, rtol=0)
+    assert torch.equal(chain.rx_fused(wave, 1024), bits)
+    llr = chain.rx_soft_fused(wave, 1024)
+    assert torch.equal((llr < 0).int(), bits)
+
+
+def test_empty_inputs_launch_nothing(dev):
+    _, lut, taps, sps, span = _setup(CASES[0], dev)
+    before = (txrx.TX_KERNEL.launches, chain_kernel.CHAIN_KERNEL.launches)
+    empty = torch.zeros((0, 10), dtype=torch.int32, device=dev)
+    wi, _ = txrx.fused_tx(empty, lut, taps, sps, span)
+    assert wi.shape == (0, (10 + span) * sps)
+    assert chain_kernel.fused_pulse_chain(empty, lut, taps, sps, span).shape == (0, 10)
+    assert before == (txrx.TX_KERNEL.launches, chain_kernel.CHAIN_KERNEL.launches)
+
+
+@pytest.mark.parametrize("kwargs", [{"carrier_hz": 2000}, {"out_scale": 10.0}])
+def test_unported_modes_raise_on_card(dev, kwargs):
+    syms, lut, taps, sps, span = _setup(CASES[0], dev)
+    before = txrx.TX_KERNEL.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        txrx.fused_tx(syms, lut, taps, sps, span, **kwargs)
+    assert txrx.TX_KERNEL.launches == before
+
+
+def test_kernels_refuse_mismatched_taps(dev):
+    """K1 and K3 read exactly a span*sps+1-tap window; other lengths are
+    refused at the launch, before the kernel runs."""
+    syms, lut, taps, sps, span = _setup(CASES[0], dev, sentinels=False)
+    wi, wq = txrx.tx_plain(syms, lut, taps, sps, span)
+    short = taps[:-1].contiguous()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        txrx.rx_kernel(wi, wq, syms.shape[-1], lut, short, sps, span, False)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        chain_kernel.chain_kernel(syms, lut, short, sps, span)
