@@ -26,9 +26,41 @@ It drives the flagship QPSK chain through the port's public entry points at
    kernel's own device time from ``torch.profiler``; and per call of the
    chain's ``roundtrip_fused``, ``tx_fused`` and ``rx_fused``, bits included.
 
-Then a JSON line of the kernels, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
-line; without a CUDA device it exits non-zero at once.
+The reference modulate -> demodulate path (``Modulator``, ``Demodulator``,
+the two CLIs) runs at the JAX package's demod-bank size (``bench_demod.py``:
+256 channels x 32768 samples, ``sample_rate`` 10000, carrier 2000 Hz):
+
+7. FIR and product-detector kernels: K4 (23, 64 and 65 taps) and K5 against
+   their plain versions, at a small shape with carried state and at
+   256 x 32768, unit-scale inputs, max |error| <= 1e-5;
+8. reference path: a 16-cycle preamble and 256 x 4096 QPSK symbols of
+   passband from ``Modulator``, then ``Demodulator.lock_phase`` on 64
+   samples and ``demodulate`` (K4) and ``demodulate_fused`` (K5) over the
+   rest, one shot and in 4 pushes: fused within 1e-5 of staged (relative to
+   max |x|), pushes equal to one shot exactly, the card equal to the CPU on
+   two channels; then the flagship chain's staged ``chain.roundtrip`` at
+   256 x 4096, which now runs K4, gives the bits back exactly. Each path is
+   driven with every launch count set to 0 just before and read just after;
+9. CLI: ``modulate`` -> i16 -> ``demodulate --fused`` on the card for one
+   channel of 20,000 bits, its text equal to ``Demodulator`` called as a
+   library (rtol 1e-4);
+10. times: K4 (64 taps, one rail; and the staged chain's 65 taps) and K5 per
+   call beside their plain versions and the profiler's device time, K4's
+   ``conv1d`` yardstick, and ``Modulator.passband``, ``Demodulator.demodulate``
+   and ``demodulate_fused`` per call in samples/s, with the device's busy
+   time per call from ``torch.profiler`` and its idle share.
+
+Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
+demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5), each
+with its launches on its path, error, per-call times (``ms`` from CUDA
+events, ``device_ms`` from the profiler), the least time the card could
+take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
+its f32 operations at 67 TFLOP/s, the H100 SXM's published peaks at 700 W;
+``bound_by`` says which) and the time of one PyTorch call computing the
+same function where there is one (``library_ms``, else null); then the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before that line; without a CUDA device it
+exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -50,6 +82,14 @@ NOISE_BLOCKS = 2                 # 2 x 256 x 4096 x 2 = 4.19 M bits
 BER_RTOL = 0.10
 ATOL = 1e-5
 SEED = 0
+# the reference path at bench_demod.py's demod bank
+REF_SR, REF_CF, REF_BAUD = 10000, 2000, 1250
+REF_SAMPLES = 32768              # per channel and block: 4096 QPSK symbols
+PREAMBLE_CYCLES = 16
+CLI_BITS = 20000
+# the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def fail(msg: str):
@@ -108,6 +148,45 @@ def kernel_cases(chain):
     ]
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of moving
+    ``nbytes`` at the HBM peak and doing ``flops`` at the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chain_work(chain, name: str, c: int, k: int) -> tuple[float, float]:
+    """Bytes each of K1-K3 must move (each input read once, each output
+    written once) and the f32 operations it must do for ``c`` channels of
+    ``k`` symbols. L taps: the TX makes (k+span)*sps samples per rail, L
+    MACs per symbol and rail in all; the matched filter needs L MACs per
+    rail at each of the k decision instants; a min-distance slice over M
+    points costs 5 operations per point (2 differences, 2 squares, a sum)."""
+    m, taps = chain.lut.shape[0], chain.rrc.shape[0]
+    n_wave = (k + chain.span) * chain.sps
+    params = 4 * (2 * m + taps)
+    tx_ops = 2 * 2 * (k + chain.span) * taps * c
+    rx_ops = 2 * 2 * k * taps * c
+    slice_ops = 5 * m * k * c
+    if name == "fused_pulse_chain":
+        return 4 * c * k * 2 + params, tx_ops + rx_ops + slice_ops
+    if name == "fused_tx":
+        return 4 * c * k + 2 * 4 * c * n_wave + params, tx_ops
+    if name == "fused_rx":
+        return 2 * 4 * c * n_wave + 4 * c * k + params, rx_ops + slice_ops
+    return 2 * 4 * c * n_wave + 2 * 4 * c * k + params, rx_ops  # soft
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from modem_tpu_torch.ops import chain_kernel, demod_kernel, fir, txrx
+
+    for k in (chain_kernel.CHAIN_KERNEL, txrx.TX_KERNEL, txrx.RX_HARD_KERNEL,
+              txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL):
+        k.launches = 0
+
+
 def random_symbols(shape, device, sentinels: bool):
     g = torch.Generator(device=device).manual_seed(SEED)
     syms = torch.randint(0, 4, shape, generator=g, device=device,
@@ -153,8 +232,7 @@ def phase_main_path(chain, device) -> dict:
     bits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * bps), generator=g,
                          device=device, dtype=torch.int32)
     kernels = {c[0]: c[1] for c in kernel_cases(chain)}
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches()
 
     def same(name, got, want):
         if got.shape != want.shape or not torch.equal(got, want):
@@ -261,11 +339,36 @@ def kernel_device_ms(fn, args, device, symbol: str, calls=20):
     return None
 
 
+def device_busy_ms(fn, args, device, calls=20) -> float:
+    """Device time per call summed over every kernel and copy the call
+    runs, from ``torch.profiler`` (one stream: nothing overlaps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize(device)
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls / 1e3
+
+
 #: substring of each kernel's name in a profiler trace
 DEVICE_NAMES = {"fused_pulse_chain": "chain_lut_kernel",
                 "fused_tx": "tx_lut_kernel",
                 "fused_rx": "rx_lut_kernel<false>",
                 "fused_rx_soft": "rx_lut_kernel<true>"}
+
+
+def kernel_times(kern, plain, args, device, symbol: str):
+    """(kernel ms, plain ms, kernel's profiler ms) per call, taken plain,
+    kernel, kernel, plain: each number is the mean of its pair."""
+    p1 = time_calls(plain, args, device)
+    k1 = time_calls(kern, args, device)
+    k2 = time_calls(kern, args, device)
+    p2 = time_calls(plain, args, device)
+    return ((k1 + k2) / 2, (p1 + p2) / 2,
+            kernel_device_ms(kern, args, device, symbol))
 
 
 def phase_times(chain, device, card: str) -> dict:
@@ -275,14 +378,9 @@ def phase_times(chain, device, card: str) -> dict:
     times = {}
     for name, _, kern, plain, make_args, _, _, _ in kernel_cases(chain):
         args = make_args(syms)
-        # plain, kernel, kernel, plain: each number is the mean of its pair
-        p1 = time_calls(plain, args, device)
-        k1 = time_calls(kern, args, device)
-        k2 = time_calls(kern, args, device)
-        p2 = time_calls(plain, args, device)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        dev_ms = kernel_device_ms(kern, args, device, DEVICE_NAMES[name])
-        times[name] = (ms, plain_ms)
+        ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
+                                            DEVICE_NAMES[name])
+        times[name] = (ms, plain_ms, dev_ms)
         dev_txt = ("not measured" if dev_ms is None else
                    f"{dev_ms:.4f} ms ({samples / dev_ms * 1e3:.4e} samples/s)")
         print(f"[times] {name:18s} per call: kernel {ms:.4f} ms "
@@ -304,6 +402,309 @@ def phase_times(chain, device, card: str) -> dict:
         print(f"[times] chain.{name:16s} per call {ms:.4f} ms "
               f"({samples / ms * 1e3:.4e} samples/s) on {card}", flush=True)
     return times
+
+
+# ---- the reference modulate -> demodulate path ----
+
+def unit(shape, gen, device) -> torch.Tensor:
+    """Uniform float32 in [-1, 1) on ``device``."""
+    return torch.rand(shape, generator=gen, device=device) * 2.0 - 1.0
+
+
+def path_taps(chain, device) -> dict:
+    """K4's filters on the path, by length: the Hilbert FIR of
+    ``lock_phase`` (23), the demodulator's lowpass (64), the staged
+    chain's RRC (65)."""
+    from modem_tpu_torch.ops import filters
+
+    return {23: torch.as_tensor(filters.hilbert_taps(), device=device),
+            64: torch.as_tensor(filters.lowpass_taps(sample_rate=REF_SR),
+                                device=device),
+            65: chain.rrc}
+
+
+def fir_case(taps, shape, gen, device):
+    """K4's arguments ``(x, taps, state)``: unit-scale input and carried
+    history."""
+    k = taps.shape[0]
+    return (unit(shape, gen, device), taps,
+            unit(shape[:-1] + (k - 1,), gen, device))
+
+
+def demod_case(taps, shape, gen, device):
+    """K5's arguments ``(x, history, taps, hz, sr, off, phi)``: unit-scale
+    passband, the lowpass's lookback of history, a phase per channel and a
+    stream counter."""
+    hist = unit(shape[:-1] + (taps.shape[0] - 1,), gen, device)
+    phi = unit(shape[:-1], gen, device) * math.pi
+    off = torch.tensor(9971, dtype=torch.int32, device=device)
+    return (unit(shape, gen, device), hist, taps, REF_CF, REF_SR, off, phi)
+
+
+def phase_ref_kernels(chain, device) -> dict:
+    """Phase 7: K4 with each filter of the path and K5 against their plain
+    versions, at a small shape and at 256 x 32768; returns the max |error|
+    of each report entry."""
+    from modem_tpu_torch.ops import demod_kernel as dk, fir
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    taps = path_taps(chain, device)
+    errs = {"fir_filter": 0.0, "fir_filter_rrc": 0.0,
+            "fused_product_detect": 0.0}
+
+    def check(entry, what, shape, got, want):
+        torch.cuda.synchronize(device)
+        err = max_err(got, want)
+        if err > ATOL:
+            fail(f"{what} at {shape}: kernel vs plain max |err| {err}")
+        errs[entry] = max(errs[entry], err)
+        print(f"[kernels] {what:22s} {shape[0]:4d} ch x {shape[1]:5d} "
+              f"samples: max |kernel - plain| = {err:.3e} (tol {ATOL})",
+              flush=True)
+
+    for shape in ((3, 5000), (CHANNELS, REF_SAMPLES)):
+        for k, t in taps.items():
+            args = fir_case(t, shape, gen, device)
+            check("fir_filter_rrc" if k == 65 else "fir_filter",
+                  f"fir_filter {k} taps", shape, fir.fir_kernel(*args),
+                  fir.fir_plain(*args))
+        args = demod_case(taps[64], shape, gen, device)
+        check("fused_product_detect", "fused_product_detect", shape,
+              dk.demod_kernel(*args), dk.demod_plain(*args))
+    return errs
+
+
+def ref_bits(gen, device) -> torch.Tensor:
+    """Random bits for one block of the demod bank: 4096 QPSK symbols on
+    each of ``CHANNELS`` channels."""
+    n_bits = REF_SAMPLES // (REF_SR // REF_BAUD) * 2
+    return torch.randint(0, 2, (CHANNELS, n_bits), generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def reference_path(device, bits):
+    """The reference's path as a user drives it: ``Modulator`` (preamble,
+    then QPSK passband), ``Demodulator.lock_phase`` on the first 64 samples,
+    then ``demodulate`` and ``demodulate_fused`` over the rest. Returns
+    ``(modulator, demodulator, x, locked state, staged (i, q), fused
+    (i, q))``."""
+    from modem_tpu_torch import Demodulator, Modulator, Rates, make_scheme
+
+    rates = Rates(REF_BAUD, REF_SR)
+    n_ch = bits.shape[0]
+    mod = Modulator(make_scheme("qpsk", rates), rates, carrier_hz=REF_CF,
+                    device=device)
+    state = mod.init_state((n_ch,))
+    tone, state = mod.preamble(PREAMBLE_CYCLES, state)
+    wave, state = mod.passband(bits, state)
+    x = torch.cat([tone.expand(n_ch, -1), wave], dim=-1)
+    dem = Demodulator(REF_CF, REF_SR, device=device)
+    locked = dem.lock_phase(x[:, :64], dem.init_state((n_ch,)))
+    staged, _ = dem.demodulate(x[:, 64:], locked)
+    fused, _, _ = dem.demodulate_fused(x[:, 64:], locked)
+    return mod, dem, x, locked, staged, fused
+
+
+def phase_ref_path(chain, device) -> dict:
+    """Phase 8: the reference path at 256 x 32768 on the card, one shot and
+    in 4 pushes, then the card against the CPU on two channels, then the
+    flagship chain's staged form; returns the launch counts of each path's
+    run."""
+    from modem_tpu_torch.ops import demod_kernel as dk, fir
+
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    bits = ref_bits(g, device)
+    reset_launches()
+    _, dem, x, locked, staged, fused = reference_path(device, bits)
+    rest = x[:, 64:]
+    n = rest.shape[-1]
+    cuts = (0, 1000, 1031, n // 2, n)
+    s_staged = s_fused = locked
+    tail, parts_staged, parts_fused = None, [], []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        y, s_staged = dem.demodulate(rest[:, a:b], s_staged)
+        parts_staged.append(y)
+        y, s_fused, tail = dem.demodulate_fused(rest[:, a:b], s_fused, tail)
+        parts_fused.append(y)
+    torch.cuda.synchronize(device)
+    launches = {"fir_filter": fir.FIR_KERNEL.launches,
+                "fused_product_detect": dk.DEMOD_KERNEL.launches}
+    print(f"[ref] {CHANNELS} ch x {x.shape[-1]} samples ({PREAMBLE_CYCLES}-"
+          f"cycle preamble + {bits.shape[-1] // 2} QPSK symbols), launches: "
+          f"{json.dumps(launches)}", flush=True)
+
+    scale = float(x.abs().max())
+    err = max_err(fused, staged)
+    print(f"[ref] demodulate_fused vs demodulate: max |err| {err:.3e} "
+          f"(tol {ATOL} x max |x| = {ATOL * scale:.3e})", flush=True)
+    if err > ATOL * scale:
+        fail("demodulate_fused differs from demodulate")
+    for name, parts, one in (("demodulate", parts_staged, staged),
+                             ("demodulate_fused", parts_fused, fused)):
+        for r in range(2):
+            if not torch.equal(torch.cat([p[r] for p in parts], dim=-1),
+                               one[r]):
+                fail(f"{name} in {len(parts)} pushes differs from one shot")
+        print(f"[ref] {name} in {len(parts)} pushes == one shot (exact)",
+              flush=True)
+
+    _, _, xc, lc, sc, fc = reference_path(torch.device("cpu"), bits[:2].cpu())
+    for name, got, want in (("passband", x[:2], xc),
+                            ("phase_offset", locked.phase_offset[:2],
+                             lc.phase_offset),
+                            ("demodulate", tuple(v[:2] for v in staged), sc),
+                            ("demodulate_fused", tuple(v[:2] for v in fused),
+                             fc)):
+        if isinstance(got, tuple):
+            got = tuple(v.cpu() for v in got)
+        else:
+            got = got.cpu()
+        err = max_err(got, want)
+        print(f"[ref] card vs CPU, 2 channels, {name}: max |err| {err:.3e}",
+              flush=True)
+        if err > ATOL * scale:
+            fail(f"{name} on the card differs from the CPU")
+
+    bits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * chain.bits_per_symbol),
+                         generator=g, device=device, dtype=torch.int32)
+    reset_launches()
+    out = chain.roundtrip(bits)
+    torch.cuda.synchronize(device)
+    launches["fir_filter_rrc"] = fir.FIR_KERNEL.launches
+    if not torch.equal(out, bits):
+        fail("staged chain.roundtrip(bits) != bits")
+    print(f"[ref] staged chain.roundtrip(bits) == bits at {CHANNELS} ch x "
+          f"{N_SYMBOLS} sym, K4 launches {launches['fir_filter_rrc']}",
+          flush=True)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the path never launched the {name} kernel")
+    return launches
+
+
+def phase_cli(device) -> None:
+    """Phase 9: ``modulate`` -> i16 -> ``demodulate --fused`` on the card,
+    the text equal to ``Demodulator`` called as a library."""
+    import io
+    import numpy as np
+    from modem_tpu_torch import Demodulator
+    from modem_tpu_torch import io as mio
+    from modem_tpu_torch.cli import demodulate as cli_demod
+    from modem_tpu_torch.cli import modulate as cli_mod
+    from modem_tpu_torch.ops import demod_kernel as dk
+
+    bits = np.random.default_rng(SEED).integers(0, 2, CLI_BITS)
+    common = ["-c", str(REF_CF), "-r", str(REF_SR), "--device", str(device)]
+    out = io.BytesIO()
+    cli_mod.run(cli_mod.build_parser().parse_args(
+        ["-m", "qpsk", "-b", str(REF_BAUD), "-p", str(PREAMBLE_CYCLES),
+         *common]), "".join("01"[b] for b in bits).encode(), out)
+    wave = mio.f32le_to_f32(out.getvalue())
+    i16 = np.round(wave * (0.9 * 32767 / np.abs(wave).max())).astype("<i2")
+    reset_launches()
+    text = io.BytesIO()
+    cli_demod.run(cli_demod.build_parser().parse_args(["--fused", *common]),
+                  i16.tobytes(), text)
+    torch.cuda.synchronize(device)
+    k5 = dk.DEMOD_KERNEL.launches
+    got = np.array([float(v.split(b":")[1])
+                    for line in text.getvalue().splitlines()
+                    for v in line.split(b"\t")])
+
+    x = torch.as_tensor(i16.astype(np.float32), device=device)
+    dem = Demodulator(REF_CF, REF_SR, device=device)
+    locked = dem.lock_phase(x[:64], dem.init_state())
+    (i, q), _, _ = dem.demodulate_fused(x[64:], locked)
+    want = torch.stack([i, q], dim=-1).reshape(-1).double().cpu().numpy()
+    if got.shape != want.shape:
+        fail(f"demodulate printed {got.size} values, the library "
+             f"{want.size}")
+    atol = 1e-6 * float(np.abs(want).max())
+    err = np.abs(got - want)
+    if k5 == 0 or (err > 1e-4 * np.abs(want) + atol).any():
+        fail(f"demodulate --fused text vs library: max |err| {err.max()}, "
+             f"K5 launches {k5}")
+    print(f"[cli] modulate ({CLI_BITS} bits, {wave.size} samples) -> i16 -> "
+          f"demodulate --fused ({got.size // 2} samples, K5 launches {k5}) "
+          f"== Demodulator as a library (rtol 1e-4, atol {atol:.3e}; max "
+          f"|err| {err.max():.3e})", flush=True)
+
+
+def phase_ref_times(chain, device, card: str) -> dict:
+    """Phase 10: K4 and K5 per call beside their plain versions, the
+    profiler's device time and K4's ``conv1d`` yardstick; then the
+    reference path's entry points per call."""
+    import torch.nn.functional as F
+    from modem_tpu_torch.ops import demod_kernel as dk, fir
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    taps = path_taps(chain, device)
+    times = {}
+    n_wave = (N_SYMBOLS + chain.span) * chain.sps
+    for name, k, n in (("fir_filter", 64, REF_SAMPLES),
+                       ("fir_filter_rrc", 65, n_wave)):
+        args = fir_case(taps[k], (CHANNELS, n), gen, device)
+        x, t, state = args
+        # conv1d computes the same causal FIR over state ++ x with the
+        # flipped taps: a yardstick only, the port never calls it
+        xp = torch.cat([state, x], dim=-1).unsqueeze(1)
+        w = t.flip(0).reshape(1, 1, k)
+        lib_err = max_err(F.conv1d(xp, w).squeeze(1), fir.fir_kernel(*args))
+        if lib_err > 1e-3:
+            fail(f"conv1d yardstick disagrees with K4 ({lib_err})")
+        ms, plain_ms, dev_ms = kernel_times(fir.fir_kernel, fir.fir_plain,
+                                            args, device, "fir_kernel")
+        lib_ms = time_calls(F.conv1d, (xp, w), device)
+        work = (4 * (2 * CHANNELS * n + CHANNELS * (k - 1) + k),
+                2 * k * CHANNELS * n)
+        times[name] = (ms, plain_ms, dev_ms, lib_ms, work)
+        print_times(f"{name} ({k} taps)", CHANNELS * n, times[name], card,
+                    f"conv1d {lib_ms:.4f} ms (max |err| vs K4 {lib_err:.2e})")
+
+    args = demod_case(taps[64], (CHANNELS, REF_SAMPLES), gen, device)
+    ms, plain_ms, dev_ms = kernel_times(dk.demod_kernel, dk.demod_plain, args,
+                                        device, "demod_kernel")
+    k, h, n = taps[64].shape[0], args[1].shape[-1], REF_SAMPLES
+    # x, history, phi, taps and the counter in; two rails out. Per sample:
+    # 2 rails x k MACs, the x2 gain on each, the mix's two products, the
+    # phase's multiply and add, one cos and one sin (as one operation each)
+    work = (4 * (CHANNELS * (n + h + 1) + k + 1) + 2 * 4 * CHANNELS * n,
+            CHANNELS * n * (4 * k + 8))
+    times["fused_product_detect"] = (ms, plain_ms, dev_ms, None, work)
+    print_times("fused_product_detect", CHANNELS * n,
+                times["fused_product_detect"], card, "no library call")
+
+    # the entry points a user calls, per call of one 256 x 32768 block
+    bits = ref_bits(gen, device)
+    mod, dem, x, locked, _, _ = reference_path(device, bits)
+    rest = x[:, 64:].contiguous()
+    for name, fn, fargs, samples in (
+            ("Modulator.passband", mod.passband,
+             (bits, mod.init_state((CHANNELS,))),
+             CHANNELS * REF_SAMPLES),
+            ("Demodulator.demodulate", dem.demodulate, (rest, locked),
+             rest.numel()),
+            ("Demodulator.demodulate_fused", dem.demodulate_fused,
+             (rest, locked), rest.numel())):
+        ms = time_calls(fn, fargs, device)
+        busy = device_busy_ms(fn, fargs, device)
+        print(f"[times] {name:28s} per call {ms:.4f} ms "
+              f"({samples / ms * 1e3:.4e} samples/s), device busy "
+              f"{busy:.4f} ms (idle share {1 - busy / ms:.3f}), {CHANNELS} "
+              f"ch x {samples // CHANNELS} samples on {card}", flush=True)
+    return times
+
+
+def print_times(name: str, samples: int, t, card: str, extra: str) -> None:
+    ms, plain_ms, dev_ms, _, (nbytes, flops) = t
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"[times] {name:26s} per call: kernel {ms:.4f} ms "
+          f"({samples / ms * 1e3:.4e} samples/s), plain {plain_ms:.4f} ms, "
+          f"{extra}; kernel alone in the profiler {dev_txt}; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.3f} GFLOP); {samples} samples on {card}",
+          flush=True)
 
 
 def main() -> int:
@@ -332,13 +733,30 @@ def main() -> int:
     errs = phase_kernels(chain, device)
     launches = phase_main_path(chain, device)
     phase_noise(chain, device)
-    times = phase_times(chain, device, card)
+    times = {n: t + (None, chain_work(chain, n, CHANNELS, N_SYMBOLS))
+             for n, t in phase_times(chain, device, card).items()}
+    errs.update(phase_ref_kernels(chain, device))
+    launches.update(phase_ref_path(chain, device))
+    phase_cli(device)
+    times.update(phase_ref_times(chain, device, card))
 
-    report = {"kernels": [
-        {"name": n, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[n], "max_abs_err": errs[n],
-         "ms": times[n][0], "plain_ms": times[n][1]}
-        for n, _, _, _, _, _, src, rep in kernel_cases(chain)]}
+    entries = [(n, src, rep)
+               for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
+        ("fir_filter", "modem_tpu_torch/csrc/fir.cu",
+         "modem_tpu/ops/pallas_fir.py:44"),
+        ("fir_filter_rrc", "modem_tpu_torch/csrc/fir.cu",
+         "modem_tpu/ops/pallas_fir.py:44"),
+        ("fused_product_detect", "modem_tpu_torch/csrc/demod.cu",
+         "modem_tpu/ops/pallas_demod.py:43")]
+    report = {"kernels": []}
+    for n, src, rep in entries:
+        ms, plain_ms, dev_ms, lib_ms, work = times[n]
+        bound_ms, bound_by = bound(*work)
+        report["kernels"].append({
+            "name": n, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[n], "max_abs_err": errs[n], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "device_ms": dev_ms})
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

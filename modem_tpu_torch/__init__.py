@@ -4,16 +4,28 @@ CUDA kernels for NVIDIA Hopper (``sm_90a``).
 A port of the JAX package ``modem_tpu``, which stays the reference: each
 module here has the same path as its counterpart there, keeps its layouts
 and dtypes, and is tested against it on shared inputs. This package never
-imports ``jax`` or ``modem_tpu``. Ported so far: the flagship QPSK chain
-(:class:`~modem_tpu_torch.chain.PulseShapedChain`) staged and fused, with
-its streaming classes; kernels are built at first use (:mod:`.cuda`).
+imports ``jax`` or ``modem_tpu``. Ported so far:
+
+* the flagship QPSK chain (:class:`~modem_tpu_torch.chain.PulseShapedChain`)
+  staged and fused, with its streaming classes (kernels K1-K3);
+* the reference's own path: all 15 schemes of the CLI table
+  (:func:`make_scheme`), the :class:`Modulator` and the :class:`Demodulator`
+  (FIRs on kernel K4, the fused product detector on kernel K5), and the
+  ``modulate``/``demodulate`` CLIs (:mod:`modem_tpu_torch.cli`).
+
+Every entry point builds on the card unless the caller asks for the CPU
+(``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
 """
 
 from .config import Rates
 from .chain import PulseShapedChain, qpsk_reference_chain
+from .models import SCHEME_NAMES, make_scheme
+from .rx import Demodulator, RxState
 from .streaming import StreamingFusedChain, StreamingFusedRx, StreamingFusedTx
+from .tx import Modulator, TxState
 
 __all__ = [
-    "PulseShapedChain", "Rates", "StreamingFusedChain", "StreamingFusedRx",
-    "StreamingFusedTx", "qpsk_reference_chain",
+    "Demodulator", "Modulator", "PulseShapedChain", "Rates", "RxState",
+    "SCHEME_NAMES", "StreamingFusedChain", "StreamingFusedRx",
+    "StreamingFusedTx", "TxState", "make_scheme", "qpsk_reference_chain",
 ]

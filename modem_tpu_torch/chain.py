@@ -7,7 +7,8 @@ symbol-instant decimation -> min-distance slice -> bits, at complex
 baseband. Two forms, as in the JAX package:
 
 * staged (``tx``, ``rx``, ``rx_soft``, ``decision_points``, ``roundtrip``):
-  plain tensor ops, the readable cross-check;
+  the readable cross-check, tensor ops around the FIR
+  (:func:`~modem_tpu_torch.ops.fir.fir_filter`, kernel K4 on a CUDA device);
 * fused (``tx_fused``, ``rx_fused``, ``rx_soft_fused``, ``roundtrip_fused``):
   the production path, one hand-written CUDA kernel per call on a CUDA
   device (:mod:`modem_tpu_torch.ops.txrx`,
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .config import Rates
+from .cuda import resolve_device
 from .models.base import LutScheme, Scheme
 from .models.psk import QPSK
 from .ops.chain_kernel import fused_pulse_chain
@@ -77,7 +79,8 @@ class PulseShapedChain(torch.nn.Module):
     minimum-distance against the table. The TX appends ``span`` flush
     symbols so the matched filter's full response is observed; the total
     group delay is ``span*sps``. The table and the RRC taps are buffers on
-    ``device``; every tensor passed in must be there too.
+    ``device``, the card unless the caller asks for the CPU; every tensor
+    passed in must be there too.
     ``rrc`` replaces the designed taps (``span_symbols*sps + 1`` of them).
     """
 
@@ -98,6 +101,7 @@ class PulseShapedChain(torch.nn.Module):
         taps = np.asarray(taps, np.float32)
         if taps.shape != (span_symbols * self.sps + 1,):
             raise ValueError("rrc taps length must equal span*sps + 1")
+        device = resolve_device(device)
         self.register_buffer("lut", torch.as_tensor(
             np.asarray(scheme.lut, np.float32), device=device))
         self.register_buffer("rrc", torch.as_tensor(taps, device=device))

@@ -29,13 +29,15 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: argument types of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "modem_tx_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P, _P],
     "modem_rx_lut_hard": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _P, _P],
     "modem_rx_lut_soft": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _P, _P],
     "modem_chain_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P],
+    "modem_fir": [_P, _P, _L, _L, _P, _I, _P, _P],
+    "modem_demod": [_P, _I, _P, _L, _L, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
 }
 
 _library: ctypes.CDLL | None = None
@@ -54,8 +56,9 @@ def _nvcc() -> str:
 
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libmodem_kernels_<hash>.so``
-    unless that file exists; the compiler's output (``ptxas`` register and
-    shared-memory counts) goes to the ``.log`` beside it."""
+    unless that file exists: one ``nvcc -c`` per source, all started
+    together, then one link. The compilers' output (``ptxas`` register and
+    shared-memory counts) goes to the ``.log`` beside the library."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources + sorted(CSRC.glob("*.cuh")):
@@ -64,12 +67,25 @@ def build_library() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tag = f"{so.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = so.with_name(f"{tag}.so.tmp")
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+    so.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     return so
 
@@ -87,6 +103,18 @@ def library() -> ctypes.CDLL:
         lib.modem_error_string.restype = ctypes.c_char_p
         _library = lib
     return _library
+
+
+def resolve_device(device: torch.device | str | None = None) -> torch.device:
+    """The device an entry point builds on: ``None`` means the card. Raises
+    ``RuntimeError`` for a CUDA device where there is none, so nothing is
+    ever built on the CPU unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: modem_tpu_torch runs on the card unless the "
+            "caller asks for the CPU (device='cpu')")
+    return dev
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -10,6 +10,16 @@ from __future__ import annotations
 import torch
 
 
+def max_symbol(bits_per_symbol: int) -> int:
+    """2**bps - 1, mirroring `digital/util.rs:13-15`."""
+    return (1 << bits_per_symbol) - 1
+
+
+def bit_to_sign(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 -> -1.0/+1.0 float32, mirroring `digital/util.rs:1-3`."""
+    return (2 * bits - 1).to(torch.float32)
+
+
 def _msb_first_shifts(bits_per_symbol: int, device) -> torch.Tensor:
     return torch.arange(bits_per_symbol - 1, -1, -1, dtype=torch.int32,
                         device=device)

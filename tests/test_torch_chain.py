@@ -37,7 +37,8 @@ def _params(jc):
 @pytest.fixture(scope="module")
 def chains():
     jc = j_qpsk_chain(JRates(1250, 10000))
-    return jc, PulseShapedChain.from_numpy(_params(jc), Rates(1250, 10000))
+    return jc, PulseShapedChain.from_numpy(_params(jc), Rates(1250, 10000),
+                                          device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -80,12 +81,13 @@ def test_qpsk_reference_chain_designs_the_same_taps(chains):
 def test_from_numpy_checks(chains):
     jc, _ = chains
     with pytest.raises(ValueError, match="sps"):
-        PulseShapedChain.from_numpy(_params(jc), Rates(1000, 10000))
+        PulseShapedChain.from_numpy(_params(jc), Rates(1000, 10000),
+                                    device="cpu")
     bad = dict(_params(jc), rrc=np.asarray(jc.rrc)[:-1])
     with pytest.raises(ValueError, match="span"):
-        PulseShapedChain.from_numpy(bad, Rates(1250, 10000))
+        PulseShapedChain.from_numpy(bad, Rates(1250, 10000), device="cpu")
     with pytest.raises(TypeError):
-        PulseShapedChain(object(), Rates(1250, 10000))
+        PulseShapedChain(object(), Rates(1250, 10000), device="cpu")
 
 
 def test_upsample_zero_stuff():
@@ -101,7 +103,7 @@ def test_staged_tx(case, polyphase):
     bits, wave, _ = case
     tc = PulseShapedChain.from_numpy(
         _params(j_qpsk_chain(JRates(1250, 10000))), Rates(1250, 10000),
-        polyphase=polyphase)
+        polyphase=polyphase, device="cpu")
     got = tc.tx(torch.as_tensor(bits))
     for g, w in zip(got, wave):
         assert g.shape == w.shape
@@ -135,7 +137,8 @@ def test_decision_points_polyphase_agree(chains, case):
     _, _, dirty = case
     tp = PulseShapedChain.from_numpy(
         {"lut": tc.lut.numpy(), "rrc": tc.rrc.numpy(), "bits_per_symbol": 2,
-         "span": 8, "sps": 8}, Rates(1250, 10000), polyphase=True)
+         "span": 8, "sps": 8}, Rates(1250, 10000), polyphase=True,
+        device="cpu")
     for a, b in zip(tc.decision_points(_t(dirty), K),
                     tp.decision_points(_t(dirty), K)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL)
@@ -207,7 +210,8 @@ def test_noisy_errors_agree(chains, case):
 
 def test_bpsk_chain():
     jc = JChain(JBPSK(0.0, 1.0), JRates(1000, 4000), span_symbols=6)
-    tc = PulseShapedChain.from_numpy(_params(jc), Rates(1000, 4000))
+    tc = PulseShapedChain.from_numpy(_params(jc), Rates(1000, 4000),
+                                     device="cpu")
     bits = np.random.default_rng(1).integers(0, 2, (2, 64)).astype(np.int32)
     wave = jc.tx(jnp.asarray(bits))
     for g, w in zip(tc.tx_fused(torch.as_tensor(bits)), wave):

@@ -189,3 +189,105 @@ def test_kernels_refuse_mismatched_taps(dev):
         txrx.rx_kernel(wi, wq, syms.shape[-1], lut, short, sps, span, False)
     with pytest.raises(RuntimeError, match="CUDA error"):
         chain_kernel.chain_kernel(syms, lut, short, sps, span)
+
+
+# ---- K4 (fir.cu) and K5 (demod.cu) ----
+
+def _unit(shape, seed):
+    return torch.as_tensor(np.random.default_rng(seed).uniform(
+        -1, 1, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("k", [2, 7, 23, 64, 65, 300])
+@pytest.mark.parametrize("shape", [(3, 1000), (2, 2, 4097)], ids=str)
+def test_fir_kernel(k, shape, dev):
+    """K4 vs fir_plain with a carried state, unit-scale inputs."""
+    from modem_tpu_torch.ops import fir
+
+    taps = _unit(k, k).to(dev) / k ** 0.5
+    x, st = _unit(shape, 1).to(dev), _unit(shape[:-1] + (k - 1,), 2).to(dev)
+    got = _launches(fir.FIR_KERNEL, fir.fir_kernel, x, taps, st)
+    torch.testing.assert_close(got, fir.fir_plain(x, taps, st), atol=ATOL,
+                               rtol=0)
+
+
+def test_fir_kernel_pushes_equal_one_shot(dev):
+    from modem_tpu_torch.ops.fir import fir_filter
+
+    taps, x = _unit(64, 3).to(dev) / 8, _unit((4, 9000), 4).to(dev)
+    one, _ = fir_filter(x, taps)
+    state, outs = None, []
+    for a, b in ((0, 5), (5, 2100), (2100, 2150), (2150, 9000)):
+        y, state = fir_filter(x[:, a:b], taps, state)
+        outs.append(y)
+    assert torch.equal(torch.cat(outs, -1), one)
+
+
+def test_fir_kernel_refuses_too_many_taps(dev):
+    from modem_tpu_torch.ops import fir
+
+    k = fir.FIR_MAX_TAPS + 1
+    before = fir.FIR_KERNEL.launches
+    with pytest.raises(ValueError, match="at most"):
+        fir.fir_filter(torch.zeros(2, 10, device=dev), torch.ones(k))
+    assert fir.FIR_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("hist", [0, 63, 100])
+def test_demod_kernel(hist, dev):
+    """K5 vs demod_plain: phases per channel, a stream counter, a
+    history read in place."""
+    from modem_tpu_torch.ops import demod_kernel as dk
+    from modem_tpu_torch.ops.filters import lowpass_taps
+
+    taps = torch.as_tensor(lowpass_taps(), device=dev)
+    x, h = _unit((2, 3, 5000), 5).to(dev), _unit((2, 3, hist), 6).to(dev)
+    phi = _unit((2, 3), 7).to(dev) * 3
+    off = torch.tensor(9971, dtype=torch.int32, device=dev)
+    got = _launches(dk.DEMOD_KERNEL, dk.demod_kernel, x, h, taps, 2000, 10000,
+                    off, phi)
+    want = dk.demod_plain(x, h, taps, 2000, 10000, off, phi)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+def test_demodulator_on_card(dev):
+    """Lock, staged (K4) and fused (K5) detection on the card vs the CPU;
+    fused pushes equal fused one shot exactly."""
+    from modem_tpu_torch import Demodulator, Modulator, make_scheme
+
+    rates = Rates(1250, 10000)
+    bits = torch.as_tensor(np.random.default_rng(8).integers(
+        0, 2, (4, 2 * 3000)).astype(np.int32))
+    outs = {}
+    for d in ("cpu", dev):
+        mod = Modulator(make_scheme("qpsk", rates), rates, 2000, device=d)
+        wave, _ = mod.passband(bits.to(d), mod.init_state((4,)))
+        dem = Demodulator(2000, 10000, device=d)
+        st = dem.lock_phase(wave[:, :64], dem.init_state((4,)))
+        staged, _ = dem.demodulate(wave[:, 64:], st)
+        fused, _, _ = dem.demodulate_fused(wave[:, 64:], st)
+        outs[str(d)] = (wave, st.phase_offset, staged, fused)
+        if d == dev:
+            x, parts, s, tail = wave[:, 64:], [], st, None
+            for a, b in ((0, 1000), (1000, 1030), (1030, x.shape[-1])):
+                (i, q), s, tail = dem.demodulate_fused(x[:, a:b], s, tail)
+                parts.append(torch.stack([i, q]))
+            assert torch.equal(torch.cat(parts, -1), torch.stack(fused))
+            for a, b in zip(staged, fused):
+                torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+    cpu, gpu = outs["cpu"], outs[str(dev)]
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], atol=1e-6, rtol=0)
+    torch.testing.assert_close(gpu[1].cpu(), cpu[1], atol=ATOL, rtol=0)
+    for g, c in zip(gpu[2] + gpu[3], cpu[2] + cpu[3]):
+        torch.testing.assert_close(g.cpu(), c, atol=ATOL, rtol=0)
+
+
+def test_staged_chain_runs_k4(dev):
+    from modem_tpu_torch.ops import fir
+
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=dev)
+    bits = torch.randint(0, 2, (8, 2 * 512), device=dev, dtype=torch.int32)
+    before = fir.FIR_KERNEL.launches
+    assert torch.equal(chain.roundtrip(bits), bits)
+    assert fir.FIR_KERNEL.launches == before + 4
