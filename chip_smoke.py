@@ -50,8 +50,36 @@ the two CLIs) runs at the JAX package's demod-bank size (``bench_demod.py``:
    and ``demodulate_fused`` per call in samples/s, with the device's busy
    time per call from ``torch.profiler`` and its idle share.
 
+Config #3, the FSK/MSK discriminator family, at ``bench_oneway.py``'s
+block (256 channels x 4096 symbols, ``Rates(1250, 10000)``: 16-MFSK at
+50 Hz with the ``increase`` map, BFSK at 200 Hz, MSK, GMSK at BT 0.3):
+
+11. FSK kernels: K6 (the loopback, noiseless and with its in-kernel noise;
+    at 130 x 600 in tiles of 32 symbols, which crosses the noise stream's
+    lane and tile keys, and at 256 x 4096), K8 (FSK waveform), K9 (the
+    discriminator means, groups of 8 and 4) and K10 (MSK waveform) against
+    their plain versions: decisions equal (with noise, on >= 99.99%),
+    waveforms and means within 1e-5;
+12. main path: 16-MFSK and BFSK ``FskChain`` (``roundtrip_fused``,
+    ``rx_fused(tx_fused)``, the hard bits of ``rx_soft_fused``), MSK
+    ``rx_fused(tx_fused)``, GMSK ``roundtrip`` and the DQPSK
+    ``DifferentialChain`` (``rx_fused(tx_fused)``, ``roundtrip_fused``)
+    give the bits back exactly, each path with every launch count set to 0
+    just before and read just after;
+13. noise: 16-MFSK ``roundtrip_fused(snr_db=21, seed)`` over 1,048,576
+    symbols, SER within 10% of the staged path's (``tx``, seeded Gaussian
+    noise of the same sigma, ``rx``);
+14. times: K6 (without and with noise), K8, K9 and K10 per call beside
+    their plain versions, the profiler's device time and the bound, and
+    ``FskChain.roundtrip_fused``/``tx_fused``/``rx_fused`` and
+    ``MskChain.tx_fused``/``rx_fused`` per call with the device's busy time
+    and idle share.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
-demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5), each
+demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5; K6
+without and with noise, with ``agreement``, the share of its decisions
+equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
+K10), each
 with its launches on its path, error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
 take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
@@ -87,6 +115,23 @@ REF_SR, REF_CF, REF_BAUD = 10000, 2000, 1250
 REF_SAMPLES = 32768              # per channel and block: 4096 QPSK symbols
 PREAMBLE_CYCLES = 16
 CLI_BITS = 20000
+# config #3, the FSK/MSK family, at bench_oneway.py's rates (sps 8)
+FSK_BAUD = 1250
+FSK_SMALL = (130, 600)           # crosses the noise stream's lane and tile keys
+FSK_SMALL_CHUNK = 32
+FSK_SIDE_CHANNELS = 256          # BFSK and GMSK channels in phase 12
+FSK_SNR_DB = 21.0                # per complex sample: 16-MFSK SER ~1e-2
+FSK_AGREE = 0.9999               # noisy K6 decisions, kernel vs plain
+FSK_SER_RTOL = 0.10
+#: profiler name and replaced TPU kernel of each config #3 report entry
+FSK_REPORT = {
+    "fused_fsk_chain": ("63", "fsk_chain_kernel"),
+    "fused_fsk_chain_noisy": ("63", "fsk_chain_kernel"),
+    "fused_fsk_tx": ("460", "fsk_tx_kernel"),
+    "fused_discriminator_means": ("545", "disc_means_kernel"),
+    "fused_discriminator_means_msk": ("545", "disc_means_kernel"),
+    "fused_msk_tx": ("621", "msk_tx_kernel"),
+}
 # the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -180,10 +225,13 @@ def chain_work(chain, name: str, c: int, k: int) -> tuple[float, float]:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from modem_tpu_torch.ops import chain_kernel, demod_kernel, fir, txrx
+    from modem_tpu_torch.ops import (chain_kernel, demod_kernel, fir,
+                                     fsk_kernel as fk, txrx)
 
     for k in (chain_kernel.CHAIN_KERNEL, txrx.TX_KERNEL, txrx.RX_HARD_KERNEL,
-              txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL):
+              txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL,
+              fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL, fk.DISC_MEANS_KERNEL,
+              fk.MSK_TX_KERNEL):
         k.launches = 0
 
 
@@ -695,6 +743,298 @@ def phase_ref_times(chain, device, card: str) -> dict:
     return times
 
 
+# ---- config #3: the FSK/MSK discriminator family ----
+
+def fsk_chains(device):
+    """The config #3 chains as ``bench_oneway.py:221-228`` builds them:
+    16-MFSK (50 Hz, ``increase`` map, ``coefs = 2*arange(16)``), BFSK
+    (200 Hz), MSK; and GMSK at BT 0.3. ``Rates(1250, 10000)``, sps 8."""
+    import numpy as np
+    from modem_tpu_torch import (FskChain, GmskChain, MskChain, Rates,
+                                 make_scheme)
+
+    r = Rates(FSK_BAUD, REF_SR)
+    mfsk = FskChain(make_scheme("mfsk", r), r, 2 * np.arange(16),
+                    2 * math.pi * 50 / REF_SR, device=device)
+    bfsk = FskChain(make_scheme("bfsk", r), r, np.arange(2),
+                    2 * math.pi * 200 / REF_SR, device=device)
+    return mfsk, bfsk, MskChain(r, device=device), GmskChain(r, bt=0.3,
+                                                             device=device)
+
+
+def fsk_kernel_cases(mfsk, msk, device):
+    """``(16-MFSK program, cases)``, a case ``(name, kernel fn, plain fn,
+    args at the full shape, decisions?)`` for each of K6 (noiseless and
+    noisy), K8, K9 (the FSK symbol and the MSK slot) and K10, with the
+    inputs the main path gives them: 16-MFSK phase programs, their waveform
+    with noise for K9 (means off the tones), MSK slot signs."""
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    bits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * 4), generator=g,
+                         device=device, dtype=torch.int32)
+    prog = mfsk._phase_program(bits)
+    coefs = fk.fsk_coef_table(mfsk.scheme)
+    sigma = fk.fsk_noise_sigma(1.0, FSK_SNR_DB)
+    targets = fk._candidate_increments(coefs, prog.den, device)
+
+    def chain_args(p, cs, noisy):
+        return (p.fnum, p.pnum, targets, p.den, mfsk.sps, 1.0, f32(p.qshift),
+                1, cs, f32(sigma) if noisy else None, SEED + 9)
+
+    tx_args = (prog.fnum, prog.pnum, prog.den, mfsk.sps, 1.0, f32(prog.qshift))
+    wi, wq = fk.fsk_tx_plain(*tx_args)
+    wi = wi + sigma * torch.randn(wi.shape, generator=g, device=device)
+    wq = wq + sigma * torch.randn(wq.shape, generator=g, device=device)
+    mbits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * 2), generator=g,
+                          device=device, dtype=torch.int32)
+    s0, s1 = msk._slot_signs(mbits)
+    mi, mq = fk.msk_tx_plain(s0, s1, msk.spb, 1.0)
+    mi = mi + sigma * torch.randn(mi.shape, generator=g, device=device)
+    mq = mq + sigma * torch.randn(mq.shape, generator=g, device=device)
+    return prog, [
+        ("fused_fsk_chain", fk.fsk_chain_kernel, fk.fsk_chain_plain,
+         chain_args(prog, 256, False), True),
+        ("fused_fsk_chain_noisy", fk.fsk_chain_kernel, fk.fsk_chain_plain,
+         chain_args(prog, 256, True), True),
+        ("fused_fsk_tx", fk.fsk_tx_kernel, fk.fsk_tx_plain, tx_args, False),
+        ("fused_discriminator_means", fk.disc_means_kernel,
+         fk.disc_means_plain, (wi, wq, mfsk.sps, 1), False),
+        ("fused_discriminator_means_msk", fk.disc_means_kernel,
+         fk.disc_means_plain, (mi, mq, msk.spb, 1), False),
+        ("fused_msk_tx", fk.msk_tx_kernel, fk.msk_tx_plain,
+         (s0, s1, msk.spb, 1.0), False),
+    ]
+
+
+def compare_decisions(name: str, got, want, shape, noisy: bool) -> tuple:
+    """Decisions of a kernel and its plain version: equal, or with noise
+    equal on >= FSK_AGREE of them. Returns (max |difference|, agreement)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    agree = float((got == want).double().mean())
+    err = float((got - want).abs().max())
+    need = FSK_AGREE if noisy else 1.0
+    print(f"[fsk kernels] {name:30s} {shape[0]:4d} ch x {shape[1]:5d} sym: "
+          f"decisions equal on {agree:.6f} (need >= {need}), max |kernel - "
+          f"plain| {err:.0f}", flush=True)
+    if agree < need:
+        fail(f"{name} at {shape}: kernel and plain agree on {agree}")
+    return err, agree
+
+
+def phase_fsk_kernels(mfsk, msk, device) -> dict:
+    """Phase 11: K6 (noiseless and noisy, at 130 x 600 in tiles of 32
+    symbols, which crosses the 128-lane and tile keys of the noise stream,
+    and at 256 x 4096), K8, K9 (groups 8 and 4) and K10 against their plain
+    versions on the card. Returns each report entry's (max |error|,
+    agreement)."""
+    prog, cases = fsk_kernel_cases(mfsk, msk, device)
+    errs = {}
+    small = (slice(0, FSK_SMALL[0]), slice(0, FSK_SMALL[1]))
+    for name, kern, plain, args, exact in cases:
+        if exact:  # K6: the small tiled shape, then the full one
+            noisy = args[9] is not None
+            lo = (prog.fnum[small].contiguous(), prog.pnum[small].contiguous()
+                  ) + args[2:8] + (FSK_SMALL_CHUNK,) + args[9:]
+            compare_decisions(name, kern(*lo), plain(*lo), FSK_SMALL, noisy)
+            errs[name] = compare_decisions(name, kern(*args), plain(*args),
+                                           (CHANNELS, N_SYMBOLS), noisy)
+            continue
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize(device)
+        err = max_err(got, want)
+        if err > ATOL:
+            fail(f"{name}: kernel vs plain max |err| {err}")
+        errs[name] = (err, None)
+        print(f"[fsk kernels] {name:30s} {tuple(args[0].shape)} in: max "
+              f"|kernel - plain| = {err:.3e} (tol {ATOL})", flush=True)
+    return errs
+
+
+def read_launches(kernels: dict, path: str) -> dict:
+    """Each kernel's launch count since the last reset; fails if one of the
+    path's kernels never launched."""
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in kernels.items()}
+    print(f"[fsk main] {path} launches: {json.dumps(counts)}", flush=True)
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"{path} never launched the {name} kernel")
+    return counts
+
+
+def phase_fsk_main(chains, device) -> dict:
+    """Phase 12: config #3 at full width through the public entry points,
+    each path driven with every launch count set to 0 just before it and
+    read just after. Returns the launches of each report entry."""
+    from modem_tpu_torch import DifferentialChain, Rates, make_scheme
+    from modem_tpu_torch.ops import chain_kernel, fir, fsk_kernel as fk, txrx
+    from modem_tpu_torch.ops.llr import llr_hard_bits
+
+    mfsk, bfsk, msk, gmsk = chains
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+
+    def bits_for(bps, n_ch=CHANNELS):
+        return torch.randint(0, 2, (n_ch, N_SYMBOLS * bps), generator=g,
+                             device=device, dtype=torch.int32)
+
+    def same(name, got, want):
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"config #3: {name} differs")
+        print(f"[fsk main] {name}: equal, shape {tuple(got.shape)}",
+              flush=True)
+
+    fsk_kernels = {"fused_fsk_chain": fk.FSK_CHAIN_KERNEL,
+                   "fused_fsk_tx": fk.FSK_TX_KERNEL,
+                   "fused_discriminator_means": fk.DISC_MEANS_KERNEL}
+    launches = {}
+    for label, chain, n_ch in (("16-MFSK", mfsk, CHANNELS),
+                               ("BFSK", bfsk, FSK_SIDE_CHANNELS)):
+        bits = bits_for(chain.scheme.bits_per_symbol, n_ch)
+        reset_launches()
+        same(f"{label} roundtrip_fused(bits) == bits",
+             chain.roundtrip_fused(bits), bits)
+        wave = chain.tx_fused(bits)
+        same(f"{label} rx_fused(tx_fused(bits)) == bits",
+             chain.rx_fused(*wave), bits)
+        llr = chain.rx_soft_fused(*wave)
+        if not torch.isfinite(llr).all():
+            fail(f"{label}: non-finite LLRs")
+        same(f"{label} hard bits of rx_soft_fused == bits",
+             llr_hard_bits(llr), bits)
+        counts = read_launches(fsk_kernels, label)
+        if label == "16-MFSK":
+            launches.update(counts)
+
+    bits = bits_for(2)
+    reset_launches()
+    same("MSK rx_fused(tx_fused(bits)) == bits",
+         msk.rx_fused(*msk.tx_fused(bits)), bits)
+    counts = read_launches({"fused_msk_tx": fk.MSK_TX_KERNEL,
+                            "fused_discriminator_means_msk":
+                                fk.DISC_MEANS_KERNEL}, "MSK")
+    launches.update(counts)
+
+    bits = bits_for(1, FSK_SIDE_CHANNELS)
+    reset_launches()
+    same("GMSK (BT 0.3) roundtrip(bits) == bits", gmsk.roundtrip(bits), bits)
+    read_launches({"fir_filter": fir.FIR_KERNEL}, "GMSK")
+
+    r = Rates(FSK_BAUD, REF_SR)
+    dq = DifferentialChain(make_scheme("dqpsk", r), r, device=device)
+    bits = bits_for(2)
+    reset_launches()
+    same("DQPSK rx_fused(tx_fused(bits)) == bits",
+         dq.rx_fused(dq.tx_fused(bits), N_SYMBOLS), bits)
+    same("DQPSK roundtrip_fused(bits) == bits", dq.roundtrip_fused(bits), bits)
+    read_launches({"fused_pulse_chain": chain_kernel.CHAIN_KERNEL,
+                   "fused_tx": txrx.TX_KERNEL, "fused_rx": txrx.RX_HARD_KERNEL},
+                  "DQPSK")
+    return launches
+
+
+def phase_fsk_noise(mfsk, device) -> int:
+    """Phase 13: 16-MFSK through ``roundtrip_fused(snr_db, seed)`` (K6's
+    in-kernel noise) against the staged path (``tx``, Gaussian noise of the
+    same sigma from a seeded generator, ``rx``) over 256 x 4096 symbols:
+    symbol error rates within FSK_SER_RTOL. Returns K6's launches."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+    from modem_tpu_torch.utils.bits import pack_bits
+
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    bits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * 4), generator=g,
+                         device=device, dtype=torch.int32)
+    syms = pack_bits(bits, 4)
+    reset_launches()
+    fused = pack_bits(mfsk.roundtrip_fused(bits, snr_db=FSK_SNR_DB,
+                                           seed=SEED + 12), 4)
+    launches = read_launches({"fused_fsk_chain_noisy": fk.FSK_CHAIN_KERNEL},
+                             "16-MFSK with noise")["fused_fsk_chain_noisy"]
+    sigma = fk.fsk_noise_sigma(1.0, FSK_SNR_DB)
+    wi, wq = mfsk.tx(bits)
+    wi = wi + sigma * torch.randn(wi.shape, generator=g, device=device)
+    wq = wq + sigma * torch.randn(wq.shape, generator=g, device=device)
+    staged = pack_bits(mfsk.rx(wi, wq), 4)
+    ser_f = float((fused != syms).double().mean())
+    ser_s = float((staged != syms).double().mean())
+    print(f"[fsk noise] 16-MFSK at {FSK_SNR_DB} dB per complex sample over "
+          f"{syms.numel()} symbols: SER roundtrip_fused (K6 noise) {ser_f:.6e}"
+          f", staged tx + noise + rx {ser_s:.6e}, ratio {ser_f / ser_s:.4f}",
+          flush=True)
+    if not 1e-3 < ser_s < 0.1 or abs(ser_f / ser_s - 1.0) > FSK_SER_RTOL:
+        fail(f"SER {ser_f} vs staged {ser_s} beyond {FSK_SER_RTOL:.0%}")
+    return launches
+
+
+def fsk_work(name: str, args) -> tuple[float, float]:
+    """Bytes each of K6, K8, K9, K10 must move (each input read once, each
+    output written once) and its f32 operations, from the call's shapes.
+    Counted as one operation each: a multiply, an add, an abs, a compare,
+    a cos, a sin, a log, a sqrt; the polynomial atan2 as 20 (6 multiply-
+    adds, the square, the division, abs, min, max and 3 selects); the
+    int32 phase and hash arithmetic not counted. Per sample: synthesis 6
+    (theta, 2 trig, 2 gains, the q rail's phase add); an increment 27
+    (4 products, 2 sums, the atan2, the running sum); noise 16 (log, sqrt,
+    cos, sin, 2 uniforms of 2, the -2 and the angle's product, 2 products by
+    r, 2 of sigma and 2 adds)."""
+    if name.startswith("fused_fsk_chain"):
+        fnum, targets, sps, guard = args[0], args[2], args[4], args[7]
+        k = fnum.numel()
+        n_s = sps - guard + 1  # samples synthesized per symbol
+        ops = k * (n_s * 6 + (sps - guard) * 27 + 1 + 3 * targets.numel())
+        if args[9] is not None:
+            ops += k * n_s * 16
+        return 3 * 4 * k + 4 * targets.numel(), ops
+    if name == "fused_fsk_tx":
+        k = args[0].numel()
+        return 2 * 4 * k + 2 * 4 * k * args[3], 6 * k * args[3]
+    if name == "fused_msk_tx":
+        k = args[0].numel()
+        return 2 * 4 * k + 2 * 4 * k * args[2], 6 * k * args[2]
+    wi, group, guard = args[0], args[2], args[3]
+    k = wi.numel() // group
+    return 2 * 4 * wi.numel() + 4 * k, k * ((group - guard) * 27 + 1)
+
+
+def phase_fsk_times(chains, device, card: str) -> dict:
+    """Phase 14: each kernel and its plain version per call, the profiler's
+    device time, the bound; then the config #3 entry points per call with
+    the device's busy time and idle share."""
+    mfsk, _, msk, _ = chains
+    _, cases = fsk_kernel_cases(mfsk, msk, device)
+    times = {}
+    for name, kern, plain, args, _ in cases:
+        ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
+                                            FSK_REPORT[name][1])
+        times[name] = (ms, plain_ms, dev_ms, None, fsk_work(name, args))
+        samples = CHANNELS * N_SYMBOLS * mfsk.sps
+        print_times(name, samples, times[name], card, "no library call")
+
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+    bits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * 4), generator=g,
+                         device=device, dtype=torch.int32)
+    mbits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * 2), generator=g,
+                          device=device, dtype=torch.int32)
+    wave, mwave = mfsk.tx_fused(bits), msk.tx_fused(mbits)
+    samples = CHANNELS * N_SYMBOLS * mfsk.sps
+    for name, fn, args in (
+            ("FskChain.roundtrip_fused", mfsk.roundtrip_fused, (bits,)),
+            ("FskChain.tx_fused", mfsk.tx_fused, (bits,)),
+            ("FskChain.rx_fused", mfsk.rx_fused, wave),
+            ("MskChain.tx_fused", msk.tx_fused, (mbits,)),
+            ("MskChain.rx_fused", msk.rx_fused, mwave)):
+        ms = time_calls(fn, args, device)
+        busy = device_busy_ms(fn, args, device)
+        print(f"[times] {name:28s} per call {ms:.4f} ms "
+              f"({samples / ms * 1e3:.4e} samples/s), device busy "
+              f"{busy:.4f} ms (idle share {1 - busy / ms:.3f}), {CHANNELS} "
+              f"ch x {N_SYMBOLS} sym x sps {mfsk.sps} on {card}", flush=True)
+    return times
+
+
 def print_times(name: str, samples: int, t, card: str, extra: str) -> None:
     ms, plain_ms, dev_ms, _, (nbytes, flops) = t
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
@@ -739,6 +1079,12 @@ def main() -> int:
     launches.update(phase_ref_path(chain, device))
     phase_cli(device)
     times.update(phase_ref_times(chain, device, card))
+    chains = fsk_chains(device)
+    fsk_errs = phase_fsk_kernels(chains[0], chains[2], device)
+    launches.update(phase_fsk_main(chains, device))
+    launches["fused_fsk_chain_noisy"] = phase_fsk_noise(chains[0], device)
+    times.update(phase_fsk_times(chains, device, card))
+    errs.update({n: err for n, (err, _) in fsk_errs.items()})
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
@@ -747,7 +1093,9 @@ def main() -> int:
         ("fir_filter_rrc", "modem_tpu_torch/csrc/fir.cu",
          "modem_tpu/ops/pallas_fir.py:44"),
         ("fused_product_detect", "modem_tpu_torch/csrc/demod.cu",
-         "modem_tpu/ops/pallas_demod.py:43")]
+         "modem_tpu/ops/pallas_demod.py:43")] + [
+        (n, "modem_tpu_torch/csrc/fsk.cu", f"modem_tpu/ops/pallas_fsk.py:{line}")
+        for n, (line, _) in FSK_REPORT.items()]
     report = {"kernels": []}
     for n, src, rep in entries:
         ms, plain_ms, dev_ms, lib_ms, work = times[n]
@@ -757,6 +1105,8 @@ def main() -> int:
             "launches": launches[n], "max_abs_err": errs[n], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "device_ms": dev_ms})
+        if n in fsk_errs and fsk_errs[n][1] is not None:
+            report["kernels"][-1]["agreement"] = fsk_errs[n][1]
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

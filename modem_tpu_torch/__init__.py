@@ -11,21 +11,30 @@ imports ``jax`` or ``modem_tpu``. Ported so far:
 * the reference's own path: all 15 schemes of the CLI table
   (:func:`make_scheme`), the :class:`Modulator` and the :class:`Demodulator`
   (FIRs on kernel K4, the fused product detector on kernel K5), and the
-  ``modulate``/``demodulate`` CLIs (:mod:`modem_tpu_torch.cli`).
+  ``modulate``/``demodulate`` CLIs (:mod:`modem_tpu_torch.cli`);
+* the other scheme families' chains: :class:`FskChain` (BFSK, MFSK, CPFSK;
+  the loopback on kernel K6, the one-way halves on K8 and K9) and
+  :class:`MskChain` (K10 and K9) of config #3, :class:`GmskChain` (its
+  transient FIR on K4), :class:`DifferentialChain` (DBPSK/DQPSK on K1-K3),
+  :class:`OqpskChain` and :class:`DcqpskChain`.
 
 Every entry point builds on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
 """
 
 from .config import Rates
-from .chain import PulseShapedChain, qpsk_reference_chain
+from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
+                    OqpskChain, PulseShapedChain, qpsk_reference_chain)
+from .gmsk import GmskChain
 from .models import SCHEME_NAMES, make_scheme
 from .rx import Demodulator, RxState
 from .streaming import StreamingFusedChain, StreamingFusedRx, StreamingFusedTx
 from .tx import Modulator, TxState
 
 __all__ = [
-    "Demodulator", "Modulator", "PulseShapedChain", "Rates", "RxState",
-    "SCHEME_NAMES", "StreamingFusedChain", "StreamingFusedRx",
-    "StreamingFusedTx", "TxState", "make_scheme", "qpsk_reference_chain",
+    "DcqpskChain", "Demodulator", "DifferentialChain", "FskChain",
+    "GmskChain", "Modulator", "MskChain", "OqpskChain", "PulseShapedChain",
+    "Rates", "RxState", "SCHEME_NAMES", "StreamingFusedChain",
+    "StreamingFusedRx", "StreamingFusedTx", "TxState", "make_scheme",
+    "qpsk_reference_chain",
 ]

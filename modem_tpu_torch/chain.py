@@ -1,39 +1,70 @@
-"""The pulse-shaped bits -> waveform -> bits chain (counterpart of
-:class:`modem_tpu.chain.PulseShapedChain` and
-:func:`modem_tpu.chain.qpsk_reference_chain`).
+"""End-to-end bits -> waveform -> bits chains (counterpart of
+:mod:`modem_tpu.chain`).
 
-bits -> constellation map -> RRC pulse shaping -> matched filter ->
-symbol-instant decimation -> min-distance slice -> bits, at complex
-baseband. Two forms, as in the JAX package:
+* :class:`PulseShapedChain` (and :func:`qpsk_reference_chain`): bits ->
+  constellation map -> RRC pulse shaping -> matched filter -> symbol-instant
+  decimation -> min-distance slice -> bits, at complex baseband (configs
+  #1/#2);
+* :class:`DifferentialChain`: the same for DBPSK/DQPSK, deciding on the
+  phase change between decision points;
+* :class:`FskChain` and :class:`MskChain`: the Modulator's exact phase
+  programs and an FM-discriminator receiver (config #3);
+* :class:`OqpskChain` and :class:`DcqpskChain`: mid-slot coherent slicing.
 
-* staged (``tx``, ``rx``, ``rx_soft``, ``decision_points``, ``roundtrip``):
-  the readable cross-check, tensor ops around the FIR
+Two forms, as in the JAX package:
+
+* staged (``tx``, ``rx``, ``rx_soft``, ``roundtrip``): the readable
+  cross-check, tensor ops around the FIR
   (:func:`~modem_tpu_torch.ops.fir.fir_filter`, kernel K4 on a CUDA device);
 * fused (``tx_fused``, ``rx_fused``, ``rx_soft_fused``, ``roundtrip_fused``):
   the production path, one hand-written CUDA kernel per call on a CUDA
-  device (:mod:`modem_tpu_torch.ops.txrx`,
-  :mod:`modem_tpu_torch.ops.chain_kernel`).
+  device: K1-K3 (:mod:`~modem_tpu_torch.ops.txrx`,
+  :mod:`~modem_tpu_torch.ops.chain_kernel`) for the pulse-shaped and
+  differential chains, K6, K8, K9 and K10
+  (:mod:`~modem_tpu_torch.ops.fsk_kernel`) for the FSK family and MSK.
 
-The passband NCO leg and the other scheme families are not ported yet.
+Every chain builds on ``device``, the card unless the caller asks for the
+CPU; every tensor passed in must be there too. Not ported yet: the passband
+NCO leg of the pulse-shaped chain, the in-kernel AWGN of K1
+(``DifferentialChain.roundtrip_fused(snr_db=...)`` raises) and the MSK
+loopback K7 (``MskChain.roundtrip_fused`` raises).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from .config import Rates
+from .config import TWO_PI, Rates
 from .cuda import resolve_device
-from .models.base import LutScheme, Scheme
-from .models.psk import QPSK
+from .models.base import LutScheme, PhaseProgram, Scheme, stagger_bit_planes
+from .models.fsk import MSK
+from .models.psk import DCQPSK, DMPSK, OQPSK, QPSK
 from .ops.chain_kernel import fused_pulse_chain
 from .ops.filters import rrc_taps
 from .ops.fir import fir_filter
-from .ops.llr import lut_llr
+from .ops.fsk_kernel import (fused_discriminator_means, fused_fsk_chain,
+                             fused_fsk_tx, fused_msk_slots, fused_msk_tx)
+from .ops.llr import dmpsk_llr, fsk_llr, lut_llr
 from .ops.polyphase import polyphase_decim, polyphase_interp
-from .ops.slicer import lut_map, lut_slice
+from .ops.slicer import (diff_phase, fm_discriminate, fsk_slice,
+                         fsk_slice_means, fsk_symbol_means, lut_map, lut_slice)
 from .ops.txrx import fused_rx, fused_tx
+from .tx import Modulator
 from .utils.bits import pack_bits, unpack_symbols
+from .utils.scan import cummod
+
+
+def _rrc_buffer(rrc, sps: int, span: int, beta: float, device) -> torch.Tensor:
+    """The designed RRC taps, or ``rrc`` (``span*sps + 1`` of them), as a
+    float32 tensor on ``device``."""
+    taps = np.asarray(rrc_taps(sps, span, beta) if rrc is None else rrc,
+                      np.float32)
+    if taps.shape != (span * sps + 1,):
+        raise ValueError("rrc taps length must equal span*sps + 1")
+    return torch.as_tensor(taps, device=device)
 
 
 def upsample_zero_stuff(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -97,14 +128,11 @@ class PulseShapedChain(torch.nn.Module):
         #: polyphase=True computes the staged pulse shaping at symbol rate
         #: and the matched filter only at the decision instants
         self.polyphase = polyphase
-        taps = rrc_taps(self.sps, span_symbols, beta) if rrc is None else rrc
-        taps = np.asarray(taps, np.float32)
-        if taps.shape != (span_symbols * self.sps + 1,):
-            raise ValueError("rrc taps length must equal span*sps + 1")
         device = resolve_device(device)
         self.register_buffer("lut", torch.as_tensor(
             np.asarray(scheme.lut, np.float32), device=device))
-        self.register_buffer("rrc", torch.as_tensor(taps, device=device))
+        self.register_buffer("rrc", _rrc_buffer(rrc, self.sps, span_symbols,
+                                                beta, device))
 
     @classmethod
     def from_numpy(cls, params: dict, rates: Rates,
@@ -194,6 +222,387 @@ class PulseShapedChain(torch.nn.Module):
         dec = fused_pulse_chain(self.map_symbols(bits), self.lut, self.rrc,
                                 self.sps, self.span)
         return unpack_symbols(dec, self.bits_per_symbol)
+
+
+def _previous_or(x: torch.Tensor, first: int) -> torch.Tensor:
+    """``x`` delayed one step along the last axis, ``first`` in front."""
+    return torch.cat([torch.full_like(x[..., :1], first), x[..., :-1]], dim=-1)
+
+
+class DifferentialChain(torch.nn.Module):
+    """Pulse-shaped chain for differential PSK (DBPSK/DQPSK, `dmpsk.rs`).
+
+    The TX maps symbols through the scheme's phase-accumulating program to
+    per-symbol I/Q; the RX decides on the phase change between consecutive
+    matched-filter outputs, the first against the known TX initial phase
+    (`modulate.rs:86-90`). The fused forms run K1-K3 on the accumulated
+    constellation (:meth:`_acc_constellation`). ``rrc`` replaces the
+    designed taps (``span_symbols*sps + 1`` of them).
+    """
+
+    def __init__(self, scheme, rates: Rates, span_symbols: int = 8,
+                 beta: float = 0.35, polyphase: bool = False,
+                 device: torch.device | str | None = None, rrc=None):
+        super().__init__()
+        if not isinstance(scheme, DMPSK):
+            raise TypeError("DifferentialChain requires a DMPSK scheme")
+        self.scheme = scheme
+        self.rates = rates
+        self.span = span_symbols
+        self.sps = rates.samples_per_symbol
+        self.polyphase = polyphase
+        self.register_buffer("rrc", _rrc_buffer(
+            rrc, self.sps, span_symbols, beta, resolve_device(device)))
+        self._acc = None
+
+    def tx(self, bits: torch.Tensor):
+        """bits -> RRC-shaped baseband ``(i, q)`` ``[..., (K+span)*sps]``."""
+        symbols = pack_bits(bits, self.scheme.bits_per_symbol)
+        prog, _ = self.scheme.program(
+            symbols, self.scheme.init_state(symbols.shape[:-1], bits.device),
+            self.rates, 0)
+        return shape_iq(torch.stack([prog.i, prog.q], dim=-1), self.rrc,
+                        self.sps, self.span, self.polyphase)
+
+    def _phase0(self, like: torch.Tensor) -> torch.Tensor:
+        """``(cos, sin)`` of the TX initial phase, ``[..., 2]`` float32."""
+        p0 = self.scheme.phase0_turns * TWO_PI
+        return torch.tensor([math.cos(p0), math.sin(p0)], dtype=torch.float32,
+                            device=like.device).expand(like.shape[:-1] + (2,))
+
+    def _dphi(self, rx_wave, n_symbols: int) -> torch.Tensor:
+        """Per-symbol differential phase at the decision points."""
+        di, dq = matched_decision_points(*rx_wave, self.rrc, self.sps,
+                                         self.span, n_symbols, self.polyphase)
+        return diff_phase(di, dq, self._phase0(di))
+
+    @property
+    def _shift(self) -> float:
+        return self.scheme.shift_turns * TWO_PI
+
+    def rx(self, rx_wave, n_symbols: int) -> torch.Tensor:
+        """waveform -> decided bits: the phase change rounded to the nearest
+        multiple of the shift (half to even)."""
+        m = 1 << self.scheme.bits_per_symbol
+        dphi = self._dphi(rx_wave, n_symbols)
+        syms = torch.round(dphi / self._shift).to(torch.int32) % m
+        return unpack_symbols(syms, self.scheme.bits_per_symbol)
+
+    def rx_soft(self, rx_wave, n_symbols: int,
+                noise_var: float = 1.0) -> torch.Tensor:
+        """waveform -> per-bit LLRs from the differential phase
+        (``noise_var`` = differential-phase variance)."""
+        return dmpsk_llr(self._dphi(rx_wave, n_symbols), self._shift,
+                         self.scheme.bits_per_symbol, noise_var)
+
+    def roundtrip(self, bits: torch.Tensor) -> torch.Tensor:
+        return self.rx(self.tx(bits),
+                       bits.shape[-1] // self.scheme.bits_per_symbol)
+
+    # ---- fused: K1-K3 on the accumulated constellation ----
+
+    def _acc_constellation(self):
+        """DMPSK's accumulated phase ``phi0 + shift * sum sym_j``
+        (`dmpsk.rs:29-41`) is a rotated M'-PSK constellation indexed by the
+        modular prefix sum of the symbols. Returns ``(M', lut)``, the table
+        float32 on the chain's device."""
+        if self._acc is None:
+            sch = self.scheme
+            inv = 1.0 / sch.shift_turns
+            m_ph = round(inv)
+            if abs(inv - m_ph) > 1e-9 or m_ph != 1 << sch.bits_per_symbol:
+                raise NotImplementedError(
+                    "fused DMPSK needs shift = 2*pi / 2^bits_per_symbol")
+            ang = TWO_PI * (sch.phase0_turns + np.arange(m_ph) / m_ph)
+            lut = np.stack([sch.amplitude * np.cos(ang),
+                            sch.amplitude * np.sin(ang)], axis=-1)
+            self._acc = (m_ph, torch.as_tensor(lut.astype(np.float32),
+                                               device=self.rrc.device))
+        return self._acc
+
+    def _acc_symbols(self, bits: torch.Tensor, m_ph: int) -> torch.Tensor:
+        syms = pack_bits(bits, self.scheme.bits_per_symbol)
+        return cummod(syms, m_ph)
+
+    def _decode(self, dec_abs: torch.Tensor, m_ph: int) -> torch.Tensor:
+        """Absolute decisions -> bits: ``sym = (a_k - a_{k-1}) mod M'``."""
+        dec = (dec_abs - _previous_or(dec_abs, 0)) % m_ph
+        return unpack_symbols(dec, self.scheme.bits_per_symbol)
+
+    def tx_fused(self, bits: torch.Tensor):
+        """bits -> baseband ``(i, q)`` through K2: :meth:`tx` to f32
+        rounding."""
+        m_ph, lut = self._acc_constellation()
+        return fused_tx(self._acc_symbols(bits, m_ph), lut, self.rrc, self.sps,
+                        self.span)
+
+    def rx_fused(self, rx_wave, n_symbols: int) -> torch.Tensor:
+        """waveform -> decided bits through K3's min-distance slice against
+        the accumulated constellation, then the differential decode."""
+        m_ph, lut = self._acc_constellation()
+        dec_abs = fused_rx(rx_wave, n_symbols, lut, self.rrc, self.sps,
+                           self.span)
+        return self._decode(dec_abs, m_ph)
+
+    def rx_soft_fused(self, rx_wave, n_symbols: int,
+                      noise_var: float = 1.0) -> torch.Tensor:
+        """waveform -> per-bit LLRs: K3's decision-point I/Q, then the
+        differential-phase LLRs (as :meth:`rx_soft`)."""
+        _, lut = self._acc_constellation()
+        di, dq = fused_rx(rx_wave, n_symbols, lut, self.rrc, self.sps,
+                          self.span, soft=True)
+        return dmpsk_llr(diff_phase(di, dq, self._phase0(di)), self._shift,
+                         self.scheme.bits_per_symbol, noise_var)
+
+    def roundtrip_fused(self, bits: torch.Tensor, snr_db: float | None = None,
+                        seed=None) -> torch.Tensor:
+        """bits -> bits through K1 on the accumulated constellation, the
+        differential decode at symbol rate. In-kernel noise (``snr_db``)
+        raises ``NotImplementedError``: K1's AWGN mode is not ported yet."""
+        m_ph, lut = self._acc_constellation()
+        dec_abs = fused_pulse_chain(self._acc_symbols(bits, m_ph), lut,
+                                    self.rrc, self.sps, self.span,
+                                    snr_db=snr_db)
+        return self._decode(dec_abs, m_ph)
+
+
+class FskChain:
+    """FSK chain (config #3): exact-phase TX (the Modulator's PhaseProgram)
+    and an FM-discriminator RX. ``coefs`` is the symbol -> frequency
+    coefficient table, ``dev_rad_per_sample`` the deviation; decisions pick
+    the nearest ``coef * dev``. ``guard >= 1`` samples of each symbol are
+    skipped (the first increment spans the symbol boundary)."""
+
+    def __init__(self, scheme: Scheme, rates: Rates, coefs,
+                 dev_rad_per_sample: float, guard: int = 1,
+                 device: torch.device | str | None = None):
+        if guard < 1:
+            raise ValueError("FskChain needs guard >= 1")
+        if guard >= rates.samples_per_symbol:
+            raise ValueError("guard leaves no interior samples per symbol")
+        self.scheme = scheme
+        self.rates = rates
+        self.mod = Modulator(scheme, rates, device=device)
+        self.device = self.mod.device
+        self.coefs = np.asarray(coefs, np.float32)
+        self.dev = float(dev_rad_per_sample)
+        self.guard = guard
+
+    @property
+    def sps(self) -> int:
+        return self.rates.samples_per_symbol
+
+    def tx(self, bits: torch.Tensor, state=None):
+        """bits -> baseband ``(i, q)`` ``[..., K*sps]``."""
+        st = state if state is not None else self.mod.init_state(bits.shape[:-1])
+        (i, q), _ = self.mod.baseband(bits, st)
+        return i, q
+
+    def rx(self, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """waveform -> decided bits (exact ``atan2`` discriminator)."""
+        syms = fsk_slice(fm_discriminate(i, q), self.coefs, self.dev, self.sps,
+                         self.guard)
+        return unpack_symbols(syms, self.scheme.bits_per_symbol)
+
+    def rx_soft(self, i: torch.Tensor, q: torch.Tensor,
+                noise_var: float = 1.0) -> torch.Tensor:
+        """waveform -> per-bit LLRs in the discriminator domain
+        (``noise_var`` = variance of the per-symbol mean frequency)."""
+        mean_f = fsk_symbol_means(fm_discriminate(i, q), self.sps, self.guard)
+        return fsk_llr(mean_f, self.coefs, self.dev,
+                       self.scheme.bits_per_symbol, noise_var)
+
+    def roundtrip(self, bits: torch.Tensor) -> torch.Tensor:
+        return self.rx(*self.tx(bits))
+
+    # ---- fused: K8, K9, K6 ----
+
+    def _phase_program(self, bits: torch.Tensor) -> PhaseProgram:
+        syms = pack_bits(bits, self.scheme.bits_per_symbol)
+        prog, _ = self.scheme.program(
+            syms, self.scheme.init_state(syms.shape[:-1], bits.device),
+            self.rates, 0)
+        if not isinstance(prog, PhaseProgram) or prog.slots_per_symbol != 1:
+            raise TypeError("fused FSK supports slots_per_symbol == 1 schemes")
+        return prog
+
+    def tx_fused(self, bits: torch.Tensor):
+        """bits -> baseband ``(i, q)`` through K8: :meth:`tx` to f32 trig
+        rounding."""
+        prog = self._phase_program(bits)
+        return fused_fsk_tx(prog.fnum, prog.pnum, prog.den, self.sps,
+                            float(self.scheme.amplitude), prog.qshift)
+
+    def rx_fused(self, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """waveform -> decided bits: K9's per-symbol means (polynomial
+        discriminator), the nearest frequency at symbol rate. Equal to
+        :meth:`rx` away from the midpoints between tones."""
+        mean_f = fused_discriminator_means(i, q, self.sps, self.guard)
+        syms = fsk_slice_means(mean_f, self.coefs, self.dev)
+        return unpack_symbols(syms, self.scheme.bits_per_symbol)
+
+    def rx_soft_fused(self, i: torch.Tensor, q: torch.Tensor,
+                      noise_var: float = 1.0) -> torch.Tensor:
+        """waveform -> per-bit LLRs from K9's means (as :meth:`rx_soft`)."""
+        mean_f = fused_discriminator_means(i, q, self.sps, self.guard)
+        return fsk_llr(mean_f, self.coefs, self.dev,
+                       self.scheme.bits_per_symbol, noise_var)
+
+    def roundtrip_fused(self, bits: torch.Tensor, snr_db: float | None = None,
+                        seed=None) -> torch.Tensor:
+        """bits -> bits through K6, the waveform kept on chip; ``snr_db``
+        (per complex sample) adds in-kernel noise from the stream keyed by
+        ``seed``."""
+        bps = self.scheme.bits_per_symbol
+        dec = fused_fsk_chain(pack_bits(bits, bps), self.scheme, self.rates,
+                              self.guard, snr_db=snr_db, seed=seed)
+        return unpack_symbols(dec, bps)
+
+
+class MskChain:
+    """MSK bits -> bits: exact half-sine TX and discriminator detection with
+    differential decoding.
+
+    Within one half-symbol slot the baseband
+    ``y = A*(s0*cos(th) - j*s1*sin(th))`` (`msk.rs:12-35`) is a tone of
+    frequency ``-s0*s1 * pi/(2*spb)``, so the discriminator gives one sign
+    per slot, ``c = -s0*s1``; consecutive slot products telescope back to
+    the bits, ``c[2m]*c[2m+1] = s1[m-1]*s1[m]`` and ``s0[m] = -c[2m]*s1[m-1]``,
+    seeded by the zero-initialized stagger (``s1[-1] = -1``, `data.rs:97-99`).
+    """
+
+    def __init__(self, rates: Rates, amplitude: float = 1.0, guard: int = 1,
+                 device: torch.device | str | None = None):
+        if rates.samples_per_symbol % 2:
+            raise ValueError("MSK needs even samples_per_symbol")
+        self.rates = rates
+        self.scheme = MSK(amplitude, rates.samples_per_symbol)
+        self.mod = Modulator(self.scheme, rates, device=device)
+        self.device = self.mod.device
+        self.spb = rates.samples_per_symbol // 2
+        self.guard = guard
+        if guard < 1:
+            raise ValueError("MskChain needs guard >= 1")
+        if self.spb - guard < 1:
+            raise ValueError("guard leaves no interior samples per slot")
+
+    def tx(self, bits: torch.Tensor):
+        (i, q), _ = self.mod.baseband(bits, self.mod.init_state(bits.shape[:-1]))
+        return i, q
+
+    def _decode_cneg(self, c_neg: torch.Tensor) -> torch.Tensor:
+        """Per-slot discriminator sign bits (1 where c = -1) -> bits, by the
+        telescoping slot-product prefix decode."""
+        ce, co = c_neg[..., 0::2], c_neg[..., 1::2]  # slots 2m, 2m+1
+        flips = (ce + co) % 2  # where s1 changes sign; s1[-1] = -1
+        s1_neg = (1 + torch.cumsum(flips, dim=-1, dtype=torch.int32)) % 2
+        s0_neg = (1 + ce + _previous_or(s1_neg, 1)) % 2
+        bits = torch.stack([1 - s0_neg, 1 - s1_neg], dim=-1)
+        return bits.reshape(bits.shape[:-2] + (2 * ce.shape[-1],))
+
+    def rx(self, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """waveform -> bits through the exact discriminator."""
+        inst = fm_discriminate(i, q)
+        mean_f = fsk_symbol_means(inst, self.spb, self.guard)
+        return self._decode_cneg((mean_f < 0).to(torch.int32))
+
+    def roundtrip(self, bits: torch.Tensor) -> torch.Tensor:
+        return self.rx(*self.tx(bits))
+
+    def _slot_signs(self, bits: torch.Tensor):
+        """bits ``[..., 2K]`` -> staggered slot signs ``(s0, s1)`` (+-1)."""
+        b = bits.reshape(bits.shape[:-1] + (bits.shape[-1] // 2, 2))
+        prev = torch.zeros(bits.shape[:-1], dtype=torch.int32,
+                           device=bits.device)
+        b0s, b1s, _ = stagger_bit_planes(b[..., 0], b[..., 1], prev)
+        return (2 * b0s.to(torch.int32) - 1, 2 * b1s.to(torch.int32) - 1)
+
+    def tx_fused(self, bits: torch.Tensor):
+        """bits -> baseband ``(i, q)`` through K10: :meth:`tx` to f32 trig
+        rounding."""
+        s0, s1 = self._slot_signs(bits)
+        return fused_msk_tx(s0, s1, self.spb, float(self.scheme.amplitude))
+
+    def rx_fused(self, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """waveform -> bits: K9's per-slot means, then the prefix decode."""
+        mean_f = fused_discriminator_means(i, q, self.spb, self.guard)
+        return self._decode_cneg((mean_f < 0).to(torch.int32))
+
+    def roundtrip_fused(self, bits: torch.Tensor, snr_db: float | None = None,
+                        seed=None) -> torch.Tensor:
+        """The MSK loopback (kernel K7): raises ``NotImplementedError``, K7
+        is not ported yet."""
+        s0, s1 = self._slot_signs(bits)
+        return self._decode_cneg(fused_msk_slots(
+            s0, s1, self.spb, float(self.scheme.amplitude), self.guard,
+            snr_db=snr_db, seed=seed))
+
+
+class OqpskChain:
+    """OQPSK bits -> bits: rectangular-pulse offset QPSK with mid-slot
+    coherent sampling. The I rail holds ``b0`` over slots [2m, 2m+2), the Q
+    rail ``b1`` over [2m+1, 2m+3) (`oqpsk.rs:19-25`, `data.rs:102-123`);
+    each rail is sampled in the middle of its hold and sign-sliced."""
+
+    def __init__(self, rates: Rates, amplitude: float = 1.0,
+                 device: torch.device | str | None = None):
+        if rates.samples_per_symbol % 2:
+            raise ValueError("OQPSK needs even samples_per_symbol")
+        self.rates = rates
+        self.scheme = OQPSK(amplitude)
+        self.mod = Modulator(self.scheme, rates, device=device)
+        self.device = self.mod.device
+        self.sps = rates.samples_per_symbol
+
+    def tx(self, bits: torch.Tensor):
+        (i, q), _ = self.mod.baseband(bits, self.mod.init_state(bits.shape[:-1]))
+        return i, q
+
+    def rx(self, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        sps = self.sps
+        k = i.shape[-1] // sps
+        starts = torch.arange(k, device=i.device) * sps
+        # Q's hold for b1[m] is centred on the next symbol boundary; the
+        # last one runs past the stream, so its last sample is read
+        idx1 = torch.clamp(starts + sps, max=i.shape[-1] - 1)
+        b0 = (i[..., starts + sps // 2] > 0).to(torch.int32)
+        b1 = (q[..., idx1] > 0).to(torch.int32)
+        return torch.stack([b0, b1], dim=-1).reshape(i.shape[:-1] + (2 * k,))
+
+    def roundtrip(self, bits: torch.Tensor) -> torch.Tensor:
+        return self.rx(*self.tx(bits))
+
+
+class DcqpskChain:
+    """pi/4-QPSK bits -> bits: coherent slicing against the parity-dependent
+    constellation (`dcqpsk.rs:24-44`), symbol k against the +pi/4-rotated
+    table iff k is even."""
+
+    def __init__(self, rates: Rates, amplitude: float = 1.0,
+                 device: torch.device | str | None = None):
+        self.rates = rates
+        self.scheme = DCQPSK(amplitude)
+        self.mod = Modulator(self.scheme, rates, device=device)
+        self.device = self.mod.device
+        self.sps = rates.samples_per_symbol
+
+    def tx(self, bits: torch.Tensor):
+        (i, q), _ = self.mod.baseband(bits, self.mod.init_state(bits.shape[:-1]))
+        return i, q
+
+    def rx(self, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        sps = self.sps
+        k = i.shape[-1] // sps
+        idx = torch.arange(k, device=i.device) * sps + sps // 2
+        di, dq = i[..., idx], q[..., idx]
+        lut = self.scheme.lut  # [2, 4, 2]: even symbols, odd symbols
+        even = torch.arange(k, device=i.device) % 2 == 0
+        syms = torch.where(even, lut_slice(di, dq, lut[0]),
+                           lut_slice(di, dq, lut[1]))
+        return unpack_symbols(syms, 2)
+
+    def roundtrip(self, bits: torch.Tensor) -> torch.Tensor:
+        return self.rx(*self.tx(bits))
 
 
 def qpsk_reference_chain(rates: Rates, span_symbols: int = 8,

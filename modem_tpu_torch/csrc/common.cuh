@@ -1,4 +1,5 @@
-// Shared pieces of the pulse-shaped chain kernels (txrx.cu, chain.cu).
+// Shared pieces of the kernels: the pulse-shaped chain's (txrx.cu,
+// chain.cu) and the noise stream the FSK loopback draws (fsk.cu).
 //
 // Layout everywhere: one row per channel, time contiguous ([C, K] symbols,
 // [C, N] waveform samples), one block per (channel, time tile), threads
@@ -93,6 +94,34 @@ __device__ inline float matched_point(const float* planes, int stride,
 inline unsigned grid_blocks(long long n_ch, long long n_tiles) {
   const long long n = n_ch * n_tiles;
   return n > 0x7fffffffLL ? 0u : static_cast<unsigned>(n);
+}
+
+// The noise stream of the fused kernels' in-kernel AWGN: the counter-based
+// stream the JAX kernels draw in interpret mode
+// (modem_tpu/ops/pallas_chain.py::_gauss_pair), bit for bit. lowbias32
+// avalanche hash on uint32 with wrap-around.
+__device__ __forceinline__ unsigned hash_u32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// Standard-normal pair by Box-Muller for draw counter ctr under key (the
+// tile key plus salt * 0x9E3779B9): 24-bit uniforms in (0, 1), exact in
+// f32, then r = sqrt(-2 log u1) and the angle 2*pi*u2.
+__device__ __forceinline__ void gauss_pair(unsigned ctr, unsigned key,
+                                           float& g1, float& g2) {
+  const unsigned b1 = hash_u32(ctr * 2654435761u + key);
+  const unsigned b2 = hash_u32(ctr * 2246822519u + (key ^ 0x85EBCA6Bu));
+  const float u1 = (static_cast<float>(b1 >> 8) + 0.5f) * 5.9604644775390625e-8f;
+  const float u2 = (static_cast<float>(b2 >> 8) + 0.5f) * 5.9604644775390625e-8f;
+  const float r = sqrtf(-2.0f * logf(u1));
+  const float ang = 6.283185307179586f * u2;
+  g1 = r * cosf(ang);
+  g2 = r * sinf(ang);
 }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in.

@@ -30,8 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 #: argument types of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
+    "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
+    "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _P, _P, _P],
+    "modem_disc_means": [_P, _P, _L, _I, _I, _F, _P, _P],
+    "modem_fsk_chain": [_P, _P, _L, _L, _P, _I, _I, _I, _F, _F, _F, _I, _F,
+                        _I, _I, _F, _U, _P, _P],
     "modem_tx_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P, _P],
     "modem_rx_lut_hard": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _P, _P],
     "modem_rx_lut_soft": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _P, _P],

@@ -10,9 +10,17 @@ then :func:`~modem_tpu_torch.ops.txrx.rx_plain`), a CUDA tensor the kernel.
 Scope: baseband, noiseless, LUT constellations of up to 64 points; in-kernel
 AWGN, the passband NCO and the algebraic QAM form raise
 ``NotImplementedError``.
+
+The noise stream of the fused kernels' in-kernel AWGN is here too
+(:func:`hash_u32`, :func:`gauss_pair`): the counter-based stream the JAX
+kernels draw in interpret mode, bit for bit, which ``csrc/common.cuh``
+repeats on the card. The FSK loopback (K6) uses it now; K1's AWGN mode
+will.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -20,6 +28,43 @@ from ..cuda import Kernel, check_cuda
 from .txrx import check_lut_taps, not_ported, rx_plain, tx_plain
 
 CHAIN_KERNEL = Kernel("modem_chain_lut")
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``x * m mod 2^32`` for int64 ``x`` in ``[0, 2^32)``: the multiplier
+    is split in 16-bit halves so that no product leaves int64."""
+    lo, hi = m & 0xFFFF, m >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def hash_u32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 avalanche hash on uint32 values held in int64 (torch has
+    no wrapping uint32 multiply on the CPU)."""
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul_u32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gauss_pair(ctr: torch.Tensor, key, salt: int = 0):
+    """Standard-normal pair by Box-Muller from the counter-based stream of
+    the JAX kernels' interpret mode (``modem_tpu.ops.pallas_chain``
+    ``_gauss_pair``): ``ctr`` the per-draw uint32 counter and ``key`` the
+    int32 tile key (int or tensor, broadcast against it), both as int64.
+    Returns float32 ``(r*cos, r*sin)``."""
+    k = (torch.as_tensor(key, dtype=torch.int64, device=ctr.device)
+         + ((salt * 0x9E3779B9) & _U32)) & _U32
+    b1 = hash_u32((_mul_u32(ctr, 2654435761) + k) & _U32)
+    b2 = hash_u32((_mul_u32(ctr, 2246822519) + (k ^ 0x85EBCA6B)) & _U32)
+    # 24 bits -> uniform in (0, 1), never 0; exact in float32
+    u1 = ((b1 >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+    u2 = ((b2 >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    ang = (2.0 * math.pi) * u2
+    return r * torch.cos(ang), r * torch.sin(ang)
 
 
 def fused_pulse_chain(symbols: torch.Tensor, lut, rrc_taps, sps: int,

@@ -1,12 +1,15 @@
-"""The port's CUDA kernels (K1 loopback, K2 TX, K3 RX hard and soft) against
-their plain PyTorch versions on the card. Marked ``cuda``: every test skips
-without a CUDA device. On the card (``--noconftest`` because the suite's
-conftest imports jax, which the port's machine need not have)::
+"""The port's CUDA kernels (K1 loopback, K2 TX, K3 RX hard and soft, K4 FIR,
+K5 product detector, K6 FSK loopback, K8 FSK TX, K9 discriminator means,
+K10 MSK TX) against their plain PyTorch versions on the card. Marked
+``cuda``: every test skips without a CUDA device. On the card
+(``--noconftest`` because the suite's conftest imports jax, which the
+port's machine need not have)::
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
 
-Tolerances: decisions exactly; waveforms and soft points ``atol=1e-5``
-(``nvcc`` contracts multiply-adds to FMA, the plain version does not).
+Tolerances: decisions exactly (K6 with noise: on >= 99.99%); waveforms,
+means and soft points ``atol=1e-5`` (``nvcc`` contracts multiply-adds to
+FMA, the plain version does not).
 """
 
 import numpy as np
@@ -291,3 +294,157 @@ def test_staged_chain_runs_k4(dev):
     before = fir.FIR_KERNEL.launches
     assert torch.equal(chain.roundtrip(bits), bits)
     assert fir.FIR_KERNEL.launches == before + 4
+
+
+# ---- K6, K8, K9, K10 (fsk.cu) ----
+
+def _fsk_schemes():
+    from modem_tpu_torch.models import fsk
+
+    r = Rates(1250, 10000)
+    return {"bfsk": fsk.BFSK(200, 10000, 1.0),
+            "mfsk_increase": fsk.MFSK(4, 50, 10000, 1.0, "increase"),
+            "mfsk_default": fsk.MFSK(4, 50, 10000, 1.0, "default"),
+            "cpfsk2": fsk.CPFSK(2, r, 1.0, 1)}
+
+
+FSK_NAMES = ["bfsk", "mfsk_increase", "mfsk_default", "cpfsk2"]
+
+
+def _fsk_program(name, shape, dev, seed=0):
+    scheme = _fsk_schemes()[name]
+    rng = np.random.default_rng(seed)
+    syms = torch.as_tensor(rng.integers(0, 1 << scheme.bits_per_symbol, shape)
+                           .astype(np.int32), device=dev)
+    prog, _ = scheme.program(syms, scheme.init_state(shape[:-1], dev),
+                             Rates(1250, 10000), 0)
+    return scheme, syms, prog
+
+
+@pytest.mark.parametrize("name", FSK_NAMES)
+@pytest.mark.parametrize("shape", [(3, 600), (2, 2, 257), (1, 1)], ids=str)
+def test_fsk_tx_kernel(name, shape, dev):
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    _, _, prog = _fsk_program(name, shape, dev)
+    args = (prog.fnum, prog.pnum, prog.den, 8, 1.0, prog.qshift)
+    got = _launches(fk.FSK_TX_KERNEL, fk.fused_fsk_tx, *args)
+    want = fk.fsk_tx_plain(*args)
+    for g, w in zip(got, want):
+        assert g.shape == shape[:-1] + (shape[-1] * 8,)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("spb", [2, 4, 8])
+def test_msk_tx_kernel(spb, dev):
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    rng = np.random.default_rng(spb)
+    s0, s1 = (torch.as_tensor((2 * rng.integers(0, 2, (3, 777)) - 1)
+                              .astype(np.int32), device=dev) for _ in range(2))
+    got = _launches(fk.MSK_TX_KERNEL, fk.fused_msk_tx, s0, s1, spb, 0.7)
+    for g, w in zip(got, fk.msk_tx_plain(s0, s1, spb, 0.7)):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("group,guard", [(8, 1), (8, 3), (4, 1), (16, 2)])
+def test_disc_means_kernel(group, guard, dev):
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    g = torch.Generator(device=dev).manual_seed(group)
+    ph = torch.cumsum(torch.rand((2, 3, 300 * group), generator=g, device=dev)
+                      * 2 - 1, dim=-1)
+    i = torch.cos(ph) + 0.05 * torch.randn(ph.shape, generator=g, device=dev)
+    q = torch.sin(ph) + 0.05 * torch.randn(ph.shape, generator=g, device=dev)
+    got = _launches(fk.DISC_MEANS_KERNEL, fk.fused_discriminator_means, i, q,
+                    group, guard)
+    assert got.shape == (2, 3, 300)
+    torch.testing.assert_close(got, fk.disc_means_plain(i, q, group, guard),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", FSK_NAMES)
+def test_fsk_chain_kernel_noiseless(name, dev):
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    scheme, syms, _ = _fsk_program(name, (3, 600), dev, seed=1)
+    got = _launches(fk.FSK_CHAIN_KERNEL, fk.fused_fsk_chain, syms, scheme,
+                    Rates(1250, 10000))
+    assert torch.equal(got, syms)
+
+
+@pytest.mark.parametrize("snr", [14.0, 20.0])
+def test_fsk_chain_kernel_noisy(snr, dev):
+    """130 ch x 600 sym in tiles of 32 symbols: the kernel draws the plain
+    version's noise; decisions equal on >= 99.99% of symbols."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    scheme, syms, prog = _fsk_program("mfsk_increase", (130, 600), dev, 2)
+    coefs = fk.fsk_coef_table(scheme)
+    sigma = fk.fsk_noise_sigma(1.0, snr)
+    args = (prog.fnum, prog.pnum, coefs, prog.den, 8, 1.0, prog.qshift, 1, 32,
+            sigma, 1234)
+    got = _launches(fk.FSK_CHAIN_KERNEL, fk.fsk_decide_from_program, *args)
+    plain = fk.fsk_decide_from_program(*(a.cpu() if torch.is_tensor(a) else a
+                                         for a in args)).to(dev)
+    assert float((got == plain).float().mean()) >= 0.9999
+    assert bool((got != syms).any())
+
+
+def test_fsk_chains_on_card(dev):
+    from modem_tpu_torch import FskChain, MskChain, make_scheme
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    r = Rates(1250, 10000)
+    chain = FskChain(make_scheme("mfsk", r), r, 2 * np.arange(16),
+                     2 * np.pi * 50 / 10000, device=dev)
+    bits = torch.randint(0, 2, (16, 4 * 1024), device=dev, dtype=torch.int32)
+    before = [k.launches for k in (fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL,
+                                   fk.DISC_MEANS_KERNEL, fk.MSK_TX_KERNEL)]
+    assert torch.equal(chain.roundtrip_fused(bits), bits)
+    wave = chain.tx_fused(bits)
+    for f, s in zip(wave, chain.tx(bits)):
+        torch.testing.assert_close(f, s, atol=ATOL, rtol=0)
+    assert torch.equal(chain.rx_fused(*wave), bits)
+    assert torch.equal((chain.rx_soft_fused(*wave) < 0).int(), bits)
+    msk = MskChain(r, device=dev)
+    mbits = torch.randint(0, 2, (16, 2 * 1024), device=dev, dtype=torch.int32)
+    assert torch.equal(msk.rx_fused(*msk.tx_fused(mbits)), mbits)
+    after = [k.launches for k in (fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL,
+                                  fk.DISC_MEANS_KERNEL, fk.MSK_TX_KERNEL)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 3, 1]
+
+
+def test_fsk_empty_inputs_launch_nothing(dev):
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    kernels = (fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL, fk.DISC_MEANS_KERNEL,
+               fk.MSK_TX_KERNEL)
+    before = [k.launches for k in kernels]
+    e = torch.zeros((0, 10), dtype=torch.int32, device=dev)
+    assert fk.fused_fsk_tx(e, e, 10000, 8, 1.0, 0.0)[0].shape == (0, 80)
+    assert fk.fused_msk_tx(e, e, 4, 1.0)[0].shape == (0, 40)
+    assert fk.fsk_decide_from_program(e, e, (0, 100), 10000, 8, 1.0,
+                                      0.0).shape == (0, 10)
+    assert fk.fused_discriminator_means(e.float(), e.float(), 5).shape == (0, 2)
+    assert before == [k.launches for k in kernels]
+
+
+def test_fsk_kernels_refuse_bad_arguments(dev):
+    """The C entry points refuse what the kernels do not take before any
+    launch; the wrappers raise ValueError before reaching them."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    before = fk.FSK_CHAIN_KERNEL.launches
+    x = torch.zeros((2, 64), device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fk.disc_means_kernel(x, x, 8, 0)
+    with pytest.raises(ValueError, match="guard"):
+        fk.fused_discriminator_means(x, x, 8, 8)
+    f = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    targets = torch.zeros(2, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # guard 0
+        fk.fsk_chain_kernel(f, f, targets, 10000, 8, 1.0, 0.0, 0, 256, None, 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # chunk_sym 0
+        fk.fsk_chain_kernel(f, f, targets, 10000, 8, 1.0, 0.0, 1, 0, None, 0)
+    assert fk.FSK_CHAIN_KERNEL.launches == before
