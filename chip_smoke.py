@@ -75,11 +75,40 @@ block (256 channels x 4096 symbols, ``Rates(1250, 10000)``: 16-MFSK at
     ``MskChain.tx_fused``/``rx_fused`` per call with the device's busy time
     and idle share.
 
+Config #4, QAM with a rational resampler in the chain, at
+``bench_rows.py:65``'s row (``ResampledChain(QAM(4, 0.0, 1.0),
+Rates(1250, 10000), 3, 2)``: sps 8, 65 RRC taps, 48 + 32 resampler taps,
+delay 77; 256 channels x 4096 symbols, 49,257 channel samples per
+channel), and the MSK loopback at config #3's block:
+
+15. kernel vs plain: K7 (noiseless and with noise; at 130 x 600 slots in
+    tiles of 32, which crosses the noise stream's lane and tile keys, and
+    at 256 x 8192 slots), K11 and K12 hard and soft (3 x 500 symbols and
+    256 x 4096, at 3/2 and 2/3): decisions equal (K7 with noise on
+    >= 99.99%), waveforms and soft points within 1e-5;
+16. main path: config #4's ``roundtrip_fused``, ``rx_fused(tx_fused)`` and
+    the hard bits of ``rx_soft_fused`` give the bits back exactly;
+    ``tx_fused`` within 1e-5 of the staged ``tx``, ``rx_fused`` equal to
+    ``rx``; 64-QAM and 2/3 at 64 x 1024; ``StreamingResampledChain`` in
+    ragged pushes equal to one shot on 4 channels; ``MskChain
+    .roundtrip_fused`` gives the bits back exactly; each path with every
+    launch count set to 0 just before and read just after;
+17. noise: MSK ``roundtrip_fused(snr_db=7, seed)`` against the staged path
+    (``tx``, seeded noise of the same sigma, ``rx``): slot error rates
+    (about 1e-2) within 10%; config #4 with seeded channel-rate noise:
+    ``rx_fused`` equal to ``rx`` on >= 99.99% of the bits;
+18. times: K7 (without and with noise), K11, K12 hard and soft per call
+    beside their plain versions, the profiler's device time, the bound and
+    K12 soft's ``conv1d`` yardstick; ``ResampledChain.tx_fused``,
+    ``rx_fused``, ``roundtrip_fused`` and ``MskChain.roundtrip_fused`` per
+    call with the device's busy time and idle share.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
-K10), each
+K10; K7 without and with noise, with ``agreement``; K11; K12 hard and
+soft), each
 with its launches on its path, error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
 take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
@@ -131,6 +160,34 @@ FSK_REPORT = {
     "fused_discriminator_means": ("545", "disc_means_kernel"),
     "fused_discriminator_means_msk": ("545", "disc_means_kernel"),
     "fused_msk_tx": ("621", "msk_tx_kernel"),
+}
+# config #4 at bench_rows.py:65's row, and the MSK loopback
+RS_UP, RS_DOWN = 3, 2
+RS_SIDE = (64, 1024)             # 64-QAM and 2/3 in phase 16
+RS_STREAM_CHANNELS = 4
+RS_STREAM_CUTS = (7, 1, 1000, 2000)  # ragged pushes, then the rest
+RS_NOISE_SNR_DB = 5.0            # per channel sample: 16-QAM BER ~3e-3
+RS_AGREE = 0.9999
+MSK_SMALL = (130, 600)
+MSK_SNR_DB = 7.0                 # per complex sample: slot SER ~9e-3
+MSK_SER_RTOL = 0.10
+#: profiler name, source and replaced TPU kernel of each config #4 and MSK
+#: loopback report entry
+RS_REPORT = {
+    "fused_msk_slots": ("msk_chain_kernel", "modem_tpu_torch/csrc/fsk.cu",
+                        "modem_tpu/ops/pallas_fsk.py:313"),
+    "fused_msk_slots_noisy": ("msk_chain_kernel",
+                              "modem_tpu_torch/csrc/fsk.cu",
+                              "modem_tpu/ops/pallas_fsk.py:313"),
+    "fused_resampled_tx": ("resampled_tx_kernel",
+                           "modem_tpu_torch/csrc/resampled.cu",
+                           "modem_tpu/ops/pallas_resampled.py:111"),
+    "fused_resampled_rx": ("resampled_rx_kernel<false>",
+                           "modem_tpu_torch/csrc/resampled.cu",
+                           "modem_tpu/ops/pallas_resampled.py:235"),
+    "fused_resampled_rx_soft": ("resampled_rx_kernel<true>",
+                                "modem_tpu_torch/csrc/resampled.cu",
+                                "modem_tpu/ops/pallas_resampled.py:235"),
 }
 # the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -226,12 +283,14 @@ def chain_work(chain, name: str, c: int, k: int) -> tuple[float, float]:
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from modem_tpu_torch.ops import (chain_kernel, demod_kernel, fir,
-                                     fsk_kernel as fk, txrx)
+                                     fsk_kernel as fk, resampled_kernel as rk,
+                                     txrx)
 
     for k in (chain_kernel.CHAIN_KERNEL, txrx.TX_KERNEL, txrx.RX_HARD_KERNEL,
               txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL,
               fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL, fk.DISC_MEANS_KERNEL,
-              fk.MSK_TX_KERNEL):
+              fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL, rk.RESAMPLED_TX_KERNEL,
+              rk.RESAMPLED_RX_KERNEL):
         k.launches = 0
 
 
@@ -1035,6 +1094,349 @@ def phase_fsk_times(chains, device, card: str) -> dict:
     return times
 
 
+# ---- config #4 (K11, K12) and the MSK loopback (K7) ----
+
+def resampled_chain(device, bps: int = 4, up: int = RS_UP,
+                    down: int = RS_DOWN):
+    """``bench_rows.py:65``'s chain: ``ResampledChain(QAM(4, 0.0, 1.0),
+    Rates(1250, 10000), 3, 2)``."""
+    from modem_tpu_torch import Rates, ResampledChain
+    from modem_tpu_torch.models.qam import QAM
+
+    return ResampledChain(QAM(bps, 0.0, 1.0), Rates(FSK_BAUD, REF_SR), up,
+                          down, device=device)
+
+
+def rs_cases(chain, shape, device, seed: int):
+    """``[(name, kernel fn, plain fn, args, decisions?)]`` for K11, K12 hard
+    and K12 soft at ``shape`` symbols, with the inputs the main path gives
+    them: random symbols, and their channel-rate waveform with a little
+    noise (soft points off the grid, decisions still clean); K11 then takes
+    the symbols with stream sentinels in front."""
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    m = chain.lut.shape[0]
+    syms = torch.randint(0, m, shape, generator=g, device=device,
+                         dtype=torch.int32)
+    h = chain._host
+    n_modem = chain._padded_len(shape[-1])
+    tx_params = rk._tx_params(h["rrc"].tobytes(), h["taps1"].tobytes(),
+                              chain.up, chain.down, device)
+    tx_args = (syms, chain.lut, *tx_params, chain.sps, chain.up, chain.down,
+               n_modem)
+    wi, wq = rk.resampled_tx_plain(*tx_args)
+    wi = wi + 0.02 * torch.randn(wi.shape, generator=g, device=device)
+    wq = wq + 0.02 * torch.randn(wq.shape, generator=g, device=device)
+    rx_params = rk._rx_params(h["rrc"].tobytes(), h["taps2"].tobytes(),
+                              chain.sps, chain.up, chain.down, chain.delay,
+                              device)
+    if shape[-1] > 20:  # as a streaming first block
+        syms[0, :16] = -1
+    return [
+        ("fused_resampled_tx", rk.resampled_tx_kernel, rk.resampled_tx_plain,
+         tx_args, False),
+        ("fused_resampled_rx", rk.resampled_rx_kernel, rk.resampled_rx_plain,
+         (wi, wq, shape[-1], chain.lut, *rx_params, False), True),
+        ("fused_resampled_rx_soft", rk.resampled_rx_kernel,
+         rk.resampled_rx_plain,
+         (wi, wq, shape[-1], chain.lut, *rx_params, True), False),
+    ]
+
+
+def msk_cases(msk, shape, cs: int, device, seed: int):
+    """K7's ``(name, args)`` without and with noise on random slot signs."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+    from modem_tpu_torch.models.base import f32
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    s0, s1 = (2 * torch.randint(0, 2, shape, generator=g, device=device,
+                                dtype=torch.int32) - 1 for _ in range(2))
+    sigma = f32(fk.fsk_noise_sigma(1.0, MSK_SNR_DB))
+    return [("fused_msk_slots", (s0, s1, msk.spb, 1.0, 1, cs, None, seed)),
+            ("fused_msk_slots_noisy",
+             (s0, s1, msk.spb, 1.0, 1, cs, sigma, seed))]
+
+
+def phase_rs_kernels(msk, device) -> dict:
+    """Phase 15: K7, K11 and K12 against their plain versions on the card;
+    returns each report entry's (max |error|, agreement) at full width."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    errs = {}
+    for shape, cs in ((MSK_SMALL, FSK_SMALL_CHUNK),
+                      ((CHANNELS, 2 * N_SYMBOLS), 256)):
+        for name, args in msk_cases(msk, shape, cs, device, SEED + 20):
+            errs[name] = compare_decisions(
+                name, fk.msk_chain_kernel(*args), fk.msk_chain_plain(*args),
+                shape, args[6] is not None)
+    for up, down in ((RS_UP, RS_DOWN), (RS_DOWN, RS_UP)):
+        chain = resampled_chain(device, up=up, down=down)
+        for shape in (SMALL, (CHANNELS, N_SYMBOLS)):
+            cases = rs_cases(chain, shape, device, SEED + 21)
+            for name, kern, plain, args, exact in cases:
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize(device)
+                err = max_err(got, want)
+                if (exact and err != 0) or err > ATOL:
+                    fail(f"{name} {up}/{down} at {shape}: kernel vs plain "
+                         f"max |err| {err}")
+                if (up, down) == (RS_UP, RS_DOWN):
+                    errs[name] = (err, None)
+                print(f"[rs kernels] {name:24s} {up}/{down} {shape[0]:4d} ch "
+                      f"x {shape[1]:5d} sym: max |kernel - plain| = {err:.3e} "
+                      f"({'exact' if exact else f'tol {ATOL}'})", flush=True)
+    return errs
+
+
+def phase_rs_main(msk, device) -> dict:
+    """Phase 16: config #4 and the MSK loopback through the public entry
+    points, each path with every launch count set to 0 just before it and
+    read just after. Returns the launches of each report entry."""
+    from modem_tpu_torch import StreamingResampledChain
+    from modem_tpu_torch.ops import fsk_kernel as fk, resampled_kernel as rk
+    from modem_tpu_torch.ops.llr import llr_hard_bits
+
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+
+    def same(name, got, want):
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"config #4: {name} differs")
+        print(f"[rs main] {name}: equal, shape {tuple(got.shape)}", flush=True)
+
+    def bits_for(chain, n_ch, n_sym):
+        return torch.randint(0, 2, (n_ch, n_sym * chain.bits_per_symbol),
+                             generator=g, device=device, dtype=torch.int32)
+
+    tx_k, rx_k = ({"fused_resampled_tx": rk.RESAMPLED_TX_KERNEL},
+                  {"fused_resampled_rx": rk.RESAMPLED_RX_KERNEL})
+    chain = resampled_chain(device)
+    bits = bits_for(chain, CHANNELS, N_SYMBOLS)
+    launches = {}
+    reset_launches()
+    same("roundtrip_fused(bits) == bits", chain.roundtrip_fused(bits), bits)
+    launches.update(read_launches({**tx_k, **rx_k}, "config #4 roundtrip_fused"))
+    reset_launches()
+    wave = chain.tx_fused(bits)
+    same("rx_fused(tx_fused(bits)) == bits", chain.rx_fused(wave, N_SYMBOLS),
+         bits)
+    read_launches({**tx_k, **rx_k}, "config #4 rx_fused(tx_fused)")
+    reset_launches()
+    llr = chain.rx_soft_fused(wave, N_SYMBOLS, noise_var=0.05)
+    if not torch.isfinite(llr).all():
+        fail("config #4: non-finite LLRs")
+    same("hard bits of rx_soft_fused == bits", llr_hard_bits(llr), bits)
+    launches["fused_resampled_rx_soft"] = read_launches(
+        {"fused_resampled_rx_soft": rk.RESAMPLED_RX_KERNEL},
+        "config #4 rx_soft_fused")["fused_resampled_rx_soft"]
+    staged = chain.tx(bits)
+    err = max_err(wave, staged)
+    print(f"[rs main] tx_fused vs staged tx: max |err| {err:.3e} (tol {ATOL})",
+          flush=True)
+    if err > ATOL:
+        fail("config #4: tx_fused differs from tx")
+    same("rx_fused(tx(bits)) == rx(tx(bits))", chain.rx_fused(staged, N_SYMBOLS),
+         chain.rx(staged, N_SYMBOLS))
+
+    for label, side in (("64-QAM 3/2", resampled_chain(device, bps=6)),
+                        ("16-QAM 2/3", resampled_chain(device, up=RS_DOWN,
+                                                       down=RS_UP))):
+        b = bits_for(side, *RS_SIDE)
+        reset_launches()
+        same(f"{label} roundtrip_fused(bits) == bits", side.roundtrip_fused(b),
+             b)
+        same(f"{label} rx_fused(tx_fused(bits)) == bits",
+             side.rx_fused(side.tx_fused(b), RS_SIDE[1]), b)
+        read_launches({**tx_k, **rx_k}, label)
+
+    b = bits[:RS_STREAM_CHANNELS]
+    bps = chain.bits_per_symbol
+    st = StreamingResampledChain(chain, (RS_STREAM_CHANNELS,))
+    parts, start = [], 0
+    for n in RS_STREAM_CUTS + (N_SYMBOLS - sum(RS_STREAM_CUTS),):
+        parts.append(st.push(b[:, start * bps:(start + n) * bps]))
+        start += n
+    parts.append(st.flush())
+    one = chain.roundtrip(b)
+    same(f"StreamingResampledChain in {len(parts) - 1} ragged pushes == one "
+         f"shot ({RS_STREAM_CHANNELS} ch)", torch.cat(parts, dim=-1), one)
+    same("one shot == bits", one, b)
+
+    mbits = torch.randint(0, 2, (CHANNELS, 2 * N_SYMBOLS), generator=g,
+                          device=device, dtype=torch.int32)
+    reset_launches()
+    same("MSK roundtrip_fused(bits) == bits", msk.roundtrip_fused(mbits), mbits)
+    launches["fused_msk_slots"] = read_launches(
+        {"fused_msk_slots": fk.MSK_CHAIN_KERNEL},
+        "MSK roundtrip_fused")["fused_msk_slots"]
+    return launches
+
+
+def slot_errors(msk, bits, sent) -> float:
+    """Share of MSK slots whose sign ``c = -s0*s1`` differs between the
+    decided ``bits`` and the ``sent`` ones (the prefix decode turns one slot
+    error into a run of bit errors, so slots are what is compared)."""
+    s0, s1 = msk._slot_signs(bits)
+    t0, t1 = msk._slot_signs(sent)
+    return float(((s0 * s1) != (t0 * t1)).double().mean())
+
+
+def phase_rs_noise(msk, device) -> int:
+    """Phase 17: the MSK loopback's in-kernel noise against the staged path,
+    and config #4's rx_fused against rx on a noisy waveform. Returns K7's
+    launches with noise."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+    from modem_tpu_torch.ops.channel import awgn
+
+    g = torch.Generator(device=device).manual_seed(SEED + 23)
+    bits = torch.randint(0, 2, (CHANNELS, 2 * N_SYMBOLS), generator=g,
+                         device=device, dtype=torch.int32)
+    reset_launches()
+    fused = msk.roundtrip_fused(bits, snr_db=MSK_SNR_DB, seed=SEED + 24)
+    launches = read_launches({"fused_msk_slots_noisy": fk.MSK_CHAIN_KERNEL},
+                             "MSK with noise")["fused_msk_slots_noisy"]
+    sigma = fk.fsk_noise_sigma(1.0, MSK_SNR_DB)
+    wi, wq = msk.tx(bits)
+    wi = wi + sigma * torch.randn(wi.shape, generator=g, device=device)
+    wq = wq + sigma * torch.randn(wq.shape, generator=g, device=device)
+    ser_f = slot_errors(msk, fused, bits)
+    ser_s = slot_errors(msk, msk.rx(wi, wq), bits)
+    print(f"[rs noise] MSK at {MSK_SNR_DB} dB per complex sample over "
+          f"{bits.numel()} slots: slot SER roundtrip_fused (K7 noise) "
+          f"{ser_f:.6e}, staged tx + noise + rx {ser_s:.6e}, ratio "
+          f"{ser_f / ser_s:.4f}", flush=True)
+    if not 1e-3 < ser_s < 0.1 or abs(ser_f / ser_s - 1.0) > MSK_SER_RTOL:
+        fail(f"MSK SER {ser_f} vs staged {ser_s} beyond {MSK_SER_RTOL:.0%}")
+
+    chain = resampled_chain(device)
+    bits = torch.randint(0, 2, (CHANNELS, 4 * N_SYMBOLS), generator=g,
+                         device=device, dtype=torch.int32)
+    wave = awgn(g, *chain.tx(bits), RS_NOISE_SNR_DB)
+    fused, staged = chain.rx_fused(wave, N_SYMBOLS), chain.rx(wave, N_SYMBOLS)
+    agree = float((fused == staged).double().mean())
+    ber = float((staged != bits).double().mean())
+    print(f"[rs noise] config #4 at {RS_NOISE_SNR_DB} dB per channel sample: "
+          f"rx_fused == rx on {agree:.6f} of {bits.numel()} bits (need >= "
+          f"{RS_AGREE}); staged BER {ber:.6e}", flush=True)
+    if agree < RS_AGREE or ber == 0:
+        fail(f"config #4 rx_fused vs rx on a noisy waveform: {agree}")
+    return launches
+
+
+def rs_work(name: str, args) -> tuple[float, float]:
+    """Bytes each of K7, K11, K12 must move (each input read once, each
+    output written once) and its f32 operations, from the call's shapes and
+    tables. K7 per slot as ``fsk_work`` counts K6. K11: the RRC's taps per
+    symbol and rail over the ``ceil(n_modem/sps)`` symbols, then the stage
+    table's nonzero taps per output and rail, 2 operations a tap. K12: the
+    composite table's nonzero taps per symbol and rail, 2 operations a tap,
+    and a slice of 5 per point (hard)."""
+    if name.startswith("fused_msk_slots"):
+        s0, spb, guard, sigma = args[0], args[2], args[4], args[6]
+        k = s0.numel()
+        n_s = spb - guard + 1
+        ops = k * (n_s * 6 + (spb - guard) * 27 + 1)
+        if sigma is not None:
+            ops += k * n_s * 16
+        return 3 * 4 * k, ops
+    if name == "fused_resampled_tx":
+        syms, lut, taps, table, _, sps, up, down, n_modem = args
+        c, k = syms.shape
+        n_out = n_modem * up // down
+        nnz = int(torch.count_nonzero(table))
+        params = 4 * (lut.numel() + taps.numel() + table.numel())
+        ops = (2 * 2 * taps.numel() * c * -(-n_modem // sps)
+               + 2 * 2 * c * n_out * nnz / up)
+        return 4 * c * k + 2 * 4 * c * n_out + params, ops
+    wi, _, k, lut, table, period, _, _, soft = args
+    c = wi.shape[0]
+    nnz = int(torch.count_nonzero(table))
+    ops = 2 * 2 * c * k * nnz / period
+    out_bytes = (8 if soft else 4) * c * k
+    if not soft:
+        ops += 5 * lut.shape[0] * c * k
+    return (2 * 4 * wi.numel() + out_bytes
+            + 4 * (lut.numel() + table.numel())), ops
+
+
+def conv1d_yardstick(args, device):
+    """K12 soft as ``conv1d``: at 3/2 the composite stage has period 1, so
+    each rail is one strided cross-correlation with the table's one row,
+    ``padding`` covering the zero history. Returns ``(fn, fn args, max
+    |error| against the kernel)``; the port never calls it."""
+    import torch.nn.functional as F
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    wi, wq, k, _, table, period, width, first, _ = args
+    if period != 1:
+        fail("the conv1d yardstick needs a period-1 composite stage")
+    w = table.reshape(1, 1, -1)
+    pad = max(0, -first)
+    xi = wi[:, max(0, first):].unsqueeze(1)
+    xq = wq[:, max(0, first):].unsqueeze(1)
+
+    def both(xi, xq, w):
+        return (F.conv1d(xi, w, stride=width, padding=pad),
+                F.conv1d(xq, w, stride=width, padding=pad))
+
+    got = tuple(o[:, 0, :k] for o in both(xi, xq, w))
+    err = max_err(got, rk.resampled_rx_kernel(*args))
+    return both, (xi, xq, w), err
+
+
+def phase_rs_times(msk, device, card: str) -> dict:
+    """Phase 18: each kernel and its plain version per call, the profiler's
+    device time, the bound and K12 soft's ``conv1d`` yardstick; then the
+    config #4 and MSK loopback entry points per call with the device's busy
+    time and idle share."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    chain = resampled_chain(device)
+    cases = rs_cases(chain, (CHANNELS, N_SYMBOLS), device, SEED + 25)
+    cases = [(n, k, p, a) for n, k, p, a, _ in cases]
+    cases += [(n, fk.msk_chain_kernel, fk.msk_chain_plain, a)
+              for n, a in msk_cases(msk, (CHANNELS, 2 * N_SYMBOLS), 256,
+                                    device, SEED + 26)]
+    samples = CHANNELS * chain._padded_len(N_SYMBOLS) * RS_UP // RS_DOWN
+    times = {}
+    for name, kern, plain, args in cases:
+        ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
+                                            RS_REPORT[name][0])
+        lib_ms, extra = None, "no library call"
+        if name == "fused_resampled_rx_soft":
+            fn, fargs, lib_err = conv1d_yardstick(args, device)
+            if lib_err > 1e-4:
+                fail(f"conv1d yardstick disagrees with K12 soft ({lib_err})")
+            lib_ms = time_calls(fn, fargs, device)
+            extra = f"conv1d {lib_ms:.4f} ms (max |err| vs K12 {lib_err:.2e})"
+        times[name] = (ms, plain_ms, dev_ms, lib_ms, rs_work(name, args))
+        n = (CHANNELS * 2 * N_SYMBOLS * msk.spb
+             if name.startswith("fused_msk") else samples)
+        print_times(name, n, times[name], card, extra)
+
+    g = torch.Generator(device=device).manual_seed(SEED + 27)
+    bits = torch.randint(0, 2, (CHANNELS, 4 * N_SYMBOLS), generator=g,
+                         device=device, dtype=torch.int32)
+    mbits = torch.randint(0, 2, (CHANNELS, 2 * N_SYMBOLS), generator=g,
+                          device=device, dtype=torch.int32)
+    wave = chain.tx_fused(bits)
+    for name, fn, args, n in (
+            ("ResampledChain.roundtrip_fused", chain.roundtrip_fused, (bits,),
+             samples),
+            ("ResampledChain.tx_fused", chain.tx_fused, (bits,), samples),
+            ("ResampledChain.rx_fused", chain.rx_fused, (wave, N_SYMBOLS),
+             samples),
+            ("MskChain.roundtrip_fused", msk.roundtrip_fused, (mbits,),
+             CHANNELS * 2 * N_SYMBOLS * msk.spb)):
+        ms = time_calls(fn, args, device)
+        busy = device_busy_ms(fn, args, device)
+        print(f"[times] {name:30s} per call {ms:.4f} ms "
+              f"({n / ms * 1e3:.4e} samples/s), device busy {busy:.4f} ms "
+              f"(idle share {1 - busy / ms:.3f}), {n} samples on {card}",
+              flush=True)
+    return times
+
+
 def print_times(name: str, samples: int, t, card: str, extra: str) -> None:
     ms, plain_ms, dev_ms, _, (nbytes, flops) = t
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
@@ -1084,6 +1486,12 @@ def main() -> int:
     launches.update(phase_fsk_main(chains, device))
     launches["fused_fsk_chain_noisy"] = phase_fsk_noise(chains[0], device)
     times.update(phase_fsk_times(chains, device, card))
+    msk = chains[2]
+    rs_errs = phase_rs_kernels(msk, device)
+    launches.update(phase_rs_main(msk, device))
+    launches["fused_msk_slots_noisy"] = phase_rs_noise(msk, device)
+    times.update(phase_rs_times(msk, device, card))
+    fsk_errs.update(rs_errs)
     errs.update({n: err for n, (err, _) in fsk_errs.items()})
 
     entries = [(n, src, rep)
@@ -1095,7 +1503,8 @@ def main() -> int:
         ("fused_product_detect", "modem_tpu_torch/csrc/demod.cu",
          "modem_tpu/ops/pallas_demod.py:43")] + [
         (n, "modem_tpu_torch/csrc/fsk.cu", f"modem_tpu/ops/pallas_fsk.py:{line}")
-        for n, (line, _) in FSK_REPORT.items()]
+        for n, (line, _) in FSK_REPORT.items()] + [
+        (n, src, rep) for n, (_, src, rep) in RS_REPORT.items()]
     report = {"kernels": []}
     for n, src, rep in entries:
         ms, plain_ms, dev_ms, lib_ms, work = times[n]

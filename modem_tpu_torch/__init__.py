@@ -14,9 +14,12 @@ imports ``jax`` or ``modem_tpu``. Ported so far:
   ``modulate``/``demodulate`` CLIs (:mod:`modem_tpu_torch.cli`);
 * the other scheme families' chains: :class:`FskChain` (BFSK, MFSK, CPFSK;
   the loopback on kernel K6, the one-way halves on K8 and K9) and
-  :class:`MskChain` (K10 and K9) of config #3, :class:`GmskChain` (its
-  transient FIR on K4), :class:`DifferentialChain` (DBPSK/DQPSK on K1-K3),
-  :class:`OqpskChain` and :class:`DcqpskChain`.
+  :class:`MskChain` (K10 and K9, the loopback on K7) of config #3,
+  :class:`GmskChain` (its transient FIR on K4), :class:`DifferentialChain`
+  (DBPSK/DQPSK on K1-K3), :class:`OqpskChain` and :class:`DcqpskChain`;
+* config #4, QAM with a rational resampler in the chain:
+  :class:`ResampledChain` (the fused TX on kernel K11, the fused RX on K12)
+  and :class:`StreamingResampledChain`.
 
 Every entry point builds on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
@@ -27,6 +30,7 @@ from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
                     OqpskChain, PulseShapedChain, qpsk_reference_chain)
 from .gmsk import GmskChain
 from .models import SCHEME_NAMES, make_scheme
+from .resampled import ResampledChain, StreamingResampledChain
 from .rx import Demodulator, RxState
 from .streaming import StreamingFusedChain, StreamingFusedRx, StreamingFusedTx
 from .tx import Modulator, TxState
@@ -34,7 +38,8 @@ from .tx import Modulator, TxState
 __all__ = [
     "DcqpskChain", "Demodulator", "DifferentialChain", "FskChain",
     "GmskChain", "Modulator", "MskChain", "OqpskChain", "PulseShapedChain",
-    "Rates", "RxState", "SCHEME_NAMES", "StreamingFusedChain",
-    "StreamingFusedRx", "StreamingFusedTx", "TxState", "make_scheme",
+    "Rates", "ResampledChain", "RxState", "SCHEME_NAMES",
+    "StreamingFusedChain", "StreamingFusedRx", "StreamingFusedTx",
+    "StreamingResampledChain", "TxState", "make_scheme",
     "qpsk_reference_chain",
 ]

@@ -20,14 +20,13 @@ Two forms, as in the JAX package:
   the production path, one hand-written CUDA kernel per call on a CUDA
   device: K1-K3 (:mod:`~modem_tpu_torch.ops.txrx`,
   :mod:`~modem_tpu_torch.ops.chain_kernel`) for the pulse-shaped and
-  differential chains, K6, K8, K9 and K10
-  (:mod:`~modem_tpu_torch.ops.fsk_kernel`) for the FSK family and MSK.
+  differential chains, K6-K10 (:mod:`~modem_tpu_torch.ops.fsk_kernel`)
+  for the FSK family and MSK.
 
 Every chain builds on ``device``, the card unless the caller asks for the
 CPU; every tensor passed in must be there too. Not ported yet: the passband
-NCO leg of the pulse-shaped chain, the in-kernel AWGN of K1
-(``DifferentialChain.roundtrip_fused(snr_db=...)`` raises) and the MSK
-loopback K7 (``MskChain.roundtrip_fused`` raises).
+NCO leg of the pulse-shaped chain and the in-kernel AWGN of K1
+(``DifferentialChain.roundtrip_fused(snr_db=...)`` raises).
 """
 
 from __future__ import annotations
@@ -530,8 +529,10 @@ class MskChain:
 
     def roundtrip_fused(self, bits: torch.Tensor, snr_db: float | None = None,
                         seed=None) -> torch.Tensor:
-        """The MSK loopback (kernel K7): raises ``NotImplementedError``, K7
-        is not ported yet."""
+        """bits -> bits through the MSK loopback (kernel K7 on CUDA):
+        synthesis, discriminator and per-slot sign on chip, the prefix
+        decode at slot rate; ``snr_db`` (per complex sample) adds in-kernel
+        noise from the stream keyed by ``seed``."""
         s0, s1 = self._slot_signs(bits)
         return self._decode_cneg(fused_msk_slots(
             s0, s1, self.spb, float(self.scheme.amplitude), self.guard,

@@ -38,6 +38,12 @@ SIGNATURES = {
     "modem_disc_means": [_P, _P, _L, _I, _I, _F, _P, _P],
     "modem_fsk_chain": [_P, _P, _L, _L, _P, _I, _I, _I, _F, _F, _F, _I, _F,
                         _I, _I, _F, _U, _P, _P],
+    "modem_msk_chain": [_P, _P, _L, _L, _I, _F, _F, _I, _I, _I, _F, _U, _P,
+                        _P],
+    "modem_resampled_tx": [_P, _L, _L, _P, _I, _P, _I, _I, _P, _I, _I, _I,
+                           _I, _L, _P, _P, _P],
+    "modem_resampled_rx": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _I, _P, _I,
+                           _I, _P, _P, _P, _P],
     "modem_tx_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P, _P],
     "modem_rx_lut_hard": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _P, _P],
     "modem_rx_lut_soft": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _P, _P],

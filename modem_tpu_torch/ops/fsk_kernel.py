@@ -1,5 +1,5 @@
 """The fused FSK/MSK kernels (counterpart of :mod:`modem_tpu.ops.pallas_fsk`):
-kernels K6, K8, K9 and K10, in ``modem_tpu_torch/csrc/fsk.cu``.
+kernels K6, K7, K8, K9 and K10, in ``modem_tpu_torch/csrc/fsk.cu``.
 
 * :func:`fused_fsk_tx` (K8): integer phase program ``fnum``/``pnum``
   ``[..., K]`` -> baseband ``(i, q)`` ``[..., K*sps]`` for BFSK/MFSK/CPFSK;
@@ -10,7 +10,9 @@ kernels K6, K8, K9 and K10, in ``modem_tpu_torch/csrc/fsk.cu``.
   slot), guard samples skipped;
 * :func:`fsk_decide_from_program` / :func:`fused_fsk_chain` (K6): the
   loopback, program -> synthesis -> optional AWGN -> discriminator -> mean
-  -> nearest frequency, the waveform kept on chip.
+  -> nearest frequency, the waveform kept on chip;
+* :func:`fused_msk_slots` (K7): the MSK loopback, slot signs -> half-sine
+  synthesis -> optional AWGN -> discriminator -> sign bit per slot.
 
 Each takes a CPU tensor to its plain version (``*_plain``) and a CUDA tensor
 to its kernel (``*_kernel``), never to the plain version. The fused
@@ -18,12 +20,11 @@ discriminator uses the JAX kernels' degree-9 polynomial :func:`atan2_poly`
 (error ~1e-5 rad) in both versions, so its means carry the same error as
 the JAX function's; the staged receivers use the exact ``torch.atan2``.
 
-K6's noise is the JAX kernel's interpret-mode stream
+K6's and K7's noise is the JAX kernels' interpret-mode stream
 (:func:`~modem_tpu_torch.ops.chain_kernel.gauss_pair`) with the same tile
 keys and counters: the JAX tile is 128 channels by ``chunk_sym`` symbols
-plus a one-symbol halo row, so ``chunk_sym`` (default 256, as there)
-selects the stream. The MSK loopback (K7, :func:`fused_msk_slots`) is not
-ported yet.
+(``chunk_slots`` MSK slots) plus a one-row halo, so the chunk (default 256,
+as there) selects the stream.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ FSK_CHAIN_KERNEL = Kernel("modem_fsk_chain")
 FSK_TX_KERNEL = Kernel("modem_fsk_tx")
 DISC_MEANS_KERNEL = Kernel("modem_disc_means")
 MSK_TX_KERNEL = Kernel("modem_msk_tx")
+MSK_CHAIN_KERNEL = Kernel("modem_msk_chain")
 
 _PI = f32(math.pi)
 
@@ -227,9 +229,10 @@ def fused_discriminator_means(i: torch.Tensor, q: torch.Tensor, group: int,
                int(guard))
 
 
-def disc_means_plain(i, q, group: int, guard: int) -> torch.Tensor:
-    """Plain version of K9: the increments summed in order of the sample,
-    as the kernel sums them."""
+def _increment_sums(i, q, group: int, guard: int) -> torch.Tensor:
+    """Per group of ``group`` samples, the polynomial discriminator's
+    increments into samples ``guard..group-1`` summed in order of the
+    sample, as the kernels sum them."""
     k = i.shape[-1] // group
     wi = i.reshape(i.shape[:-1] + (k, group))
     wq = q.reshape(q.shape[:-1] + (k, group))
@@ -239,7 +242,12 @@ def disc_means_plain(i, q, group: int, guard: int) -> torch.Tensor:
     acc = torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
     for j in range(d.shape[-1]):
         acc = acc + d[..., j]
-    return acc * f32(1.0 / (group - guard))
+    return acc
+
+
+def disc_means_plain(i, q, group: int, guard: int) -> torch.Tensor:
+    """Plain version of K9."""
+    return _increment_sums(i, q, group, guard) * f32(1.0 / (group - guard))
 
 
 def disc_means_kernel(i, q, group: int, guard: int) -> torch.Tensor:
@@ -366,13 +374,57 @@ def fused_fsk_chain(symbols: torch.Tensor, scheme, rates, guard: int = 1,
 
 
 # --------------------------------------------------------------------------
-# K7: the MSK loopback, still to port
+# K7: the MSK loopback
 # --------------------------------------------------------------------------
 
-def fused_msk_slots(s0, s1, spb: int, amp: float, guard: int = 1,
+def fused_msk_slots(s0: torch.Tensor, s1: torch.Tensor, spb: int,
+                    amp: float, guard: int = 1,
                     chunk_slots: int = DEFAULT_CHUNK_SYM,
-                    snr_db: float | None = None, seed=None):
-    """The MSK loopback (K7): not ported yet on any device."""
-    raise NotImplementedError(
-        "the MSK loopback kernel K7 (fused_msk_slots) is not ported yet "
-        "(ROADMAP.md queue 2)")
+                    snr_db: float | None = None, seed=None) -> torch.Tensor:
+    """MSK loopback: staggered slot signs ``[..., 2K]`` (+-1) -> per-slot
+    discriminator sign bits ``[..., 2K]`` int32, 1 where the slot's tone is
+    negative (``c = -1``). K10's half-sine synthesis, ``snr_db`` (per
+    complex sample) of noise from the stream keyed by ``seed`` in tiles of
+    ``chunk_slots`` slots, then the sign of the sum of the polynomial
+    discriminator's increments into samples ``guard..spb-1``."""
+    _check_guard(guard, spb, "fused MSK")
+    if s0.shape != s1.shape:
+        raise ValueError("s0 and s1 differ in shape")
+    if chunk_slots < 1:
+        raise ValueError("chunk_slots must be positive")
+    sigma = None if snr_db is None else f32(fsk_noise_sigma(amp, snr_db))
+    seed = 0 if seed is None else int(seed)
+    run = msk_chain_kernel if s0.is_cuda else msk_chain_plain
+    return run(s0, s1, int(spb), f32(amp), int(guard), int(chunk_slots), sigma,
+               seed)
+
+
+def msk_chain_plain(s0, s1, spb: int, amp: float, guard: int, cs: int, sigma,
+                    seed: int) -> torch.Tensor:
+    """Plain version of K7: K10's waveform, K6's noise geometry over slots of
+    ``spb`` samples, the sign of K9's sum."""
+    f0, f1 = _flat_int32(s0, s1)
+    wi, wq = msk_tx_plain(f0, f1, spb, amp)
+    if sigma is not None:
+        gi, gq = fsk_noise(f0.shape, spb, cs, seed, f0.device)
+        wi = wi + sigma * gi.reshape(wi.shape)
+        wq = wq + sigma * gq.reshape(wq.shape)
+    acc = _increment_sums(wi, wq, spb, guard)
+    return (acc < 0).to(torch.int32).reshape(s0.shape)
+
+
+def msk_chain_kernel(s0, s1, spb: int, amp: float, guard: int, cs: int, sigma,
+                     seed: int) -> torch.Tensor:
+    """Launch K7 (``modem_msk_chain``) on CUDA tensors."""
+    dev = s0.device
+    f0, f1 = _flat_int32(s0, s1)
+    for name, t in (("s0", f0), ("s1", f1)):
+        check_cuda(name, t, torch.int32, dev)
+    c, k = f0.shape
+    out = torch.empty_like(f0)
+    if out.numel():
+        MSK_CHAIN_KERNEL.launch(
+            dev, f0.data_ptr(), f1.data_ptr(), c, k, spb, amp,
+            f32(TWO_PI / (4 * spb)), guard, cs, int(sigma is not None),
+            0.0 if sigma is None else sigma, seed & 0xFFFFFFFF, out.data_ptr())
+    return out.reshape(s0.shape)

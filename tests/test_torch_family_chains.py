@@ -237,10 +237,20 @@ def test_msk_rx_fused():
     _equal(tc.rx_fused(*_t(i, q)), jc.rx_fused(*_j(i, q)))
 
 
-def test_msk_roundtrip_fused_not_ported():
-    tc = MskChain(TR, device=CPU)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tc.roundtrip_fused(torch.zeros(2, 64, dtype=torch.int32))
+@pytest.mark.parametrize("snr,seed", [(None, None), (7.0, 5), (5.0, -8)])
+def test_msk_roundtrip_fused(snr, seed):
+    """K7's plain version through ``MskChain``: the JAX method's bits, and
+    with noise the same seeded stream (a slot error flips the prefix decode
+    from there on, so bit errors come in runs)."""
+    jc, tc = jchain.MskChain(JR), MskChain(TR, device=CPU)
+    bits = _bits((3, 2 * 300), 15)
+    want = jc.roundtrip_fused(jnp.asarray(bits), snr_db=snr, seed=seed)
+    got = tc.roundtrip_fused(torch.as_tensor(bits), snr_db=snr, seed=seed)
+    _equal(got, want)
+    if snr is None:
+        _equal(got, bits)
+    else:
+        assert np.mean(np.asarray(want) != bits) > 0
 
 
 def test_msk_errors():

@@ -294,10 +294,82 @@ def test_fsk_chain_guard_errors(guard):
                            guard)
 
 
-def test_msk_loopback_not_ported():
+# ---- K7: the MSK loopback ----
+
+def _slot_signs(shape, seed):
+    rng = np.random.default_rng(seed)
+    return tuple((2 * rng.integers(0, 2, shape) - 1).astype(np.int32)
+                 for _ in range(2))
+
+
+def _msk_both(s0, s1, spb, **kw):
+    want = np.asarray(jpf.fused_msk_slots(jnp.asarray(s0), jnp.asarray(s1),
+                                          spb, 0.8, **kw))
+    got = fk.fused_msk_slots(torch.as_tensor(s0), torch.as_tensor(s1), spb,
+                             0.8, **kw)
+    assert got.dtype == torch.int32 and got.shape == s0.shape
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("spb,guard", [(2, 1), (4, 1), (4, 2), (8, 3)])
+def test_msk_loopback_noiseless_matches_jax(spb, guard):
+    s0, s1 = _slot_signs((2, 3, 200), spb)
+    got, want = _msk_both(s0, s1, spb, guard=guard)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, (s0 * s1 > 0).astype(np.int32))  # c = -s0*s1
+
+
+@pytest.mark.parametrize("spb,snr,seed", [(4, 6.0, 11), (4, 6.0, -2**31),
+                                          (2, 8.0, 3)])
+def test_msk_loopback_noisy_matches_jax(spb, snr, seed):
+    """The JAX interpret stream bit for bit: decisions equal."""
+    s0, s1 = _slot_signs((3, 600), seed % 97)
+    got, want = _msk_both(s0, s1, spb, snr_db=snr, seed=seed)
+    assert np.array_equal(got, want)
+    assert 0 < np.mean(want != (s0 * s1 > 0)) < 0.2
+
+
+def test_msk_loopback_crosses_lane_and_tile_keys():
+    """130 channels x 70 slots in tiles of 32 slots: two 128-lane keys and
+    three time tiles; another tiling draws other noise."""
+    s0, s1 = _slot_signs((130, 70), 21)
+    got, want = _msk_both(s0, s1, 4, chunk_slots=32, snr_db=5.0, seed=-3)
+    assert np.array_equal(got, want)
+    other, _ = _msk_both(s0, s1, 4, chunk_slots=64, snr_db=5.0, seed=-3)
+    assert not np.array_equal(other, got)
+
+
+def test_msk_loopback_noise_is_the_slot_stream():
+    """K7's plain version adds fsk_noise over slots of spb samples: its
+    waveform sums equal a direct recomputation with those draws."""
+    s0, s1 = (torch.as_tensor(v) for v in _slot_signs((2, 50), 22))
+    sigma = fk.fsk_noise_sigma(0.8, 5.0)
+    gi, gq = fk.fsk_noise((2, 50), 4, 16, 9, "cpu")
+    wi, wq = fk.msk_tx_plain(s0, s1, 4, 0.8)
+    wi = wi + fk.f32(sigma) * gi.reshape(wi.shape)
+    wq = wq + fk.f32(sigma) * gq.reshape(wq.shape)
+    want = (fk.disc_means_plain(wi, wq, 4, 1) < 0).to(torch.int32)
+    got = fk.fused_msk_slots(s0, s1, 4, 0.8, chunk_slots=16, snr_db=5.0,
+                             seed=9)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("guard", [0, 4])
+def test_msk_loopback_guard_errors(guard):
+    s0, s1 = _slot_signs((2, 16), 0)
+    with pytest.raises(ValueError):
+        jpf.fused_msk_slots(jnp.asarray(s0), jnp.asarray(s1), 4, 1.0, guard)
+    with pytest.raises(ValueError, match="guard"):
+        fk.fused_msk_slots(torch.as_tensor(s0), torch.as_tensor(s1), 4, 1.0,
+                           guard)
+
+
+def test_msk_loopback_argument_errors():
     s = torch.ones(2, 16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fk.fused_msk_slots(s, s, 4, 1.0)
+    with pytest.raises(ValueError, match="differ"):
+        fk.fused_msk_slots(s, s[:, :8], 4, 1.0)
+    with pytest.raises(ValueError, match="chunk_slots"):
+        fk.fused_msk_slots(s, s, 4, 1.0, chunk_slots=0)
 
 
 # ---- staged slicers and LLRs ----

@@ -1,13 +1,14 @@
 """The port's CUDA kernels (K1 loopback, K2 TX, K3 RX hard and soft, K4 FIR,
-K5 product detector, K6 FSK loopback, K8 FSK TX, K9 discriminator means,
-K10 MSK TX) against their plain PyTorch versions on the card. Marked
+K5 product detector, K6 FSK loopback, K7 MSK loopback, K8 FSK TX, K9
+discriminator means, K10 MSK TX, K11 resampled TX, K12 resampled RX hard and
+soft) against their plain PyTorch versions on the card. Marked
 ``cuda``: every test skips without a CUDA device. On the card
 (``--noconftest`` because the suite's conftest imports jax, which the
 port's machine need not have)::
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
 
-Tolerances: decisions exactly (K6 with noise: on >= 99.99%); waveforms,
+Tolerances: decisions exactly (K6 and K7 with noise: on >= 99.99%); waveforms,
 means and soft points ``atol=1e-5`` (``nvcc`` contracts multiply-adds to
 FMA, the plain version does not).
 """
@@ -448,3 +449,187 @@ def test_fsk_kernels_refuse_bad_arguments(dev):
     with pytest.raises(RuntimeError, match="CUDA error"):  # chunk_sym 0
         fk.fsk_chain_kernel(f, f, targets, 10000, 8, 1.0, 0.0, 1, 0, None, 0)
     assert fk.FSK_CHAIN_KERNEL.launches == before
+
+
+# ---- K7 (fsk.cu) ----
+
+def _slot_signs(shape, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor((2 * rng.integers(0, 2, shape) - 1)
+                                 .astype(np.int32), device=dev)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("spb,guard", [(2, 1), (4, 1), (8, 3)])
+def test_msk_chain_kernel_noiseless(spb, guard, dev):
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    s0, s1 = _slot_signs((2, 3, 777), dev, spb)
+    got = _launches(fk.MSK_CHAIN_KERNEL, fk.fused_msk_slots, s0, s1, spb, 0.7,
+                    guard)
+    assert got.dtype == torch.int32 and got.shape == (2, 3, 777)
+    assert torch.equal(got, fk.msk_chain_plain(s0, s1, spb, 0.7, guard, 256,
+                                               None, 0))
+    assert torch.equal(got, (s0 * s1 > 0).int())
+
+
+@pytest.mark.parametrize("snr", [4.0, 8.0])
+def test_msk_chain_kernel_noisy(snr, dev):
+    """130 ch x 600 slots in tiles of 32 slots: the kernel draws the plain
+    version's noise; decisions equal on >= 99.99% of slots."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    s0, s1 = _slot_signs((130, 600), dev, 3)
+    args = (s0, s1, 4, 1.0, 1, 32, snr, 4321)
+    got = _launches(fk.MSK_CHAIN_KERNEL, fk.fused_msk_slots, *args)
+    plain = fk.fused_msk_slots(*(a.cpu() if torch.is_tensor(a) else a
+                                 for a in args)).to(dev)
+    assert float((got == plain).float().mean()) >= 0.9999
+    assert bool((got != (s0 * s1 > 0).int()).any())
+
+
+def test_msk_roundtrip_fused_on_card(dev):
+    from modem_tpu_torch import MskChain
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    msk = MskChain(Rates(1250, 10000), device=dev)
+    bits = torch.randint(0, 2, (16, 2 * 1024), device=dev, dtype=torch.int32)
+    before = fk.MSK_CHAIN_KERNEL.launches
+    assert torch.equal(msk.roundtrip_fused(bits), bits)
+    noisy = msk.roundtrip_fused(bits, snr_db=6.0, seed=2)
+    assert noisy.shape == bits.shape and bool((noisy != bits).any())
+    assert fk.MSK_CHAIN_KERNEL.launches == before + 2
+
+
+# ---- K11 and K12 (resampled.cu) ----
+
+# (up, down, bits per symbol, symbol shape): P = 1 (3/2, 5/4, 2/1, 1/2) and
+# P = 3 (2/3); 64-QAM; tile edges
+RESAMPLED = [(3, 2, 4, (3, 500)), (2, 3, 4, (2, 3, 300)), (5, 4, 6, (2, 257)),
+             (2, 1, 4, (2, 700)), (1, 2, 4, (2, 1000)), (3, 2, 4, (2, 1))]
+RESAMPLED_IDS = [f"{u}_{d}_qam{1 << b}_{'x'.join(map(str, s))}"
+                 for u, d, b, s in RESAMPLED]
+
+
+def _resampled(case, dev):
+    from modem_tpu_torch import ResampledChain
+    from modem_tpu_torch.models.qam import QAM
+
+    up, down, bps, shape = case
+    chain = ResampledChain(QAM(bps, 0.0, 1.0), Rates(1250, 10000), up, down,
+                           device=dev)
+    rng = np.random.default_rng(up * 10 + down)
+    syms = torch.as_tensor(rng.integers(0, 1 << bps, shape).astype(np.int32),
+                           device=dev)
+    return chain, syms
+
+
+@pytest.mark.parametrize("case", RESAMPLED, ids=RESAMPLED_IDS)
+def test_resampled_tx_kernel(case, dev):
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    chain, syms = _resampled(case, dev)
+    if syms.shape[-1] > 20:
+        syms[..., 0, :16] = -1  # the streaming sentinel
+    h = chain._host
+    n_modem = chain._padded_len(syms.shape[-1])
+    got = _launches(rk.RESAMPLED_TX_KERNEL, rk.fused_resampled_tx, syms,
+                    chain.lut, h["rrc"], chain.sps, chain.span, chain.up,
+                    chain.down, h["taps1"], n_modem)
+    params = rk._tx_params(h["rrc"].tobytes(), h["taps1"].tobytes(), chain.up,
+                           chain.down, dev)
+    want = rk.resampled_tx_plain(syms, chain.lut, *params, chain.sps, chain.up,
+                                 chain.down, n_modem)
+    for g, w in zip(got, want):
+        assert g.shape == syms.shape[:-1] + (n_modem * chain.up // chain.down,)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", RESAMPLED, ids=RESAMPLED_IDS)
+@pytest.mark.parametrize("soft", [False, True])
+def test_resampled_rx_kernel(case, soft, dev):
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    chain, syms = _resampled(case, dev)
+    k = syms.shape[-1]
+    wi, wq = chain.tx_fused(_unpack(syms, chain))
+    g = torch.Generator(device=dev).manual_seed(0)
+    wi = wi + 0.02 * torch.randn(wi.shape, generator=g, device=dev)
+    wq = wq + 0.02 * torch.randn(wq.shape, generator=g, device=dev)
+    h = chain._host
+    got = _launches(rk.RESAMPLED_RX_KERNEL, rk.fused_resampled_rx, (wi, wq), k,
+                    chain.lut, h["rrc"], chain.sps, chain.span, chain.up,
+                    chain.down, h["taps2"], chain.delay, soft=soft)
+    params = rk._rx_params(h["rrc"].tobytes(), h["taps2"].tobytes(), chain.sps,
+                           chain.up, chain.down, chain.delay, dev)
+    want = rk.resampled_rx_plain(wi, wq, k, chain.lut, *params, soft)
+    if soft:
+        for g_, w in zip(got, want):
+            torch.testing.assert_close(g_, w, atol=ATOL, rtol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+def _unpack(syms, chain):
+    from modem_tpu_torch.utils.bits import unpack_symbols
+
+    return unpack_symbols(syms, chain.bits_per_symbol)
+
+
+@pytest.mark.parametrize("up,down", [(3, 2), (2, 3)])
+def test_resampled_chain_on_card(up, down, dev):
+    from modem_tpu_torch import ResampledChain, StreamingResampledChain
+    from modem_tpu_torch.models.qam import QAM
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    chain = ResampledChain(QAM(4, 0.0, 1.0), Rates(1250, 10000), up, down,
+                           device=dev)
+    bits = torch.randint(0, 2, (16, 4 * 1024), device=dev, dtype=torch.int32)
+    before = (rk.RESAMPLED_TX_KERNEL.launches, rk.RESAMPLED_RX_KERNEL.launches)
+    assert torch.equal(chain.roundtrip_fused(bits), bits)
+    wave = chain.tx_fused(bits)
+    for f, s in zip(wave, chain.tx(bits)):
+        torch.testing.assert_close(f, s, atol=ATOL, rtol=0)
+    assert torch.equal(chain.rx_fused(wave, 1024), bits)
+    assert torch.equal(chain.rx_fused(wave, 1024), chain.rx(wave, 1024))
+    assert torch.equal((chain.rx_soft_fused(wave, 1024) < 0).int(), bits)
+    after = (rk.RESAMPLED_TX_KERNEL.launches, rk.RESAMPLED_RX_KERNEL.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 4)
+    st = StreamingResampledChain(chain, (2,))
+    parts = [st.push(bits[:2, a * 4:b * 4])
+             for a, b in ((0, 100), (100, 101), (101, 700), (700, 1024))]
+    assert torch.equal(torch.cat(parts + [st.flush()], -1), bits[:2])
+
+
+def test_resampled_empty_inputs_launch_nothing(dev):
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    chain, _ = _resampled(RESAMPLED[0], dev)
+    h = chain._host
+    before = (rk.RESAMPLED_TX_KERNEL.launches, rk.RESAMPLED_RX_KERNEL.launches)
+    e = torch.zeros((0, 10), dtype=torch.int32, device=dev)
+    n_modem = chain._padded_len(10)
+    wi, _ = rk.fused_resampled_tx(e, chain.lut, h["rrc"], 8, 8, 3, 2,
+                                  h["taps1"], n_modem)
+    assert wi.shape == (0, n_modem * 3 // 2)
+    w = torch.zeros((0, n_modem * 3 // 2), device=dev)
+    for soft in (False, True):
+        out = rk.fused_resampled_rx((w, w), 10, chain.lut, h["rrc"], 8, 8, 3,
+                                    2, h["taps2"], chain.delay, soft=soft)
+        assert (out[0] if soft else out).shape == (0, 10)
+    assert before == (rk.RESAMPLED_TX_KERNEL.launches,
+                      rk.RESAMPLED_RX_KERNEL.launches)
+
+
+def test_resampled_kernels_refuse_bad_arguments(dev):
+    """The C entry point refuses a period the kernel does not take before
+    any launch."""
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    chain, _ = _resampled(RESAMPLED[0], dev)
+    before = rk.RESAMPLED_RX_KERNEL.launches
+    w = torch.zeros((2, 500), device=dev)
+    table = torch.zeros((300, 4), device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rk.resampled_rx_kernel(w, w, 10, chain.lut, table, 300, 4, 0, False)
+    assert rk.RESAMPLED_RX_KERNEL.launches == before

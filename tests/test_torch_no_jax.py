@@ -50,7 +50,10 @@ def test_every_module_listed():
     assert "modem_tpu_torch.cli.demodulate" in MODULES
     assert "modem_tpu_torch.ops.fsk_kernel" in MODULES
     assert "modem_tpu_torch.gmsk" in MODULES
-    assert len(MODULES) >= 36
+    assert "modem_tpu_torch.resampled" in MODULES
+    assert "modem_tpu_torch.ops.resampled_kernel" in MODULES
+    assert "modem_tpu_torch.ops.resample" in MODULES
+    assert len(MODULES) >= 39
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
