@@ -103,12 +103,39 @@ channel), and the MSK loopback at config #3's block:
     ``rx_fused``, ``roundtrip_fused`` and ``MskChain.roundtrip_fused`` per
     call with the device's busy time and idle share.
 
+The coded link (``FramedLink`` over the flagship chain) and its windowed
+Viterbi K13, at ``bench_fec.py``'s width (the CCSDS K=7 rate-1/2 code, 256
+channels x 4096 data bits, windows of 512 steps with a halo of 70: 2304
+trellis rows of 652 steps) and ``bench_link.py``'s (``reference_link()``,
+384 frames of 1002 payload bits, 1024 QPSK symbols each):
+
+19. K13 against its plain version, bit for bit: CCSDS at 256 x 4096 with
+    windows of 512 (also 256 and 1024), noisy and noiseless; K=5 and K=7
+    rate 1/3 at 64 x 1024, noisy and noiseless; ready windows with free and
+    pinned ends;
+20. main path: ``reference_link()`` at 384 frames, ``tx_fused`` -> seeded
+    AWGN at 2 dB -> ``rx_fused``, every payload back and every CRC true,
+    with K2, K3 soft and K13 launched; then K2 and K3 soft against their
+    plain versions on that run's symbols and waveform, and K13 bit for bit
+    on its deinterleaved LLRs (768 rows of 652 steps);
+    ``ccsds_deep_space_link()`` at 0 dB
+    and ``dvb_like_link()`` at 3 dB at 64 frames, exact; CRC, scrambler and
+    RS on CUDA tensors equal to the CPU; ``StreamingViterbi`` pushes equal
+    to one shot;
+21. CLI: ``link tx`` -> ``link rx`` on the card for 40 frames, every
+    payload back with 40 ``frame: OK`` lines, K13 launched;
+22. times: K13 and its plain version per call, the profiler's device time,
+    the bound and the time per trellis step; ``decode_soft_windowed``'s
+    info rate; ``FramedLink.tx_fused`` and ``rx_fused`` per call at 384
+    frames (and the RS presets' ``rx_fused`` at 64) with the device's busy
+    time and idle share.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11; K12 hard and
-soft), each
+soft; K13), each
 with its launches on its path, error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
 take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
@@ -189,6 +216,19 @@ RS_REPORT = {
                                 "modem_tpu_torch/csrc/resampled.cu",
                                 "modem_tpu/ops/pallas_resampled.py:235"),
 }
+# the coded link: bench_fec.py:48-50,121-125's Viterbi width and
+# bench_link.py:101-104's reference_link() block
+VIT_CHANNELS, VIT_BITS = 256, 4096
+VIT_BLOCK, VIT_HALO = 512, 70
+VIT_SIDE = (64, 1024)            # K=5 and rate 1/3 in phase 19
+LINK_FRAMES = 384
+LINK_SNR_DB = 2.0                # per complex sample
+RS_LINK_FRAMES = 64
+RS_LINK_SNR_DB = {"ccsds_deep_space_link": 0.0, "dvb_like_link": 3.0}
+CLI_FRAMES = 40
+VIT_REPORT = ("viterbi_decode_stream", "viterbi_kernel",
+              "modem_tpu_torch/csrc/viterbi.cu",
+              "modem_tpu/ops/pallas_viterbi.py:102")
 # the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -284,13 +324,13 @@ def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from modem_tpu_torch.ops import (chain_kernel, demod_kernel, fir,
                                      fsk_kernel as fk, resampled_kernel as rk,
-                                     txrx)
+                                     txrx, viterbi_kernel as vk)
 
     for k in (chain_kernel.CHAIN_KERNEL, txrx.TX_KERNEL, txrx.RX_HARD_KERNEL,
               txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL,
               fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL, fk.DISC_MEANS_KERNEL,
               fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL, rk.RESAMPLED_TX_KERNEL,
-              rk.RESAMPLED_RX_KERNEL):
+              rk.RESAMPLED_RX_KERNEL, vk.VITERBI_KERNEL):
         k.launches = 0
 
 
@@ -467,13 +507,14 @@ DEVICE_NAMES = {"fused_pulse_chain": "chain_lut_kernel",
                 "fused_rx_soft": "rx_lut_kernel<true>"}
 
 
-def kernel_times(kern, plain, args, device, symbol: str):
+def kernel_times(kern, plain, args, device, symbol: str, plain_calls=20):
     """(kernel ms, plain ms, kernel's profiler ms) per call, taken plain,
-    kernel, kernel, plain: each number is the mean of its pair."""
-    p1 = time_calls(plain, args, device)
+    kernel, kernel, plain: each number is the mean of its pair; the plain
+    version over ``plain_calls`` calls a run."""
+    p1 = time_calls(plain, args, device, calls=plain_calls)
     k1 = time_calls(kern, args, device)
     k2 = time_calls(kern, args, device)
-    p2 = time_calls(plain, args, device)
+    p2 = time_calls(plain, args, device, calls=plain_calls)
     return ((k1 + k2) / 2, (p1 + p2) / 2,
             kernel_device_ms(kern, args, device, symbol))
 
@@ -913,12 +954,12 @@ def phase_fsk_kernels(mfsk, msk, device) -> dict:
     return errs
 
 
-def read_launches(kernels: dict, path: str) -> dict:
+def read_launches(kernels: dict, path: str, tag: str = "fsk main") -> dict:
     """Each kernel's launch count since the last reset; fails if one of the
     path's kernels never launched."""
     torch.cuda.synchronize()
     counts = {name: k.launches for name, k in kernels.items()}
-    print(f"[fsk main] {path} launches: {json.dumps(counts)}", flush=True)
+    print(f"[{tag}] {path} launches: {json.dumps(counts)}", flush=True)
     for name, n in counts.items():
         if n == 0:
             fail(f"{path} never launched the {name} kernel")
@@ -1437,6 +1478,310 @@ def phase_rs_times(msk, device, card: str) -> dict:
     return times
 
 
+# ---- the coded link (FramedLink) and K13 ----
+
+def vit_case(k: int, polys, shape, sigma, seed: int, device):
+    """A code, its data bits and their codeword's LLRs ``[C, T, n]``:
+    ``2 y / sigma^2`` of ``y = 1 - 2c`` plus Gaussian noise (``sigma`` 0:
+    noiseless, +-2)."""
+    from modem_tpu_torch.fec import ConvCode
+
+    code = ConvCode(k, polys)
+    g = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(0, 2, shape, generator=g, device=device,
+                         dtype=torch.int32)
+    y = 1.0 - 2.0 * code.encode(bits).to(torch.float32)
+    if sigma:
+        y = (y + sigma * torch.randn(y.shape, generator=g, device=device)
+             ) * (2.0 / sigma ** 2)
+    else:
+        y = 2.0 * y
+    return code, bits, y.reshape(shape[0], -1, code.n)
+
+
+def phase_viterbi_kernel(device) -> float:
+    """Phase 19: K13 against its plain version on the card, bit for bit.
+    Returns the max |difference| at bench_fec's width (0 or it fails)."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    worst = 0.0
+
+    def check(label, got, want, bits=None):
+        nonlocal worst
+        torch.cuda.synchronize(device)
+        err = max_err(got, want)
+        ber = ("" if bits is None else
+               f", BER vs sent {float((got != bits).double().mean()):.3e}")
+        print(f"[viterbi kernel] {label}: max |kernel - plain| = {err:.0f} "
+              f"(exact){ber}", flush=True)
+        if err != 0:
+            fail(f"K13 {label}: kernel and plain differ")
+        worst = max(worst, err)
+
+    ccsds = (7, (0o171, 0o133))
+    for sigma in (0.8, 0.0):
+        code, bits, lam = vit_case(*ccsds, (VIT_CHANNELS, VIT_BITS), sigma,
+                                   SEED + 30, device)
+        for b in (VIT_BLOCK, 256, 1024):
+            check(f"CCSDS K=7 r1/2 {VIT_CHANNELS} ch x {VIT_BITS} bits, "
+                  f"B={b} h={VIT_HALO}, sigma {sigma}",
+                  vk.stream_kernel(code, lam, b, VIT_HALO, 1e6),
+                  vk.stream_plain(code, lam, b, VIT_HALO, 1e6), bits)
+    for label, k, polys in (("K=5 r1/2", 5, (0o23, 0o35)),
+                            ("K=7 r1/3", 7, (0o171, 0o133, 0o165))):
+        for sigma in (0.8, 0.0):
+            code, bits, lam = vit_case(k, polys, VIT_SIDE, sigma, SEED + 31,
+                                       device)
+            check(f"{label} {VIT_SIDE[0]} ch x {VIT_SIDE[1]} bits, B=256, "
+                  f"sigma {sigma}",
+                  vk.stream_kernel(code, lam, 256, 10 * k, 1e6),
+                  vk.stream_plain(code, lam, 256, 10 * k, 1e6), bits)
+    code, _, lam = vit_case(*ccsds, (VIT_CHANNELS, VIT_BITS), 0.8, SEED + 32,
+                            device)
+    win = lam[:, :VIT_BLOCK + 2 * VIT_HALO]
+    g = torch.Generator(device=device).manual_seed(SEED + 33)
+    pin = torch.randint(0, 2, (VIT_CHANNELS,), generator=g,
+                        device=device).float()
+    check(f"{VIT_CHANNELS} ready windows of {win.shape[1]} steps, "
+          f"{int(pin.sum())} pinned", vk.windows_kernel(code, win, pin),
+          vk.windows_plain(code, win, pin))
+    return worst
+
+
+def link_noise(g, wave, snr_db: float):
+    """``wave`` plus seeded Gaussian noise at ``snr_db`` per complex
+    sample; returns the noisy rails and the per-rail noise variance."""
+    from modem_tpu_torch.ops.channel import awgn
+
+    i, q = wave
+    p = float(torch.mean(i * i + q * q))
+    return (awgn(g, i, q, snr_db, signal_power=p),
+            p / (2.0 * 10.0 ** (snr_db / 10.0)))
+
+
+def link_kernels() -> dict:
+    from modem_tpu_torch.ops import txrx, viterbi_kernel as vk
+
+    return {"fused_tx": txrx.TX_KERNEL, "fused_rx_soft": txrx.RX_SOFT_KERNEL,
+            VIT_REPORT[0]: vk.VITERBI_KERNEL}
+
+
+def hold_link_kernels(link, pay, clean, wave, nv: float) -> None:
+    """K2, K3 soft and K13 against their plain versions on exactly the
+    inputs one link run gave them: the frames' symbols, the received
+    waveform, and the deinterleaved LLRs of ``chain.rx_soft_fused``."""
+    from modem_tpu_torch.fec import block_deinterleave
+    from modem_tpu_torch.ops import txrx, viterbi_kernel as vk
+
+    ch, conv = link.chain, link.conv
+    syms = ch.map_symbols(link.frame(pay))
+    tx_args = (syms, ch.lut, ch.rrc, ch.sps, ch.span)
+    rx_args = (*wave, link.n_symbols, ch.lut, ch.rrc, ch.sps, ch.span, True)
+    llr = ch.rx_soft_fused(wave, link.n_symbols, noise_var=nv)
+    if link.rows:
+        llr = block_deinterleave(llr, link.rows)
+    lam = llr.reshape(llr.shape[0], -1, conv.n)
+    stream = (conv, lam, link.conv_window, 10 * conv.k, 1e6)
+    for name, got, want, tol in (
+            ("fused_tx (the link's tx_fused)", clean,
+             txrx.tx_plain(*tx_args), ATOL),
+            ("fused_rx_soft", txrx.rx_kernel(*rx_args),
+             txrx.rx_plain(*rx_args), ATOL),
+            (VIT_REPORT[0], vk.stream_kernel(*stream),
+             vk.stream_plain(*stream), 0)):
+        torch.cuda.synchronize(wave[0].device)
+        err = max_err(got, want)
+        shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
+        print(f"[link] {name} on the link's own inputs, output {shape}: max "
+              f"|kernel - plain| = {err:.3e} "
+              f"({'exact' if tol == 0 else f'tol {tol}'})", flush=True)
+        if err > tol:
+            fail(f"{name} at the link's inputs: kernel and plain differ")
+
+
+def run_link(link, frames: int, snr_db: float, seed: int, device,
+             hold: bool = False):
+    """``tx_fused`` -> seeded AWGN -> ``rx_fused`` on ``frames`` random
+    payloads with every launch count set to 0 just before; fails unless
+    every payload comes back with a true CRC. With ``hold``, then holds
+    the path's kernels against their plain versions on the run's own
+    inputs. Returns the launch counts of the run."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    pay = torch.randint(0, 2, (frames, link.payload_bits), generator=g,
+                        device=device, dtype=torch.int32)
+    reset_launches()
+    clean = link.tx_fused(pay)
+    wave, nv = link_noise(g, clean, snr_db)
+    out, ok = link.rx_fused(wave, nv)
+    counts = read_launches(link_kernels(), f"{frames}-frame link", "link")
+    errors = int((out != pay).sum())
+    print(f"[link] {frames} frames x {link.payload_bits} payload bits at "
+          f"{snr_db} dB per complex sample ({link.n_symbols} QPSK symbols a "
+          f"frame, {wave[0].numel()} samples a rail): {errors} payload bit "
+          f"errors, {int(ok.sum())}/{frames} CRCs true", flush=True)
+    if errors or not bool(ok.all()):
+        fail(f"link at {snr_db} dB: {errors} errors, {int(ok.sum())} CRCs")
+    if hold:
+        hold_link_kernels(link, pay, clean, wave, nv)
+    return counts
+
+
+def phase_link_main(device) -> int:
+    """Phase 20: the coded link through its entry points on the card.
+    Returns K13's launches in ``reference_link()``'s run."""
+    from modem_tpu_torch import presets
+    from modem_tpu_torch.fec import (StreamingViterbi, crc16_ccitt,
+                                     dvb_scrambler, rs_255_223)
+
+    counts = run_link(presets.reference_link(device=device), LINK_FRAMES,
+                      LINK_SNR_DB, SEED + 34, device, hold=True)
+    for name, snr in RS_LINK_SNR_DB.items():
+        run_link(getattr(presets, name)(device=device), RS_LINK_FRAMES, snr,
+                 SEED + 35, device)
+
+    g = torch.Generator(device=device).manual_seed(SEED + 36)
+    bits = torch.randint(0, 2, (LINK_FRAMES, 1002), generator=g,
+                         device=device, dtype=torch.int32)
+    crc, scr, rs = crc16_ccitt(), dvb_scrambler(), rs_255_223()
+    ks, nxt = scr.keystream(scr.init_state((LINK_FRAMES,), device), 1018)
+    ks_c, nxt_c = scr.keystream(scr.init_state((LINK_FRAMES,), "cpu"), 1018)
+    msg = torch.randint(0, 256, (RS_LINK_FRAMES, 223), generator=g,
+                        device=device, dtype=torch.int32)
+    recv = rs.encode(msg)
+    recv[:, :rs.t] ^= 0x3C  # t symbol errors in every codeword
+    dec, ok = rs.decode(recv)
+    dec_c, ok_c = rs.decode(recv.cpu())
+    for name, got, want in (
+            ("CRC-16", crc.compute(bits).cpu(), crc.compute(bits.cpu())),
+            ("scrambler keystream", ks.cpu(), ks_c),
+            ("scrambler state", nxt.cpu(), nxt_c),
+            ("RS(255,223) decode, t errors", dec.cpu(), dec_c),
+            ("RS ok", ok.cpu(), ok_c)):
+        if not torch.equal(got, want):
+            fail(f"{name} on the card differs from the CPU")
+        print(f"[link] {name} on CUDA tensors == CPU", flush=True)
+    if not bool(ok.all()) or not torch.equal(dec, msg):
+        fail("RS(255,223) did not correct t errors on the card")
+
+    # a stream of whole pushes: 4090 data bits + 6 flush = 8 x 512 steps
+    code, _, lam = vit_case(7, (0o171, 0o133), (VIT_CHANNELS, VIT_BITS - 6),
+                            0.8, SEED + 37, device)
+    llr = lam.reshape(VIT_CHANNELS, -1)
+    one = code.decode_soft_windowed(llr, VIT_BLOCK)
+    sv = StreamingViterbi(code, VIT_BLOCK)
+    step = code.n * VIT_BLOCK
+    outs = [sv.push(llr[:, a:a + step]) for a in range(0, llr.shape[-1], step)]
+    stream = torch.cat([o for o in outs if o is not None] + [sv.flush()], -1)
+    if not torch.equal(stream, one):
+        fail("StreamingViterbi pushes differ from one shot")
+    print(f"[link] StreamingViterbi in {len(outs)} pushes of {VIT_BLOCK} "
+          f"steps == decode_soft_windowed at {VIT_CHANNELS} ch x "
+          f"{VIT_BITS - 6} bits", flush=True)
+    return counts[VIT_REPORT[0]]
+
+
+def phase_link_cli(device) -> None:
+    """Phase 21: ``link tx`` -> ``link rx`` on the card."""
+    import io
+    import numpy as np
+    from modem_tpu_torch.cli import link as cli
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    bits = np.random.default_rng(SEED).integers(0, 2, CLI_FRAMES * 1002)
+    common = ["--preset", "reference", "--batch-frames", "16", "--device",
+              str(device)]
+    wave = io.BytesIO()
+    rc = cli.run(cli.build_parser().parse_args(["tx", *common]),
+                 "".join("01"[b] for b in bits).encode(), wave)
+    reset_launches()
+    out, err = io.BytesIO(), io.StringIO()
+    rc_rx = cli.run(cli.build_parser().parse_args(
+        ["rx", "--noise-var", "0.05", *common]), wave.getvalue(), out,
+        stderr=err)
+    torch.cuda.synchronize(device)
+    got = np.array([int(c) for c in "".join(out.getvalue().decode().split())])
+    n_ok = err.getvalue().count("frame: OK")
+    k13 = vk.VITERBI_KERNEL.launches
+    print(f"[cli] link tx ({CLI_FRAMES} frames, {len(wave.getvalue())} bytes)"
+          f" -> link rx: exit {rc}/{rc_rx}, {n_ok} OK verdicts, payload "
+          f"{'equal' if np.array_equal(got, bits) else 'DIFFERENT'}, K13 "
+          f"launches {k13}", flush=True)
+    if (rc, rc_rx, n_ok) != (0, 0, CLI_FRAMES) or k13 == 0 or \
+            not np.array_equal(got, bits):
+        fail("link CLI pair on the card")
+
+
+def viterbi_work(code, c: int, t: int, block: int, halo: int):
+    """Bytes K13 must move on a ``c``-channel stream of ``t`` steps (the
+    costs read once, the data bits written once) and the f32 operations of
+    its recursion over W windows of ``block + 2 halo`` steps per channel:
+    per state-step two path adds, a compare and a select, and the
+    renormalisation's min and subtract every 8 steps; per row-step the
+    2^n distinct branch sums, n - 1 adds each, shared by every state."""
+    w = -(-t // block)
+    rows, t_w = c * w, block + 2 * halo
+    ops = rows * t_w * (code.n_states * (4 + 2 / 8)
+                        + 2 ** code.n * (code.n - 1))
+    return 4 * c * t * code.n + 4 * c * (t - code.k + 1), ops, rows, t_w
+
+
+def phase_link_times(device, card: str) -> tuple:
+    """Phase 22: K13 and its plain version, the bound and the time per
+    trellis step; the info rate of ``decode_soft_windowed``; the link's
+    entry points per call with the device's busy time and idle share.
+    Returns K13's report times."""
+    from modem_tpu_torch import presets
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code, _, lam = vit_case(7, (0o171, 0o133), (VIT_CHANNELS, VIT_BITS),
+                            0.8, SEED + 38, device)
+    args = (code, lam, VIT_BLOCK, VIT_HALO, 1e6)
+    ms, plain_ms, dev_ms = kernel_times(vk.stream_kernel, vk.stream_plain,
+                                        args, device, VIT_REPORT[1],
+                                        plain_calls=2)
+    nbytes, flops, rows, t_w = viterbi_work(code, VIT_CHANNELS, lam.shape[1],
+                                            VIT_BLOCK, VIT_HALO)
+    times = (ms, plain_ms, dev_ms, None, (nbytes, flops))
+    bound_ms, bound_by = bound(nbytes, flops)
+    step = dev_ms if dev_ms is not None else ms
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"[times] {VIT_REPORT[0]:26s} per call: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, no library call; kernel alone in the profiler "
+          f"{dev_txt}; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); per trellis "
+          f"step {step / t_w * 1e3:.4f} us; {rows} rows x {t_w} steps x "
+          f"{code.n_states} states on {card}", flush=True)
+    llr = lam.reshape(VIT_CHANNELS, -1)
+    dec_ms = time_calls(code.decode_soft_windowed, (llr, VIT_BLOCK), device)
+    info = VIT_CHANNELS * VIT_BITS
+    print(f"[times] decode_soft_windowed per call {dec_ms:.4f} ms: "
+          f"{info / dec_ms / 1e3:.2f} Mbit/s of info bits ({VIT_CHANNELS} ch"
+          f" x {VIT_BITS} bits, B={VIT_BLOCK}, h={VIT_HALO}) on {card}",
+          flush=True)
+
+    for name, frames in (("reference_link", LINK_FRAMES),
+                         ("ccsds_deep_space_link", RS_LINK_FRAMES),
+                         ("dvb_like_link", RS_LINK_FRAMES)):
+        link = getattr(presets, name)(device=device)
+        g = torch.Generator(device=device).manual_seed(SEED + 39)
+        pay = torch.randint(0, 2, (frames, link.payload_bits), generator=g,
+                            device=device, dtype=torch.int32)
+        wave, nv = link_noise(g, link.tx_fused(pay),
+                              RS_LINK_SNR_DB.get(name, LINK_SNR_DB))
+        calls = ([("tx_fused", link.tx_fused, (pay,))]
+                 if name == "reference_link" else []) + [
+            ("rx_fused", link.rx_fused, (wave, nv))]
+        for label, fn, fargs in calls:
+            t = time_calls(fn, fargs, device, calls=5, reps=3)
+            busy = device_busy_ms(fn, fargs, device, calls=5)
+            bits = frames * link.payload_bits
+            print(f"[times] {name}.{label:9s} per call {t:.4f} ms "
+                  f"({bits / t / 1e3:.2f} Mbit/s of payload), device busy "
+                  f"{busy:.4f} ms (idle share {1 - busy / t:.3f}), {frames} "
+                  f"frames on {card}", flush=True)
+    return times
+
+
 def print_times(name: str, samples: int, t, card: str, extra: str) -> None:
     ms, plain_ms, dev_ms, _, (nbytes, flops) = t
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
@@ -1493,6 +1838,10 @@ def main() -> int:
     times.update(phase_rs_times(msk, device, card))
     fsk_errs.update(rs_errs)
     errs.update({n: err for n, (err, _) in fsk_errs.items()})
+    errs[VIT_REPORT[0]] = phase_viterbi_kernel(device)
+    launches[VIT_REPORT[0]] = phase_link_main(device)
+    phase_link_cli(device)
+    times[VIT_REPORT[0]] = phase_link_times(device, card)
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
@@ -1504,7 +1853,8 @@ def main() -> int:
          "modem_tpu/ops/pallas_demod.py:43")] + [
         (n, "modem_tpu_torch/csrc/fsk.cu", f"modem_tpu/ops/pallas_fsk.py:{line}")
         for n, (line, _) in FSK_REPORT.items()] + [
-        (n, src, rep) for n, (_, src, rep) in RS_REPORT.items()]
+        (n, src, rep) for n, (_, src, rep) in RS_REPORT.items()] + [
+        (VIT_REPORT[0], VIT_REPORT[2], VIT_REPORT[3])]
     report = {"kernels": []}
     for n, src, rep in entries:
         ms, plain_ms, dev_ms, lib_ms, work = times[n]

@@ -19,7 +19,12 @@ imports ``jax`` or ``modem_tpu``. Ported so far:
   (DBPSK/DQPSK on K1-K3), :class:`OqpskChain` and :class:`DcqpskChain`;
 * config #4, QAM with a rational resampler in the chain:
   :class:`ResampledChain` (the fused TX on kernel K11, the fused RX on K12)
-  and :class:`StreamingResampledChain`.
+  and :class:`StreamingResampledChain`;
+* the coded link: :class:`FramedLink` (CRC, scrambler, Reed–Solomon,
+  convolutional K=7 with its windowed Viterbi on kernel K13, puncturer,
+  interleaver; :mod:`~modem_tpu_torch.fec`) over the flagship chain, the
+  ``reference``, ``dvb_like`` and ``ccsds_deep_space`` presets
+  (:mod:`~modem_tpu_torch.presets`) and the ``link`` CLI.
 
 Every entry point builds on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
@@ -29,6 +34,7 @@ from .config import Rates
 from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
                     OqpskChain, PulseShapedChain, qpsk_reference_chain)
 from .gmsk import GmskChain
+from .link import FramedLink
 from .models import SCHEME_NAMES, make_scheme
 from .resampled import ResampledChain, StreamingResampledChain
 from .rx import Demodulator, RxState
@@ -36,8 +42,8 @@ from .streaming import StreamingFusedChain, StreamingFusedRx, StreamingFusedTx
 from .tx import Modulator, TxState
 
 __all__ = [
-    "DcqpskChain", "Demodulator", "DifferentialChain", "FskChain",
-    "GmskChain", "Modulator", "MskChain", "OqpskChain", "PulseShapedChain",
+    "DcqpskChain", "Demodulator", "DifferentialChain", "FramedLink",
+    "FskChain", "GmskChain", "Modulator", "MskChain", "OqpskChain", "PulseShapedChain",
     "Rates", "ResampledChain", "RxState", "SCHEME_NAMES",
     "StreamingFusedChain", "StreamingFusedRx", "StreamingFusedTx",
     "StreamingResampledChain", "TxState", "make_scheme",

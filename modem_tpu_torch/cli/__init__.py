@@ -4,5 +4,6 @@
 ``python -m modem_tpu_torch.cli.modulate`` and ``python -m
 modem_tpu_torch.cli.demodulate`` reproduce `modulate`/`demodulate`: the same
 flags, defaults, scheme table and binary formats, block-streamed with an
-explicit state carry, plus ``--device`` (default ``cuda``).
+explicit state carry, plus ``--device`` (default ``cuda``). ``python -m
+modem_tpu_torch.cli.link`` is the coded link's ``tx``/``rx`` pair.
 """

@@ -50,6 +50,8 @@ SIGNATURES = {
     "modem_chain_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P],
     "modem_fir": [_P, _P, _L, _L, _P, _I, _P, _P],
     "modem_demod": [_P, _I, _P, _L, _L, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    "modem_viterbi": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _L, _I,
+                      _L, _F, _I, _I, _L, _P, _P],
 }
 
 _library: ctypes.CDLL | None = None

@@ -1,0 +1,174 @@
+"""The framed production link: payload bits to waveform and back
+(counterpart of :mod:`modem_tpu.link`).
+
+    payload → CRC append → scramble → [RS outer encode] → conv encode
+            [→ puncture] → block interleave → chain TX
+
+and the exact inverse from soft LLRs, ending in a per-frame CRC verdict.
+Every size coupling (CRC width, RS block, conv flush bits, puncture period,
+interleaver rows, bits per symbol) is solved and checked at construction.
+
+The fused route (:meth:`FramedLink.tx_fused`, :meth:`FramedLink.rx_fused`)
+runs the chain's fused kernels (K2, K3 soft) for CUDA tensors and the
+staged ``tx`` / ``rx_soft`` for CPU ones, as the JAX package does off the
+TPU; the windowed inner decode is kernel K13 on the card. The LDPC, polar
+and turbo inner codes wait for their slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .fec import (ConvCode, Crc, Puncturer, ReedSolomon, Scrambler,
+                  block_deinterleave, block_interleave, ccsds_code,
+                  crc16_ccitt, dvb_scrambler)
+
+
+class FramedLink:
+    """A coded, scrambled, integrity-checked link over a bits→bits chain
+    (a ``PulseShapedChain``-family object with ``tx`` / ``rx_soft`` and
+    their fused forms).
+
+    ``payload_bits`` is required without an RS outer code; with one it is
+    implied (``rs.k*8 - crc.w``). ``interleave_rows=0`` disables
+    interleaving; ``rs=None`` / ``puncturer=None`` drop those stages.
+    ``conv_window="auto"`` decodes in windows of 512 steps once the trellis
+    has 1024 steps or more, else the full block; an int forces windows of
+    that many steps, None the full block. ``ldpc``, ``polar``,
+    ``polar_list`` and ``turbo`` raise ``NotImplementedError``: those inner
+    codes are not ported yet.
+    """
+
+    def __init__(self, chain, payload_bits: int | None = None,
+                 conv: ConvCode | None = None,
+                 rs: ReedSolomon | None = None,
+                 puncturer: Puncturer | None = None,
+                 interleave_rows: int = 8,
+                 scrambler: Scrambler | None = None,
+                 crc: Crc | None = None,
+                 conv_window: int | None | str = "auto",
+                 ldpc=None, polar=None, polar_list: int | None = None,
+                 turbo=None):
+        for name, value in (("ldpc", ldpc), ("polar", polar),
+                            ("polar_list", polar_list), ("turbo", turbo)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"FramedLink({name}=...) is not ported yet (ROADMAP.md "
+                    "queue 1, S5: the LDPC, polar and turbo inner codes)")
+        self.chain = chain
+        self.conv = ccsds_code() if conv is None else conv
+        self.rs = rs
+        self.puncturer = puncturer
+        self.rows = int(interleave_rows)
+        self.scrambler = dvb_scrambler() if scrambler is None else scrambler
+        self.crc = crc16_ccitt() if crc is None else crc
+
+        if rs is not None:
+            implied = rs.k * 8 - self.crc.w
+            if payload_bits is not None and payload_bits != implied:
+                raise ValueError(
+                    f"payload_bits={payload_bits} conflicts with the RS "
+                    f"block: rs.k*8 - crc.w = {implied}")
+            payload_bits = implied
+        if payload_bits is None:
+            raise ValueError("payload_bits is required without an RS code")
+        self.payload_bits = int(payload_bits)
+
+        framed = self.payload_bits + self.crc.w
+        coded_in = rs.n * 8 if rs is not None else framed
+        steps = coded_in + (self.conv.k - 1)
+        if puncturer is not None and steps % puncturer.period:
+            raise ValueError(
+                f"conv trellis length {steps} (= frame {coded_in} + "
+                f"{self.conv.k - 1} flush) must divide by the puncture "
+                f"period {puncturer.period}; adjust payload or pattern")
+        self._steps = steps
+        wire = (puncturer.out_bits(steps) if puncturer is not None
+                else steps * self.conv.n)
+        if self.rows and wire % self.rows:
+            raise ValueError(
+                f"wire length {wire} must divide by interleave_rows="
+                f"{self.rows}")
+        bps = chain.scheme.bits_per_symbol
+        if wire % bps:
+            raise ValueError(
+                f"wire length {wire} must divide by bits/symbol {bps}")
+        self.wire_bits = wire
+        self.n_symbols = wire // bps
+        if conv_window == "auto":
+            # windowed truncated-traceback decode once the trellis is long
+            # enough for the window to pay, as the JAX package does
+            self.conv_window = 512 if self._steps >= 1024 else None
+        else:
+            self.conv_window = (None if conv_window is None
+                                else int(conv_window))
+
+    # ---- TX ----
+
+    def frame(self, payload: torch.Tensor) -> torch.Tensor:
+        """``[..., payload_bits]`` -> wire bits ``[..., wire_bits]``."""
+        if payload.shape[-1] != self.payload_bits:
+            raise ValueError(
+                f"expected {self.payload_bits} payload bits, got "
+                f"{payload.shape[-1]}")
+        x = self.crc.append(payload)
+        x, _ = self.scrambler.scramble(
+            x, self.scrambler.init_state(x.shape[:-1], x.device))
+        if self.rs is not None:
+            x = self.rs.encode_bits(x)
+        x = self.conv.encode(x)
+        if self.puncturer is not None:
+            x = self.puncturer.puncture(x)
+        if self.rows:
+            x = block_interleave(x, self.rows)
+        return x
+
+    def tx(self, payload: torch.Tensor):
+        """Payload bits -> baseband waveform through the staged chain."""
+        return self.chain.tx(self.frame(payload))
+
+    def tx_fused(self, payload: torch.Tensor):
+        """Like :meth:`tx`, through the chain's fused TX (K2) for a CUDA
+        payload; a CPU payload takes :meth:`tx`."""
+        if payload.is_cuda:
+            return self.chain.tx_fused(self.frame(payload))
+        return self.tx(payload)
+
+    # ---- RX ----
+
+    def decode(self, llrs: torch.Tensor):
+        """Wire LLRs ``[..., wire_bits]`` (positive = bit 0) ->
+        ``(payload [..., payload_bits], ok [...])``."""
+        x = llrs
+        if self.rows:
+            x = block_deinterleave(x, self.rows)
+        if self.puncturer is not None:
+            x = self.puncturer.depuncture(x, self._steps)
+        if self.conv_window:
+            x = self.conv.decode_soft_windowed(x, self.conv_window)
+        else:
+            x = self.conv.decode_soft(x)
+        ok = None
+        if self.rs is not None:
+            x, ok = self.rs.decode_bits(x)
+        x, _ = self.scrambler.descramble(
+            x, self.scrambler.init_state(x.shape[:-1], x.device))
+        payload = x[..., : self.payload_bits]
+        crc_ok = self.crc.check(x)
+        if ok is not None:
+            crc_ok = crc_ok & ok
+        return payload, crc_ok
+
+    def rx(self, iq, noise_var: float):
+        """Received waveform -> ``(payload, ok)`` via the chain's soft RX."""
+        llrs = self.chain.rx_soft(iq, self.n_symbols, noise_var=noise_var)
+        return self.decode(llrs)
+
+    def rx_fused(self, iq, noise_var: float):
+        """Like :meth:`rx`, through the chain's fused matched filter (K3
+        soft) for a CUDA waveform; a CPU waveform takes :meth:`rx`."""
+        if iq[0].is_cuda:
+            llrs = self.chain.rx_soft_fused(iq, self.n_symbols,
+                                            noise_var=noise_var)
+            return self.decode(llrs)
+        return self.rx(iq, noise_var)

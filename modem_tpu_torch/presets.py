@@ -1,0 +1,67 @@
+"""Production presets: one-call constructors for standard-shaped link
+configurations (counterpart of :mod:`modem_tpu.presets`).
+
+A preset fixes the composition and the size coupling a deployment would
+otherwise re-derive. They are standard-shaped, not standard-conformant:
+DVB-style RS + interleaver + scrambler, CCSDS-style concatenated coding,
+GSM's GMSK at BT 0.3. Each takes ``device``, the card unless the caller
+asks for the CPU. Not ported yet: the OFDM, MIMO, turbo and polar presets
+and ``qam16_gray_chain`` (ROADMAP.md lists each with the slice it waits
+for).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .chain import qpsk_reference_chain
+from .config import Rates
+from .fec import Puncturer, ccsds_code, rate34_pattern, rs_255_223, rs_dvb
+from .gmsk import GmskChain
+from .link import FramedLink
+
+#: The reference binaries' operating point (`modulate.rs` / `demodulate.rs`
+#: defaults): 10 kHz sample rate, 1250 baud.
+REFERENCE_RATES = Rates(baud_rate=1250, sample_rate=10000)
+
+Device = torch.device | str | None
+
+
+def reference_link(payload_bits: int = 1002,
+                   device: Device = None) -> FramedLink:
+    """The flagship chain (QPSK + RRC matched filter) in the production
+    framing stack (CRC-16 + scrambler + conv K=7 + interleaver): 1024 QPSK
+    symbols a frame, error-free from about -4 dB SNR per complex sample."""
+    return FramedLink(qpsk_reference_chain(REFERENCE_RATES, device=device),
+                      payload_bits=payload_bits)
+
+
+def dvb_like_link(rate34: bool = True, device: Device = None) -> FramedLink:
+    """DVB-shaped concatenated link over the QPSK chain: RS(204,188)
+    shortened outer code, conv K=7 inner code (punctured to 3/4 by
+    default), DVB scrambler, block interleaver. Payload 1504 bits (188
+    bytes) minus the CRC."""
+    return FramedLink(
+        qpsk_reference_chain(REFERENCE_RATES, device=device),
+        rs=rs_dvb(),
+        puncturer=Puncturer(rate34_pattern()) if rate34 else None,
+        interleave_rows=12,
+    )
+
+
+def ccsds_deep_space_link(device: Device = None) -> FramedLink:
+    """CCSDS-shaped deep-space concatenated coding: RS(255,223) outer, conv
+    K=7 rate-1/2 inner, interleaved. Error-free from about 0 dB SNR per
+    complex sample over the QPSK chain."""
+    return FramedLink(
+        qpsk_reference_chain(REFERENCE_RATES, device=device),
+        rs=rs_255_223(),
+        conv=ccsds_code(),
+        interleave_rows=12,  # wire = (255*8 + 6 flush) * 2 = 4092 bits
+    )
+
+
+def gsm_like_gmsk(rates: Rates | None = None,
+                  device: Device = None) -> GmskChain:
+    """GSM's modulation: GMSK at BT = 0.3."""
+    return GmskChain(rates or REFERENCE_RATES, bt=0.3, device=device)

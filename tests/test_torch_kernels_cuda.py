@@ -1,17 +1,22 @@
 """The port's CUDA kernels (K1 loopback, K2 TX, K3 RX hard and soft, K4 FIR,
 K5 product detector, K6 FSK loopback, K7 MSK loopback, K8 FSK TX, K9
 discriminator means, K10 MSK TX, K11 resampled TX, K12 resampled RX hard and
-soft) against their plain PyTorch versions on the card. Marked
+soft, K13 windowed Viterbi) against their plain PyTorch versions on the card,
+and the coded link (CRC, scrambler, RS, ``FramedLink``, the ``link`` CLI)
+against the CPU. Marked
 ``cuda``: every test skips without a CUDA device. On the card
 (``--noconftest`` because the suite's conftest imports jax, which the
 port's machine need not have)::
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
 
-Tolerances: decisions exactly (K6 and K7 with noise: on >= 99.99%); waveforms,
+Tolerances: decisions exactly (K6 and K7 with noise: on >= 99.99%; K13 and
+the link's payloads and verdicts bit for bit); waveforms,
 means and soft points ``atol=1e-5`` (``nvcc`` contracts multiply-adds to
 FMA, the plain version does not).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -633,3 +638,216 @@ def test_resampled_kernels_refuse_bad_arguments(dev):
     with pytest.raises(RuntimeError, match="CUDA error"):
         rk.resampled_rx_kernel(w, w, 10, chain.lut, table, 300, 4, 0, False)
     assert rk.RESAMPLED_RX_KERNEL.launches == before
+
+
+# ---- K13 (viterbi.cu) and the coded link ----
+
+# (K, polynomials): K=7 rate 1/2 (CCSDS) and 1/3, K=5, and the state-count
+# edges S = 8 (K=4), 32 (K=6), 256 (K=9)
+CODES = [(7, (0o171, 0o133)), (7, (0o171, 0o133, 0o165)), (5, (0o23, 0o35)),
+         (4, (0o15, 0o17)), (6, (0o53, 0o75)), (9, (0o561, 0o753))]
+CODE_IDS = [f"k{k}_r1_{len(p)}" for k, p in CODES]
+
+
+def _code_llrs(k, polys, shape, t, sigma, seed, dev):
+    from modem_tpu_torch.fec import ConvCode
+
+    code = ConvCode(k, polys)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bits = torch.randint(0, 2, shape + (t,), generator=g, device=dev,
+                         dtype=torch.int32)
+    cw = code.encode(bits).to(torch.float32)
+    llr = (1.0 - 2.0 * cw) * 2.0 + sigma * torch.randn(
+        cw.shape, generator=g, device=dev)
+    return code, bits, llr
+
+
+@pytest.mark.parametrize("case", CODES, ids=CODE_IDS)
+def test_viterbi_windows_kernel(case, dev):
+    """Free-start windows, pinned and free rows mixed, noisy: decisions bit
+    for bit the plain version's."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code, _, llr = _code_llrs(*case, (6,), 300, 2.0, 13, dev)
+    win = llr.reshape(6, -1, code.n)[:, :251]
+    pin = torch.tensor([0.0, 1.0, 0.0, 1.0, 1.0, 0.0], device=dev)
+    got = _launches(vk.VITERBI_KERNEL, vk.viterbi_decode_windows, code,
+                    win.reshape(2, 3, 251, code.n), pin.reshape(2, 3))
+    want = vk.windows_plain(code, win, pin)
+    assert got.dtype == torch.int32 and got.shape == (2, 3, 251)
+    assert torch.equal(got.reshape(6, 251), want)
+
+
+@pytest.mark.parametrize("case", CODES[:3], ids=CODE_IDS[:3])
+def test_viterbi_stream_kernel(case, dev):
+    """decode_soft_windowed on a 2-D batch: the kernel's windows, built from
+    the compact stream, equal the plain version's gathered ones."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code, bits, llr = _code_llrs(*case, (2, 3), 700, 1.5, 14, dev)
+    got = _launches(vk.VITERBI_KERNEL, code.decode_soft_windowed, llr, 128)
+    lam = llr.reshape(llr.shape[:-1] + (-1, code.n))
+    want = vk.stream_plain(code, lam, 128, 10 * code.k, 1e6)
+    assert got.shape == bits.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("block", [256, 512, 1024])
+def test_viterbi_stream_kernel_bench_fec_width(block, dev):
+    """bench_fec.py's width: 256 channels x 4096 data bits, halo 70."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code, bits, llr = _code_llrs(7, (0o171, 0o133), (256,), 4096, 1.2, 15,
+                                 dev)
+    lam = llr.reshape(256, -1, 2)
+    got = vk.stream_kernel(code, lam, block, 70, 1e6)
+    assert torch.equal(got, vk.stream_plain(code, lam, block, 70, 1e6))
+    assert float((got != bits).double().mean()) < 1e-3
+
+
+def test_viterbi_kernel_refuses_what_it_does_not_take(dev):
+    from modem_tpu_torch.fec import ConvCode, ccsds_code
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    before = vk.VITERBI_KERNEL.launches
+    small = ConvCode(3, (0o7, 0o5))  # S = 4
+    with pytest.raises(ValueError, match="8 <= S <= 256"):
+        small.decode_soft_windowed(torch.zeros((1, 200), device=dev), 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        vk.viterbi_decode_windows(ccsds_code(),
+                                  torch.zeros((1, 30000, 2), device=dev), 0.0)
+    # the C entry point itself refuses a state count it has no kernel for
+    # and a row over the card's shared memory per block
+    lam = torch.zeros((1, 64, 2), device=dev)
+    out = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+    masks = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    for s, layout in ((4, vk.row_layout(4, 2, 64)),
+                      (64, (128, 256, 1 << 20))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            vk.VITERBI_KERNEL.launch(dev, lam.data_ptr(), None,
+                                     masks.data_ptr(), 1, 64, 2, s,
+                                     s.bit_length() - 2, 64, *layout, 0, 0,
+                                     1, 0.0, 0, 64, 64, out.data_ptr())
+    assert vk.VITERBI_KERNEL.launches == before
+
+
+def test_viterbi_empty_batch_launches_nothing(dev):
+    from modem_tpu_torch.fec import ccsds_code
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    before = vk.VITERBI_KERNEL.launches
+    got = ccsds_code().decode_soft_windowed(torch.zeros((0, 400), device=dev),
+                                            64)
+    assert got.shape == (0, 194)
+    assert vk.VITERBI_KERNEL.launches == before
+
+
+def test_streaming_viterbi_on_card(dev):
+    """Pushes equal one shot, and each window decode is one launch."""
+    from modem_tpu_torch.fec import StreamingViterbi
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code, bits, llr = _code_llrs(7, (0o171, 0o133), (4,), 1024 - 6, 1.5, 16,
+                                 dev)
+    one = code.decode_soft_windowed(llr, 128)
+    sv = StreamingViterbi(code, 128)
+    before = vk.VITERBI_KERNEL.launches
+    outs = [sv.push(llr[:, a:a + 256]) for a in range(0, llr.shape[-1], 256)]
+    outs = [o for o in outs if o is not None] + [sv.flush()]
+    assert vk.VITERBI_KERNEL.launches == before + 8
+    assert torch.equal(torch.cat(outs, -1), one)
+
+
+def test_crc_scrambler_rs_on_card(dev):
+    """The framing stack's float32 products and GF tables on CUDA tensors
+    equal the CPU's, RS errors up to t corrected."""
+    from modem_tpu_torch.fec import crc16_ccitt, dvb_scrambler, rs_255_223
+
+    g = torch.Generator(device="cpu").manual_seed(17)
+    bits = torch.randint(0, 2, (8, 1002), generator=g, dtype=torch.int32)
+    crc, scr, rs = crc16_ccitt(), dvb_scrambler(), rs_255_223()
+    assert torch.equal(crc.append(bits.to(dev)).cpu(), crc.append(bits))
+    framed = crc.append(bits.to(dev))
+    flip = framed.clone()
+    flip[::2, 100] ^= 1
+    assert crc.check(flip).cpu().tolist() == [False, True] * 4
+    st = scr.init_state((8,), dev)
+    ks, nxt = scr.keystream(st, 1018)
+    ks_c, nxt_c = scr.keystream(scr.init_state((8,), "cpu"), 1018)
+    assert torch.equal(ks.cpu(), ks_c) and torch.equal(nxt.cpu(), nxt_c)
+    msg = torch.randint(0, 256, (8, 223), generator=g, dtype=torch.int32)
+    cw = rs.encode(msg.to(dev))
+    assert torch.equal(cw.cpu(), rs.encode(msg))
+    bad = cw.clone()
+    for r in range(8):  # r*4 symbol errors: up to 16 = t corrected, 20, 24, 28 not
+        bad[r, torch.randperm(255, generator=g)[:r * 4].to(dev)] ^= 0x5A
+    got, ok = rs.decode(bad)
+    want, ok_c = rs.decode(bad.cpu())
+    assert torch.equal(got.cpu(), want) and torch.equal(ok.cpu(), ok_c)
+    assert ok.cpu().tolist()[:5] == [True] * 5
+    assert torch.equal(got[:5], msg[:5].to(dev))
+
+
+@pytest.mark.parametrize("preset,snr", [("reference_link", 2.0),
+                                        ("dvb_like_link", 3.0),
+                                        ("ccsds_deep_space_link", 0.0)])
+def test_link_on_card(preset, snr, dev):
+    """tx_fused -> seeded noise -> rx_fused on the card: payloads back with
+    every CRC true, through K2, K3 soft and K13; the decode of the card's
+    LLRs equal to the CPU's."""
+    from modem_tpu_torch import presets
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    link = getattr(presets, preset)(device=dev)
+    g = torch.Generator(device=dev).manual_seed(18)
+    pay = torch.randint(0, 2, (8, link.payload_bits), generator=g, device=dev,
+                        dtype=torch.int32)
+    before = (txrx.TX_KERNEL.launches, txrx.RX_SOFT_KERNEL.launches,
+              vk.VITERBI_KERNEL.launches)
+    i, q = link.tx_fused(pay)
+    for f, s in zip((i, q), link.tx(pay)):
+        torch.testing.assert_close(f, s, atol=ATOL, rtol=0)
+    p = float(torch.mean(i * i + q * q))
+    nv = p / (2.0 * 10.0 ** (snr / 10.0))
+    i = i + math.sqrt(nv) * torch.randn(i.shape, generator=g, device=dev)
+    q = q + math.sqrt(nv) * torch.randn(q.shape, generator=g, device=dev)
+    out, ok = link.rx_fused((i, q), nv)
+    after = (txrx.TX_KERNEL.launches, txrx.RX_SOFT_KERNEL.launches,
+             vk.VITERBI_KERNEL.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert torch.equal(out, pay) and bool(ok.all())
+    llr = link.chain.rx_soft_fused((i, q), link.n_symbols, noise_var=nv)
+    cpu_out, cpu_ok = _cpu_link(preset).decode(llr.cpu())
+    assert torch.equal(cpu_out, out.cpu()) and torch.equal(cpu_ok, ok.cpu())
+
+
+def _cpu_link(preset):
+    from modem_tpu_torch import presets
+
+    return getattr(presets, preset)(device="cpu")
+
+
+def test_link_cli_on_card(dev):
+    """The ``link`` CLI pair on the card: payloads and verdicts back, and a
+    zeroed burst in one frame exits 1."""
+    import io
+
+    from modem_tpu_torch.cli import link as cli
+
+    rng = np.random.default_rng(19)
+    bits = rng.integers(0, 2, 3 * 1002)
+    wave = io.BytesIO()
+    assert cli.run(cli.build_parser().parse_args(
+        ["tx", "--preset", "reference", "--batch-frames", "2", "--device",
+         str(dev)]), "".join("01"[b] for b in bits).encode(), wave) == 0
+    raw = np.frombuffer(wave.getvalue(), "<f4").copy()
+    args = cli.build_parser().parse_args(
+        ["rx", "--preset", "reference", "--noise-var", "0.05",
+         "--batch-frames", "2", "--device", str(dev)])
+    dec, err = io.BytesIO(), io.StringIO()
+    assert cli.run(args, raw.tobytes(), dec, stderr=err) == 0
+    got = np.array([int(c) for c in "".join(dec.getvalue().decode().split())])
+    assert np.array_equal(got, bits) and err.getvalue().count("OK") == 3
+    raw[len(raw) // 9: 2 * len(raw) // 9] = 0.0  # a burst erasure in frame 0
+    dec, err = io.BytesIO(), io.StringIO()
+    assert cli.run(args, raw.tobytes(), dec, stderr=err) == 1
+    assert "BAD" in err.getvalue()

@@ -53,7 +53,11 @@ def test_every_module_listed():
     assert "modem_tpu_torch.resampled" in MODULES
     assert "modem_tpu_torch.ops.resampled_kernel" in MODULES
     assert "modem_tpu_torch.ops.resample" in MODULES
-    assert len(MODULES) >= 39
+    for m in ("fec", "fec.conv", "fec.crc", "fec.interleave", "fec.puncture",
+              "fec.rs", "fec.scramble", "ops.viterbi_kernel", "link",
+              "presets", "cli.link", "utils.cache"):
+        assert f"modem_tpu_torch.{m}" in MODULES, m
+    assert len(MODULES) >= 51
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
