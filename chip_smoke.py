@@ -130,12 +130,44 @@ trellis rows of 652 steps) and ``bench_link.py``'s (``reference_link()``,
     frames (and the RS presets' ``rx_fused`` at 64) with the device's busy
     time and idle share.
 
+The modes of K1-K3 (the passband NCO at 2000 Hz, a table of 5 phases, and
+at 1700 Hz, 100 phases per sample, both at 10000; algebraic 256-QAM; bf16
+and int16 waveforms; K1's in-kernel noise at baseband and passband), the
+BER harness on them, and K13 on the code shapes its repair widened:
+
+23. (a) each mode against its plain version at 130 x 600 symbols with
+    ``sym_offset`` -16 (K1 in tiles of 32, which crosses the noise
+    stream's lane and tile keys) and at 256 x 4096: decisions equal (K1
+    with noise on >= 99.99%), waveforms and soft points within 1e-5, bf16
+    within one bf16 ulp, int16 within one step;
+24. (b) the passband main path, ``PulseShapedChain(QPSK(0.0, 1.0),
+    Rates(1250, 10000), carrier_hz=2000)`` (and 1700 Hz) at 256 x 4096:
+    ``roundtrip_fused``, ``rx_fused(tx_fused)`` and the hard bits of
+    ``rx_soft_fused`` give the bits back exactly, the three streaming
+    classes in 4 pushes equal one shot, ``tx_fused(out_scale=...)`` (int16)
+    then ``rx_fused``; natural 256-QAM ``roundtrip_fused`` and
+    ``rx_fused(tx_fused)``; the flagship's bf16 ``tx_fused`` then
+    ``rx_fused``; each path with every launch count set to 0 just before
+    and read just after;
+25. (c) the harness: ``fused_ber_point`` for QPSK at 7 dB (and K1's noise
+    at passband) within 10% of ``qpsk_ber_theory``, natural 16-QAM at 14 dB
+    within 10% of ``mqam_ber_theory``, a monotone ``ber_waterfall``,
+    ``release_gates(scale=4)`` with gates 1, 2 and 4 passed and 3 and 5 not
+    run; ``fused_ber_point`` per call in bits/s;
+26. (d) K13 at K = 3 (S = 4, the warp route) and K = 15 (the block route)
+    through ``decode_soft_windowed``, bit for bit against the plain
+    version;
+27. (e) times: each mode's kernel and plain version per call, the
+    profiler's device time and the bound; widened K13 per call and per
+    trellis step.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11; K12 hard and
-soft; K13), each
+soft; K13; each mode of K1-K3, K1 with noise with ``agreement``; K13 at
+K = 3 and 15), each
 with its launches on its path, error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
 take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
@@ -229,6 +261,20 @@ CLI_FRAMES = 40
 VIT_REPORT = ("viterbi_decode_stream", "viterbi_kernel",
               "modem_tpu_torch/csrc/viterbi.cu",
               "modem_tpu/ops/pallas_viterbi.py:102")
+# the K1-K3 modes (passband at 2000 Hz, a table of 5 phases, and 1700 Hz,
+# 100 phases per sample; 256-QAM; bf16 and int16 waveforms; K1's noise),
+# the harness and widened K13
+MODE_SMALL = (130, 600)          # crosses the noise stream's lane and tile keys
+MODE_SMALL_CHUNK = 32
+MODE_SNR_DB = 7.0                # Es/N0: QPSK BER ~1.3e-2
+MODE_AGREE = 0.9999              # noisy K1 decisions, kernel vs plain
+MODE_QAM_BPS = 8
+MODE_OUT_SCALE = 8000.0          # int16 wire format, peaks well inside
+GATES_SCALE = 4
+WIDE_VIT = {"viterbi_k3": (3, (0o7, 0o5)),
+            "viterbi_k15": (15, (0o74653, 0o61535))}
+WIDE_VIT_SHAPE = (16, 1024)      # channels x data bits
+WIDE_VIT_BLOCK = 256
 # the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -330,7 +376,8 @@ def reset_launches() -> None:
               txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL,
               fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL, fk.DISC_MEANS_KERNEL,
               fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL, rk.RESAMPLED_TX_KERNEL,
-              rk.RESAMPLED_RX_KERNEL, vk.VITERBI_KERNEL):
+              rk.RESAMPLED_RX_KERNEL, vk.VITERBI_KERNEL,
+              vk.VITERBI_BLOCK_KERNEL):
         k.launches = 0
 
 
@@ -501,10 +548,10 @@ def device_busy_ms(fn, args, device, calls=20) -> float:
 
 
 #: substring of each kernel's name in a profiler trace
-DEVICE_NAMES = {"fused_pulse_chain": "chain_lut_kernel",
-                "fused_tx": "tx_lut_kernel",
-                "fused_rx": "rx_lut_kernel<false>",
-                "fused_rx_soft": "rx_lut_kernel<true>"}
+DEVICE_NAMES = {"fused_pulse_chain": "pulse_chain_kernel",
+                "fused_tx": "pulse_tx_kernel",
+                "fused_rx": "pulse_rx_kernel<false,",
+                "fused_rx_soft": "pulse_rx_kernel<true,"}
 
 
 def kernel_times(kern, plain, args, device, symbol: str, plain_calls=20):
@@ -1731,26 +1778,12 @@ def phase_link_times(device, card: str) -> tuple:
     entry points per call with the device's busy time and idle share.
     Returns K13's report times."""
     from modem_tpu_torch import presets
-    from modem_tpu_torch.ops import viterbi_kernel as vk
 
     code, _, lam = vit_case(7, (0o171, 0o133), (VIT_CHANNELS, VIT_BITS),
                             0.8, SEED + 38, device)
-    args = (code, lam, VIT_BLOCK, VIT_HALO, 1e6)
-    ms, plain_ms, dev_ms = kernel_times(vk.stream_kernel, vk.stream_plain,
-                                        args, device, VIT_REPORT[1],
-                                        plain_calls=2)
-    nbytes, flops, rows, t_w = viterbi_work(code, VIT_CHANNELS, lam.shape[1],
-                                            VIT_BLOCK, VIT_HALO)
-    times = (ms, plain_ms, dev_ms, None, (nbytes, flops))
-    bound_ms, bound_by = bound(nbytes, flops)
-    step = dev_ms if dev_ms is not None else ms
-    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-    print(f"[times] {VIT_REPORT[0]:26s} per call: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, no library call; kernel alone in the profiler "
-          f"{dev_txt}; bound {bound_ms:.4f} ms by {bound_by} "
-          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); per trellis "
-          f"step {step / t_w * 1e3:.4f} us; {rows} rows x {t_w} steps x "
-          f"{code.n_states} states on {card}", flush=True)
+    times = viterbi_times(VIT_REPORT[0], VIT_REPORT[1], code, lam,
+                          VIT_CHANNELS, VIT_BLOCK, VIT_HALO, device, card,
+                          plain_calls=2)
     llr = lam.reshape(VIT_CHANNELS, -1)
     dec_ms = time_calls(code.decode_soft_windowed, (llr, VIT_BLOCK), device)
     info = VIT_CHANNELS * VIT_BITS
@@ -1780,6 +1813,435 @@ def phase_link_times(device, card: str) -> tuple:
                   f"{busy:.4f} ms (idle share {1 - busy / t:.3f}), {frames} "
                   f"frames on {card}", flush=True)
     return times
+
+
+# ---- the K1-K3 modes, the passband main path, the harness, widened K13 ----
+
+def mode_symbols(shape, bps: int, device, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, 1 << bps, shape, generator=g, device=device,
+                         dtype=torch.int32)
+
+
+def mode_cases():
+    """(entry, kernel kind, spec, profiler name, replaced TPU kernel) for
+    each new mode of K1-K3: ``spec`` holds ``qam`` (square 256-QAM),
+    ``carrier`` ((hz, sr)), ``sigma`` (K1's noise), ``store`` (K2's
+    (out_scale, dtype)), ``in`` (K3's input dtype), ``soft``."""
+    from modem_tpu_torch.ops import txrx
+
+    qam = txrx.qam_mparams(MODE_QAM_BPS, 0.0, 1.0)
+    pb, pb17 = (2000, REF_SR), (1700, REF_SR)
+    sig_bb = math.sqrt(0.5 / 10.0 ** (MODE_SNR_DB / 10.0))
+    chain = ("chain", "pulse_chain_kernel", "modem_tpu/ops/pallas_chain.py:195")
+    tx = ("tx", "pulse_tx_kernel", "modem_tpu/ops/pallas_txrx.py:61")
+    rx = ("rx", "pulse_rx_kernel<false,", "modem_tpu/ops/pallas_txrx.py:277")
+    rxs = ("rx", "pulse_rx_kernel<true,", "modem_tpu/ops/pallas_txrx.py:277")
+    cases = [
+        ("fused_pulse_chain_passband", chain, {"carrier": pb}),
+        ("fused_pulse_chain_passband_1700", chain, {"carrier": pb17}),
+        ("fused_pulse_chain_qam256", chain, {"qam": qam}),
+        ("fused_pulse_chain_noisy", chain, {"sigma": sig_bb}),
+        ("fused_pulse_chain_noisy_passband", chain,
+         {"carrier": pb, "sigma": sig_bb / 2}),
+        ("fused_tx_passband", tx, {"carrier": pb}),
+        ("fused_tx_passband_1700", tx, {"carrier": pb17}),
+        ("fused_tx_qam256", tx, {"qam": qam}),
+        ("fused_tx_bf16", tx, {"store": (None, torch.bfloat16)}),
+        ("fused_tx_int16", tx, {"store": (MODE_OUT_SCALE, torch.int16)}),
+        ("fused_rx_passband", rx, {"carrier": pb}),
+        ("fused_rx_passband_1700", rx, {"carrier": pb17}),
+        ("fused_rx_qam256", rx, {"qam": qam}),
+        ("fused_rx_bf16", rx, {"in": torch.bfloat16}),
+        ("fused_rx_soft_passband", rxs, {"carrier": pb, "soft": True}),
+    ]
+    return [(n, kind, spec, sym, rep) for n, (kind, sym, rep), spec in cases]
+
+
+def mode_args(kind: str, spec: dict, syms, off: int, cs: int, chain):
+    """The kernel's (and its plain version's) positional arguments for
+    ``syms``; K3 gets the plain TX's waveform of them, with light noise
+    where it is float32."""
+    from modem_tpu_torch.ops import txrx
+
+    qam, car = spec.get("qam"), spec.get("carrier")
+    lut = None if qam is not None else chain.lut
+    common = (syms, lut, chain.rrc, chain.sps, chain.span, qam, car, off)
+    if kind == "chain":
+        return common + (spec.get("sigma"), SEED + 40, cs)
+    if kind == "tx":
+        return common + spec.get("store", (None, torch.float32))
+    dtype = spec.get("in", torch.float32)
+    wave = txrx.tx_plain(*common, None, dtype)
+    rails = wave if isinstance(wave, tuple) else (wave,)
+    if dtype == torch.float32:
+        g = torch.Generator(device=syms.device).manual_seed(SEED + 41)
+        sigma = 0.002 if qam is not None else 0.05
+        rails = tuple(w + sigma * torch.randn(w.shape, generator=g,
+                                              device=w.device) for w in rails)
+    rails = rails if len(rails) == 2 else (rails[0], None)
+    return (*rails, syms.shape[-1], lut, chain.rrc, chain.sps, chain.span,
+            spec.get("soft", False), qam, car, off)
+
+
+def mode_fns(kind: str):
+    from modem_tpu_torch.ops import chain_kernel as ck, txrx
+
+    return {"chain": (ck.chain_kernel, ck.chain_plain),
+            "tx": (txrx.tx_kernel, txrx.tx_plain),
+            "rx": (txrx.rx_kernel, txrx.rx_plain)}[kind]
+
+
+def mode_compare(name: str, spec: dict, got, want) -> tuple:
+    """(max |kernel - plain|, agreement or None); fails past the bars:
+    decisions equal (K1 with noise on >= MODE_AGREE), waveforms and soft
+    points within ATOL, bf16 within one bf16 ulp (past f32 rounding near
+    zero), int16 within one step."""
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if got[0].dtype in (torch.int32,):
+        agree = float((got[0] == want[0]).double().mean())
+        err = float((got[0] - want[0]).abs().max())
+        need = MODE_AGREE if "sigma" in spec else 1.0
+        if agree < need:
+            fail(f"{name}: decisions agree on {agree} < {need}")
+        return err, agree if "sigma" in spec else None
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{name}: {g.dtype}{tuple(g.shape)} vs {w.dtype}"
+                 f"{tuple(w.shape)}")
+        gf, wf = g.double(), w.double()
+        d = (gf - wf).abs()
+        if g.dtype == torch.bfloat16:
+            ok = bool((d <= torch.maximum(gf.abs(), wf.abs()) * 2.0 ** -7
+                       + 1e-7).all())
+        elif g.dtype == torch.int16:
+            ok = float(d.max()) <= 1
+        else:
+            ok = float(d.max()) <= ATOL
+        if not ok or not torch.isfinite(gf).all():
+            fail(f"{name}: kernel vs plain beyond the bar, max |err| "
+                 f"{float(d.max())}")
+        err = max(err, float(d.max()))
+    return err, None
+
+
+def phase_mode_kernels(chain, device) -> dict:
+    """Phase 23 (a): each new mode of K1-K3 against its plain version at a
+    small shape that crosses the lane and time tiles with a negative
+    sym_offset (130 x 600, K1 in tiles of 32), and at 256 x 4096. Returns
+    each entry's (max |error|, agreement) at the full shape."""
+    errs = {}
+    for name, kind, spec, _, _ in mode_cases():
+        bps = MODE_QAM_BPS if "qam" in spec else 2
+        kern, plain = mode_fns(kind)
+        for shape, off, cs in ((MODE_SMALL, -16, MODE_SMALL_CHUNK),
+                               ((CHANNELS, N_SYMBOLS), N_SYMBOLS, 256)):
+            syms = mode_symbols(shape, bps, device, SEED + 42)
+            args = mode_args(kind, spec, syms, off, cs, chain)
+            err, agree = mode_compare(name, spec, kern(*args), plain(*args))
+            errs[name] = (err, agree)
+            ag = "" if agree is None else f", decisions agree {agree:.6f}"
+            print(f"[modes] {name:32s} {shape[0]:4d} ch x {shape[1]:5d} sym, "
+                  f"sym_offset {off:5d}: max |kernel - plain| = {err:.3e}"
+                  f"{ag}", flush=True)
+    return errs
+
+
+def phase_passband_main(chain, device) -> dict:
+    """Phase 24 (b): the passband chain (``PulseShapedChain(QPSK(0.0, 1.0),
+    Rates(1250, 10000), carrier_hz=2000)``, and 1700 Hz) at 256 x 4096
+    through the public entry points, 256-QAM, int16 and bf16 waveforms,
+    each path driven with every launch count set to 0 just before and read
+    just after. Returns each mode entry's launches."""
+    from modem_tpu_torch import (Rates, StreamingFusedChain, StreamingFusedRx,
+                                 StreamingFusedTx)
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+    from modem_tpu_torch.models.qam import QAM
+    from modem_tpu_torch.ops import chain_kernel as ck, txrx
+    from modem_tpu_torch.ops.llr import llr_hard_bits
+
+    r = Rates(REF_BAUD, REF_SR)
+    g = torch.Generator(device=device).manual_seed(SEED + 43)
+
+    def bits_for(bps):
+        return torch.randint(0, 2, (CHANNELS, N_SYMBOLS * bps), generator=g,
+                             device=device, dtype=torch.int32)
+
+    def same(what, got, want):
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"passband main path: {what} differs")
+        print(f"[passband main] {what}: equal, shape {tuple(got.shape)}",
+              flush=True)
+
+    launches = {}
+    for hz, tag in ((2000, "passband"), (1700, "passband_1700")):
+        pbc = PulseShapedChain(QPSK(0.0, 1.0), r, carrier_hz=hz, device=device)
+        bits = bits_for(2)
+        reset_launches()
+        same(f"{hz} Hz roundtrip_fused(bits) == bits",
+             pbc.roundtrip_fused(bits), bits)
+        launches.update(read_launches(
+            {f"fused_pulse_chain_{tag}": ck.CHAIN_KERNEL}, f"{hz} Hz loopback",
+            "passband main"))
+        reset_launches()
+        wave = pbc.tx_fused(bits)
+        same(f"{hz} Hz rx_fused(tx_fused(bits)) == bits",
+             pbc.rx_fused(wave, N_SYMBOLS), bits)
+        same(f"{hz} Hz hard bits of rx_soft_fused == bits",
+             llr_hard_bits(pbc.rx_soft_fused(wave, N_SYMBOLS, noise_var=0.5)),
+             bits)
+        kernels = {f"fused_tx_{tag}": txrx.TX_KERNEL,
+                   f"fused_rx_{tag}": txrx.RX_HARD_KERNEL}
+        if hz == 2000:
+            kernels["fused_rx_soft_passband"] = txrx.RX_SOFT_KERNEL
+            step = N_SYMBOLS // N_PUSH
+            st = StreamingFusedTx(pbc, (CHANNELS,))
+            parts = [st.push(bits[:, 2 * i * step:2 * (i + 1) * step])
+                     for i in range(N_PUSH)] + [st.flush()]
+            same("StreamingFusedTx x4 == tx_fused", torch.cat(parts, -1), wave)
+            sr = StreamingFusedRx(pbc, (CHANNELS,))
+            cuts = [i * step * pbc.sps for i in range(N_PUSH + 1)] + [
+                wave.shape[-1]]
+            out = [sr.push(wave[:, a:b]) for a, b in zip(cuts, cuts[1:])]
+            same("StreamingFusedRx x4 == bits", torch.cat(out, -1), bits)
+            sc = StreamingFusedChain(pbc, (CHANNELS,))
+            out = [sc.push(bits[:, 2 * i * step:2 * (i + 1) * step])
+                   for i in range(N_PUSH)] + [sc.flush()]
+            same("StreamingFusedChain x4 == bits", torch.cat(out, -1), bits)
+        launches.update(read_launches(kernels, f"{hz} Hz one-way and streams",
+                                      "passband main"))
+        if hz == 2000:
+            reset_launches()
+            w16 = pbc.tx_fused(bits, out_scale=MODE_OUT_SCALE)
+            if w16.dtype != torch.int16:
+                fail("tx_fused(out_scale=...) is not int16")
+            same("2000 Hz rx_fused(tx_fused(bits, out_scale)) == bits",
+                 pbc.rx_fused(w16, N_SYMBOLS), bits)
+            launches.update(read_launches({"fused_tx_int16": txrx.TX_KERNEL},
+                                          "int16 TX", "passband main"))
+
+    q256 = PulseShapedChain(QAM(MODE_QAM_BPS, 0.0, 1.0), r, device=device)
+    bits = bits_for(MODE_QAM_BPS)
+    reset_launches()
+    same("256-QAM roundtrip_fused(bits) == bits", q256.roundtrip_fused(bits),
+         bits)
+    same("256-QAM rx_fused(tx_fused(bits)) == bits",
+         q256.rx_fused(q256.tx_fused(bits), N_SYMBOLS), bits)
+    launches.update(read_launches({"fused_pulse_chain_qam256": ck.CHAIN_KERNEL,
+                                   "fused_tx_qam256": txrx.TX_KERNEL,
+                                   "fused_rx_qam256": txrx.RX_HARD_KERNEL},
+                                  "256-QAM", "passband main"))
+    bits = bits_for(2)
+    reset_launches()
+    wb = chain.tx_fused(bits, wave_dtype=torch.bfloat16)
+    if wb[0].dtype != torch.bfloat16:
+        fail("tx_fused(wave_dtype=bfloat16) is not bf16")
+    same("flagship rx_fused(tx_fused(bits, bf16)) == bits",
+         chain.rx_fused(wb, N_SYMBOLS), bits)
+    launches.update(read_launches({"fused_tx_bf16": txrx.TX_KERNEL,
+                                   "fused_rx_bf16": txrx.RX_HARD_KERNEL},
+                                  "bf16 waveform", "passband main"))
+    return launches
+
+
+def phase_harness(chain, device, card: str) -> dict:
+    """Phase 25 (c): the BER harness on K1's noise at 256 x 4096: QPSK at 7
+    dB (and at passband) within 10% of the closed form, natural 16-QAM at
+    14 dB within 10% of its, a monotone waterfall, ``release_gates(scale=
+    4)``; ``fused_ber_point``'s time per call. Returns the noisy K1
+    entries' launches."""
+    from modem_tpu_torch import Rates, harness
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.qam import QAM
+    from modem_tpu_torch.ops import chain_kernel as ck
+    from modem_tpu_torch.utils.bits import unpack_symbols
+
+    def near(what, pt, theory):
+        ratio = pt.ber / theory
+        print(f"[harness] {what}: BER {pt.ber:.6e} over {pt.bits} bits "
+              f"({pt.bit_errors} errors), closed form {theory:.6e}, ratio "
+              f"{ratio:.4f}", flush=True)
+        if abs(ratio - 1.0) > BER_RTOL:
+            fail(f"{what}: BER {pt.ber} vs closed form {theory}")
+
+    launches = {}
+    reset_launches()
+    pt = harness.fused_ber_point(chain, MODE_SNR_DB, N_SYMBOLS, CHANNELS,
+                                 SEED + 44)
+    launches.update(read_launches({"fused_pulse_chain_noisy":
+                                   ck.CHAIN_KERNEL}, "fused_ber_point",
+                                  "harness"))
+    near(f"fused_ber_point QPSK at {MODE_SNR_DB} dB", pt,
+         harness.qpsk_ber_theory(MODE_SNR_DB))
+    syms = mode_symbols((CHANNELS, N_SYMBOLS), 2, device, SEED + 45)
+    reset_launches()
+    dec = ck.fused_pulse_chain(syms, chain.lut, chain.rrc, chain.sps,
+                               chain.span, snr_db=MODE_SNR_DB, seed=SEED + 46,
+                               carrier_hz=2000, sample_rate=REF_SR)
+    launches.update(read_launches({"fused_pulse_chain_noisy_passband":
+                                   ck.CHAIN_KERNEL}, "passband BER point",
+                                  "harness"))
+    errors = int((unpack_symbols(dec, 2) != unpack_symbols(syms, 2)).sum())
+    near(f"passband (2000 Hz) K1 noise at {MODE_SNR_DB} dB",
+         harness.BerPoint(MODE_SNR_DB, errors, syms.numel() * 2),
+         harness.qpsk_ber_theory(MODE_SNR_DB))
+    q16 = PulseShapedChain(QAM(4, 0.0, 1.0), Rates(REF_BAUD, REF_SR),
+                           device=device)
+    near("fused_ber_point natural 16-QAM at 14 dB",
+         harness.fused_ber_point(q16, 14.0, N_SYMBOLS, CHANNELS, SEED + 47),
+         harness.mqam_ber_theory(14.0, 16))
+    pts = harness.ber_waterfall(chain, [3.0, 5.0, 7.0, 9.0], 1024, 64,
+                                SEED + 48)
+    bers = [p.ber for p in pts]
+    print(f"[harness] ber_waterfall 3/5/7/9 dB: {bers}", flush=True)
+    if not all(a > b for a, b in zip(bers, bers[1:])) or bers[-1] <= 0:
+        fail(f"ber_waterfall not monotone: {bers}")
+    gates = harness.release_gates(seed=SEED, scale=GATES_SCALE,
+                                  device=device)
+    for gate in gates:
+        print(f"[harness] gate {json.dumps(gate)}", flush=True)
+        run = gate["gate"] not in harness.NOT_RUN
+        if (gate["passed"] is not True) if run else (
+                gate["passed"] is not None or not gate.get("not_run")):
+            fail(f"release gate {gate['gate']}: {gate}")
+    args = (chain, MODE_SNR_DB, N_SYMBOLS, CHANNELS, SEED + 44)
+    ms = time_calls(harness.fused_ber_point, args, device, calls=5, reps=3)
+    bits = CHANNELS * N_SYMBOLS * 2
+    print(f"[times] harness.fused_ber_point per call {ms:.4f} ms "
+          f"({bits / ms * 1e3:.4e} bits/s, {CHANNELS} ch x {N_SYMBOLS} QPSK "
+          f"symbols, host symbol draw included) on {card}", flush=True)
+    return launches
+
+
+def phase_viterbi_wide(device) -> tuple[dict, dict]:
+    """Phase 26 (d): K13 on the shapes F1 widened: K = 3 (S = 4, the warp
+    route with idle lanes) and K = 15 (S = 16384, the block route, the
+    decisions in the global scratch) through ``decode_soft_windowed`` with
+    every launch count set to 0 just before and read just after, bit for
+    bit against the plain version. Returns (errors, launches)."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    errs, launches = {}, {}
+    for name, (k, polys) in WIDE_VIT.items():
+        code, bits, lam = vit_case(k, polys, WIDE_VIT_SHAPE, 0.8, SEED + 50,
+                                   device)
+        llr = lam.reshape(lam.shape[0], -1)
+        t_w = WIDE_VIT_BLOCK + 20 * k
+        kernel = (vk.VITERBI_KERNEL if vk.warp_route(code, t_w)
+                  else vk.VITERBI_BLOCK_KERNEL)
+        reset_launches()
+        got = code.decode_soft_windowed(llr, WIDE_VIT_BLOCK)
+        launches.update(read_launches({name: kernel}, f"K={k} decode",
+                                      "viterbi wide"))
+        want = vk.stream_plain(code, lam, WIDE_VIT_BLOCK, 10 * k, 1e6)
+        torch.cuda.synchronize(device)
+        errs[name] = max_err(got, want)
+        print(f"[viterbi wide] K={k} (S={code.n_states}, "
+              f"{'warp' if kernel is vk.VITERBI_KERNEL else 'block'} route) "
+              f"{WIDE_VIT_SHAPE[0]} ch x {WIDE_VIT_SHAPE[1]} bits, B="
+              f"{WIDE_VIT_BLOCK}: max |kernel - plain| = {errs[name]:.0f} "
+              f"(exact), BER vs sent "
+              f"{float((got != bits).double().mean()):.3e}", flush=True)
+        if errs[name] != 0:
+            fail(f"K13 at K={k}: kernel and plain differ")
+    return errs, launches
+
+
+def mode_work(kind: str, spec: dict, c: int, k: int, chain):
+    """Bytes a mode must move (each input read once, each output written
+    once) and its f32 operations, from the shapes; as ``chain_work``, with
+    the mode's own counts: the algebraic QAM map 8 operations a symbol and
+    its slice 12 (against 5 a table point); the NCO 3 a sample to mix up
+    and 2 to detect, plus a cos and a sin a sample where the carrier has
+    more than 16 phases (a table otherwise); the noise 16 a waveform sample
+    (as ``fsk_work``). Storage: f32 4 B, bf16 and int16 2 B a sample."""
+    taps, sps, span = chain.rrc.shape[0], chain.sps, chain.span
+    qam, car = spec.get("qam") is not None, spec.get("carrier")
+    m = chain.lut.shape[0]
+    n_wave = (k + span) * sps
+    samples = c * n_wave
+    params = 4 * taps + (0 if qam else 8 * m)
+    map_ops = 8 * c * (k + span) if qam else 0
+    slice_ops = c * k * (12 if qam else 5 * m)
+    tx_ops = 2 * 2 * (k + span) * taps * c + map_ops
+    rx_ops = 2 * 2 * k * taps * c
+    trig = 2 if car and car[1] // math.gcd(*car) > 16 else 0
+    rails = 1 if car else 2
+    if kind == "chain":
+        ops = tx_ops + rx_ops + slice_ops
+        if car:
+            ops += samples * (5 + trig)
+        if spec.get("sigma") is not None:
+            ops += samples * 16
+        return 4 * c * k * 2 + params, ops
+    if kind == "tx":
+        out_bytes = 4 if spec.get("store", (None, torch.float32))[1] == \
+            torch.float32 else 2
+        return (4 * c * k + out_bytes * rails * samples + params,
+                tx_ops + (samples * (3 + trig) if car else 0))
+    in_bytes = 2 if spec.get("in") == torch.bfloat16 else 4
+    soft = spec.get("soft", False)
+    return (in_bytes * rails * samples + (8 if soft else 4) * c * k + params,
+            rx_ops + (0 if soft else slice_ops)
+            + (samples * (2 + trig) if car else 0))
+
+
+def phase_mode_times(chain, device, card: str) -> dict:
+    """Phase 27 (e): each new mode's kernel and plain version per call at
+    256 x 4096, the profiler's device time and the bound; then widened K13
+    at K = 3 and 15."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    times = {}
+    for name, kind, spec, sym, _ in mode_cases():
+        bps = MODE_QAM_BPS if "qam" in spec else 2
+        syms = mode_symbols((CHANNELS, N_SYMBOLS), bps, device, SEED + 42)
+        args = mode_args(kind, spec, syms, N_SYMBOLS, 256, chain)
+        kern, plain = mode_fns(kind)
+        ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device, sym,
+                                            plain_calls=5)
+        times[name] = (ms, plain_ms, dev_ms, None,
+                       mode_work(kind, spec, CHANNELS, N_SYMBOLS, chain))
+        print_times(name, CHANNELS * N_SYMBOLS * chain.sps, times[name], card,
+                    "no library call")
+    for name, (k, polys) in WIDE_VIT.items():
+        code, _, lam = vit_case(k, polys, WIDE_VIT_SHAPE, 0.8, SEED + 51,
+                                device)
+        t_w = WIDE_VIT_BLOCK + 20 * k
+        sym = ("viterbi_kernel" if vk.warp_route(code, t_w)
+               else "viterbi_block_kernel")
+        times[name] = viterbi_times(name, sym, code, lam, WIDE_VIT_SHAPE[0],
+                                    WIDE_VIT_BLOCK, 10 * k, device, card,
+                                    plain_calls=1)
+    return times
+
+
+def viterbi_times(name: str, sym: str, code, lam, channels: int, block: int,
+                  halo: int, device, card: str, plain_calls: int) -> tuple:
+    """K13's stream form and its plain version per call, the profiler's
+    device time of kernel symbol ``sym``, the bound and the time per trellis
+    step, printed; returns the report times."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    ms, plain_ms, dev_ms = kernel_times(
+        vk.stream_kernel, vk.stream_plain, (code, lam, block, halo, 1e6),
+        device, sym, plain_calls=plain_calls)
+    nbytes, flops, rows, t_w = viterbi_work(code, channels, lam.shape[1],
+                                            block, halo)
+    bound_ms, bound_by = bound(nbytes, flops)
+    step = dev_ms if dev_ms is not None else ms
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"[times] {name:26s} per call: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, no library call; kernel alone in the profiler "
+          f"{dev_txt}; bound {bound_ms:.6f} ms by {bound_by} "
+          f"({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); per trellis "
+          f"step {step / t_w * 1e3:.4f} us; {rows} rows x {t_w} steps x "
+          f"{code.n_states} states on {card}", flush=True)
+    return ms, plain_ms, dev_ms, None, (nbytes, flops)
 
 
 def print_times(name: str, samples: int, t, card: str, extra: str) -> None:
@@ -1842,6 +2304,15 @@ def main() -> int:
     launches[VIT_REPORT[0]] = phase_link_main(device)
     phase_link_cli(device)
     times[VIT_REPORT[0]] = phase_link_times(device, card)
+    mode_errs = phase_mode_kernels(chain, device)
+    launches.update(phase_passband_main(chain, device))
+    launches.update(phase_harness(chain, device, card))
+    vit_errs, vit_launches = phase_viterbi_wide(device)
+    launches.update(vit_launches)
+    times.update(phase_mode_times(chain, device, card))
+    fsk_errs.update(mode_errs)
+    errs.update({n: err for n, (err, _) in mode_errs.items()})
+    errs.update(vit_errs)
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
@@ -1854,7 +2325,10 @@ def main() -> int:
         (n, "modem_tpu_torch/csrc/fsk.cu", f"modem_tpu/ops/pallas_fsk.py:{line}")
         for n, (line, _) in FSK_REPORT.items()] + [
         (n, src, rep) for n, (_, src, rep) in RS_REPORT.items()] + [
-        (VIT_REPORT[0], VIT_REPORT[2], VIT_REPORT[3])]
+        (VIT_REPORT[0], VIT_REPORT[2], VIT_REPORT[3])] + [
+        (n, f"modem_tpu_torch/csrc/{'chain' if kind == 'chain' else 'txrx'}"
+            ".cu", rep) for n, kind, _, _, rep in mode_cases()] + [
+        (n, VIT_REPORT[2], VIT_REPORT[3]) for n in WIDE_VIT]
     report = {"kernels": []}
     for n, src, rep in entries:
         ms, plain_ms, dev_ms, lib_ms, work = times[n]

@@ -7,7 +7,14 @@ and dtypes, and is tested against it on shared inputs. This package never
 imports ``jax`` or ``modem_tpu``. Ported so far:
 
 * the flagship QPSK chain (:class:`~modem_tpu_torch.chain.PulseShapedChain`)
-  staged and fused, with its streaming classes (kernels K1-K3);
+  staged and fused, with its streaming classes (kernels K1-K3), in every
+  mode of the JAX kernels: baseband and passband (``carrier_hz``), in-kernel
+  AWGN, table and algebraic square QAM (256-QAM and up), f32, bf16 and
+  int16 waveforms;
+* the BER harness (:mod:`~modem_tpu_torch.harness`: closed forms,
+  ``fused_ber_point`` on K1's noise, ``release_gates``), the link metrics
+  (:class:`LinkStats`) and checkpoints of a stream's carry
+  (:mod:`~modem_tpu_torch.checkpoint`);
 * the reference's own path: all 15 schemes of the CLI table
   (:func:`make_scheme`), the :class:`Modulator` and the :class:`Demodulator`
   (FIRs on kernel K4, the fused product detector on kernel K5), and the
@@ -35,6 +42,7 @@ from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
                     OqpskChain, PulseShapedChain, qpsk_reference_chain)
 from .gmsk import GmskChain
 from .link import FramedLink
+from .metrics import LinkStats
 from .models import SCHEME_NAMES, make_scheme
 from .resampled import ResampledChain, StreamingResampledChain
 from .rx import Demodulator, RxState
@@ -43,7 +51,8 @@ from .tx import Modulator, TxState
 
 __all__ = [
     "DcqpskChain", "Demodulator", "DifferentialChain", "FramedLink",
-    "FskChain", "GmskChain", "Modulator", "MskChain", "OqpskChain", "PulseShapedChain",
+    "FskChain", "GmskChain", "LinkStats", "Modulator", "MskChain",
+    "OqpskChain", "PulseShapedChain",
     "Rates", "ResampledChain", "RxState", "SCHEME_NAMES",
     "StreamingFusedChain", "StreamingFusedRx", "StreamingFusedTx",
     "StreamingResampledChain", "TxState", "make_scheme",

@@ -2,9 +2,8 @@
 :mod:`modem_tpu.chain`).
 
 * :class:`PulseShapedChain` (and :func:`qpsk_reference_chain`): bits ->
-  constellation map -> RRC pulse shaping -> matched filter -> symbol-instant
-  decimation -> min-distance slice -> bits, at complex baseband (configs
-  #1/#2);
+  constellation map -> RRC pulse shaping -> [NCO passband] -> matched
+  filter -> symbol-instant decimation -> slice -> bits (configs #1/#2);
 * :class:`DifferentialChain`: the same for DBPSK/DQPSK, deciding on the
   phase change between decision points;
 * :class:`FskChain` and :class:`MskChain`: the Modulator's exact phase
@@ -20,13 +19,12 @@ Two forms, as in the JAX package:
   the production path, one hand-written CUDA kernel per call on a CUDA
   device: K1-K3 (:mod:`~modem_tpu_torch.ops.txrx`,
   :mod:`~modem_tpu_torch.ops.chain_kernel`) for the pulse-shaped and
-  differential chains, K6-K10 (:mod:`~modem_tpu_torch.ops.fsk_kernel`)
-  for the FSK family and MSK.
+  differential chains, in every mode of the JAX kernels (passband, in-kernel
+  noise, algebraic square QAM, bf16 and int16 waveforms), K6-K10
+  (:mod:`~modem_tpu_torch.ops.fsk_kernel`) for the FSK family and MSK.
 
 Every chain builds on ``device``, the card unless the caller asks for the
-CPU; every tensor passed in must be there too. Not ported yet: the passband
-NCO leg of the pulse-shaped chain and the in-kernel AWGN of K1
-(``DifferentialChain.roundtrip_fused(snr_db=...)`` raises).
+CPU; every tensor passed in must be there too.
 """
 
 from __future__ import annotations
@@ -41,16 +39,18 @@ from .cuda import resolve_device
 from .models.base import LutScheme, PhaseProgram, Scheme, stagger_bit_planes
 from .models.fsk import MSK
 from .models.psk import DCQPSK, DMPSK, OQPSK, QPSK
-from .ops.chain_kernel import fused_pulse_chain
+from .models.qam import QAM
+from .ops.chain_kernel import fused_pulse_chain, fused_pulse_chain_qam
 from .ops.filters import rrc_taps
 from .ops.fir import fir_filter
 from .ops.fsk_kernel import (fused_discriminator_means, fused_fsk_chain,
                              fused_fsk_tx, fused_msk_slots, fused_msk_tx)
 from .ops.llr import dmpsk_llr, fsk_llr, lut_llr
+from .ops.nco import carrier_phase, mix_up
 from .ops.polyphase import polyphase_decim, polyphase_interp
 from .ops.slicer import (diff_phase, fm_discriminate, fsk_slice,
                          fsk_slice_means, fsk_symbol_means, lut_map, lut_slice)
-from .ops.txrx import fused_rx, fused_tx
+from .ops.txrx import fused_rx, fused_tx, qam_mparams
 from .tx import Modulator
 from .utils.bits import pack_bits, unpack_symbols
 from .utils.scan import cummod
@@ -103,27 +103,38 @@ def matched_decision_points(yi, yq, rrc, sps: int, span: int, n_symbols: int,
 
 
 class PulseShapedChain(torch.nn.Module):
-    """Matched-filter chain for constellation (LUT) schemes at baseband.
+    """Matched-filter chain for constellation (LUT) schemes.
 
     ``scheme`` exposes ``lut`` ([M, 2]) and ``bits_per_symbol``; slicing is
     minimum-distance against the table. The TX appends ``span`` flush
     symbols so the matched filter's full response is observed; the total
-    group delay is ``span*sps``. The table and the RRC taps are buffers on
-    ``device``, the card unless the caller asks for the CPU; every tensor
-    passed in must be there too.
+    group delay is ``span*sps``. ``carrier_hz`` (an integer, with the
+    rates' sample rate) makes the waveform a real passband one: the exact
+    integer NCO up-mixes (`modulator.rs:37-48`) and the RX product-detects
+    with 2x gain (`demodulator.rs:52-55`). The table and the RRC taps are
+    buffers on ``device``, the card unless the caller asks for the CPU;
+    every tensor passed in must be there too. ``fir_backend`` takes
+    ``"direct"`` (the other backends of the JAX package are not ported).
     ``rrc`` replaces the designed taps (``span_symbols*sps + 1`` of them).
     """
 
     def __init__(self, scheme: Scheme, rates: Rates, span_symbols: int = 8,
-                 beta: float = 0.35, polyphase: bool = False,
+                 beta: float = 0.35, carrier_hz: int | None = None,
+                 fir_backend: str = "direct", polyphase: bool = False,
                  device: torch.device | str | None = None, rrc=None):
         super().__init__()
         if not hasattr(scheme, "lut"):
             raise TypeError("PulseShapedChain needs a constellation-LUT scheme")
+        if fir_backend != "direct":
+            raise NotImplementedError(
+                f"fir_backend {fir_backend!r} is not ported yet (ROADMAP.md "
+                "queue 1: the conv, matmul and fft backends of fir_filter)")
         self.scheme = scheme
         self.rates = rates
         self.span = span_symbols
         self.sps = rates.samples_per_symbol
+        self.carrier_hz = None if carrier_hz is None else int(carrier_hz)
+        self.fir_backend = fir_backend
         #: polyphase=True computes the staged pulse shaping at symbol rate
         #: and the matched filter only at the decision instants
         self.polyphase = polyphase
@@ -136,7 +147,8 @@ class PulseShapedChain(torch.nn.Module):
     @classmethod
     def from_numpy(cls, params: dict, rates: Rates,
                    device: torch.device | str | None = None,
-                   polyphase: bool = False) -> "PulseShapedChain":
+                   polyphase: bool = False,
+                   carrier_hz: int | None = None) -> "PulseShapedChain":
         """Build from another chain's arrays: ``{"lut", "rrc",
         "bits_per_symbol", "span", "sps"}``, e.g. ``np.asarray`` of a
         :class:`modem_tpu.chain.PulseShapedChain`'s ``lut`` and ``rrc``, so
@@ -145,11 +157,23 @@ class PulseShapedChain(torch.nn.Module):
             raise ValueError("params sps disagrees with rates")
         scheme = LutScheme(params["lut"], params["bits_per_symbol"])
         return cls(scheme, rates, span_symbols=int(params["span"]),
-                   polyphase=polyphase, device=device, rrc=params["rrc"])
+                   carrier_hz=carrier_hz, polyphase=polyphase, device=device,
+                   rrc=params["rrc"])
 
     @property
     def bits_per_symbol(self) -> int:
         return self.scheme.bits_per_symbol
+
+    def _carrier(self) -> dict:
+        """The fused calls' carrier keywords."""
+        if self.carrier_hz is None:
+            return {}
+        return {"carrier_hz": self.carrier_hz,
+                "sample_rate": self.rates.sample_rate}
+
+    def _theta(self, n: int, device) -> torch.Tensor:
+        return carrier_phase(self.carrier_hz, self.rates.sample_rate, n, 0,
+                             device=device)
 
     # ---- TX ----
 
@@ -163,15 +187,30 @@ class PulseShapedChain(torch.nn.Module):
                         self.span, self.polyphase)
 
     def tx(self, bits: torch.Tensor):
-        """bits -> baseband ``(i, q)``."""
-        return self.shape_pulses(self.map_symbols(bits))
+        """bits -> baseband ``(i, q)``, or the real passband waveform with
+        ``carrier_hz``."""
+        si, sq = self.shape_pulses(self.map_symbols(bits))
+        if self.carrier_hz is None:
+            return si, sq
+        re, _ = mix_up(si, sq, self._theta(si.shape[-1], si.device))
+        return re
 
     # ---- RX ----
+
+    def downconvert(self, x: torch.Tensor):
+        """Real passband -> baseband ``(i, q)`` by coherent product
+        detection, 2x gain (`demodulator.rs:52-55`); the matched filter is
+        the lowpass."""
+        theta = self._theta(x.shape[-1], x.device)
+        return 2.0 * x * torch.cos(theta), -2.0 * x * torch.sin(theta)
 
     def decision_points(self, rx_wave, n_symbols: int):
         """waveform -> matched-filter outputs at the symbol instants
         ``(di, dq) [..., K]``."""
-        yi, yq = rx_wave
+        if self.carrier_hz is None:
+            yi, yq = rx_wave
+        else:
+            yi, yq = self.downconvert(rx_wave)
         return matched_decision_points(yi, yq, self.rrc, self.sps, self.span,
                                        n_symbols, self.polyphase)
 
@@ -193,33 +232,67 @@ class PulseShapedChain(torch.nn.Module):
 
     # ---- fused: the production path ----
 
-    def tx_fused(self, bits: torch.Tensor):
-        """bits -> baseband ``(i, q)`` through the fused TX (kernel K2 on
-        CUDA): :meth:`tx` up to f32 reassociation."""
-        return fused_tx(self.map_symbols(bits), self.lut, self.rrc, self.sps,
-                        self.span)
+    def _algebraic_qam(self) -> bool:
+        """Natural-binary square QAM takes the algebraic map of K1-K3; the
+        algebraic map is natural binary, so Gray QAM takes the table."""
+        return (isinstance(self.scheme, QAM) and self.bits_per_symbol % 2 == 0
+                and not self.scheme.gray)
 
-    def rx_fused(self, rx_wave, n_symbols: int) -> torch.Tensor:
+    def _txrx_params(self) -> dict:
+        """The fused calls' map keywords: ``qam_params`` for non-Gray square
+        QAM, the table otherwise."""
+        if self._algebraic_qam():
+            return {"lut": None, "qam_params": qam_mparams(
+                self.bits_per_symbol, self.scheme.phase,
+                self.scheme.amplitude)}
+        return {"lut": self.lut}
+
+    def _fused_rx(self, rx_wave, n_symbols: int, sym_offset: int,
+                  soft: bool):
+        return fused_rx(rx_wave, n_symbols, rrc_taps=self.rrc, sps=self.sps,
+                        span=self.span, sym_offset=sym_offset, soft=soft,
+                        **self._txrx_params(), **self._carrier())
+
+    def tx_fused(self, bits: torch.Tensor, sym_offset: int = 0,
+                 out_scale: float | None = None,
+                 wave_dtype: torch.dtype = torch.float32):
+        """bits -> waveform through the fused TX (kernel K2 on CUDA):
+        :meth:`tx` up to f32 reassociation. ``out_scale`` stores int16
+        ``round(x*out_scale)`` (the CLI's wire format), ``wave_dtype``
+        bfloat16 halves the write; ``sym_offset`` is the stream-global
+        index of the first symbol (the carrier's phase)."""
+        return fused_tx(self.map_symbols(bits), rrc_taps=self.rrc,
+                        sps=self.sps, span=self.span, sym_offset=sym_offset,
+                        out_scale=out_scale, wave_dtype=wave_dtype,
+                        **self._txrx_params(), **self._carrier())
+
+    def rx_fused(self, rx_wave, n_symbols: int,
+                 sym_offset: int = 0) -> torch.Tensor:
         """waveform -> decided bits through the fused RX (kernel K3 on
         CUDA); decisions equal :meth:`rx`."""
-        syms = fused_rx(rx_wave, n_symbols, self.lut, self.rrc, self.sps,
-                        self.span)
+        syms = self._fused_rx(rx_wave, n_symbols, sym_offset, False)
         return unpack_symbols(syms, self.bits_per_symbol)
 
-    def rx_soft_fused(self, rx_wave, n_symbols: int,
-                      noise_var: float = 1.0) -> torch.Tensor:
+    def rx_soft_fused(self, rx_wave, n_symbols: int, noise_var: float = 1.0,
+                      sym_offset: int = 0) -> torch.Tensor:
         """waveform -> per-bit LLRs: fused matched filter + decimation to the
         decision-point I/Q (kernel K3 on CUDA), then :func:`lut_llr`."""
-        di, dq = fused_rx(rx_wave, n_symbols, self.lut, self.rrc, self.sps,
-                          self.span, soft=True)
+        di, dq = self._fused_rx(rx_wave, n_symbols, sym_offset, True)
         return lut_llr(di, dq, self.lut, self.bits_per_symbol, noise_var)
 
     def roundtrip_fused(self, bits: torch.Tensor) -> torch.Tensor:
         """Noiseless bits -> bits through the fused loopback (kernel K1 on
-        CUDA): the waveform never leaves the chip. Decisions match
-        :meth:`roundtrip`."""
-        dec = fused_pulse_chain(self.map_symbols(bits), self.lut, self.rrc,
-                                self.sps, self.span)
+        CUDA): the waveform never leaves the chip, the passband leg
+        included. Decisions match :meth:`roundtrip`."""
+        syms = self.map_symbols(bits)
+        common = dict(rrc_taps=self.rrc, sps=self.sps, span=self.span,
+                      **self._carrier())
+        if self._algebraic_qam():
+            dec = fused_pulse_chain_qam(syms, self.bits_per_symbol,
+                                        self.scheme.phase,
+                                        self.scheme.amplitude, **common)
+        else:
+            dec = fused_pulse_chain(syms, self.lut, **common)
         return unpack_symbols(dec, self.bits_per_symbol)
 
 
@@ -356,12 +429,13 @@ class DifferentialChain(torch.nn.Module):
     def roundtrip_fused(self, bits: torch.Tensor, snr_db: float | None = None,
                         seed=None) -> torch.Tensor:
         """bits -> bits through K1 on the accumulated constellation, the
-        differential decode at symbol rate. In-kernel noise (``snr_db``)
-        raises ``NotImplementedError``: K1's AWGN mode is not ported yet."""
+        differential decode at symbol rate. ``snr_db`` (Es/N0 at the
+        decision point) adds in-kernel noise from the stream keyed by
+        ``seed``."""
         m_ph, lut = self._acc_constellation()
         dec_abs = fused_pulse_chain(self._acc_symbols(bits, m_ph), lut,
                                     self.rrc, self.sps, self.span,
-                                    snr_db=snr_db)
+                                    snr_db=snr_db, seed=seed)
         return self._decode(dec_abs, m_ph)
 
 
@@ -607,10 +681,10 @@ class DcqpskChain:
 
 
 def qpsk_reference_chain(rates: Rates, span_symbols: int = 8,
-                         beta: float = 0.35,
+                         beta: float = 0.35, fir_backend: str = "direct",
                          device: torch.device | str | None = None
                          ) -> PulseShapedChain:
     """The flagship: QPSK + RRC + matched filter at complex baseband
     (`BASELINE.json` config #2)."""
     return PulseShapedChain(QPSK(0.0, 1.0), rates, span_symbols, beta,
-                            device=device)
+                            fir_backend=fir_backend, device=device)

@@ -31,6 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U = ctypes.c_uint
+#: the pulse-shaped kernels' map (lut, n_points, cshift, ms, a, cos, sin)
+#: and carrier (hz, sr, sym_offset, 2*pi/sr) arguments
+_MAP = [_P, _I, _I, _F, _F, _F, _F]
+_NCO = [_I, _I, _L, _F]
 #: argument types of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
@@ -44,14 +48,21 @@ SIGNATURES = {
                            _I, _L, _P, _P, _P],
     "modem_resampled_rx": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _I, _P, _I,
                            _I, _P, _P, _P, _P],
-    "modem_tx_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P, _P],
-    "modem_rx_lut_hard": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _I, _P, _P],
-    "modem_rx_lut_soft": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _P, _P, _P],
-    "modem_chain_lut": [_P, _L, _L, _P, _I, _P, _I, _I, _I, _P, _P],
+    "modem_tx": [_P, _L, _L, *_MAP, _P, _I, _I, _I, *_NCO, _I, _F, _P, _P,
+                 _P],
+    "modem_rx_hard": [_P, _P, _I, _L, _L, _L, _P, _I, _I, _I, *_MAP, *_NCO,
+                      _P, _P],
+    "modem_rx_soft": [_P, _P, _I, _L, _L, _L, _P, _I, _I, _I, *_NCO, _P, _P,
+                      _P],
+    "modem_chain": [_P, _L, _L, _I, *_MAP, _P, _I, _I, _I, *_NCO, _I, _F, _U,
+                    _P, _P],
     "modem_fir": [_P, _P, _L, _L, _P, _I, _P, _P],
     "modem_demod": [_P, _I, _P, _L, _L, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     "modem_viterbi": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _L, _I,
                       _L, _F, _I, _I, _L, _P, _P],
+    "modem_viterbi_block": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _L, _L, _P, _P, _L, _I, _L, _F, _I, _I, _L,
+                            _P, _P],
 }
 
 _library: ctypes.CDLL | None = None

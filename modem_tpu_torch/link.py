@@ -11,8 +11,9 @@ interleaver rows, bits per symbol) is solved and checked at construction.
 The fused route (:meth:`FramedLink.tx_fused`, :meth:`FramedLink.rx_fused`)
 runs the chain's fused kernels (K2, K3 soft) for CUDA tensors and the
 staged ``tx`` / ``rx_soft`` for CPU ones, as the JAX package does off the
-TPU; the windowed inner decode is kernel K13 on the card. The LDPC, polar
-and turbo inner codes wait for their slices.
+TPU, and for a chain without the fused forms on either device; the
+windowed inner decode is kernel K13 on the card. The LDPC, polar and turbo
+inner codes wait for their slices.
 """
 
 from __future__ import annotations
@@ -127,10 +128,18 @@ class FramedLink:
         """Payload bits -> baseband waveform through the staged chain."""
         return self.chain.tx(self.frame(payload))
 
+    def _fused_ok(self, wave: torch.Tensor) -> bool:
+        """The fused forms for a tensor on the card, when the chain has
+        both of them (``tx_fused`` and ``rx_soft_fused``); the staged forms
+        otherwise."""
+        return (wave.is_cuda and hasattr(self.chain, "tx_fused")
+                and hasattr(self.chain, "rx_soft_fused"))
+
     def tx_fused(self, payload: torch.Tensor):
         """Like :meth:`tx`, through the chain's fused TX (K2) for a CUDA
-        payload; a CPU payload takes :meth:`tx`."""
-        if payload.is_cuda:
+        payload; a CPU payload, or a chain without fused forms, takes
+        :meth:`tx`."""
+        if self._fused_ok(payload):
             return self.chain.tx_fused(self.frame(payload))
         return self.tx(payload)
 
@@ -159,16 +168,19 @@ class FramedLink:
             crc_ok = crc_ok & ok
         return payload, crc_ok
 
-    def rx(self, iq, noise_var: float):
+    def rx(self, wave, noise_var: float):
         """Received waveform -> ``(payload, ok)`` via the chain's soft RX."""
-        llrs = self.chain.rx_soft(iq, self.n_symbols, noise_var=noise_var)
+        llrs = self.chain.rx_soft(wave, self.n_symbols, noise_var=noise_var)
         return self.decode(llrs)
 
-    def rx_fused(self, iq, noise_var: float):
+    def rx_fused(self, wave, noise_var: float):
         """Like :meth:`rx`, through the chain's fused matched filter (K3
-        soft) for a CUDA waveform; a CPU waveform takes :meth:`rx`."""
-        if iq[0].is_cuda:
-            llrs = self.chain.rx_soft_fused(iq, self.n_symbols,
+        soft) for a waveform on the card (``(i, q)`` at baseband, one real
+        tensor at passband); a CPU waveform, or a chain without fused forms,
+        takes :meth:`rx`."""
+        first = wave if torch.is_tensor(wave) else wave[0]
+        if self._fused_ok(first):
+            llrs = self.chain.rx_soft_fused(wave, self.n_symbols,
                                             noise_var=noise_var)
             return self.decode(llrs)
-        return self.rx(iq, noise_var)
+        return self.rx(wave, noise_var)

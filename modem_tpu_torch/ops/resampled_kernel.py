@@ -34,7 +34,7 @@ import torch
 from ..cuda import Kernel, check_cuda
 from .polyphase import polyphase_interp
 from .slicer import as_lut, lut_slice
-from .txrx import MAX_LUT_POINTS, _map_valid
+from .txrx import MAX_LUT_POINTS, map_plain
 
 RESAMPLED_TX_KERNEL = Kernel("modem_resampled_tx")
 #: hard and soft modes, one C entry point
@@ -231,7 +231,7 @@ def resampled_tx_plain(symbols, lut, taps, table, first: int, sps: int,
     n_sym = -(-n_modem // sps)
     n_out = n_modem * up // down
     out = []
-    for z in _map_valid(symbols, lut):
+    for z in map_plain(symbols, lut):
         z = torch.nn.functional.pad(z, (0, n_sym - z.shape[-1]))
         w, _ = polyphase_interp(z, taps, sps)
         out.append(ptv_stage(w[..., :n_modem], table, up, down, first, n_out))

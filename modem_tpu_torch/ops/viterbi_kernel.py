@@ -17,10 +17,13 @@ Each has a plain PyTorch version (:func:`windows_plain`,
 :func:`stream_plain`: ``ConvCode._acs``'s free-start, argmin-end form),
 which a CPU tensor runs, and a kernel wrapper (:func:`windows_kernel`,
 :func:`stream_kernel`), which a CUDA tensor runs; a CUDA tensor never takes
-the plain version. The two decide bit for bit alike. The kernel takes
-``8 <= S <= 256`` states (K 4..9), up to 8 code bits per step, and windows
-whose costs and decisions fit a block's shared memory; the wrappers raise
-``ValueError`` naming the limit for anything else.
+the plain version. The two decide bit for bit alike, for every code shape
+:class:`~modem_tpu_torch.fec.ConvCode` builds (K >= 2, any n) and any
+window length. The kernel has two routes (:func:`warp_route`): a warp a
+row with everything in shared memory (``S <= 256``, ``n <= 32``, a row
+that fits), counted by :data:`VITERBI_KERNEL`; otherwise a block a row,
+metrics and decisions in a global scratch where shared memory is too small
+(:func:`block_plan`), counted by :data:`VITERBI_BLOCK_KERNEL`.
 """
 
 from __future__ import annotations
@@ -32,16 +35,21 @@ from ..cuda import Kernel, check_cuda
 from ..utils.cache import on_device
 
 VITERBI_KERNEL = Kernel("modem_viterbi")
+VITERBI_BLOCK_KERNEL = Kernel("modem_viterbi_block")
 
 #: the end-state pin: ``pm + pin * BIG`` on every state but 0
 BIG = np.float32(1e9)
 #: renormalisation cadence, in padded steps (``ConvCode._acs``'s unroll)
 RENORM = 8
-#: the kernel's limits, checked here (``csrc/viterbi.cu`` trusts its caller)
-MIN_STATES, MAX_STATES = 8, 256
-MAX_CODE_BITS = 8
+#: the warp route's limits (``csrc/viterbi.cu`` trusts its caller)
+WARP_MAX_STATES = 256
+WARP_MAX_CODE_BITS = 32
 #: dynamic shared memory one block may use on sm_90
 MAX_SMEM_BYTES = 232448
+#: threads of a block-route block, at most
+MAX_BLOCK_THREADS = 1024
+#: global scratch one block-route launch may take; more rows launch again
+MAX_SCRATCH_BYTES = 1 << 30
 
 
 def _pin_bias(code, pin: torch.Tensor) -> torch.Tensor:
@@ -146,7 +154,7 @@ def stream_kernel(code, lam, b: int, h: int, guard: float):
 # --------------------------------------------------------------------------
 
 def row_layout(n_states: int, n: int, t_w: int) -> tuple[int, int, int]:
-    """The kernel's shared memory for one row (one warp), in floats, as
+    """The warp route's shared memory for one row (one warp), in floats, as
     ``(dec_off, pm_off, row_floats)``: the window's costs at 0, its
     decisions (one bit per state and step, ``max(1, S/32)`` 32-bit words a
     step) at ``dec_off``, two buffers of path metrics at ``pm_off``, the
@@ -158,26 +166,33 @@ def row_layout(n_states: int, n: int, t_w: int) -> tuple[int, int, int]:
 
 
 def smem_bytes_per_row(n_states: int, n: int, t_w: int) -> int:
-    """Bytes of shared memory the kernel gives one row."""
+    """Bytes of shared memory the warp route gives one row."""
     return 4 * row_layout(n_states, n, t_w)[2]
 
 
-def check_limits(code, t_w: int) -> None:
-    """Raise ``ValueError`` for a code or window the kernel does not take."""
-    s, n = code.n_states, code.n
-    if not MIN_STATES <= s <= MAX_STATES:
-        raise ValueError(
-            f"the Viterbi kernel takes {MIN_STATES} <= S <= {MAX_STATES} "
-            f"states (K 4..9), got S = {s} (K = {code.k})")
-    if not 1 <= n <= MAX_CODE_BITS:
-        raise ValueError(f"the Viterbi kernel takes 1..{MAX_CODE_BITS} code "
-                         f"bits per step, got {n}")
-    need = smem_bytes_per_row(s, n, t_w)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"a window of {t_w} steps needs {need} bytes of shared memory "
-            f"per row (costs and decisions), over the {MAX_SMEM_BYTES} a "
-            "block may use: use shorter windows")
+def warp_route(code, t_w: int) -> bool:
+    """Whether a row of ``t_w`` steps takes the warp route: up to 256
+    states, 32 code bits and a row that fits one block's shared memory."""
+    return (code.n_states <= WARP_MAX_STATES and code.n <= WARP_MAX_CODE_BITS
+            and smem_bytes_per_row(code.n_states, code.n, t_w)
+            <= MAX_SMEM_BYTES)
+
+
+def block_plan(n_states: int, n: int, t_w: int) -> tuple[int, int, int, int]:
+    """The block route's ``(threads, pm_smem, dec_smem, smem_bytes)`` for
+    one row: ``min(S, 1024)`` threads (at least a warp); shared memory
+    holds the ``n`` generators and 64 words of reduction slots, then the
+    two metric buffers while they fit (``pm_smem``) and after them the
+    window's decision words while those fit too (``dec_smem``). The rest
+    goes to the global scratch."""
+    threads = min(max(n_states, 32), MAX_BLOCK_THREADS)
+    head = 4 * (n + 64)
+    pm_bytes = 8 * n_states
+    dec_bytes = 4 * t_w * max(1, n_states // 32)
+    pm_smem = head + pm_bytes <= MAX_SMEM_BYTES
+    dec_smem = pm_smem and head + pm_bytes + dec_bytes <= MAX_SMEM_BYTES
+    smem = head + pm_bytes * pm_smem + dec_bytes * dec_smem
+    return threads, int(pm_smem), int(dec_smem), smem
 
 
 def _masks(code) -> np.ndarray:
@@ -195,16 +210,40 @@ def _launch(code, lam, pin, *, n_ch: int, t_stream: int, t_w: int,
     decisions at ``out_lo <= p < out_hi`` to ``out[c, wi*block + p -
     out_lo]``; ``pin`` None pins the last window of each channel."""
     dev = lam.device
-    check_limits(code, t_w)
     check_cuda("lam", lam, torch.float32, dev)
     if pin is not None:
         check_cuda("pin", pin, torch.float32, dev)
-    masks = on_device(code, "viterbi_masks", lambda: _masks(code),
-                      torch.int32, dev)
     if out.numel() == 0 or n_ch * n_win == 0:
         return
-    VITERBI_KERNEL.launch(
-        dev, lam.data_ptr(), None if pin is None else pin.data_ptr(),
-        masks.data_ptr(), n_ch, t_stream, code.n, code.n_states, code.k - 2,
-        t_w, *row_layout(code.n_states, code.n, t_w), block, halo, n_win,
-        guard, out_lo, out_hi, out.shape[-1], out.data_ptr())
+    pin_ptr = None if pin is None else pin.data_ptr()
+    tail = (block, halo, n_win, guard, out_lo, out_hi, out.shape[-1],
+            out.data_ptr())
+    if warp_route(code, t_w):
+        masks = on_device(code, "viterbi_masks", lambda: _masks(code),
+                          torch.int32, dev)
+        VITERBI_KERNEL.launch(
+            dev, lam.data_ptr(), pin_ptr, masks.data_ptr(), n_ch, t_stream,
+            code.n, code.n_states, code.k - 2, t_w,
+            *row_layout(code.n_states, code.n, t_w), *tail)
+        return
+    s = code.n_states
+    polys = on_device(code, "viterbi_polys",
+                      lambda: np.asarray(code.polys, np.int64), torch.int32,
+                      dev)
+    threads, pm_smem, dec_smem, smem = block_plan(s, code.n, t_w)
+    words = max(1, s // 32)
+    rows = n_ch * n_win
+    per_row = 8 * s * (1 - pm_smem) + 4 * t_w * words * (1 - dec_smem)
+    batch = rows if per_row == 0 else max(1, min(rows, MAX_SCRATCH_BYTES
+                                                 // per_row))
+    pm_g = (None if pm_smem else
+            torch.empty((batch, 2, s), dtype=torch.float32, device=dev))
+    dec_g = (None if dec_smem else
+             torch.empty((batch, t_w, words), dtype=torch.int32, device=dev))
+    for row0 in range(0, rows, batch):
+        VITERBI_BLOCK_KERNEL.launch(
+            dev, lam.data_ptr(), pin_ptr, polys.data_ptr(), n_ch, t_stream,
+            code.n, s, code.k - 2, t_w, threads, pm_smem, dec_smem, smem,
+            row0, min(batch, rows - row0),
+            None if pm_g is None else pm_g.data_ptr(),
+            None if dec_g is None else dec_g.data_ptr(), *tail)

@@ -4,21 +4,21 @@ configurations (counterpart of :mod:`modem_tpu.presets`).
 A preset fixes the composition and the size coupling a deployment would
 otherwise re-derive. They are standard-shaped, not standard-conformant:
 DVB-style RS + interleaver + scrambler, CCSDS-style concatenated coding,
-GSM's GMSK at BT 0.3. Each takes ``device``, the card unless the caller
-asks for the CPU. Not ported yet: the OFDM, MIMO, turbo and polar presets
-and ``qam16_gray_chain`` (ROADMAP.md lists each with the slice it waits
-for).
+GSM's GMSK at BT 0.3, Gray 16-QAM. Each takes ``device``, the card unless
+the caller asks for the CPU. Not ported yet: the OFDM, MIMO, turbo and
+polar presets (ROADMAP.md lists each with the slice it waits for).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .chain import qpsk_reference_chain
+from .chain import PulseShapedChain, qpsk_reference_chain
 from .config import Rates
 from .fec import Puncturer, ccsds_code, rate34_pattern, rs_255_223, rs_dvb
 from .gmsk import GmskChain
 from .link import FramedLink
+from .models.qam import QAM
 
 #: The reference binaries' operating point (`modulate.rs` / `demodulate.rs`
 #: defaults): 10 kHz sample rate, 1250 baud.
@@ -65,3 +65,12 @@ def gsm_like_gmsk(rates: Rates | None = None,
                   device: Device = None) -> GmskChain:
     """GSM's modulation: GMSK at BT = 0.3."""
     return GmskChain(rates or REFERENCE_RATES, bt=0.3, device=device)
+
+
+def qam16_gray_chain(rates: Rates | None = None,
+                     device: Device = None) -> PulseShapedChain:
+    """Gray-mapped 16-QAM over the RRC matched-filter chain: the
+    bandwidth-efficient single-carrier point (4 bits a symbol; Gray takes
+    the table path of K1-K3, the algebraic map being natural binary)."""
+    return PulseShapedChain(QAM(4, 0.0, 6.0, gray=True),
+                            rates or REFERENCE_RATES, device=device)

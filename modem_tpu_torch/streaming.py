@@ -2,9 +2,12 @@
 carry (counterpart of :mod:`modem_tpu.streaming`).
 
 Decisions and waveforms are identical to one shot of the fused call on the
-whole stream. The carries have the JAX package's form, so a stream started
-there can go on here: :meth:`set_state` takes the numpy form of the JAX
-classes' ``get_state()``.
+whole stream, at baseband and at passband (each block passes its
+``sym_offset``, the stream-global index of its first symbol, so the carrier
+phase runs on across the seams). The carries have the JAX package's form,
+so a stream started there can go on here: :meth:`set_state` takes the
+numpy form of the JAX classes' ``get_state()`` (or
+:func:`modem_tpu_torch.checkpoint.load_state` of a saved one).
 """
 
 from __future__ import annotations
@@ -55,7 +58,10 @@ class StreamingFusedChain:
 
     def _run(self, ext: torch.Tensor) -> torch.Tensor:
         ch = self.chain
-        return fused_pulse_chain(ext, ch.lut, ch.rrc, ch.sps, self.span)
+        # ext[..., 0] is stream symbol _seen - 2*span
+        return fused_pulse_chain(ext, ch.lut, ch.rrc, ch.sps, self.span,
+                                 sym_offset=self._seen - 2 * self.span,
+                                 **ch._carrier())
 
     def push(self, bits: torch.Tensor) -> torch.Tensor:
         if tuple(bits.shape[:-1]) != self.batch_shape:
@@ -102,28 +108,39 @@ class StreamingFusedTx:
 
     The pulse shaper only looks back ``span`` symbols, so TX streaming has
     no lag: ``push(bits)`` with ``L`` symbols returns exactly ``L*sps`` final
-    samples per rail; the carry is the last ``span`` symbols. ``flush()``
-    emits the ``span*sps``-sample zero-flush tail. Pushes + flush equal the
-    one-shot :meth:`PulseShapedChain.tx_fused` output exactly.
+    samples (``(i, q)`` at baseband, one real waveform at passband); the
+    carry is the last ``span`` symbols. ``flush()`` emits the
+    ``span*sps``-sample zero-flush tail. Pushes + flush equal the one-shot
+    :meth:`PulseShapedChain.tx_fused` output exactly; ``out_scale`` stores
+    int16 as it does.
     """
 
     def __init__(self, chain: PulseShapedChain,
-                 batch_shape: tuple[int, ...] = ()):
+                 batch_shape: tuple[int, ...] = (),
+                 out_scale: float | None = None):
         self.chain = chain
         self.bps = chain.bits_per_symbol
         self.span = chain.span
         self.batch_shape = tuple(batch_shape)
+        self.out_scale = out_scale
         self.device = chain.lut.device
         self._tail = _sentinels(self.batch_shape, self.span, self.device)
         self._seen = 0
 
     def _run(self, ext: torch.Tensor):
         ch = self.chain
-        return fused_tx(ext, ch.lut, ch.rrc, ch.sps, self.span)
+        wave = fused_tx(ext, rrc_taps=ch.rrc, sps=ch.sps, span=self.span,
+                        sym_offset=self._seen - self.span,
+                        out_scale=self.out_scale, **ch._txrx_params(),
+                        **ch._carrier())
+        return (wave,) if ch.carrier_hz is not None else wave
+
+    def _out(self, waves):
+        return waves[0] if self.chain.carrier_hz is not None else waves
 
     def push(self, bits: torch.Tensor):
-        """``[..., L*bps]`` bits -> ``(i, q)`` ``[..., L*sps]`` final
-        waveform samples."""
+        """``[..., L*bps]`` bits -> ``[..., L*sps]`` final waveform
+        samples."""
         if tuple(bits.shape[:-1]) != self.batch_shape:
             raise ValueError("batch shape is fixed at construction")
         syms = pack_bits(bits, self.bps)
@@ -134,7 +151,7 @@ class StreamingFusedTx:
         out = tuple(w[..., d * sps: (d + length) * sps] for w in waves)
         self._tail = ext[..., ext.shape[-1] - d:]
         self._seen += length
-        return out
+        return self._out(out)
 
     def flush(self):
         """Emit the ``span*sps`` flush-tail samples; the stream is then
@@ -144,7 +161,7 @@ class StreamingFusedTx:
         out = tuple(w[..., d * sps: 2 * d * sps] for w in waves)
         self._seen = 0
         self._tail = _sentinels(self.batch_shape, d, self.device)
-        return out
+        return self._out(out)
 
     def get_state(self) -> dict:
         """Carry: ``{"tail": [..., span] int32, "seen": int}``."""
@@ -161,9 +178,10 @@ class StreamingFusedRx:
 
     The matched filter looks forward ``span`` symbols, so decisions lag the
     input by ``span*sps`` samples: the carry is the last ``span*sps``
-    samples per rail. Pushing a TX stream including its flush tail yields
-    exactly all K decisions; :meth:`flush` finalizes against zeros for
-    truncated streams. Push lengths must be multiples of ``sps``.
+    samples of each rail (one real rail at passband). Pushing a TX stream
+    including its flush tail yields exactly all K decisions; :meth:`flush`
+    finalizes against zeros for truncated streams. Push lengths must be
+    multiples of ``sps``.
     """
 
     def __init__(self, chain: PulseShapedChain,
@@ -173,30 +191,36 @@ class StreamingFusedRx:
         self.span = chain.span
         self.batch_shape = tuple(batch_shape)
         self.device = chain.lut.device
+        self.n_rails = 1 if chain.carrier_hz is not None else 2
         self._tail = self._zeros(self.span * chain.sps)
         self._seen = 0  # stream samples consumed so far
 
     def _zeros(self, n: int) -> list[torch.Tensor]:
         return [torch.zeros(self.batch_shape + (n,), dtype=torch.float32,
-                            device=self.device) for _ in range(2)]
+                            device=self.device) for _ in range(self.n_rails)]
 
     def _run(self, ext, n_symbols: int) -> torch.Tensor:
         ch = self.chain
-        return fused_rx(tuple(ext), n_symbols, ch.lut, ch.rrc, ch.sps,
-                        self.span)
+        # ext symbol 0 is stream symbol _seen/sps - span
+        wave = ext[0] if self.n_rails == 1 else tuple(ext)
+        return fused_rx(wave, n_symbols, rrc_taps=ch.rrc, sps=ch.sps,
+                        span=self.span,
+                        sym_offset=self._seen // ch.sps - self.span,
+                        **ch._txrx_params(), **ch._carrier())
 
     def push(self, wave) -> torch.Tensor:
-        """``(i, q)`` ``[..., L]`` samples (``L % sps == 0``) -> newly final
-        decided bits (lagging ``span`` symbols)."""
+        """``[..., L]`` samples (``(i, q)`` at baseband, the real waveform
+        at passband; ``L % sps == 0``) -> newly final decided bits (lagging
+        ``span`` symbols)."""
         sps, d = self.chain.sps, self.span
-        length = wave[0].shape[-1]
+        waves = [wave] if self.n_rails == 1 else list(wave)
+        length = waves[0].shape[-1]
         if length % sps:
             raise ValueError("push length must be a multiple of sps")
         ext = [torch.cat([t, w.to(torch.float32)], dim=-1)
-               for t, w in zip(self._tail, wave)]
+               for t, w in zip(self._tail, waves)]
         dec = self._run(ext, length // sps)
-        # ext symbol 0 is global symbol _seen/sps - span: the first `skip`
-        # local decisions predate the stream on early calls.
+        # the first `skip` local decisions predate the stream on early calls
         skip = max(0, d - self._seen // sps)
         out = dec[..., skip:]
         self._tail = [e[..., e.shape[-1] - d * sps:] for e in ext]
@@ -221,7 +245,8 @@ class StreamingFusedRx:
         return unpack_symbols(out, self.bps)
 
     def get_state(self) -> dict:
-        """Carry: ``{"tails": [i, q] [..., span*sps] float32, "seen": int}``."""
+        """Carry: ``{"tails": one [..., span*sps] float32 per rail, "seen":
+        int}``."""
         return {"tails": list(self._tail), "seen": self._seen}
 
     def set_state(self, state) -> None:

@@ -91,9 +91,18 @@ def test_equals_tx_then_rx_plain():
 
 @pytest.mark.parametrize("kwargs", [{"snr_db": 6.0}, {"carrier_hz": 2000}])
 def test_unported_modes_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chain_kernel.fused_pulse_chain(torch.zeros((1, 10), dtype=torch.int32),
-                                       QPSK_LUT, RRC, SPS, SPAN, **kwargs)
+    """The noise and passband modes, once refused, now run; each raises
+    only for arguments it cannot take (a carrier without its sample rate,
+    a noise tile of no symbols)."""
+    syms = torch.zeros((1, 10), dtype=torch.int32)
+    bad = ({"carrier_hz": 2000} if "carrier_hz" in kwargs
+           else {**kwargs, "chunk_sym": 0})
+    with pytest.raises(ValueError, match="sample_rate|chunk_sym"):
+        chain_kernel.fused_pulse_chain(syms, QPSK_LUT, RRC, SPS, SPAN, **bad)
+    good = {**kwargs, "sample_rate": 10000} if "carrier_hz" in kwargs else kwargs
+    dec = chain_kernel.fused_pulse_chain(syms, QPSK_LUT, RRC, SPS, SPAN,
+                                         **good)
+    assert dec.dtype == torch.int32 and dec.shape == (1, 10)
 
 
 def test_cpu_tensors_take_the_plain_version():

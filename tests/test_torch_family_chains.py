@@ -423,10 +423,17 @@ def test_differential_fused(name):
 
 
 def test_differential_noisy_loopback_not_ported():
-    _, tc = _diff("dqpsk")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.roundtrip_fused(torch.zeros(2, 64, dtype=torch.int32), snr_db=10.0,
-                           seed=1)
+    """K1's noise behind ``roundtrip_fused(snr_db, seed)``, once missing:
+    the seed reaches the stream (two seeds differ, equal seeds agree) and
+    the decisions equal the JAX chain's on the same seed."""
+    jc, tc = _diff("dqpsk")
+    bits = np.random.default_rng(7).integers(0, 2, (4, 600)).astype(np.int32)
+    tb = torch.as_tensor(bits)
+    a = tc.roundtrip_fused(tb, snr_db=6.0, seed=1)
+    assert torch.equal(a, tc.roundtrip_fused(tb, snr_db=6.0, seed=1))
+    assert not torch.equal(a, tc.roundtrip_fused(tb, snr_db=6.0, seed=2))
+    assert 0 < int((a != tb).sum()) < bits.size // 10
+    _equal(a, jc.roundtrip_fused(jnp.asarray(bits), snr_db=6.0, seed=1))
 
 
 def test_differential_rrc_override_and_type():

@@ -507,18 +507,25 @@ def test_conv_arguments_checked():
 
 
 def test_kernel_limits_named():
-    """The kernel's limits are checked before any launch: S outside 8..256
-    and windows over a block's shared memory raise ``ValueError``."""
-    with pytest.raises(ValueError, match="8 <= S <= 256"):
-        vk.check_limits(tconv.ConvCode(3, (0o7, 0o5)), 100)
-    with pytest.raises(ValueError, match="8 <= S <= 256"):
-        vk.check_limits(tconv.ConvCode(10, (0o1001, 0o1777)), 100)
-    with pytest.raises(ValueError, match="shared memory"):
-        vk.check_limits(tconv.ccsds_code(), 30000)
-    vk.check_limits(tconv.ccsds_code(), 652)
+    """Every code shape has a route: the warp route takes S <= 256 (S = 4
+    included), n <= 32 and a row that fits shared memory; K = 10, 33 code
+    bits and 30000-step windows take the block route, whose metrics and
+    decisions move to the global scratch past shared memory."""
+    assert vk.warp_route(tconv.ConvCode(3, (0o7, 0o5)), 100)
+    assert vk.warp_route(tconv.ccsds_code(), 652)
+    assert not vk.warp_route(tconv.ConvCode(10, (0o1001, 0o1777)), 100)
+    assert not vk.warp_route(tconv.ccsds_code(), 30000)
+    assert not vk.warp_route(tconv.ConvCode(3, (0o7,) * 33), 10)
     assert vk.smem_bytes_per_row(64, 2, 652) == 4 * (652 * 4 + 128)
     assert vk.row_layout(64, 2, 652) == (1304, 2608, 2736)
     assert vk.row_layout(8, 3, 10) == (30, 40, 56)
+    head = 4 * (2 + 64)
+    assert vk.block_plan(512, 2, 100) == (512, 1, 1, head + 4096 + 6400)
+    assert vk.block_plan(64, 2, 30000) == (64, 1, 0, head + 512)
+    assert vk.block_plan(64, 2, 20000) == (64, 1, 1, head + 512 + 160000)
+    assert vk.block_plan(256, 2, 8000) == (256, 1, 0, head + 2048)
+    assert vk.block_plan(1 << 15, 2, 40) == (1024, 0, 0, head)
+    assert vk.block_plan(4, 2, 10)[0] == 32
 
 
 def test_fec_exports_only_what_is_ported():

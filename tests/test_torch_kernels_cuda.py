@@ -181,11 +181,202 @@ def test_empty_inputs_launch_nothing(dev):
 
 @pytest.mark.parametrize("kwargs", [{"carrier_hz": 2000}, {"out_scale": 10.0}])
 def test_unported_modes_raise_on_card(dev, kwargs):
+    """The modes once refused launch K2 on the card; a carrier past the
+    int32 NCO is refused before any launch."""
     syms, lut, taps, sps, span = _setup(CASES[0], dev)
+    kwargs = {**kwargs, "sample_rate": 10000} if "carrier_hz" in kwargs \
+        else kwargs
     before = txrx.TX_KERNEL.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        txrx.fused_tx(syms, lut, taps, sps, span, **kwargs)
+    with pytest.raises(ValueError, match="2\\^31"):
+        txrx.fused_tx(syms, lut, taps, sps, span, carrier_hz=50000,
+                      sample_rate=50000)
     assert txrx.TX_KERNEL.launches == before
+    _launches(txrx.TX_KERNEL, txrx.fused_tx, syms, lut, taps, sps, span,
+              **kwargs)
+
+
+# ---- the K1-K3 modes: passband, algebraic QAM, bf16/int16, noise ----
+
+QAM256 = txrx.qam_mparams(8, 0.1, 1.0)
+#: (id, keywords of the mode, bits per symbol); offsets negative as on a
+#: stream's first block
+MODES = [
+    ("pb2000", {"carrier": (2000, 10000), "sym_offset": -16}, 2),
+    ("pb1700", {"carrier": (1700, 10000), "sym_offset": 4099}, 2),
+    ("qam256", {"qam": QAM256}, 8),
+    ("qam256_pb1700", {"qam": QAM256, "carrier": (1700, 10000),
+                       "sym_offset": -5}, 8),
+]
+MODE_IDS = [m[0] for m in MODES]
+
+
+def _mode_setup(mode, dev, shape=(130, 300)):
+    _, kw, bps = mode
+    g = torch.Generator(device=dev).manual_seed(len(kw))
+    syms = torch.randint(0, 1 << bps, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+    taps = torch.as_tensor(rrc_taps(8, 8, 0.35), device=dev)
+    lut = None if "qam" in kw else torch.as_tensor(
+        _qpsk().astype(np.float32), device=dev)
+    return syms, lut, taps, kw
+
+
+def _close_waves(got, want, dtype=torch.float32):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        if dtype == torch.int16:
+            assert int((g.int() - w.int()).abs().max()) <= 1
+        elif dtype == torch.bfloat16:
+            g, w = g.float(), w.float()
+            ulp = torch.maximum(g.abs(), w.abs()) * 2.0 ** -7 + 1e-7
+            assert bool(((g - w).abs() <= ulp).all())
+        else:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("store", ["f32", "bf16", "i16"])
+def test_tx_kernel_modes(mode, store, dev):
+    syms, lut, taps, kw = _mode_setup(mode, dev)
+    out = {"f32": (None, torch.float32), "bf16": (None, torch.bfloat16),
+           "i16": (1000.0, torch.int16)}[store]
+    args = (syms, lut, taps, 8, 8, kw.get("qam"), kw.get("carrier"),
+            kw.get("sym_offset", 0), *out)
+    got = _launches(txrx.TX_KERNEL, txrx.tx_kernel, *args)
+    _close_waves(got, txrx.tx_plain(*args), out[1])
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_rx_kernel_modes(mode, soft, dev):
+    syms, lut, taps, kw = _mode_setup(mode, dev)
+    common = (kw.get("qam"), kw.get("carrier"), kw.get("sym_offset", 0))
+    wave = txrx.tx_plain(syms, lut, taps, 8, 8, *common)
+    g = torch.Generator(device=dev).manual_seed(3)
+    sigma = 0.1 if "qam" not in kw else 0.002
+    wave = tuple(w + sigma * torch.randn(w.shape, generator=g, device=dev)
+                 for w in (wave if isinstance(wave, tuple) else (wave,)))
+    rails = wave if len(wave) == 2 else (wave[0], None)
+    args = (*rails, syms.shape[-1], lut, taps, 8, 8, soft, *common)
+    kernel = txrx.RX_SOFT_KERNEL if soft else txrx.RX_HARD_KERNEL
+    got = _launches(kernel, txrx.rx_kernel, *args)
+    want = txrx.rx_plain(*args)
+    if soft:
+        _close_waves(got, want)
+    else:
+        assert torch.equal(got, want)
+        assert float((got == syms).double().mean()) > 0.99
+
+
+def test_rx_kernel_reads_bf16(dev):
+    """bf16 waveforms (baseband and passband) are read as they are: the
+    kernel equals the plain version on the same bf16 input."""
+    syms, lut, taps, _ = _mode_setup(MODES[0], dev)
+    for carrier in (None, (2000, 10000)):
+        wave = txrx.tx_plain(syms, lut, taps, 8, 8, None, carrier, -16, None,
+                             torch.bfloat16)
+        rails = wave if carrier is None else (wave, None)
+        for soft in (False, True):
+            args = (*rails, syms.shape[-1], lut, taps, 8, 8, soft, None,
+                    carrier, -16)
+            got, want = txrx.rx_kernel(*args), txrx.rx_plain(*args)
+            if soft:
+                _close_waves(got, want)
+            else:
+                assert torch.equal(got, want) and torch.equal(got, syms)
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_chain_kernel_modes(mode, dev):
+    syms, lut, taps, kw = _mode_setup(mode, dev)
+    syms[0, :16] = -1
+    args = (syms, lut, taps, 8, 8, kw.get("qam"), kw.get("carrier"),
+            kw.get("sym_offset", 0))
+    got = _launches(chain_kernel.CHAIN_KERNEL, chain_kernel.chain_kernel,
+                    *args)
+    real = syms >= 0
+    want = chain_kernel.chain_plain(*args)
+    assert torch.equal(got[real], want[real])
+    assert torch.equal(got[real], syms[real])
+
+
+@pytest.mark.parametrize("carrier", [None, (2000, 10000)],
+                         ids=["baseband", "pb2000"])
+def test_chain_kernel_noise(carrier, dev):
+    """K1's noise on the card draws the plain version's stream: 130 x 300
+    symbols in tiles of 32 (both lane tiles, ten time tiles); decisions
+    equal on >= 99.99%, and the tile of 256 as well."""
+    syms, lut, taps, _ = _mode_setup(MODES[0], dev)
+    sigma = chain_kernel.snr_sigma(1.0, 6.0, carrier)
+    for cs in (32, 256):
+        args = (syms, lut, taps, 8, 8, None, carrier, -8, sigma, 5, cs)
+        got = _launches(chain_kernel.CHAIN_KERNEL, chain_kernel.chain_kernel,
+                        *args)
+        want = chain_kernel.chain_plain(*args)
+        assert float((got == want).double().mean()) >= 0.9999
+        assert 0.03 < float((got != syms).double().mean()) < 0.07
+
+
+def test_passband_chain_on_card(dev):
+    """``PulseShapedChain(carrier_hz=2000)``: every fused form gives the
+    bits back and launches its kernel; the streaming classes in pushes
+    equal one shot; ``DifferentialChain``'s noisy loopback honours its
+    seed."""
+    from modem_tpu_torch import (DifferentialChain, StreamingFusedChain,
+                                 StreamingFusedRx, StreamingFusedTx,
+                                 make_scheme)
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+
+    r = Rates(1250, 10000)
+    chain = PulseShapedChain(QPSK(0.0, 1.0), r, carrier_hz=2000, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    bits = torch.randint(0, 2, (16, 2 * 400), generator=g, device=dev,
+                         dtype=torch.int32)
+    assert torch.equal(_launches(chain_kernel.CHAIN_KERNEL,
+                                 chain.roundtrip_fused, bits), bits)
+    wave = _launches(txrx.TX_KERNEL, chain.tx_fused, bits)
+    assert torch.equal(_launches(txrx.RX_HARD_KERNEL, chain.rx_fused, wave,
+                                 400), bits)
+    torch.testing.assert_close(wave, chain.tx(bits), atol=ATOL, rtol=0)
+    assert torch.equal(chain.rx(wave, 400), bits)
+    st, sr, sc = (StreamingFusedTx(chain, (16,)), StreamingFusedRx(chain, (16,)),
+                  StreamingFusedChain(chain, (16,)))
+    cuts = [0, 74, 190, 400]
+    parts = [st.push(bits[:, 2 * a:2 * b]) for a, b in zip(cuts, cuts[1:])]
+    streamed = torch.cat(parts + [st.flush()], -1)
+    assert torch.equal(streamed, wave)
+    out = [sr.push(streamed[:, 8 * a:8 * b])
+           for a, b in zip(cuts + [400], cuts[1:] + [408])]
+    assert torch.equal(torch.cat(out, -1), bits)
+    out = [sc.push(bits[:, 2 * a:2 * b]) for a, b in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(out + [sc.flush()], -1), bits)
+    dq = DifferentialChain(make_scheme("dqpsk", r), r, device=dev)
+    a = dq.roundtrip_fused(bits, snr_db=6.0, seed=1)
+    assert torch.equal(a, dq.roundtrip_fused(bits, snr_db=6.0, seed=1))
+    assert not torch.equal(a, dq.roundtrip_fused(bits, snr_db=6.0, seed=2))
+
+
+def test_link_without_fused_forms_on_card(dev):
+    """``FramedLink`` over a chain that has only ``tx`` and ``rx_soft``
+    takes the staged route on the card too."""
+    from modem_tpu_torch import presets
+    from modem_tpu_torch.link import FramedLink
+
+    chain = presets.qpsk_reference_chain(presets.REFERENCE_RATES, device=dev)
+
+    class StagedOnly:
+        scheme, tx, rx_soft = chain.scheme, chain.tx, chain.rx_soft
+
+    link = FramedLink(StagedOnly(), payload_bits=1002)
+    pay = torch.randint(0, 2, (4, 1002), device=dev, dtype=torch.int32)
+    before = txrx.TX_KERNEL.launches
+    out, ok = link.rx_fused(link.tx_fused(pay), 0.05)
+    assert txrx.TX_KERNEL.launches == before
+    assert torch.equal(out, pay) and bool(ok.all())
 
 
 def test_kernels_refuse_mismatched_taps(dev):
@@ -705,29 +896,85 @@ def test_viterbi_stream_kernel_bench_fec_width(block, dev):
 
 
 def test_viterbi_kernel_refuses_what_it_does_not_take(dev):
-    from modem_tpu_torch.fec import ConvCode, ccsds_code
+    """The C entry points refuse, before any launch, what their callers
+    route elsewhere: the warp route a state count over 256 and a row over
+    the card's shared memory per block, the block route a block that is no
+    whole number of warps."""
     from modem_tpu_torch.ops import viterbi_kernel as vk
 
-    before = vk.VITERBI_KERNEL.launches
-    small = ConvCode(3, (0o7, 0o5))  # S = 4
-    with pytest.raises(ValueError, match="8 <= S <= 256"):
-        small.decode_soft_windowed(torch.zeros((1, 200), device=dev), 32)
-    with pytest.raises(ValueError, match="shared memory"):
-        vk.viterbi_decode_windows(ccsds_code(),
-                                  torch.zeros((1, 30000, 2), device=dev), 0.0)
-    # the C entry point itself refuses a state count it has no kernel for
-    # and a row over the card's shared memory per block
+    before = (vk.VITERBI_KERNEL.launches, vk.VITERBI_BLOCK_KERNEL.launches)
     lam = torch.zeros((1, 64, 2), device=dev)
     out = torch.zeros((1, 64), dtype=torch.int32, device=dev)
-    masks = torch.zeros((2, 64), dtype=torch.int32, device=dev)
-    for s, layout in ((4, vk.row_layout(4, 2, 64)),
+    masks = torch.zeros((2, 512), dtype=torch.int32, device=dev)
+    for s, layout in ((512, vk.row_layout(512, 2, 64)),
                       (64, (128, 256, 1 << 20))):
         with pytest.raises(RuntimeError, match="CUDA error"):
             vk.VITERBI_KERNEL.launch(dev, lam.data_ptr(), None,
                                      masks.data_ptr(), 1, 64, 2, s,
                                      s.bit_length() - 2, 64, *layout, 0, 0,
                                      1, 0.0, 0, 64, 64, out.data_ptr())
-    assert vk.VITERBI_KERNEL.launches == before
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        vk.VITERBI_BLOCK_KERNEL.launch(
+            dev, lam.data_ptr(), None, masks.data_ptr(), 1, 64, 2, 64, 5, 64,
+            48, 1, 1, 4096, 0, 1, None, None, 0, 0, 1, 0.0, 0, 64, 64,
+            out.data_ptr())
+    assert (vk.VITERBI_KERNEL.launches,
+            vk.VITERBI_BLOCK_KERNEL.launches) == before
+
+
+#: (K, polynomials, channels, data bits, block steps): every code shape of
+#: F1's repair: S = 2 and 4 in the warp route with idle lanes; K = 10
+#: (S = 512) and 15 (metrics in shared memory, decisions past it) and a
+#: tiny K = 16 (metrics in the global scratch) in the block route; rate
+#: 1/40 (more code bits than a mask word)
+WIDE_CODES = [
+    ("k2", 2, (0o3, 0o1), (4,), 300, 64),
+    ("k3", 3, (0o7, 0o5), (4,), 300, 64),
+    ("k10", 10, (0o1731, 0o1373), (3,), 200, 64),
+    ("k15", 15, (0o74653, 0o61535), (2,), 120, 48),
+    ("k16_tiny", 16, (0o172675, 0o137323), (1,), 24, 16),
+    ("k5_r1_40", 5, tuple(0o20 | (j % 15 + 1) for j in range(40)), (2,),
+     100, 32),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CODES, ids=[c[0] for c in WIDE_CODES])
+def test_viterbi_kernel_widened_shapes(case, dev):
+    """decode_soft_windowed of every code shape on the card, bit for bit
+    the plain version's, with the route the shape calls for; and ready
+    windows with pinned and free ends."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    _, k, polys, shape, t, b = case
+    code, bits, llr = _code_llrs(k, polys, shape, t, 1.0, 21, dev)
+    lam = llr.reshape(llr.shape[:-1] + (-1, code.n))
+    h = 10 * code.k
+    warp = vk.warp_route(code, b + 2 * h)
+    kernel = vk.VITERBI_KERNEL if warp else vk.VITERBI_BLOCK_KERNEL
+    assert warp == (k <= 9 and code.n <= 32)
+    got = _launches(kernel, code.decode_soft_windowed, llr, b)
+    assert torch.equal(got, vk.stream_plain(code, lam, b, h, 1e6))
+    assert float((got != bits).double().mean()) < 0.05
+    win = lam[..., :b + 2 * h, :]
+    pin = (torch.arange(win.shape[0], device=dev) % 2).float()
+    assert torch.equal(vk.windows_kernel(code, win, pin),
+                       vk.windows_plain(code, win, pin))
+
+
+def test_viterbi_window_longer_than_shared_memory(dev):
+    """A K = 9 window of 8000 steps: its decisions (32 B a step) leave the
+    block's shared memory for the global scratch, the traceback reads them
+    there; bit for bit the plain version's."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code, _, llr = _code_llrs(9, (0o561, 0o753), (2,), 8000 - 8, 1.0, 22, dev)
+    win = llr.reshape(2, -1, 2)
+    assert win.shape[1] == 8000 and not vk.warp_route(code, 8000)
+    assert vk.block_plan(code.n_states, 2, 8000)[2] == 0
+    pin = torch.tensor([0.0, 1.0], device=dev)
+    got = _launches(vk.VITERBI_BLOCK_KERNEL, vk.viterbi_decode_windows, code,
+                    win, pin)
+    assert torch.equal(got, vk.windows_plain(code, win, pin))
 
 
 def test_viterbi_empty_batch_launches_nothing(dev):

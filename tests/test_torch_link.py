@@ -176,6 +176,34 @@ def test_fused_route_on_cpu_is_staged(runs):
         assert torch.equal(f, s)
 
 
+class StagedOnly:
+    """A chain with only the staged forms (as the JAX package's OFDM and
+    SC-FDE chains are): ``tx``, ``rx_soft`` and the scheme."""
+
+    def __init__(self, chain):
+        self.scheme = chain.scheme
+        self.tx, self.rx_soft = chain.tx, chain.rx_soft
+
+
+@pytest.mark.parametrize("carrier", [None, 2000], ids=["baseband", "pb2000"])
+def test_fused_route_without_fused_forms(runs, carrier):
+    """``FramedLink.tx_fused`` / ``rx_fused`` over a chain without fused
+    forms take the staged route, at baseband and at passband (one real
+    waveform), and give the payload back."""
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+
+    run = runs["reference_link"]
+    chain = PulseShapedChain(QPSK(0.0, 1.0), presets.REFERENCE_RATES,
+                             carrier_hz=carrier, device=CPU)
+    tl = FramedLink(StagedOnly(chain), payload_bits=1002)
+    p = _t(run["payload"])
+    wave = tl.tx_fused(p)
+    assert torch.is_tensor(wave) == (carrier is not None)
+    out, ok = tl.rx_fused(wave, 0.05)
+    assert torch.equal(out, p) and bool(ok.all())
+
+
 def test_conv_window_resolution():
     chain = presets.qpsk_reference_chain(presets.REFERENCE_RATES, device=CPU)
     jchain = jpresets.qpsk_reference_chain(jpresets.REFERENCE_RATES)

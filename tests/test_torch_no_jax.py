@@ -55,9 +55,10 @@ def test_every_module_listed():
     assert "modem_tpu_torch.ops.resample" in MODULES
     for m in ("fec", "fec.conv", "fec.crc", "fec.interleave", "fec.puncture",
               "fec.rs", "fec.scramble", "ops.viterbi_kernel", "link",
-              "presets", "cli.link", "utils.cache"):
+              "presets", "cli.link", "utils.cache", "harness", "checkpoint",
+              "metrics", "ops.channel"):
         assert f"modem_tpu_torch.{m}" in MODULES, m
-    assert len(MODULES) >= 51
+    assert len(MODULES) >= 53
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),

@@ -171,18 +171,42 @@ def test_rejects_bad_tables():
     {"out_scale": 1000.0}, {"wave_dtype": torch.bfloat16},
 ])
 def test_tx_unported_modes_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        txrx.fused_tx(torch.zeros((1, 10), dtype=torch.int32), QPSK_LUT, RRC,
-                      SPS, SPAN, **kwargs)
+    """The modes once refused now run; what they cannot take raises
+    ``ValueError``: a carrier without its sample rate or past the int32
+    NCO, a table and QAM parameters together, an int16 store without its
+    scale."""
+    syms = torch.zeros((1, 10), dtype=torch.int32)
+    key = next(iter(kwargs))
+    bad = {"carrier_hz": {"carrier_hz": 50000, "sample_rate": 50000},
+           "qam_params": {"qam_params": kwargs["qam_params"]} if key ==
+           "qam_params" else {},
+           "out_scale": {"wave_dtype": torch.int16},
+           "wave_dtype": {"wave_dtype": torch.float64}}[key]
+    with pytest.raises(ValueError):
+        txrx.fused_tx(syms, QPSK_LUT, RRC, SPS, SPAN, **bad)
+    good = ({**kwargs, "sample_rate": 10000} if key == "carrier_hz"
+            else kwargs)
+    lut = None if key == "qam_params" else QPSK_LUT
+    out = txrx.fused_tx(syms, lut, RRC, SPS, SPAN, **good)
+    first = out if key == "carrier_hz" else out[0]
+    assert first.shape == (1, (10 + SPAN) * SPS)
+    assert first.dtype == {"out_scale": torch.int16,
+                           "wave_dtype": torch.bfloat16}.get(key,
+                                                             torch.float32)
 
 
 def test_rx_unported_modes_raise():
+    """Passband and bf16 input, once refused, now decide; a passband call
+    given an (i, q) pair raises."""
     w = torch.zeros((1, 200 * SPS))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        txrx.fused_rx((w, w), 10, QPSK_LUT, RRC, SPS, SPAN, carrier_hz=2000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        txrx.fused_rx((w.bfloat16(), w.bfloat16()), 10, QPSK_LUT, RRC, SPS,
-                      SPAN)
+    with pytest.raises(ValueError, match="passband"):
+        txrx.fused_rx((w, w), 10, QPSK_LUT, RRC, SPS, SPAN, carrier_hz=2000,
+                      sample_rate=10000)
+    pb = txrx.fused_rx(w, 10, QPSK_LUT, RRC, SPS, SPAN, carrier_hz=2000,
+                       sample_rate=10000)
+    bf = txrx.fused_rx((w.bfloat16(), w.bfloat16()), 10, QPSK_LUT, RRC, SPS,
+                       SPAN)
+    assert pb.shape == bf.shape == (1, 10) and bf.dtype == torch.int32
 
 
 def test_cpu_tensors_take_the_plain_version():
