@@ -161,13 +161,45 @@ BER harness on them, and K13 on the code shapes its repair widened:
     profiler's device time and the bound; widened K13 per call and per
     trellis step.
 
+The turbo and polar inner codes, at ``bench_fec.py``'s widths
+(``TurboCode(1024)`` at 512 codewords, 6 iterations; ``PolarCode(256,
+128)`` at 4096 codewords, CRC-16 inside K) and ``bench_link.py``'s frame
+count (256):
+
+28. K14 against its plain version, bit for bit: both half-iterations of a
+    first iteration at ``pick_geometry`` (one window of 1092 steps a row,
+    512 rows) on BPSK LLRs at 1 dB; K = 40 with an explicit window of 16
+    (``pick_guard``: guard 34), and ``decode(window=16)`` against the CPU
+    route at that guard; an odd window refused;
+29. ``TurboCode(1024).decode`` at 512 codewords, fixed and with early
+    exit, launch counts set to 0 just before and read just after:
+    decisions equal to the plain route's (the CPU full-block BCJR, which
+    ``pick_geometry``'s one window equals) and to the sent bits;
+30. K15 and K16 against their plain versions at 4096 x (256, 128), noise
+    sigma 0.3 and 0.8: SC u and x, CA-SCL-8 u and path metrics bit for
+    bit; ``decode`` and ``decode_list(8, crc)`` equal to the CPU route;
+31. main paths: ``lte_like_turbo_link()`` at 256 frames and 1 dB per
+    complex sample (K14), ``nr_like_control_link()`` at 3 dB (K16) and
+    ``nr_like_control_link(list_size=None)`` at 5 dB (K15), each
+    ``tx_fused`` -> seeded AWGN -> ``rx_fused`` with every launch count
+    set to 0 just before: every payload back, every CRC true, K2, K3 soft
+    and the inner kernel launched; then the inner kernel bit for bit
+    against its plain version on that run's own inputs;
+32. CLI: ``link tx`` -> ``link rx`` on the card for ``lte_like_turbo``
+    and ``nr_like_control``, 16 frames each, every verdict OK;
+33. times: K14, K15, K16 and their plain versions per call, the
+    profiler's device time and the bound; the turbo and polar encoders and
+    decoders in Mbit/s; the two presets' ``frame``, ``tx_fused`` and
+    ``rx_fused`` per call at 256 frames with the device's busy time and
+    idle share.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11; K12 hard and
 soft; K13; each mode of K1-K3, K1 with noise with ``agreement``; K13 at
-K = 3 and 15), each
+K = 3 and 15; K14, K15, K16), each
 with its launches on its path, error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
 take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
@@ -275,6 +307,25 @@ WIDE_VIT = {"viterbi_k3": (3, (0o7, 0o5)),
             "viterbi_k15": (15, (0o74653, 0o61535))}
 WIDE_VIT_SHAPE = (16, 1024)      # channels x data bits
 WIDE_VIT_BLOCK = 256
+# the turbo and polar inner codes: bench_fec.py:405-408's turbo width,
+# :282-284 and :318-356's polar width, bench_link.py:115-120's frame count
+TURBO_K, TURBO_CW, TURBO_ITERS = 1024, 512, 6
+TURBO_SNR_DB = 1.0               # per code bit (BPSK LLRs)
+TURBO_SMALL = (40, 16)           # K, an explicit window through pick_guard
+POLAR_N, POLAR_K, POLAR_CW = 256, 128, 4096
+POLAR_SIGMAS = (0.3, 0.8)        # bench_fec's noise, and a noisier one
+FEC_LINK_FRAMES = 256
+FEC_LINK_SNR_DB = (1.0, 3.0, 5.0)  # turbo, polar SCL-8, polar SC
+TURBO_NAME, SC_NAME, SCL_NAME = "bcjr_half_iteration", "polar_sc", "polar_scl8"
+#: profiler name, source and replaced TPU kernel of each K14-K16 entry
+FEC_REPORT = {
+    TURBO_NAME: ("bcjr_kernel", "modem_tpu_torch/csrc/bcjr.cu",
+                 "modem_tpu/ops/pallas_bcjr.py:145"),
+    SC_NAME: ("sc_kernel", "modem_tpu_torch/csrc/polar.cu",
+              "modem_tpu/ops/pallas_sc.py:54"),
+    SCL_NAME: ("scl_kernel", "modem_tpu_torch/csrc/polar.cu",
+               "modem_tpu/ops/pallas_scl.py:75"),
+}
 # the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -368,16 +419,18 @@ def chain_work(chain, name: str, c: int, k: int) -> tuple[float, float]:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from modem_tpu_torch.ops import (chain_kernel, demod_kernel, fir,
-                                     fsk_kernel as fk, resampled_kernel as rk,
-                                     txrx, viterbi_kernel as vk)
+    from modem_tpu_torch.ops import (bcjr_kernel, chain_kernel, demod_kernel,
+                                     fir, fsk_kernel as fk,
+                                     resampled_kernel as rk, sc_kernel,
+                                     scl_kernel, txrx, viterbi_kernel as vk)
 
     for k in (chain_kernel.CHAIN_KERNEL, txrx.TX_KERNEL, txrx.RX_HARD_KERNEL,
               txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL,
               fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL, fk.DISC_MEANS_KERNEL,
               fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL, rk.RESAMPLED_TX_KERNEL,
               rk.RESAMPLED_RX_KERNEL, vk.VITERBI_KERNEL,
-              vk.VITERBI_BLOCK_KERNEL):
+              vk.VITERBI_BLOCK_KERNEL, bcjr_kernel.BCJR_KERNEL,
+              sc_kernel.SC_KERNEL, scl_kernel.SCL_KERNEL):
         k.launches = 0
 
 
@@ -1647,12 +1700,14 @@ def hold_link_kernels(link, pay, clean, wave, nv: float) -> None:
 
 
 def run_link(link, frames: int, snr_db: float, seed: int, device,
-             hold: bool = False):
+             hold=None, kernels: dict | None = None, tag: str = ""):
     """``tx_fused`` -> seeded AWGN -> ``rx_fused`` on ``frames`` random
     payloads with every launch count set to 0 just before; fails unless
-    every payload comes back with a true CRC. With ``hold``, then holds
-    the path's kernels against their plain versions on the run's own
-    inputs. Returns the launch counts of the run."""
+    every payload comes back with a true CRC, or one of ``kernels`` (the
+    conv link's by default) did not launch. Then ``hold(link, pay, clean,
+    wave, nv)``, if given, holds the path's kernels against their plain
+    versions on the run's own inputs. Returns the launch counts of the
+    run."""
     g = torch.Generator(device=device).manual_seed(seed)
     pay = torch.randint(0, 2, (frames, link.payload_bits), generator=g,
                         device=device, dtype=torch.int32)
@@ -1660,16 +1715,18 @@ def run_link(link, frames: int, snr_db: float, seed: int, device,
     clean = link.tx_fused(pay)
     wave, nv = link_noise(g, clean, snr_db)
     out, ok = link.rx_fused(wave, nv)
-    counts = read_launches(link_kernels(), f"{frames}-frame link", "link")
+    counts = read_launches(kernels or link_kernels(),
+                           f"{frames}-frame link {tag}".rstrip(), "link")
     errors = int((out != pay).sum())
-    print(f"[link] {frames} frames x {link.payload_bits} payload bits at "
-          f"{snr_db} dB per complex sample ({link.n_symbols} QPSK symbols a "
-          f"frame, {wave[0].numel()} samples a rail): {errors} payload bit "
-          f"errors, {int(ok.sum())}/{frames} CRCs true", flush=True)
+    print(f"[link] {tag + ': ' if tag else ''}{frames} frames x "
+          f"{link.payload_bits} payload bits at {snr_db} dB per complex "
+          f"sample ({link.n_symbols} QPSK symbols a frame, "
+          f"{wave[0].numel()} samples a rail): {errors} payload bit errors, "
+          f"{int(ok.sum())}/{frames} CRCs true", flush=True)
     if errors or not bool(ok.all()):
         fail(f"link at {snr_db} dB: {errors} errors, {int(ok.sum())} CRCs")
-    if hold:
-        hold_link_kernels(link, pay, clean, wave, nv)
+    if hold is not None:
+        hold(link, pay, clean, wave, nv)
     return counts
 
 
@@ -1681,7 +1738,7 @@ def phase_link_main(device) -> int:
                                      dvb_scrambler, rs_255_223)
 
     counts = run_link(presets.reference_link(device=device), LINK_FRAMES,
-                      LINK_SNR_DB, SEED + 34, device, hold=True)
+                      LINK_SNR_DB, SEED + 34, device, hold=hold_link_kernels)
     for name, snr in RS_LINK_SNR_DB.items():
         run_link(getattr(presets, name)(device=device), RS_LINK_FRAMES, snr,
                  SEED + 35, device)
@@ -2244,6 +2301,406 @@ def viterbi_times(name: str, sym: str, code, lam, channels: int, block: int,
     return ms, plain_ms, dev_ms, None, (nbytes, flops)
 
 
+# ---- the turbo and polar inner codes (K14, K15, K16) ----
+
+def turbo_llrs(code, cws: int, snr_db: float, seed: int, device):
+    """Random info bits ``[cws, K]`` and their codeword's BPSK LLRs at
+    ``snr_db`` per code bit: ``2 y / sigma^2`` of ``y = 1 - 2c`` plus
+    Gaussian noise."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(0, 2, (cws, code.k), generator=g, device=device,
+                         dtype=torch.int32)
+    sigma = 10.0 ** (-snr_db / 20.0)
+    y = 1.0 - 2.0 * code.encode(bits).to(torch.float32)
+    y = y + sigma * torch.randn(y.shape, generator=g, device=device)
+    return bits, y * (2.0 / sigma ** 2)
+
+
+def turbo_rows(code, llr, window=None, guard=32):
+    """The rows of both half-iterations of a decode's first iteration (the
+    second with the first's extrinsics as a-priori), at ``pick_geometry``
+    or at an explicit window widened by ``pick_guard``: ``[(rows, guard,
+    window)]``."""
+    from modem_tpu_torch.ops import bcjr_kernel as bk
+
+    k = code.k
+    w, g = (bk.pick_geometry(k + 3, guard) if window is None
+            else (window, bk.pick_guard(window, guard)))
+    ls, lp1, lp2 = llr[:, :k], llr[:, k:2 * k], llr[:, 2 * k:3 * k]
+    tail = [llr[:, 3 * k + 3 * i:3 * k + 3 * i + 3] for i in range(4)]
+    rows1, _ = bk.make_rows(ls, lp1, torch.zeros_like(ls), tail[0], tail[1],
+                            w, g)
+    le1 = bk.bcjr_windowed(ls, lp1, torch.zeros_like(ls), tail[0], tail[1],
+                           w, g)
+    rows2, _ = bk.make_rows(code._il(ls), lp2, code._il(le1), tail[2],
+                            tail[3], w, g)
+    return [(rows1, g, w), (rows2, g, w)]
+
+
+def check_exact(tag: str, label: str, got, want) -> float:
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    print(f"[{tag}] {label}: max |kernel - plain| = {err:.0f} (exact)",
+          flush=True)
+    if err != 0:
+        fail(f"{label}: kernel and plain differ")
+    return err
+
+
+def phase_turbo_kernel(device) -> float:
+    """Phase 28: K14 against its plain version, bit for bit: both
+    half-iterations of a first iteration at ``TurboCode(1024)`` x 512
+    codewords (``pick_geometry``: one window of 1092 steps a row) on LLRs
+    at 1 dB, then K = 40 with an explicit window of 16 (``pick_guard``:
+    guard 34) and ``decode(window=16)`` against the CPU route at that
+    guard."""
+    from modem_tpu_torch.fec import TurboCode
+    from modem_tpu_torch.ops import bcjr_kernel as bk
+
+    code = TurboCode(TURBO_K)
+    _, llr = turbo_llrs(code, TURBO_CW, TURBO_SNR_DB, SEED + 60, device)
+    errs = []
+    for half, (rows, g, w) in enumerate(turbo_rows(code, llr), 1):
+        errs.append(check_exact(
+            "turbo kernel", f"K14 half-iteration {half}, {rows.shape[1]} rows"
+            f" x {rows.shape[2]} steps (window {w}, guard {g})",
+            bk.rows_kernel(rows, g, w), bk.rows_plain(rows, g, w)))
+    k, w = TURBO_SMALL
+    small = TurboCode(k)
+    bits, llr = turbo_llrs(small, 64, TURBO_SNR_DB, SEED + 61, device)
+    for half, (rows, g, w) in enumerate(turbo_rows(small, llr, w), 1):
+        errs.append(check_exact(
+            "turbo kernel", f"K14 K={k} half-iteration {half}, "
+            f"{rows.shape[1]} rows (window {w}, pick_guard -> {g})",
+            bk.rows_kernel(rows, g, w), bk.rows_plain(rows, g, w)))
+    got = small.decode(llr, window=w)
+    want = small.decode(llr.cpu(), window=w, guard=bk.pick_guard(w, 32))
+    errs.append(check_exact(
+        "turbo kernel", f"TurboCode({k}).decode(window={w}) on the card vs "
+        f"the CPU route at guard {bk.pick_guard(w, 32)}", got.cpu(), want))
+    try:
+        small.decode(llr, window=w - 1)
+    except ValueError as e:
+        print(f"[turbo kernel] window {w - 1} refused: {e}", flush=True)
+    else:
+        fail("an odd window was not refused")
+    return max(errs)
+
+
+def phase_turbo_main(device) -> dict:
+    """Phase 29: ``TurboCode(1024).decode`` at 512 codewords on the card,
+    6 iterations fixed and with early exit, each with every launch count
+    set to 0 just before: decisions equal to the plain route's (the CPU
+    full-block BCJR) and to the sent bits. Returns K14's launches."""
+    from modem_tpu_torch.fec import TurboCode
+    from modem_tpu_torch.ops import bcjr_kernel as bk
+
+    code = TurboCode(TURBO_K)
+    bits, llr = turbo_llrs(code, TURBO_CW, TURBO_SNR_DB, SEED + 62, device)
+    counts = {}
+    for early in (False, True):
+        reset_launches()
+        got = code.decode(llr, iters=TURBO_ITERS, early_exit=early)
+        tag = "early exit" if early else "fixed"
+        counts[tag] = read_launches({TURBO_NAME: bk.BCJR_KERNEL},
+                                    f"turbo decode ({tag})", "turbo main")
+        want = code.decode(llr.cpu(), iters=TURBO_ITERS, early_exit=early)
+        errs = int((got != bits).sum())
+        print(f"[turbo main] decode {tag}, {TURBO_ITERS} iterations at most:"
+              f" {counts[tag][TURBO_NAME]} K14 launches, equal to the CPU "
+              f"route: {torch.equal(got.cpu(), want)}, {errs} bit errors "
+              f"in {bits.numel()}", flush=True)
+        if not torch.equal(got.cpu(), want) or errs:
+            fail(f"turbo decode ({tag}) on the card")
+    return counts["fixed"]
+
+
+def polar_llrs(code, crc, cws: int, sigma: float, seed: int, device):
+    """Random data bits with a CRC-16 in the code's K, and their
+    codeword's BPSK LLRs at noise ``sigma`` (``bench_fec.py``'s form)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    data = torch.randint(0, 2, (cws, code.k - crc.w), generator=g,
+                         device=device, dtype=torch.int32)
+    framed = crc.append(data)
+    y = 1.0 - 2.0 * code.encode(framed).to(torch.float32)
+    y = y + sigma * torch.randn(y.shape, generator=g, device=device)
+    return framed, y * (2.0 / sigma ** 2)
+
+
+def phase_polar_kernels(device) -> dict:
+    """Phase 30: K15 and K16 against their plain versions at
+    ``PolarCode(256, 128)`` x 4096 codewords (CRC-16 inside K), noise
+    sigma 0.3 (``bench_fec.py``'s) and 0.8: SC u and x, SCL-8 u and path
+    metrics bit for bit; ``decode`` and ``decode_list(crc)`` on the card
+    equal to the CPU route, with K15 / K16 launched once a call. Returns
+    each kernel's largest error against its plain version."""
+    from modem_tpu_torch.fec import PolarCode, crc16_ccitt
+    from modem_tpu_torch.ops import sc_kernel as sk, scl_kernel as lk
+
+    code, crc = PolarCode(POLAR_N, POLAR_K), crc16_ccitt()
+    errs = {SC_NAME: 0.0, SCL_NAME: 0.0}
+    for sigma in POLAR_SIGMAS:
+        framed, lam = polar_llrs(code, crc, POLAR_CW, sigma, SEED + 63,
+                                 device)
+        label = f"{POLAR_CW} x ({POLAR_N}, {POLAR_K}), sigma {sigma}"
+        errs[SC_NAME] = max(errs[SC_NAME], check_exact(
+            "polar kernel", f"K15 SC u, x at {label}",
+            sk.sc_kernel(code, lam), sk.sc_plain(code, lam)))
+        errs[SCL_NAME] = max(errs[SCL_NAME], check_exact(
+            "polar kernel", f"K16 CA-SCL-8 u, pm at {label}",
+            lk.scl_kernel(code, lam), lk.scl_plain(code, lam)))
+        reset_launches()
+        sc = code.decode(lam)
+        scl = code.decode_list(lam, 8, crc=crc)
+        read_launches({SC_NAME: sk.SC_KERNEL, SCL_NAME: lk.SCL_KERNEL},
+                      f"decode, decode_list at sigma {sigma}", "polar kernel")
+        lam_c = lam.cpu()
+        for name, got, want in (("decode", sc, code.decode(lam_c)), (
+                "decode_list(crc)", scl, code.decode_list(lam_c, 8,
+                                                          crc=crc))):
+            n_err = int((got != framed).sum())
+            print(f"[polar kernel] {name} at sigma {sigma}: equal to the CPU"
+                  f" route: {torch.equal(got.cpu(), want)}, {n_err} bit "
+                  f"errors in {framed.numel()}", flush=True)
+            if not torch.equal(got.cpu(), want):
+                fail(f"polar {name} on the card differs from the CPU")
+    return errs
+
+
+def fec_link_kernels(inner: str) -> dict:
+    from modem_tpu_torch.ops import (bcjr_kernel as bk, sc_kernel as sk,
+                                     scl_kernel as lk, txrx)
+
+    kern = {TURBO_NAME: bk.BCJR_KERNEL, SC_NAME: sk.SC_KERNEL,
+            SCL_NAME: lk.SCL_KERNEL}[inner]
+    return {"fused_tx": txrx.TX_KERNEL, "fused_rx_soft": txrx.RX_SOFT_KERNEL,
+            inner: kern}
+
+
+def hold_inner_kernel(link, inner: str, wave, nv: float) -> float:
+    """The inner decoder's kernel against its plain version on exactly the
+    inputs the link run gave it: the first half-iteration's rows (K14) or
+    the de-matched mother-code LLRs (K15, K16). Returns the error."""
+    from modem_tpu_torch.fec import block_deinterleave
+    from modem_tpu_torch.ops import (bcjr_kernel as bk, sc_kernel as sk,
+                                     scl_kernel as lk)
+
+    llr = link.chain.rx_soft_fused(wave, link.n_symbols, noise_var=nv)
+    if link.rows:
+        llr = block_deinterleave(llr, link.rows)
+    if inner == TURBO_NAME:
+        x = llr.reshape(-1, link.turbo.n)
+        rows, g, w = turbo_rows(link.turbo, x)[0]
+        got, want = bk.rows_kernel(rows, g, w), bk.rows_plain(rows, g, w)
+    else:
+        lam = link.polar.dematch(llr.reshape(-1, link.polar.e))
+        code = link.polar.code
+        pair = ((sk.sc_kernel, sk.sc_plain) if inner == SC_NAME
+                else (lk.scl_kernel, lk.scl_plain))
+        got, want = pair[0](code, lam), pair[1](code, lam)
+    shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
+    return check_exact("fec link", f"{inner} on the link's own inputs, "
+                       f"output {shape}", got, want)
+
+
+def phase_fec_links(device, errs: dict) -> dict:
+    """Phase 31: the slice's main paths through their entry points:
+    ``lte_like_turbo_link()`` at 256 frames and 1 dB (K14),
+    ``nr_like_control_link()`` at 256 frames and 3 dB (CA-SCL-8, K16) and
+    ``nr_like_control_link(list_size=None)`` at 5 dB (SC, K15), each
+    ``tx_fused`` -> seeded AWGN -> ``rx_fused`` with every launch count set
+    to 0 just before: every payload back, every CRC true, K2, K3 soft and
+    the inner kernel launched; then the inner kernel against its plain
+    version on that run's own inputs, its error folded into ``errs``.
+    Returns each inner kernel's launches in its run."""
+    from modem_tpu_torch import presets
+
+    launches = {}
+
+    def hold(link, pay, clean, wave, nv, inner):
+        errs[inner] = max(errs[inner], hold_inner_kernel(link, inner, wave,
+                                                         nv))
+
+    for name, inner, kw, snr in (
+            ("lte_like_turbo_link", TURBO_NAME, {}, FEC_LINK_SNR_DB[0]),
+            ("nr_like_control_link", SCL_NAME, {}, FEC_LINK_SNR_DB[1]),
+            ("nr_like_control_link", SC_NAME, {"list_size": None},
+             FEC_LINK_SNR_DB[2])):
+        link = getattr(presets, name)(device=device, **kw)
+        counts = run_link(
+            link, FEC_LINK_FRAMES, snr, SEED + 64, device,
+            hold=lambda *a, inner=inner: hold(*a, inner),
+            kernels=fec_link_kernels(inner),
+            tag=f"{name}({', '.join(f'{a}={b}' for a, b in kw.items())})")
+        launches[inner] = counts[inner]
+    return launches
+
+
+def phase_fec_cli(device) -> None:
+    """Phase 32: ``link tx`` -> ``link rx`` on the card for the turbo and
+    polar presets: every payload back with an OK verdict a frame, K14 /
+    K16 launched."""
+    import io
+    import numpy as np
+    from modem_tpu_torch.cli import link as cli
+
+    for preset, inner in (("lte_like_turbo", TURBO_NAME),
+                          ("nr_like_control", SCL_NAME)):
+        make = cli.PRESETS[preset]
+        pb = make(device=device).payload_bits
+        bits = np.random.default_rng(SEED + 65).integers(0, 2, 16 * pb)
+        common = ["--preset", preset, "--batch-frames", "8", "--device",
+                  str(device)]
+        wave = io.BytesIO()
+        rc = cli.run(cli.build_parser().parse_args(["tx", *common]),
+                     "".join("01"[b] for b in bits).encode(), wave)
+        reset_launches()
+        out, err = io.BytesIO(), io.StringIO()
+        rc_rx = cli.run(cli.build_parser().parse_args(
+            ["rx", "--noise-var", "0.05", *common]), wave.getvalue(), out,
+            stderr=err)
+        torch.cuda.synchronize(device)
+        got = np.array([int(c) for c in
+                        "".join(out.getvalue().decode().split())])
+        n_ok = err.getvalue().count("frame: OK")
+        n = fec_link_kernels(inner)[inner].launches
+        print(f"[cli] link tx --preset {preset} (16 frames) -> link rx: exit "
+              f"{rc}/{rc_rx}, {n_ok} OK verdicts, payload "
+              f"{'equal' if np.array_equal(got, bits) else 'DIFFERENT'}, "
+              f"{inner} launches {n}", flush=True)
+        if (rc, rc_rx, n_ok) != (0, 0, 16) or n == 0 or \
+                not np.array_equal(got, bits):
+            fail(f"link CLI pair for {preset} on the card")
+
+
+def bcjr_work(cws: int, k: int) -> tuple[float, float]:
+    """Bytes a half-iteration must move over ``cws`` codewords of ``k``
+    info bits (``lu`` and ``lp`` read once over the K+3 trellis steps, K
+    extrinsics written once; no pin mask, which follows from the geometry,
+    and no guard pads) and its f32 operations: per state-step of the K+3
+    steps the alpha sweep's 2 adds, the pair's max, the max over the
+    states and the renormalising subtract (5) and the beta sweep's 5, and
+    4 branch metrics of 2 products and an add each; per state-step of the
+    K info steps the APP's 4 adds and 2 maxima (6), and 2 subtracts for
+    the extrinsic."""
+    return (4.0 * cws * (2 * (k + 3) + k),
+            cws * ((k + 3) * (8 * 10 + 4 * 3) + k * (8 * 6 + 2)))
+
+
+def sc_work(b: int, n: int, n_bits: int) -> tuple[float, float]:
+    """Bytes K15 must move (the LLRs read once, u and x written once as
+    bytes) and its f32 operations: per level n/2 f's (2 abs, a min, 2
+    sign products: 5) and n/2 g's (2x, 1 - 2x, the product, the add: 4),
+    a compare a leaf."""
+    return 4.0 * b * n + 2.0 * b * n, b * (n_bits * n / 2 * 9 + n)
+
+
+def scl_work(b: int, n: int, n_bits: int, k: int) -> tuple[float, float]:
+    """Bytes K16 must move (the LLRs read once, 8 paths' u bytes and 8
+    metrics written once) and its f32 operations: 8 paths' SC node work;
+    an info leaf's 16 candidates (a negation, a max, an add each) and the
+    8 smallest in order by a 16-input sorting network's 60 comparators
+    (the fewest known), a compare each; a frozen leaf's 8 penalties (3
+    each)."""
+    return (4.0 * b * n + 8.0 * b * n + 32.0 * b,
+            b * (8 * (n_bits * n / 2 * 9 + n) + k * (48 + 60)
+                 + (n - k) * 24))
+
+
+def phase_fec_times(device, card: str) -> dict:
+    """Phase 33: K14, K15 and K16 and their plain versions per call at the
+    main path's widths, the profiler's device time and the bound; the
+    encoders and decoders per call in Mbit/s of info bits; the two links'
+    ``tx_fused`` and ``rx_fused`` per call at 256 frames with the device's
+    busy time and idle share. Returns the report times."""
+    from modem_tpu_torch import presets
+    from modem_tpu_torch.fec import PolarCode, TurboCode, crc16_ccitt
+    from modem_tpu_torch.ops import (bcjr_kernel as bk, sc_kernel as sk,
+                                     scl_kernel as lk)
+
+    times = {}
+    code = TurboCode(TURBO_K)
+    bits, llr = turbo_llrs(code, TURBO_CW, TURBO_SNR_DB, SEED + 66, device)
+    rows, g, w = turbo_rows(code, llr)[0]
+    ms, plain_ms, dev_ms = kernel_times(bk.rows_kernel, bk.rows_plain,
+                                        (rows, g, w), device, "bcjr_kernel",
+                                        plain_calls=1)
+    work = bcjr_work(TURBO_CW, TURBO_K)
+    times[TURBO_NAME] = (ms, plain_ms, dev_ms, None, work)
+    step_us = (dev_ms or ms) / rows.shape[2] * 1e3
+    print_fec_times(TURBO_NAME, f"{rows.shape[1]} rows x {rows.shape[2]} "
+                    f"steps, per step {step_us:.4f} us", times[TURBO_NAME],
+                    card)
+    for label, fn, args, info in (
+            ("TurboCode(1024).encode", code.encode, (bits,), bits.numel()),
+            (f"TurboCode(1024).decode {TURBO_ITERS} iters",
+             lambda x: code.decode(x, iters=TURBO_ITERS), (llr,),
+             bits.numel()),
+            ("TurboCode(1024).decode early exit",
+             lambda x: code.decode(x, iters=TURBO_ITERS, early_exit=True),
+             (llr,), bits.numel())):
+        t = time_calls(fn, args, device, calls=3, reps=3)
+        print(f"[times] {label:34s} per call {t:.4f} ms: {info / t / 1e3:.2f}"
+              f" Mbit/s of info bits ({TURBO_CW} codewords) on {card}",
+              flush=True)
+
+    pcode, crc = PolarCode(POLAR_N, POLAR_K), crc16_ccitt()
+    framed, lam = polar_llrs(pcode, crc, POLAR_CW, POLAR_SIGMAS[-1],
+                             SEED + 67, device)
+    for name, kern, plain, sym, work in (
+            (SC_NAME, sk.sc_kernel, sk.sc_plain, "sc_kernel",
+             sc_work(POLAR_CW, POLAR_N, pcode.n_bits)),
+            (SCL_NAME, lk.scl_kernel, lk.scl_plain, "scl_kernel",
+             scl_work(POLAR_CW, POLAR_N, pcode.n_bits, POLAR_K))):
+        ms, plain_ms, dev_ms = kernel_times(kern, plain, (pcode, lam),
+                                            device, sym, plain_calls=1)
+        times[name] = (ms, plain_ms, dev_ms, None, work)
+        print_fec_times(name, f"{POLAR_CW} x ({POLAR_N}, {POLAR_K})",
+                        times[name], card)
+    info = framed.numel()
+    for label, fn, args in (
+            ("PolarCode(256,128).encode", pcode.encode, (framed,)),
+            ("PolarCode(256,128).decode (SC)", pcode.decode, (lam,)),
+            ("decode_list(8, crc)", lambda x: pcode.decode_list(x, 8,
+                                                                crc=crc),
+             (lam,))):
+        t = time_calls(fn, args, device, calls=5, reps=3)
+        print(f"[times] {label:34s} per call {t:.4f} ms: {info / t / 1e3:.2f}"
+              f" Mbit/s of coded-block bits ({POLAR_CW} codewords) on {card}",
+              flush=True)
+
+    for name, snr in (("lte_like_turbo_link", FEC_LINK_SNR_DB[0]),
+                      ("nr_like_control_link", FEC_LINK_SNR_DB[1])):
+        link = getattr(presets, name)(device=device)
+        g = torch.Generator(device=device).manual_seed(SEED + 68)
+        pay = torch.randint(0, 2, (FEC_LINK_FRAMES, link.payload_bits),
+                            generator=g, device=device, dtype=torch.int32)
+        wave, nv = link_noise(g, link.tx_fused(pay), snr)
+        for label, fn, fargs in (("frame", link.frame, (pay,)),
+                                 ("tx_fused", link.tx_fused, (pay,)),
+                                 ("rx_fused", link.rx_fused, (wave, nv))):
+            t = time_calls(fn, fargs, device, calls=3, reps=3)
+            busy = device_busy_ms(fn, fargs, device, calls=3)
+            bits_n = FEC_LINK_FRAMES * link.payload_bits
+            print(f"[times] {name}.{label:9s} per call {t:.4f} ms "
+                  f"({bits_n / t / 1e3:.2f} Mbit/s of payload), device busy "
+                  f"{busy:.4f} ms (idle share {1 - busy / t:.3f}), "
+                  f"{FEC_LINK_FRAMES} frames at {snr} dB on {card}",
+                  flush=True)
+    return times
+
+
+def print_fec_times(name: str, shape: str, t, card: str) -> None:
+    ms, plain_ms, dev_ms, _, (nbytes, flops) = t
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"[times] {name:26s} per call: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, no library call; kernel alone in the profiler "
+          f"{dev_txt}; bound {bound_ms:.6f} ms by {bound_by} "
+          f"({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); {shape} on "
+          f"{card}", flush=True)
+
+
 def print_times(name: str, samples: int, t, card: str, extra: str) -> None:
     ms, plain_ms, dev_ms, _, (nbytes, flops) = t
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
@@ -2313,6 +2770,12 @@ def main() -> int:
     fsk_errs.update(mode_errs)
     errs.update({n: err for n, (err, _) in mode_errs.items()})
     errs.update(vit_errs)
+    errs[TURBO_NAME] = phase_turbo_kernel(device)
+    phase_turbo_main(device)
+    errs.update(phase_polar_kernels(device))
+    launches.update(phase_fec_links(device, errs))
+    phase_fec_cli(device)
+    times.update(phase_fec_times(device, card))
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
@@ -2328,7 +2791,8 @@ def main() -> int:
         (VIT_REPORT[0], VIT_REPORT[2], VIT_REPORT[3])] + [
         (n, f"modem_tpu_torch/csrc/{'chain' if kind == 'chain' else 'txrx'}"
             ".cu", rep) for n, kind, _, _, rep in mode_cases()] + [
-        (n, VIT_REPORT[2], VIT_REPORT[3]) for n in WIDE_VIT]
+        (n, VIT_REPORT[2], VIT_REPORT[3]) for n in WIDE_VIT] + [
+        (n, src, rep) for n, (_, src, rep) in FEC_REPORT.items()]
     report = {"kernels": []}
     for n, src, rep in entries:
         ms, plain_ms, dev_ms, lib_ms, work = times[n]

@@ -31,12 +31,18 @@ imports ``jax`` or ``modem_tpu``. Ported so far:
   convolutional K=7 with its windowed Viterbi on kernel K13, puncturer,
   interleaver; :mod:`~modem_tpu_torch.fec`) over the flagship chain, the
   ``reference``, ``dvb_like`` and ``ccsds_deep_space`` presets
-  (:mod:`~modem_tpu_torch.presets`) and the ``link`` CLI.
+  (:mod:`~modem_tpu_torch.presets`) and the ``link`` CLI;
+* the turbo and polar inner codes: :class:`~modem_tpu_torch.fec.TurboCode`
+  (its max-log BCJR on kernel K14), :class:`~modem_tpu_torch.fec.PolarCode`
+  and :class:`~modem_tpu_torch.fec.RateMatchedPolar` (SC on kernel K15,
+  CA-SCL-8 on K16), in ``FramedLink`` and the ``lte_like_turbo`` and
+  ``nr_like_control`` presets.
 
 Every entry point builds on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
 """
 
+from . import presets
 from .config import Rates
 from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
                     OqpskChain, PulseShapedChain, qpsk_reference_chain)
@@ -53,7 +59,7 @@ __all__ = [
     "DcqpskChain", "Demodulator", "DifferentialChain", "FramedLink",
     "FskChain", "GmskChain", "LinkStats", "Modulator", "MskChain",
     "OqpskChain", "PulseShapedChain",
-    "Rates", "ResampledChain", "RxState", "SCHEME_NAMES",
+    "Rates", "presets", "ResampledChain", "RxState", "SCHEME_NAMES",
     "StreamingFusedChain", "StreamingFusedRx", "StreamingFusedTx",
     "StreamingResampledChain", "TxState", "make_scheme",
     "qpsk_reference_chain",

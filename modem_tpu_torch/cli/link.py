@@ -6,7 +6,8 @@ The same flags, IO conventions and exit codes as the JAX command: ASCII
 ``0``/``1`` payload bits in, little-endian f32 interleaved (i, q) frames
 out, and back; frames processed in batches of ``--batch-frames``.
 ``--device`` picks where the link runs (the card by default), where the
-fused route (K2 TX, K3 soft RX, K13 Viterbi) is the production path.
+fused route (K2 TX, K3 soft RX, and the inner decode: K13 Viterbi, K14
+turbo, K15 or K16 polar) is the production path.
 
     python -m modem_tpu_torch.cli.link tx --preset reference < payload.bits > frames.f32
     python -m modem_tpu_torch.cli.link rx --preset reference --noise-var 0.05 < frames.f32 > out.bits
@@ -32,10 +33,12 @@ PRESETS = {
     "reference": presets.reference_link,
     "dvb_like": presets.dvb_like_link,
     "ccsds_deep_space": presets.ccsds_deep_space_link,
+    "lte_like_turbo": presets.lte_like_turbo_link,
+    "nr_like_control": presets.nr_like_control_link,
 }
-#: the JAX command's other presets, refused until their inner codes or
-#: chains are ported (ROADMAP.md queue 1, S5 and S6)
-NOT_PORTED = ("lte_like_turbo", "nr_like_control", "wifi_like_ofdm")
+#: the JAX command's other presets, refused until their chains are ported
+#: (ROADMAP.md queue 1, S6)
+NOT_PORTED = ("wifi_like_ofdm",)
 
 BATCH_FRAMES = 16
 

@@ -63,6 +63,9 @@ SIGNATURES = {
     "modem_viterbi_block": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,
                             _I, _L, _L, _P, _P, _L, _I, _L, _F, _I, _I, _L,
                             _P, _P],
+    "modem_bcjr": [_P, _L, _I, _I, _I, _P, _P, _P],
+    "modem_polar_sc": [_P, _L, _I, _I, _P, _P, _P, _P],
+    "modem_polar_scl": [_P, _L, _I, _I, _P, _P, _P, _P],
 }
 
 _library: ctypes.CDLL | None = None

@@ -4,9 +4,10 @@ configurations (counterpart of :mod:`modem_tpu.presets`).
 A preset fixes the composition and the size coupling a deployment would
 otherwise re-derive. They are standard-shaped, not standard-conformant:
 DVB-style RS + interleaver + scrambler, CCSDS-style concatenated coding,
-GSM's GMSK at BT 0.3, Gray 16-QAM. Each takes ``device``, the card unless
-the caller asks for the CPU. Not ported yet: the OFDM, MIMO, turbo and
-polar presets (ROADMAP.md lists each with the slice it waits for).
+GSM's GMSK at BT 0.3, Gray 16-QAM, an LTE-shaped turbo data link and an
+NR-shaped polar control link. Each takes ``device``, the card unless the
+caller asks for the CPU. Not ported yet: the OFDM and MIMO presets
+(ROADMAP.md lists each with the slice it waits for).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from .chain import PulseShapedChain, qpsk_reference_chain
 from .config import Rates
-from .fec import Puncturer, ccsds_code, rate34_pattern, rs_255_223, rs_dvb
+from .fec import (Puncturer, RateMatchedPolar, TurboCode, ccsds_code,
+                  rate34_pattern, rs_255_223, rs_dvb)
 from .gmsk import GmskChain
 from .link import FramedLink
 from .models.qam import QAM
@@ -59,6 +61,33 @@ def ccsds_deep_space_link(device: Device = None) -> FramedLink:
         conv=ccsds_code(),
         interleave_rows=12,  # wire = (255*8 + 6 flush) * 2 = 4092 bits
     )
+
+
+def lte_like_turbo_link(turbo_iters: int = 6,
+                        device: Device = None) -> FramedLink:
+    """LTE-shaped data link over the QPSK chain: K=1024 turbo inner code
+    (RSC pair + QPP interleaver, max-log BCJR), CRC-16 verdicts, block
+    interleaver. Payload 1008 bits per frame; wire = 3084 coded bits =
+    1542 QPSK symbols. Error-free from about -6 dB SNR per complex
+    sample."""
+    code = TurboCode(1024)
+    return FramedLink(qpsk_reference_chain(REFERENCE_RATES, device=device),
+                      payload_bits=code.k - 16, turbo=code,
+                      turbo_iters=turbo_iters,
+                      interleave_rows=12)  # 3084 = 12 * 257
+
+
+def nr_like_control_link(list_size: int = 8,
+                         device: Device = None) -> FramedLink:
+    """NR-control-shaped link over the QPSK chain: rate-matched polar inner
+    code (N=256 mother shortened to E=180, rate 0.56) with per-codeword
+    metric-best SCL, frame CRC-16 verdicts. Payload 384 bits per frame;
+    wire = 720 coded bits = 360 QPSK symbols. Error-free from about 1 dB
+    SNR per complex sample."""
+    code = RateMatchedPolar(100, 180, n=256)
+    return FramedLink(qpsk_reference_chain(REFERENCE_RATES, device=device),
+                      payload_bits=4 * code.k - 16, polar=code,
+                      polar_list=list_size)
 
 
 def gsm_like_gmsk(rates: Rates | None = None,

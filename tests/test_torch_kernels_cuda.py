@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 loopback, K2 TX, K3 RX hard and soft, K4 FIR,
 K5 product detector, K6 FSK loopback, K7 MSK loopback, K8 FSK TX, K9
 discriminator means, K10 MSK TX, K11 resampled TX, K12 resampled RX hard and
-soft, K13 windowed Viterbi) against their plain PyTorch versions on the card,
+soft, K13 windowed Viterbi, K14 max-log BCJR, K15 polar SC, K16 polar
+CA-SCL-8) against their plain PyTorch versions on the card,
 and the coded link (CRC, scrambler, RS, ``FramedLink``, the ``link`` CLI)
 against the CPU. Marked
 ``cuda``: every test skips without a CUDA device. On the card
@@ -10,8 +11,9 @@ port's machine need not have)::
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
 
-Tolerances: decisions exactly (K6 and K7 with noise: on >= 99.99%; K13 and
-the link's payloads and verdicts bit for bit); waveforms,
+Tolerances: decisions exactly (K6 and K7 with noise: on >= 99.99%; K13,
+K14's extrinsics, K15's u and x, K16's u and path metrics, and the links'
+payloads and verdicts bit for bit); waveforms,
 means and soft points ``atol=1e-5`` (``nvcc`` contracts multiply-adds to
 FMA, the plain version does not).
 """
@@ -1098,3 +1100,235 @@ def test_link_cli_on_card(dev):
     dec, err = io.BytesIO(), io.StringIO()
     assert cli.run(args, raw.tobytes(), dec, stderr=err) == 1
     assert "BAD" in err.getvalue()
+
+
+# ---- K14: the max-log BCJR half-iteration ----
+
+def _turbo_case(k, cws, sigma, seed):
+    """A turbo code, its info bits and noisy channel LLRs (numpy) on the
+    CPU; ``sigma`` 0: LLRs of +-2 with no noise."""
+    from modem_tpu_torch.fec import TurboCode
+
+    code = TurboCode(k)
+    rng = np.random.default_rng(seed)
+    bits = torch.as_tensor(rng.integers(0, 2, (cws, k)), dtype=torch.int32)
+    y = 1.0 - 2.0 * code.encode(bits).numpy()
+    llr = 2.0 * y + (rng.normal(0, sigma, y.shape) if sigma else 0.0)
+    return code, bits, torch.as_tensor(llr, dtype=torch.float32)
+
+
+# (K, codewords, window (None: pick_geometry), a-priori sigma)
+BCJR_CASES = [(40, 64, None, 0.0), (40, 64, 16, 1.5), (1024, 32, None, 1.5),
+              (1024, 32, 256, 0.0)]
+
+
+@pytest.mark.parametrize("case", BCJR_CASES,
+                         ids=[f"k{c[0]}_w{c[2]}" for c in BCJR_CASES])
+def test_bcjr_kernel(case, dev):
+    """K14 against its plain version on the rows of one half-iteration, at
+    ``pick_geometry`` and at an explicit window widened by ``pick_guard``
+    (windows pinned at both stream ends), with and without a-priori LLRs:
+    extrinsics bit for bit."""
+    from modem_tpu_torch.ops import bcjr_kernel as bk
+
+    k, cws, window, ap = case
+    code, _, llr = _turbo_case(k, cws, 1.0, 40 + k)
+    ls, lp = llr[:, :k], llr[:, k:2 * k]
+    ts, tp = llr[:, 3 * k:3 * k + 3], llr[:, 3 * k + 3:3 * k + 6]
+    la = torch.as_tensor(np.random.default_rng(41).normal(0, ap, ls.shape)
+                         if ap else np.zeros(ls.shape), dtype=torch.float32)
+    if window is None:
+        w, g = bk.pick_geometry(k + 3, 32)
+    else:
+        w, g = window, bk.pick_guard(window, 32)
+    rows, _ = bk.make_rows(ls, lp, la, ts, tp, w, g)
+    got = _launches(bk.BCJR_KERNEL, bk.rows_kernel, rows.to(dev), g, w)
+    assert torch.equal(got.cpu(), bk.rows_plain(rows, g, w))
+    card = bk.bcjr_windowed(*(t.to(dev) for t in (ls, lp, la, ts, tp)),
+                            window, 32 if window is None else g)
+    want = (code._bcjr(ls, lp, la, ts, tp) if window is None else
+            bk.bcjr_windowed(ls, lp, la, ts, tp, w, g))
+    assert torch.equal(card.cpu(), want)
+
+
+def test_bcjr_kernel_pinned_rows(dev):
+    """Rows with random pin masks (fully pinned rows too), a ragged row
+    count and a kept range inside the row: bit for bit."""
+    from modem_tpu_torch.ops import bcjr_kernel as bk
+
+    rng = np.random.default_rng(42)
+    r, tw = 13, 77
+    x = rng.normal(0, 3, (3, r, tw)).astype(np.float32)
+    x[2] = rng.random((r, tw)) < 0.2
+    x[2, 5] = 1.0
+    rows = torch.as_tensor(x)
+    got = _launches(bk.BCJR_KERNEL, bk.rows_kernel, rows.to(dev), 9, 50)
+    assert torch.equal(got.cpu(), bk.rows_plain(rows, 9, 50))
+
+
+@pytest.mark.parametrize("k,early", [(40, False), (40, True), (1024, False),
+                                     (1024, True)])
+def test_turbo_decode_on_card(k, early, dev):
+    """``TurboCode.decode`` on the card: 2 K14 launches an iteration,
+    decisions equal to the CPU route (the full-block BCJR; with a window,
+    the windowed one at ``pick_guard``'s guard)."""
+    from modem_tpu_torch.ops import bcjr_kernel as bk
+
+    code, bits, llr = _turbo_case(k, 48, 1.1, 43 + k)
+    before = bk.BCJR_KERNEL.launches
+    got = code.decode(llr.to(dev), iters=4, early_exit=early)
+    torch.cuda.synchronize()
+    n = bk.BCJR_KERNEL.launches - before
+    assert n % 2 == 0 and 2 <= n <= 8 and (early or n == 8)
+    assert torch.equal(got.cpu(), code.decode(llr, iters=4,
+                                              early_exit=early))
+    w = 16 if k == 40 else 256
+    got = code.decode(llr.to(dev), iters=4, window=w, early_exit=early)
+    want = code.decode(llr, iters=4, window=w, guard=bk.pick_guard(w, 32),
+                       early_exit=early)
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="odd window"):
+        code.decode(llr.to(dev), window=15)
+
+
+# ---- K15 and K16: polar SC and CA-SCL-8 ----
+
+def _polar_llrs(n, b, seed, ties=False):
+    """Channel LLRs ``[b, n]``: +-(0, 1, 2) with exact ties and zeros, or
+    +-2 on random bits plus Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        sign = 1.0 - 2.0 * rng.integers(0, 2, (b, n))
+        return torch.as_tensor(sign * rng.integers(0, 3, (b, n)),
+                               dtype=torch.float32)
+    y = 1.0 - 2.0 * rng.integers(0, 2, (b, n))  # any word: the SC tree
+    return torch.as_tensor(2.0 * y + rng.normal(0, 1.2, (b, n)),
+                           dtype=torch.float32)
+
+
+def _polar_codes():
+    from modem_tpu_torch.fec import PolarCode, RateMatchedPolar
+
+    return [("n2", PolarCode(2, 1)), ("n4", PolarCode(4, 2)),
+            ("n16", PolarCode(16, 8)), ("n64", PolarCode(64, 32)),
+            ("n128_k100", PolarCode(128, 100)), ("n256", PolarCode(256, 128)),
+            ("rm_shorten", RateMatchedPolar(100, 180, n=256).code),
+            ("rm_puncture", RateMatchedPolar(60, 200, n=256).code),
+            ("n1024", PolarCode(1024, 512))]
+
+
+POLAR_IDS = [c[0] for c in _polar_codes()]
+
+
+@pytest.mark.parametrize("idx", range(len(POLAR_IDS)), ids=POLAR_IDS)
+@pytest.mark.parametrize("ties", [False, True], ids=["noisy", "ties"])
+def test_sc_kernel(idx, ties, dev):
+    """K15 against its plain version (``PolarCode._sc``): u and x bit for
+    bit, for several frozen patterns from n = 2 to 1024."""
+    from modem_tpu_torch.ops import sc_kernel as sk
+
+    code = _polar_codes()[idx][1]
+    lam = _polar_llrs(code.n, 37, 50 + idx, ties)
+    u, x = _launches(sk.SC_KERNEL, sk.sc_kernel, code, lam.to(dev))
+    pu, px = sk.sc_plain(code, lam)
+    assert torch.equal(u.cpu(), pu) and torch.equal(x.cpu(), px)
+    assert torch.equal(code.decode(lam.to(dev)).cpu(), code.decode(lam))
+    assert torch.equal(code.decode_full(lam.to(dev)).cpu(),
+                       code.decode_full(lam))
+
+
+@pytest.mark.parametrize("idx", range(len(POLAR_IDS)), ids=POLAR_IDS)
+@pytest.mark.parametrize("ties", [False, True], ids=["noisy", "ties"])
+def test_scl_kernel(idx, ties, dev):
+    """K16 against its plain version (``PolarCode._scl``, list 8): the 8
+    paths' decisions and metrics bit for bit, equal-metric candidates in
+    ``lax.top_k``'s order; ``decode_list`` with and without a CRC equal to
+    the CPU's."""
+    from modem_tpu_torch.fec import crc16_ccitt
+    from modem_tpu_torch.ops import scl_kernel as lk
+
+    code = _polar_codes()[idx][1]
+    lam = _polar_llrs(code.n, 29, 60 + idx, ties)
+    u, pm = _launches(lk.SCL_KERNEL, lk.scl_kernel, code, lam.to(dev))
+    pu, ppm = lk.scl_plain(code, lam)
+    assert torch.equal(u.cpu(), pu) and torch.equal(pm.cpu(), ppm)
+    crcs = [None] + ([crc16_ccitt()] if code.k > 16 else [])
+    for crc in crcs:
+        got = _launches(lk.SCL_KERNEL, code.decode_list, lam.to(dev), 8,
+                        crc=crc)
+        assert torch.equal(got.cpu(), code.decode_list(lam, 8, crc=crc))
+
+
+def test_polar_kernels_refuse_what_they_do_not_take(dev):
+    from modem_tpu_torch.fec import PolarCode
+    from modem_tpu_torch.ops import sc_kernel as sk, scl_kernel as lk
+
+    code = PolarCode(64, 32)
+    before = (sk.SC_KERNEL.launches, lk.SCL_KERNEL.launches)
+    with pytest.raises(ValueError):
+        sk.sc_kernel(code, torch.zeros((3, 32), device=dev))
+    with pytest.raises(ValueError):
+        lk.scl_kernel(code, torch.zeros((3, 64), device=dev,
+                                        dtype=torch.float64))
+    big = PolarCode(2048, 1024)
+    lam = _polar_llrs(2048, 3, 70)
+    assert torch.equal(big.decode(lam.to(dev)).cpu(), big.decode(lam))
+    assert torch.equal(code.decode_list(_polar_llrs(64, 5, 71).to(dev),
+                                        4).cpu(),
+                       code.decode_list(_polar_llrs(64, 5, 71), 4))
+    assert (sk.SC_KERNEL.launches, lk.SCL_KERNEL.launches) == before
+
+
+@pytest.mark.parametrize("preset,snr,kernel", [
+    ("lte_like_turbo_link", 1.0, "bcjr"), ("nr_like_control_link", 3.0,
+                                           "scl")])
+def test_turbo_polar_link_on_card(preset, snr, kernel, dev):
+    """tx_fused -> seeded noise -> rx_fused on the card for the turbo and
+    polar presets: payloads back with every CRC true through K2, K3 soft
+    and K14 (or K16); the decode of the card's LLRs equal to the CPU's."""
+    from modem_tpu_torch import presets
+    from modem_tpu_torch.ops import bcjr_kernel as bk, scl_kernel as lk
+
+    inner = bk.BCJR_KERNEL if kernel == "bcjr" else lk.SCL_KERNEL
+    link = getattr(presets, preset)(device=dev)
+    g = torch.Generator(device=dev).manual_seed(44)
+    pay = torch.randint(0, 2, (8, link.payload_bits), generator=g, device=dev,
+                        dtype=torch.int32)
+    before = (txrx.TX_KERNEL.launches, txrx.RX_SOFT_KERNEL.launches,
+              inner.launches)
+    i, q = link.tx_fused(pay)
+    p = float(torch.mean(i * i + q * q))
+    nv = p / (2.0 * 10.0 ** (snr / 10.0))
+    i = i + math.sqrt(nv) * torch.randn(i.shape, generator=g, device=dev)
+    q = q + math.sqrt(nv) * torch.randn(q.shape, generator=g, device=dev)
+    out, ok = link.rx_fused((i, q), nv)
+    torch.cuda.synchronize()
+    after = (txrx.TX_KERNEL.launches, txrx.RX_SOFT_KERNEL.launches,
+             inner.launches)
+    assert [a - b for a, b in zip(after, before)][:2] == [1, 1]
+    assert after[2] > before[2]
+    assert torch.equal(out, pay) and bool(ok.all())
+    llr = link.chain.rx_soft_fused((i, q), link.n_symbols, noise_var=nv)
+    cpu_out, cpu_ok = _cpu_link(preset).decode(llr.cpu())
+    assert torch.equal(cpu_out, out.cpu()) and torch.equal(cpu_ok, ok.cpu())
+
+
+@pytest.mark.parametrize("preset,bits", [("lte_like_turbo", 1008),
+                                         ("nr_like_control", 384)])
+def test_turbo_polar_link_cli_on_card(preset, bits, dev):
+    """The ``link`` CLI pair on the card for the turbo and polar presets."""
+    import io
+
+    from modem_tpu_torch.cli import link as cli
+
+    data = np.random.default_rng(45).integers(0, 2, 3 * bits)
+    wave = io.BytesIO()
+    assert cli.run(cli.build_parser().parse_args(
+        ["tx", "--preset", preset, "--batch-frames", "2", "--device",
+         str(dev)]), "".join("01"[b] for b in data).encode(), wave) == 0
+    dec, err = io.BytesIO(), io.StringIO()
+    assert cli.run(cli.build_parser().parse_args(
+        ["rx", "--preset", preset, "--noise-var", "0.05", "--batch-frames",
+         "2", "--device", str(dev)]), wave.getvalue(), dec, stderr=err) == 0
+    got = np.array([int(c) for c in "".join(dec.getvalue().decode().split())])
+    assert np.array_equal(got, data) and err.getvalue().count("OK") == 3

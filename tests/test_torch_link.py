@@ -1,6 +1,8 @@
 """The coded link in the port (``modem_tpu_torch.link.FramedLink``, the
-``reference``, ``dvb_like`` and ``ccsds_deep_space`` presets, the ``link``
-CLI) against the JAX package on the same numpy inputs.
+``reference``, ``dvb_like``, ``ccsds_deep_space``, ``lte_like_turbo`` and
+``nr_like_control`` presets, the turbo and polar (SC and SCL-8) inner-code
+routes, the ``link`` CLI) against the JAX package on the same numpy
+inputs.
 
 Tolerances: wire bits, payloads, ``ok`` verdicts, the CLI's decoded bytes
 and verdict lines exactly; waveforms ``atol=1e-5`` (the two packages sum
@@ -19,14 +21,16 @@ import jax.numpy as jnp
 
 from modem_tpu import presets as jpresets
 from modem_tpu.cli import link as jcli
+from modem_tpu.fec import PolarCode as JPolar
 from modem_tpu.fec import Puncturer as JPuncturer
+from modem_tpu.fec import TurboCode as JTurbo
 from modem_tpu.fec import rs_dvb as jrs_dvb
 from modem_tpu.link import FramedLink as JFramedLink
 
 from modem_tpu_torch import presets
 from modem_tpu_torch.cli import link as cli
-from modem_tpu_torch.fec import (Puncturer, rate23_pattern, rate34_pattern,
-                                 rs_dvb)
+from modem_tpu_torch.fec import (PolarCode, Puncturer, TurboCode,
+                                 rate23_pattern, rate34_pattern, rs_dvb)
 from modem_tpu_torch.link import FramedLink
 
 torch.set_num_threads(1)
@@ -36,6 +40,8 @@ ATOL = 1e-5
 #: preset -> operating SNR per complex sample (the JAX preset tests')
 PRESETS = {"reference_link": -4.0, "dvb_like_link": 3.0,
            "ccsds_deep_space_link": 0.0}
+#: the turbo and polar presets -> their operating SNR (the JAX tests')
+FEC_PRESETS = {"lte_like_turbo_link": -6.0, "nr_like_control_link": 1.0}
 FRAMES = 2
 
 
@@ -68,7 +74,8 @@ def _jax_run(jl, payload, snr_db, seed):
 @pytest.fixture(scope="module")
 def runs():
     out = {}
-    for k, (name, snr) in enumerate(sorted(PRESETS.items())):
+    for k, (name, snr) in enumerate(sorted({**PRESETS,
+                                            **FEC_PRESETS}.items())):
         jl = getattr(jpresets, name)()
         rng = np.random.default_rng(k)
         payload = rng.integers(0, 2, (FRAMES, jl.payload_bits)).astype(
@@ -264,11 +271,159 @@ def test_payload_length_checked():
         tl.frame(torch.zeros((1, 1000), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("inner", ["ldpc", "polar", "polar_list", "turbo"])
+@pytest.mark.parametrize("inner", ["ldpc", "polar_list"])
 def test_other_inner_codes_not_ported(inner):
+    """The LDPC inner code is not ported yet; ``polar_list`` without a
+    polar code is refused as the JAX constructor refuses it."""
     chain = presets.qpsk_reference_chain(presets.REFERENCE_RATES, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, S5"):
-        FramedLink(chain, payload_bits=1002, **{inner: 8})
+    if inner == "ldpc":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1, S5"):
+            FramedLink(chain, payload_bits=1002, ldpc=8)
+        return
+    msg = "polar_list needs a polar inner code"
+    with pytest.raises(ValueError, match=msg):
+        FramedLink(chain, payload_bits=1002, polar_list=8)
+    with pytest.raises(ValueError, match=msg):
+        JFramedLink(jpresets.qpsk_reference_chain(jpresets.REFERENCE_RATES),
+                    payload_bits=1002, polar_list=8)
+
+
+# ---- the turbo and polar inner codes ----
+
+def _fec_link(route, jax_side=False):
+    """A link per inner-code route: the turbo preset's shape, a plain
+    polar (256, 128) with SC, the rate-matched polar preset with SC, and
+    the preset (SCL-8)."""
+    pk = jpresets if jax_side else presets
+    chain = (pk.qpsk_reference_chain(pk.REFERENCE_RATES) if jax_side else
+             pk.qpsk_reference_chain(pk.REFERENCE_RATES, device=CPU))
+    link = JFramedLink if jax_side else FramedLink
+    if route == "turbo":
+        return (jpresets.lte_like_turbo_link() if jax_side
+                else presets.lte_like_turbo_link(device=CPU))
+    if route == "polar_sc":
+        code = JPolar(256, 128) if jax_side else PolarCode(256, 128)
+        return link(chain, payload_bits=2 * 128 - 16, polar=code)
+    if route == "rm_polar_sc":
+        return (jpresets.nr_like_control_link(list_size=None) if jax_side
+                else presets.nr_like_control_link(list_size=None,
+                                                  device=CPU))
+    return (jpresets.nr_like_control_link() if jax_side
+            else presets.nr_like_control_link(device=CPU))
+
+
+FEC_ROUTES = ["turbo", "polar_sc", "rm_polar_sc", "rm_polar_scl8"]
+
+
+@pytest.mark.parametrize("route", FEC_ROUTES)
+def test_fec_geometry_and_wire_bits_equal(route):
+    jl, tl = _fec_link(route, True), _fec_link(route)
+    for attr in ("payload_bits", "wire_bits", "n_symbols", "_steps", "rows",
+                 "conv_window", "polar_list", "turbo_iters",
+                 "turbo_early_exit"):
+        assert getattr(tl, attr) == getattr(jl, attr), attr
+    assert tl.conv is None
+    payload = np.random.default_rng(11).integers(
+        0, 2, (3, jl.payload_bits)).astype(np.int32)
+    got = tl.frame(_t(payload))
+    assert got.dtype == torch.int32 and got.shape == (3, tl.wire_bits)
+    _eq(got, jax.jit(jl.frame)(jnp.asarray(payload)))
+
+
+@pytest.mark.parametrize("route", FEC_ROUTES)
+def test_fec_decode_of_shared_llrs_equal(route):
+    """The same noisy wire LLRs through both packages' ``decode``."""
+    jl, tl = _fec_link(route, True), _fec_link(route)
+    payload = np.random.default_rng(12).integers(
+        0, 2, (2, jl.payload_bits)).astype(np.int32)
+    snr = -6.0 if route == "turbo" else 0.0
+    run = _jax_run(jl, payload, snr, 13)
+    out, ok = tl.decode(_t(run["llr"]))
+    assert out.dtype == torch.int32 and ok.dtype == torch.bool
+    _eq(out, run["out"])
+    _eq(ok, run["ok"])
+
+
+@pytest.mark.parametrize("name", sorted(FEC_PRESETS))
+def test_fec_preset_frame_and_tx_waveform_equal(name, runs):
+    run, tl = runs[name], _link(name)
+    _eq(tl.frame(_t(run["payload"])), run["frame"])
+    for got, want in zip(tl.tx(_t(run["payload"])), run["wave"]):
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(FEC_PRESETS))
+def test_fec_preset_payload_and_ok_equal_at_operating_snr(name, runs):
+    """The same noisy waveform at the preset's operating SNR through both
+    packages' staged RX: payloads back exactly, every CRC true."""
+    run = runs[name]
+    tl = _link(name)
+    out, ok = tl.rx(tuple(_t(r) for r in run["noisy"]), run["nv"])
+    _eq(out, run["out"])
+    _eq(ok, run["ok"])
+    assert ok.all() and np.array_equal(out.numpy(), run["payload"])
+    out, ok = tl.decode(_t(run["llr"]))
+    _eq(out, run["out"])
+    _eq(ok, run["ok"])
+
+
+def test_fec_preset_geometry():
+    tl, pl = _link("lte_like_turbo_link"), _link("nr_like_control_link")
+    assert (tl.payload_bits, tl.n_symbols, tl.wire_bits) == (1008, 1542, 3084)
+    assert (pl.payload_bits, pl.n_symbols, pl.wire_bits) == (384, 360, 720)
+    assert tl.turbo_iters == 6 and tl.turbo_early_exit
+    assert pl.polar_list == 8 and pl._polar_wire == 180
+    assert presets.lte_like_turbo_link(turbo_iters=3,
+                                       device=CPU).turbo_iters == 3
+
+
+def test_constructor_takes_the_jax_keywords_in_order():
+    """The port's ``FramedLink`` takes every keyword of the JAX one, in the
+    same order and with the same defaults."""
+    import inspect
+
+    got = inspect.signature(FramedLink.__init__).parameters
+    want = inspect.signature(JFramedLink.__init__).parameters
+    assert list(got) == list(want)
+    for name, p in want.items():
+        assert got[name].default == p.default, name
+    chain = presets.qpsk_reference_chain(presets.REFERENCE_RATES, device=CPU)
+    tl = FramedLink(chain, payload_bits=1002, turbo_iters=6, ldpc_iters=5,
+                    ldpc_early_exit=False)
+    assert (tl.turbo_iters, tl.ldpc_iters, tl.ldpc_early_exit) == (6, 5,
+                                                                   False)
+    assert tl.conv is not None and tl.conv_window == 512
+
+
+@pytest.mark.parametrize("case", ["conv_turbo", "polar_turbo",
+                                  "turbo_puncture", "polar_puncture",
+                                  "turbo_size", "polar_size"])
+def test_fec_constructor_errors_equal(case):
+    """The JAX constructor's ``ValueError``s, message for message."""
+    chain = presets.qpsk_reference_chain(presets.REFERENCE_RATES, device=CPU)
+    jchain = jpresets.qpsk_reference_chain(jpresets.REFERENCE_RATES)
+    from modem_tpu.fec import ConvCode as JConv
+    from modem_tpu_torch.fec import ConvCode
+
+    def kw(side):
+        jx = side == "jax"
+        turbo = JTurbo(40) if jx else TurboCode(40)
+        polar = JPolar(64, 32) if jx else PolarCode(64, 32)
+        punct = (JPuncturer if jx else Puncturer)(rate34_pattern())
+        conv = (JConv if jx else ConvCode)(7, (0o171, 0o133))
+        return {"conv_turbo": dict(conv=conv, turbo=turbo),
+                "polar_turbo": dict(polar=polar, turbo=turbo),
+                "turbo_puncture": dict(turbo=turbo, puncturer=punct),
+                "polar_puncture": dict(polar=polar, puncturer=punct),
+                "turbo_size": dict(turbo=turbo),
+                "polar_size": dict(polar=polar)}[case]
+
+    with pytest.raises(ValueError) as want:
+        JFramedLink(jchain, payload_bits=1002, **kw("jax"))
+    with pytest.raises(ValueError) as got:
+        FramedLink(chain, payload_bits=1002, **kw("port"))
+    assert str(got.value) == str(want.value)
 
 
 # ---- presets ----
@@ -290,7 +445,8 @@ def test_presets_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for make in (presets.reference_link, presets.dvb_like_link,
-                 presets.ccsds_deep_space_link, presets.gsm_like_gmsk):
+                 presets.ccsds_deep_space_link, presets.gsm_like_gmsk,
+                 presets.lte_like_turbo_link, presets.nr_like_control_link):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert cli.build_parser().parse_args(
@@ -368,5 +524,36 @@ def test_cli_refuses_presets_not_ported(preset):
 
 def test_cli_presets_are_the_ported_ones():
     assert sorted(cli.PRESETS) == ["ccsds_deep_space", "dvb_like",
+                                   "lte_like_turbo", "nr_like_control",
                                    "reference"]
+    assert cli.NOT_PORTED == ("wifi_like_ofdm",)
     assert set(cli.PRESETS) | set(cli.NOT_PORTED) == set(jcli.PRESETS)
+
+
+@pytest.mark.parametrize("preset,snr", [("lte_like_turbo", -6.0),
+                                        ("nr_like_control", 1.0)])
+def test_cli_turbo_and_polar_presets_equal_jax(preset, snr):
+    """``link tx`` and ``link rx`` for the turbo and polar presets against
+    the JAX CLI: the same waveform bytes (to f32 tolerance), and on the
+    same noisy waveform the same decoded bytes and verdict lines."""
+    pb = {"lte_like_turbo": 1008, "nr_like_control": 384}[preset]
+    bits = np.random.default_rng(32).integers(0, 2, 2 * pb)
+    text = "".join("01"[b] for b in bits).encode()
+    argv = ["tx", "--preset", preset, "--batch-frames", "2"]
+    jrc, jout, jerr = _cli(jcli, argv, text)
+    rc, out, err = _cli(cli, argv, text)
+    assert rc == jrc == 0 and err == jerr
+    got, want = np.frombuffer(out, "<f4"), np.frombuffer(jout, "<f4")
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    wave = want.reshape(2, -1, 2)
+    ni, nq, nv = _noisy(wave[..., 0], wave[..., 1], snr, 33)
+    noisy = np.stack([ni, nq], -1).astype("<f4").tobytes()
+    argv = ["rx", "--preset", preset, "--noise-var", f"{nv:.6f}",
+            "--batch-frames", "2"]
+    jrc, jout, jerr = _cli(jcli, argv, noisy)
+    rc, out, err = _cli(cli, argv, noisy)
+    assert rc == jrc == 0 and out == jout and err == jerr
+    assert err.count("frame: OK") == 2
+    got = np.array([int(c) for c in "".join(out.decode().split())])
+    assert np.array_equal(got, bits)

@@ -56,9 +56,10 @@ def test_every_module_listed():
     for m in ("fec", "fec.conv", "fec.crc", "fec.interleave", "fec.puncture",
               "fec.rs", "fec.scramble", "ops.viterbi_kernel", "link",
               "presets", "cli.link", "utils.cache", "harness", "checkpoint",
-              "metrics", "ops.channel"):
+              "metrics", "ops.channel", "fec.turbo", "fec.polar",
+              "ops.bcjr_kernel", "ops.sc_kernel", "ops.scl_kernel"):
         assert f"modem_tpu_torch.{m}" in MODULES, m
-    assert len(MODULES) >= 53
+    assert len(MODULES) >= 58
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
