@@ -23,8 +23,10 @@ It drives the flagship QPSK chain through the port's public entry points at
    over >= 4 M bits, BER within 10% of the QPSK closed form;
 6. times: each kernel and its plain version per call, CUDA events, median
    of 5 runs of 20 calls after warm-up, in complex samples/s; and the
-   kernel's own device time from ``torch.profiler``; and per call of the
-   chain's ``roundtrip_fused``, ``tx_fused`` and ``rx_fused``, bits included.
+   kernel's own device time from ``torch.profiler``; K3 soft's ``conv1d``
+   yardstick (each rail one strided cross-correlation, TF32 off); and per
+   call of the chain's ``roundtrip_fused``, ``tx_fused`` and ``rx_fused``,
+   bits included.
 
 The reference modulate -> demodulate path (``Modulator``, ``Demodulator``,
 the two CLIs) runs at the JAX package's demod-bank size (``bench_demod.py``:
@@ -131,7 +133,7 @@ trellis rows of 652 steps) and ``bench_link.py``'s (``reference_link()``,
     time and idle share.
 
 The modes of K1-K3 (the passband NCO at 2000 Hz, a table of 5 phases, and
-at 1700 Hz, 100 phases per sample, both at 10000; algebraic 256-QAM; bf16
+at 1700 Hz, a table of 100, both at 10000; algebraic 256-QAM; bf16
 and int16 waveforms; K1's in-kernel noise at baseband and passband), the
 BER harness on them, and K13 on the code shapes its repair widened:
 
@@ -294,13 +296,14 @@ VIT_REPORT = ("viterbi_decode_stream", "viterbi_kernel",
               "modem_tpu_torch/csrc/viterbi.cu",
               "modem_tpu/ops/pallas_viterbi.py:102")
 # the K1-K3 modes (passband at 2000 Hz, a table of 5 phases, and 1700 Hz,
-# 100 phases per sample; 256-QAM; bf16 and int16 waveforms; K1's noise),
+# a table of 100; 256-QAM; bf16 and int16 waveforms; K1's noise),
 # the harness and widened K13
 MODE_SMALL = (130, 600)          # crosses the noise stream's lane and tile keys
 MODE_SMALL_CHUNK = 32
 MODE_SNR_DB = 7.0                # Es/N0: QPSK BER ~1.3e-2
 MODE_AGREE = 0.9999              # noisy K1 decisions, kernel vs plain
 MODE_QAM_BPS = 8
+NCO_TABLE = 2048                 # carrier phases K1-K3 take from a table
 MODE_OUT_SCALE = 8000.0          # int16 wire format, peaks well inside
 GATES_SCALE = 4
 WIDE_VIT = {"viterbi_k3": (3, (0o7, 0o5)),
@@ -619,8 +622,30 @@ def kernel_times(kern, plain, args, device, symbol: str, plain_calls=20):
             kernel_device_ms(kern, args, device, symbol))
 
 
+def rx_conv1d_yardstick(args):
+    """K3 soft at baseband f32 as ``conv1d``: each rail is one strided
+    cross-correlation with the flipped taps, ``stride=sps``; the matched
+    filter's window of decision m starts at sample m*sps, so no padding
+    (zero history) is needed. Returns ``(fn, fn args, max |error| against
+    the kernel)``; the port never calls it."""
+    import torch.nn.functional as F
+    from modem_tpu_torch.ops import txrx
+
+    wi, wq, k, _, taps, sps, _, _ = args
+    w = taps.flip(0).reshape(1, 1, -1).contiguous()
+
+    def both(xi, xq, w):
+        return (F.conv1d(xi, w, stride=sps), F.conv1d(xq, w, stride=sps))
+
+    xi, xq = wi.unsqueeze(1), wq.unsqueeze(1)
+    got = tuple(o[:, 0, :k] for o in both(xi, xq, w))
+    err = max_err(got, txrx.rx_kernel(*args))
+    return both, (xi, xq, w), err
+
+
 def phase_times(chain, device, card: str) -> dict:
-    """Phase 6: kernel and plain time per call at the flagship shape."""
+    """Phase 6: kernel and plain time per call at the flagship shape, and
+    K3 soft's ``conv1d`` yardstick."""
     syms = random_symbols((CHANNELS, N_SYMBOLS), device, False)
     samples = CHANNELS * N_SYMBOLS * chain.sps
     times = {}
@@ -628,14 +653,23 @@ def phase_times(chain, device, card: str) -> dict:
         args = make_args(syms)
         ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
                                             DEVICE_NAMES[name])
-        times[name] = (ms, plain_ms, dev_ms)
+        lib_ms, lib_txt = None, "no library call"
+        if name == "fused_rx_soft":
+            fn, fargs, lib_err = rx_conv1d_yardstick(args)
+            if lib_err > 1e-4:
+                fail(f"conv1d yardstick disagrees with K3 soft ({lib_err})")
+            lib_ms = time_calls(fn, fargs, device)
+            lib_dev = device_busy_ms(fn, fargs, device)
+            lib_txt = (f"conv1d {lib_ms:.4f} ms, device busy {lib_dev:.4f} ms"
+                       f" (max |err| vs K3 {lib_err:.2e})")
+        times[name] = (ms, plain_ms, dev_ms, lib_ms)
         dev_txt = ("not measured" if dev_ms is None else
                    f"{dev_ms:.4f} ms ({samples / dev_ms * 1e3:.4e} samples/s)")
         print(f"[times] {name:18s} per call: kernel {ms:.4f} ms "
               f"({samples / ms * 1e3:.4e} samples/s), plain {plain_ms:.4f} ms "
-              f"({samples / plain_ms * 1e3:.4e} samples/s); kernel alone in "
-              f"the profiler {dev_txt}; {CHANNELS} ch x {N_SYMBOLS} sym x "
-              f"sps {chain.sps} on {card}", flush=True)
+              f"({samples / plain_ms * 1e3:.4e} samples/s), {lib_txt}; "
+              f"kernel alone in the profiler {dev_txt}; {CHANNELS} ch x "
+              f"{N_SYMBOLS} sym x sps {chain.sps} on {card}", flush=True)
     # the fused surfaces bits -> bits / bits -> waveform -> bits, glue
     # (bit packing, unpacking) included
     g = torch.Generator(device=device).manual_seed(SEED + 4)
@@ -2214,7 +2248,8 @@ def mode_work(kind: str, spec: dict, c: int, k: int, chain):
     the mode's own counts: the algebraic QAM map 8 operations a symbol and
     its slice 12 (against 5 a table point); the NCO 3 a sample to mix up
     and 2 to detect, plus a cos and a sin a sample where the carrier has
-    more than 16 phases (a table otherwise); the noise 16 a waveform sample
+    more than NCO_TABLE phases (a table otherwise, whose few entries are
+    not counted); the noise 16 a waveform sample
     (as ``fsk_work``). Storage: f32 4 B, bf16 and int16 2 B a sample."""
     taps, sps, span = chain.rrc.shape[0], chain.sps, chain.span
     qam, car = spec.get("qam") is not None, spec.get("carrier")
@@ -2226,7 +2261,7 @@ def mode_work(kind: str, spec: dict, c: int, k: int, chain):
     slice_ops = c * k * (12 if qam else 5 * m)
     tx_ops = 2 * 2 * (k + span) * taps * c + map_ops
     rx_ops = 2 * 2 * k * taps * c
-    trig = 2 if car and car[1] // math.gcd(*car) > 16 else 0
+    trig = 2 if car and car[1] // math.gcd(*car) > NCO_TABLE else 0
     rails = 1 if car else 2
     if kind == "chain":
         ops = tx_ops + rx_ops + slice_ops
@@ -2739,7 +2774,7 @@ def main() -> int:
     errs = phase_kernels(chain, device)
     launches = phase_main_path(chain, device)
     phase_noise(chain, device)
-    times = {n: t + (None, chain_work(chain, n, CHANNELS, N_SYMBOLS))
+    times = {n: t + (chain_work(chain, n, CHANNELS, N_SYMBOLS),)
              for n, t in phase_times(chain, device, card).items()}
     errs.update(phase_ref_kernels(chain, device))
     launches.update(phase_ref_path(chain, device))

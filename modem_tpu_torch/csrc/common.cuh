@@ -1,24 +1,38 @@
 // Shared pieces of the kernels: the pulse-shaped chain's (txrx.cu,
-// chain.cu: constellations, the passband NCO, waveform storage) and the
+// chain.cu: constellations, the passband NCO, waveform storage, the taps
+// as a kernel parameter and the register-blocked matched filter) and the
 // noise stream the FSK and pulse-shaped loopbacks draw (fsk.cu, chain.cu).
 //
 // Layout everywhere: one row per channel, time contiguous ([C, K] symbols,
-// [C, N] waveform samples), one block per (channel, time tile), threads
-// along time. Small parameters (constellation table, RRC taps) arrive as
-// device arrays and are staged in shared memory, where the polyphase bank
-// is built from the taps.
+// [C, N] waveform samples), threads along time. The constellation table
+// arrives as a device array and is staged in shared memory; K1's and K3's
+// RRC taps arrive by value in a kernel parameter (Taps), K2's as a device
+// array from which it builds its polyphase bank in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace modem {
 
 constexpr int kThreads = 256;  // threads per block
 constexpr int kTile = 256;     // symbols per block (time tile)
 constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr int kNcoTable = 16;  // carrier phases held in a table, at most
+constexpr int kNcoTable = 2048;  // carrier phases held in a table, at most
 constexpr int kLane = 128;     // channels per JAX tile (the noise keys)
+constexpr int kMaxTaps = 256;  // taps K1 and K3 take (Taps, 1 KB)
+constexpr int kMaxSps = 64;    // samples a symbol K1's and K3's tiles fit
+
+// RRC taps by value. Passed as a __grid_constant__ kernel parameter, they
+// live in the constant bank: with the filter loops unrolled at compile time
+// each tap reaches its FFMA as a constant-bank or uniform-register operand,
+// with no shared-memory or per-thread load, as the TPU kernel's taps baked
+// in at trace time cost none.
+struct Taps {
+  float v[kMaxTaps];
+};
 
 // The symbol <-> I/Q map of the pulse-shaped chain: a table of n_points
 // entries (lut, staged in shared memory by the kernel), or, with lut null,
@@ -36,25 +50,35 @@ struct Constellation {
 };
 
 // The passband NCO (pallas_chain.py::_nco_cos_sin, pallas_txrx.py::_theta).
-// sr == 0 is baseband. Waveform sample p of symbol row gsym (stream-global:
-// sym_offset plus the row in this call) has the exact phase
-//   u = ((((gsym mod sr) * sps + p) mod sr) * hz) mod sr,
-// gsym mod sr a floor mod (streams pass negative offsets), and the angle
-// __fmul_rn(u, scale), scale = f32(2*pi/sr). The accurate cosf and sinf of
-// that angle; where the carrier has n_ph = sr / gcd(hz, sr) <= kNcoTable
-// phases they come from a table of the same cosf and sinf of u = k*g,
-// bit-identical to the per-sample values.
+// sr == 0 is baseband. Call-local waveform sample s (sample 0 is stream
+// symbol sym_offset's first) has the exact phase
+//   u = (((s_off + s) mod sr) * hz) mod sr,
+// s_off = ((sym_offset mod sr) * sps) mod sr with a floor mod (streams pass
+// negative offsets), and the angle __fmul_rn(u, scale), scale =
+// f32(2*pi/sr); the accurate cosf and sinf of that angle. u is always a
+// multiple of g = gcd(hz, sr), so the kernels count the phase k = u / unit
+// in units (unit = g where the carrier's n_ph = sr / g phases fit the
+// table, else 1) over a period of n_ph (else sr) units, and advance it by
+// `step` units a sample with a 32-bit add and one conditional subtract:
+// no division and no 64-bit arithmetic a sample. Only the phase of a
+// tile's first sample is reckoned in 64 bits. hz * sr < 2^31 (make_nco)
+// bounds every 32-bit product below. The table holds the cosf and sinf of
+// the same angles __fmul_rn(k * g, scale), bit-identical to per-sample ones.
 struct Nco {
-  int hz, sr, sps;
-  long long sym_offset;
-  int n_ph, g;
+  int sr;       // 0: baseband
+  int hz;
+  int period;   // units a carrier cycle: n_ph with the table, else sr
+  int step;     // units a sample: (hz mod sr) / unit
+  int unit;     // g with the table, else 1
+  int table;    // the carrier's phases come from the table
+  int s_off;    // sample 0's offset mod sr
   float scale;
 };
 
 // Waveform storage: f32, bf16 (round to nearest even) or int16
 // (clip(rint(x * out_scale), -32768, 32767)), one overload per type. The
-// kernels are instantiated per type, so the f32 path compiles to plain
-// float loads and stores.
+// TX kernel is instantiated per type, so the f32 path compiles to plain
+// float stores.
 enum WaveKind { kF32 = 0, kBf16 = 1, kI16 = 2 };
 
 __device__ __forceinline__ void store_wave(float* p, float x, float) {
@@ -72,35 +96,40 @@ __device__ __forceinline__ void store_wave(short* p, float x,
   *p = static_cast<short>(v);
 }
 
-__device__ __forceinline__ float load_wave(float v) { return v; }
-
-__device__ __forceinline__ float load_wave(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// The carrier phase's table, n_ph entries of cos and sin, all threads.
+// The carrier phase's table, `period` entries of cos and sin, all threads.
 __device__ inline void stage_nco(float* tc, float* ts, const Nco& n) {
-  for (int k = threadIdx.x; k < n.n_ph; k += blockDim.x) {
-    const float th = __fmul_rn(static_cast<float>(k * n.g), n.scale);
+  for (int k = threadIdx.x; k < n.period; k += blockDim.x) {
+    const float th = __fmul_rn(static_cast<float>(k * n.unit), n.scale);
     tc[k] = cosf(th);
     ts[k] = sinf(th);
   }
 }
 
-__device__ __forceinline__ void nco_cos_sin(const Nco& n, long long gsym,
-                                            int p, const float* tc,
-                                            const float* ts, float& c,
-                                            float& s) {
-  long long gm = gsym % n.sr;
-  if (gm < 0) gm += n.sr;
-  const long long smod = (gm * n.sps + p) % n.sr;
-  const int u = static_cast<int>((smod * n.hz) % n.sr);
-  if (n.n_ph <= kNcoTable) {
-    const int k = u / n.g;
+// The phase, in units, of call-local sample s >= 0: 64-bit, once a tile.
+__device__ __forceinline__ int nco_phase(const Nco& n, long long s) {
+  const long long sm = (n.s_off + s % n.sr) % n.sr;
+  return static_cast<int>((sm * n.hz) % n.sr) / n.unit;
+}
+
+// Phase k advanced by d >= 0 samples, in 32-bit integers.
+__device__ __forceinline__ int nco_skip(const Nco& n, int k, int d) {
+  return (k + (d % n.period) * n.step % n.period) % n.period;
+}
+
+// Phase k advanced by d units, 0 <= d < period.
+__device__ __forceinline__ int nco_add(const Nco& n, int k, int d) {
+  k += d;
+  return k >= n.period ? k - n.period : k;
+}
+
+__device__ __forceinline__ void nco_cos_sin(const Nco& n, int k,
+                                            const float* tc, const float* ts,
+                                            float& c, float& s) {
+  if (n.table) {
     c = tc[k];
     s = ts[k];
   } else {
-    const float th = __fmul_rn(static_cast<float>(u), n.scale);
+    const float th = __fmul_rn(static_cast<float>(k), n.scale);
     c = cosf(th);
     s = sinf(th);
   }
@@ -206,26 +235,129 @@ __device__ __forceinline__ int decide(float ai, float aq,
                           : qam_slice(ai, aq, m);
 }
 
-// Polyphase matched filter at the decision instant of local symbol ml:
-//   z = sum_j taps[j] * y[ml*sps + d - j],  d = n_taps - 1 = span*sps,
-// reading y from phase-major planes (plane p, row r holds the tile's sample
-// r*sps + p), so the threads of a warp, one symbol each, read consecutive
-// words. Taps are taken in order j = 0, 1, ... as in the plain version.
-__device__ inline float matched_point(const float* planes, int stride,
-                                      const float* taps, int n_taps, int sps,
-                                      int span, int ml) {
-  float acc = 0.f;
-  int q = span, p = 0;  // a = d - j = q*sps + p, starting at j = 0
-  for (int j = 0; j < n_taps; ++j) {
-    acc = fmaf(taps[j], planes[p * stride + ml + q], acc);
-    if (p == 0) {
-      p = sps - 1;
-      --q;
-    } else {
-      --p;
+// The waveform tiles of K1 and K3 lie in shared memory in sample order,
+// skewed: logical sample i at i + 4 * (i / 32). A thread of the matched
+// filter reads the samples of R consecutive symbols, a run that starts on
+// a multiple of 32 where R * sps is one (the flagship's R = 4, sps = 8), so
+// the 8 threads of a quarter warp read their 16-byte pieces from 8
+// different groups of 4 banks: no conflict.
+__host__ __device__ __forceinline__ int skew(int i) {
+  return i + ((i >> 5) << 2);
+}
+
+// Floats a skewed buffer of n logical samples takes, a multiple of 4.
+__host__ __device__ __forceinline__ int skew_len(int n) {
+  const int n32 = (n + 31) & ~31;
+  return n32 + n32 / 8;
+}
+
+// 16-byte asynchronous copy from device memory to shared memory.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy n elements from src (device memory) to logical positions pos0 ..
+// pos0 + n - 1 of dst (shared memory, skewed or not), all threads of the
+// block: the first n_valid from src, the rest zero (samples past the end of
+// the waveform read as zero). Where src and the destination are 16-byte
+// aligned the whole 16-byte pieces go by cp.async (commit and wait are the
+// caller's); a misaligned row, and the tail, by scalar loads.
+template <bool kSkew, typename T>
+__device__ inline void load_span(T* dst, const T* __restrict__ src, int pos0,
+                                 int n, int n_valid) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) |
+        static_cast<uintptr_t>(pos0) * sizeof(T)) & 15) == 0) {
+    const int pieces = n_valid / kVec;
+    for (int k = threadIdx.x; k < pieces; k += blockDim.x) {
+      const int p = pos0 + k * kVec;
+      cp_async16(dst + (kSkew ? skew(p) : p), src + k * kVec);
+    }
+    done = pieces * kVec;
+  }
+  for (int e = done + threadIdx.x; e < n; e += blockDim.x) {
+    const int p = pos0 + e;
+    dst[kSkew ? skew(p) : p] = e < n_valid ? src[e] : T(0);
+  }
+}
+
+// The register-blocked polyphase matched filter: R consecutive decision
+// points of both rails,
+//   z[r] = sum_j taps[j] * y[base + r*sps + d - j],  d = L - 1,
+// from the skewed tiles yi, yq. Each thread walks the (R-1)*sps + L
+// samples of its run once, newest first, and feeds each to every output it
+// belongs to: one fmaf chain per output and rail with the taps in the order
+// j = 0, 1, ..., L-1 from 0, the order of the plain version, so an output
+// never depends on the run or the tile it falls in. acc[] start at 0.
+// The flagship shape (sps, L at compile time, base a multiple of 32): the
+// samples in 16-byte loads, every tap a constant or uniform operand.
+template <int R, int SPS, int L>
+__device__ __forceinline__ void matched_fixed(const float* __restrict__ yi,
+                                              const float* __restrict__ yq,
+                                              int base, const Taps& taps,
+                                              float (&ai)[R], float (&aq)[R]) {
+  static_assert(R * SPS % 32 == 0, "a run starts on a skew row");
+  constexpr int W = (R - 1) * SPS + L;
+  constexpr int NQ = (W + 3) / 4;
+  const int pb = skew(base);
+#pragma unroll
+  for (int q = NQ - 1; q >= 0; --q) {
+    const int off = pb + 4 * q + 4 * (q >> 3);
+    const float4 vi = *reinterpret_cast<const float4*>(yi + off);
+    const float4 vq = *reinterpret_cast<const float4*>(yq + off);
+    const float ei[4] = {vi.x, vi.y, vi.z, vi.w};
+    const float eq[4] = {vq.x, vq.y, vq.z, vq.w};
+#pragma unroll
+    for (int u = 3; u >= 0; --u) {
+      const int i = W - 1 - (4 * q + u);  // newest sample first
+      if (i < 0) continue;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = i - (R - 1 - r) * SPS;
+        if (j >= 0 && j < L) {
+          ai[r] = fmaf(taps.v[j], ei[u], ai[r]);
+          aq[r] = fmaf(taps.v[j], eq[u], aq[r]);
+        }
+      }
     }
   }
-  return acc;
+}
+
+// The same for any (sps, L): scalar loads, the taps read from the
+// parameter bank at a run-time index.
+template <int R>
+__device__ __forceinline__ void matched_generic(const float* __restrict__ yi,
+                                                const float* __restrict__ yq,
+                                                int base, int sps, int L,
+                                                const Taps& taps,
+                                                float (&ai)[R],
+                                                float (&aq)[R]) {
+  const int W = (R - 1) * sps + L;
+  for (int i = 0; i < W; ++i) {
+    const int p = skew(base + W - 1 - i);
+    const float vi = yi[p], vq = yq[p];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = i - (R - 1 - r) * sps;
+      if (j >= 0 && j < L) {
+        const float t = taps.v[j];
+        ai[r] = fmaf(t, vi, ai[r]);
+        aq[r] = fmaf(t, vq, aq[r]);
+      }
+    }
+  }
 }
 
 // Blocks of a flattened (channel, tile) grid, or 0 if they exceed the
@@ -274,7 +406,7 @@ inline Constellation make_map(const float* lut, int n_points, int cshift,
 
 inline bool make_nco(int hz, int sr, int sps, long long sym_offset,
                      float scale, Nco& n) {
-  n = Nco{hz, sr, sps, sym_offset, 0, 1, scale};
+  n = Nco{sr, hz, 1, 0, 1, 0, 0, scale};
   if (sr == 0) return true;
   if (hz < 0 || sr < 0 || static_cast<long long>(hz) * sr >= (1LL << 31))
     return false;
@@ -284,8 +416,14 @@ inline bool make_nco(int hz, int sr, int sps, long long sym_offset,
     a = b;
     b = t;
   }
-  n.g = a;
-  n.n_ph = sr / a;
+  const int n_ph = sr / a;
+  n.table = n_ph <= kNcoTable;
+  n.unit = n.table ? a : 1;
+  n.period = n.table ? n_ph : sr;
+  n.step = (hz % sr) / n.unit;
+  long long off = sym_offset % sr;
+  if (off < 0) off += sr;
+  n.s_off = static_cast<int>(off * sps % sr);
   return true;
 }
 
@@ -293,7 +431,7 @@ inline bool make_nco(int hz, int sr, int sps, long long sym_offset,
 // the carrier's phase table (2 * n_ph floats when it has one).
 inline int side_floats(const Constellation& m, const Nco& n) {
   return (m.lut != nullptr ? 2 * m.n_points : 0) +
-         (n.sr != 0 && n.n_ph <= kNcoTable ? 2 * n.n_ph : 0);
+         (n.sr != 0 && n.table ? 2 * n.period : 0);
 }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in.

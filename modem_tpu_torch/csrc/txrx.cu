@@ -18,22 +18,42 @@
 // the soft (i, q) points. sym_offset, the stream-global index of symbol 0,
 // keeps the carrier phase of a stream's blocks aligned.
 //
-// What bounds them on this card: bytes. TX reads 4 B per symbol and writes
-// 2 x 4 B per sample (64 B per symbol at sps = 8; half that at passband or
-// in bf16, int16), about 9*2 FMAs per sample; RX reads 8 B per sample and
-// writes 4 or 8 B per symbol, 65*2 FMAs per symbol. The NCO adds a cos and a
-// sin per sample where the carrier has more than 16 phases (a table
-// otherwise) and a few multiplies: still under the byte time. Both are far
-// below the FMA rate, so their floor is the device-memory write (TX) and
-// read (RX) time. The design therefore touches device memory once per
-// element: each block stages its own halo (span symbols back for TX,
-// span*sps samples ahead for RX, under 4% extra at the 256-symbol tile) in
-// shared memory, and stores and loads run along time, so a warp's accesses
-// are contiguous. This first version is not at that floor (on an H100 80GB
-// HBM3 at 700 W, TX reaches about 44% and RX about 25% of the 3.35 TB/s
-// peak in the flagship mode; PERF.md): TX issues 27 shared-memory loads per
-// 18 FMAs, and RX's block loads its tile with scalar loads before it
-// filters. Registers for the taps, vector loads and TMA come next.
+// TX (K2). What bounds it on this card: bytes. It reads 4 B a symbol and
+// writes 2 x 4 B a sample (64 B a symbol at sps = 8; half that at passband
+// or in bf16, int16) with about 9*2 FMAs a sample, far below the FMA rate,
+// so its floor is the device-memory write. Each block stages its span
+// symbols of history in shared memory and stores along time, so a warp's
+// stores are contiguous. The carrier phase is walked a sample in 32-bit
+// integers (common.cuh, Nco). Its body is the first version's: it issues
+// about 27 shared-memory loads per 18 FMAs.
+//
+// RX (K3). What bounds it on this card: bytes, 8 B read a sample (4 at
+// passband, half that in bf16) against 65*2 FMAs a symbol, 16 a sample:
+// its floor is the device-memory read. The design keeps a block's next
+// bytes in flight while it computes and makes the compute cheap in
+// instructions:
+// - persistent blocks, two or three an SM, each walking a contiguous range
+//   of (channel, tile) items, so most items continue the previous tile of
+//   their channel; a tile is 4 decisions a thread (512 at sps = 8);
+// - double buffering: while a tile is filtered, the next one's samples come
+//   into the other buffer by cp.async in 16-byte pieces (8 bf16 values a
+//   piece); the span*sps-sample lookahead is copied from the tile before
+//   in shared memory rather than read again. A misaligned row (an odd
+//   waveform length, the second rail of a [2, C, N] tensor, odd bf16 rows)
+//   and the tail go by scalar loads;
+// - baseband f32 lands in the filter's buffers as it is; bf16 and passband
+//   land raw in a staging buffer and one pass per tile converts them, the
+//   passband pass product-detecting with the carrier phase walked in 32-bit
+//   integers from a table of up to 2048 phases (common.cuh, Nco);
+// - the register-blocked matched filter (common.cuh, matched_fixed): a
+//   thread decides 4 consecutive symbols from one walk of their samples in
+//   16-byte loads with the taps as constant operands (Taps, a
+//   __grid_constant__ parameter), instantiated for the flagship's sps 8,
+//   span 8 and once generically.
+// Every decision keeps the first version's one fmaf chain a rail, taps in
+// order from j = 0, so pushes of a stream equal one shot and the decisions
+// equal the plain version's; tensor cores are no lever here, their TF32
+// keeps 10 mantissa bits.
 
 #include "common.cuh"
 
@@ -58,14 +78,14 @@ __global__ void pulse_tx_kernel(const int* __restrict__ syms, long long k_sym,
   float* sbank = zq + z_len;
   float* slut = sbank + sps * kp;
   float* tc = slut + (map.lut != nullptr ? 2 * map.n_points : 0);
-  float* ts = tc + nco.n_ph;
+  float* ts = tc + nco.period;
 
   const long long c = blockIdx.x / n_tiles;
   const long long m0 = (blockIdx.x % n_tiles) * kTile;
   const long long n_out = (k_sym + span) * sps;
   modem::stage_bank(sbank, taps, n_taps, sps, kp);
   if (map.lut != nullptr) modem::stage(slut, map.lut, 2 * map.n_points);
-  if (kPassband && nco.n_ph <= modem::kNcoTable) modem::stage_nco(tc, ts, nco);
+  if (kPassband && nco.table) modem::stage_nco(tc, ts, nco);
   __syncthreads();
 
   const int* row = syms + c * k_sym;
@@ -77,6 +97,13 @@ __global__ void pulse_tx_kernel(const int* __restrict__ syms, long long k_sym,
   const long long left = n_sym_out - m0;
   const int n_local = static_cast<int>((left < kTile ? left : kTile) * sps);
   const long long base = c * n_out + m0 * sps;
+  // the carrier phase of this thread's first sample, then a stride's worth
+  // of phase added a sample (common.cuh, Nco)
+  int ph = 0, ph_stride = 0;
+  if (kPassband) {
+    ph = modem::nco_skip(nco, modem::nco_phase(nco, m0 * sps), threadIdx.x);
+    ph_stride = modem::nco_skip(nco, 0, blockDim.x);
+  }
   for (int t = threadIdx.x; t < n_local; t += blockDim.x) {
     const int ml = t / sps;
     const int p = t - ml * sps;
@@ -89,7 +116,8 @@ __global__ void pulse_tx_kernel(const int* __restrict__ syms, long long k_sym,
     }
     if (kPassband) {
       float cs, sn;
-      modem::nco_cos_sin(nco, nco.sym_offset + m0 + ml, p, tc, ts, cs, sn);
+      modem::nco_cos_sin(nco, ph, tc, ts, cs, sn);
+      ph = modem::nco_add(nco, ph, ph_stride);
       const float x = __fsub_rn(__fmul_rn(ai, cs), __fmul_rn(aq, sn));
       modem::store_wave(out_i + base + t, x, out_scale);
     } else {
@@ -99,71 +127,211 @@ __global__ void pulse_tx_kernel(const int* __restrict__ syms, long long k_sym,
   }
 }
 
-// Grid: one block per (channel, tile of kTile decided symbols), flattened.
-template <bool kSoft, bool kPassband, typename TIn>
-__global__ void pulse_rx_kernel(const TIn* __restrict__ wi,
-                                const TIn* __restrict__ wq,
-                                long long n_wave, long long n_sym,
-                                long long n_tiles,
-                                const float* __restrict__ taps, int n_taps,
-                                int sps, int span, modem::Constellation map,
-                                modem::Nco nco, int* __restrict__ out_sym,
-                                float* __restrict__ out_i,
-                                float* __restrict__ out_q) {
-  extern __shared__ float smem[];
-  const int rows = kTile + span;  // the tile's samples and span*sps ahead
-  const int stride = rows | 1;    // odd plane stride: fewer bank conflicts
-  float* yi = smem;
-  float* yq = yi + sps * stride;
-  float* staps = yq + sps * stride;
-  float* slut = staps + n_taps;
+constexpr int kRxR = 4;  // decisions a thread
+// Persistent blocks an SM, at most: 2 where baseband f32 lands in the
+// filter's buffers directly, 3 where a staging pass converts it (on the
+// H100 a third block slowed the direct mode, by a coarser split of the
+// items, and sped the staged modes).
+constexpr int kRxBlocksDirect = 2;
+constexpr int kRxBlocksStaged = 3;
+
+// K3's threads a block, 32 to 128: a tile of kRxR * threads symbols holds
+// about 4096 samples a rail (8192 where sps > 32 leaves 32 threads).
+inline int rx_threads(int sps) {
+  const int t = (4096 / (kRxR * sps)) & ~31;
+  return t < 32 ? 32 : t > 128 ? 128 : t;
+}
+
+// Samples 4q .. 4q+3 of a staged rail as f32: one 16-byte load of f32, one
+// 8-byte load of bf16 (its bits; exact in f32).
+__device__ __forceinline__ void raw4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+__device__ __forceinline__ void raw4(const unsigned short* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(t.x << 16);
+  v[1] = __uint_as_float(t.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(t.y << 16);
+  v[3] = __uint_as_float(t.y & 0xFFFF0000u);
+}
+
+// Persistent: block b takes items [b*n/G, (b+1)*n/G) of the n = C * n_tiles
+// (channel, tile of `tile` decided symbols) items in channel-major order.
+// SPS > 0 is the instantiation for (SPS, SPAN); 0 the generic one.
+template <bool kSoft, bool kPassband, typename TRaw, int SPS, int SPAN>
+__global__ void __launch_bounds__(128)
+    pulse_rx_kernel(const TRaw* __restrict__ wi, const TRaw* __restrict__ wq,
+                    long long n_wave, long long n_sym, long long n_tiles,
+                    long long n_items, int tile, int sps_rt, int span_rt,
+                    const __grid_constant__ modem::Taps taps,
+                    modem::Constellation map, modem::Nco nco,
+                    int* __restrict__ out_sym, float* __restrict__ out_i,
+                    float* __restrict__ out_q) {
+  constexpr bool kFixed = SPS > 0;
+  constexpr bool kDirect = !kPassband && sizeof(TRaw) == sizeof(float);
+  constexpr int kRails = kPassband ? 1 : 2;  // rails read from device memory
+  const int sps = kFixed ? SPS : sps_rt;
+  const int span = kFixed ? SPAN : span_rt;
+  const int n_taps = span * sps + 1;
+  const int halo = span * sps;    // lookahead samples of a tile
+  const int body = tile * sps;    // the tile's own samples
+  const int win = body + halo;    // samples its filter reads
+  const int f_len = modem::skew_len(win + 4);
+  const int s_len = (win + 7) & ~7;
+  const int nt = blockDim.x;
+
+  // filter buffers [kDirect ? 2 : 1][2 rails][f_len] f32, skewed; staging
+  // [2][kRails][s_len] raw (not direct); the table; the phase table
+  extern __shared__ __align__(16) float smem[];
+  float* fbuf = smem;
+  TRaw* stg = reinterpret_cast<TRaw*>(fbuf + (kDirect ? 4 : 2) * f_len);
+  float* slut =
+      reinterpret_cast<float*>(stg + (kDirect ? 0 : 2 * kRails * s_len));
   float* tc = slut + (map.lut != nullptr ? 2 * map.n_points : 0);
-  float* ts = tc + nco.n_ph;
+  float* ts = tc + nco.period;
 
-  const long long c = blockIdx.x / n_tiles;
-  const long long m0 = (blockIdx.x % n_tiles) * kTile;
-  modem::stage(staps, taps, n_taps);
+  const long long lo = blockIdx.x * n_items / gridDim.x;
+  const long long hi = (blockIdx.x + 1) * n_items / gridDim.x;
   if (map.lut != nullptr) modem::stage(slut, map.lut, 2 * map.n_points);
-  if (kPassband && nco.n_ph <= modem::kNcoTable) {
-    modem::stage_nco(tc, ts, nco);
-    __syncthreads();  // the staging below reads the phase table
-  }
+  if (kPassband && nco.table) modem::stage_nco(tc, ts, nco);
 
-  // Samples past the end of the waveform read as zero.
-  const long long s0 = m0 * sps;
-  const long long off = c * n_wave;
-  for (int t = threadIdx.x; t < rows * sps; t += blockDim.x) {
-    const long long s = s0 + t;
-    const int r = t / sps;
-    const int p = t - r * sps;
-    const bool in = s < n_wave;
-    float vi, vq;
-    if (kPassband) {
-      const float x2 = in ? 2.f * modem::load_wave(wi[off + s]) : 0.f;
-      float cs, sn;
-      modem::nco_cos_sin(nco, nco.sym_offset + m0 + r, p, tc, ts, cs, sn);
-      vi = __fmul_rn(x2, cs);
-      vq = __fmul_rn(-x2, sn);
-    } else {
-      vi = in ? modem::load_wave(wi[off + s]) : 0.f;
-      vq = in ? modem::load_wave(wq[off + s]) : 0.f;
+  // Bring item `it`'s samples into buffer b: the whole window, or past the
+  // lookahead the tile before leaves (cont).
+  auto issue = [&](long long it, int b, bool cont) {
+    const long long c = it / n_tiles;
+    const long long s0 = (it % n_tiles) * tile * sps;
+    const int pos0 = cont ? halo : 0;
+    const int n = win - pos0;
+    const long long avail = n_wave - (s0 + pos0);
+    const int n_valid =
+        avail <= 0 ? 0 : avail < n ? static_cast<int>(avail) : n;
+    for (int rail = 0; rail < kRails; ++rail) {
+      const TRaw* src = (rail ? wq : wi) + c * n_wave + s0 + pos0;
+      if constexpr (kDirect)
+        modem::load_span<true>(fbuf + (2 * b + rail) * f_len, src, pos0, n,
+                               n_valid);
+      else
+        modem::load_span<false>(stg + (b * kRails + rail) * s_len, src, pos0,
+                                n, n_valid);
     }
-    yi[p * stride + r] = vi;
-    yq[p * stride + r] = vq;
-  }
-  __syncthreads();
+    modem::cp_async_commit();
+  };
 
-  for (int ml = threadIdx.x; ml < kTile; ml += blockDim.x) {
-    const long long m = m0 + ml;
-    if (m >= n_sym) break;
-    const float ai = modem::matched_point(yi, stride, staps, n_taps, sps, span, ml);
-    const float aq = modem::matched_point(yq, stride, staps, n_taps, sps, span, ml);
-    if (kSoft) {
-      out_i[c * n_sym + m] = ai;
-      out_q[c * n_sym + m] = aq;
+  if (lo < hi) issue(lo, 0, false);
+  for (long long it = lo; it < hi; ++it) {
+    const int b = static_cast<int>((it - lo) & 1);
+    const bool cont = it != lo && it % n_tiles != 0;
+    const bool cont_next = it + 1 < hi && (it + 1) % n_tiles != 0;
+    if (it + 1 < hi) {
+      issue(it + 1, b ^ 1, cont_next);
+      modem::cp_async_wait<1>();
     } else {
-      out_sym[c * n_sym + m] = modem::decide(ai, aq, map, slut);
+      modem::cp_async_wait<0>();
     }
+    __syncthreads();
+
+    const long long c = it / n_tiles;
+    const long long m0 = (it % n_tiles) * tile;
+    float* yi;
+    float* yq;
+    if (kDirect) {
+      yi = fbuf + 2 * b * f_len;
+      yq = yi + f_len;
+      if (cont_next) {  // the next tile's lookahead is this one's tail
+        float* ni = fbuf + 2 * (b ^ 1) * f_len;
+        for (int e = threadIdx.x; e < halo; e += nt) {
+          ni[modem::skew(e)] = yi[modem::skew(body + e)];
+          ni[f_len + modem::skew(e)] = yq[modem::skew(body + e)];
+        }
+      }
+    } else {
+      yi = fbuf;
+      yq = fbuf + f_len;
+      // raw -> f32 [product detection], in pieces of 4 samples
+      const TRaw* ri = stg + b * kRails * s_len;
+      const TRaw* rq = ri + (kPassband ? 0 : s_len);
+      const int pos0 = cont ? halo : 0;
+      const int q0 = pos0 >> 2;
+      int ph = 0, ph_stride = 0;
+      if (kPassband) {
+        ph = modem::nco_skip(nco, modem::nco_phase(nco, m0 * sps),
+                             4 * (q0 + static_cast<int>(threadIdx.x)));
+        ph_stride = modem::nco_skip(nco, 0, 4 * nt);
+      }
+      for (int q = q0 + threadIdx.x; 4 * q < win; q += nt) {
+        float vi[4], vq[4];
+        raw4(ri + 4 * q, vi);  // past win: not stored
+        if (kPassband) {
+          int k = ph;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float cs, sn;
+            modem::nco_cos_sin(nco, k, tc, ts, cs, sn);
+            k = modem::nco_add(nco, k, nco.step);
+            const float x2 = 2.f * vi[e];
+            vi[e] = __fmul_rn(x2, cs);
+            vq[e] = __fmul_rn(-x2, sn);
+          }
+        } else {
+          raw4(rq + 4 * q, vq);
+        }
+        if (kPassband) ph = modem::nco_add(nco, ph, ph_stride);
+        const int sk = modem::skew(4 * q);
+        if (4 * q >= pos0 && 4 * q + 4 <= win) {
+          *reinterpret_cast<float4*>(yi + sk) =
+              make_float4(vi[0], vi[1], vi[2], vi[3]);
+          *reinterpret_cast<float4*>(yq + sk) =
+              make_float4(vq[0], vq[1], vq[2], vq[3]);
+        } else {
+          for (int e = 0; e < 4; ++e) {
+            const int p = 4 * q + e;
+            if (p >= pos0 && p < win) {
+              yi[modem::skew(p)] = vi[e];
+              yq[modem::skew(p)] = vq[e];
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // the matched filter: decisions m0 + r0 .. m0 + r0 + kRxR - 1
+    const long long left = n_sym - m0;
+    const int n_out = left < tile ? static_cast<int>(left) : tile;
+    const int r0 = kRxR * static_cast<int>(threadIdx.x);
+    if (r0 < n_out) {
+      float ai[kRxR] = {}, aq[kRxR] = {};
+      if constexpr (kFixed)
+        modem::matched_fixed<kRxR, SPS, SPAN * SPS + 1>(yi, yq, r0 * SPS, taps,
+                                                        ai, aq);
+      else
+        modem::matched_generic<kRxR>(yi, yq, r0 * sps, sps, n_taps, taps, ai,
+                                     aq);
+      const long long o = c * n_sym + m0 + r0;
+#pragma unroll
+      for (int r = 0; r < kRxR; ++r) {
+        if (r0 + r >= n_out) break;
+        if (kSoft) {
+          out_i[o + r] = ai[r];
+          out_q[o + r] = aq[r];
+        } else {
+          out_sym[o + r] = modem::decide(ai[r], aq[r], map, slut);
+        }
+      }
+    }
+    if (!kDirect && cont_next) {  // the next tile's lookahead: this tail
+      __syncthreads();
+      for (int e = threadIdx.x; e < halo; e += nt) {
+        yi[modem::skew(e)] = yi[modem::skew(body + e)];
+        yq[modem::skew(e)] = yq[modem::skew(body + e)];
+      }
+    }
+    if (kDirect) __syncthreads();  // before the next issue reuses buffer b
   }
 }
 
@@ -199,39 +367,77 @@ int launch_tx_kind(int out_kind, Args... args) {
   }
 }
 
-template <bool kSoft, bool kPassband, typename TIn>
+template <bool kSoft, bool kPassband, typename TRaw, int SPS, int SPAN>
 int launch_rx(const void* wi, const void* wq, long long n_ch,
-              long long n_wave, long long n_sym, const float* taps, int n_taps,
+              long long n_wave, long long n_sym, const modem::Taps& taps,
               int sps, int span, const modem::Constellation& map,
               const modem::Nco& nco, int* out_sym, float* out_i, float* out_q,
               void* stream) {
-  // the matched filter's sample window is exactly the tile's halo
-  if (n_taps != span * sps + 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_tiles = (n_sym + kTile - 1) / kTile;
-  const int stride = (kTile + span) | 1;
-  const size_t smem = (2 * static_cast<size_t>(sps) * stride + n_taps +
-                       modem::side_floats(map, nco)) *
-                      sizeof(float);
-  cudaError_t err =
-      modem::allow_smem(pulse_rx_kernel<kSoft, kPassband, TIn>, smem);
+  constexpr bool kDirect = !kPassband && sizeof(TRaw) == sizeof(float);
+  constexpr int kRails = kPassband ? 1 : 2;
+  auto kernel = pulse_rx_kernel<kSoft, kPassband, TRaw, SPS, SPAN>;
+  const int nt = rx_threads(sps);
+  const int tile = kRxR * nt;
+  const int win = (tile + span) * sps;
+  const long long n_tiles = (n_sym + tile - 1) / tile;
+  const long long n_items = n_ch * n_tiles;
+  const size_t smem =
+      (kDirect ? 4 : 2) * sizeof(float) * modem::skew_len(win + 4) +
+      (kDirect ? 0 : 2 * kRails * sizeof(TRaw) * ((win + 7) & ~7)) +
+      sizeof(float) * modem::side_floats(map, nco);
+  cudaError_t err = modem::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pulse_rx_kernel<kSoft, kPassband, TIn>
-      <<<modem::grid_blocks(n_ch, n_tiles), kThreads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const TIn*>(wi), static_cast<const TIn*>(wq), n_wave,
-          n_sym, n_tiles, taps, n_taps, sps, span, map, nco, out_sym, out_i,
-          out_q);
+  // the blocks that fit an SM, asked at every launch (a few microseconds)
+  int dev = 0, n_sm = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
+                                                        smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int cap = kDirect ? kRxBlocksDirect : kRxBlocksStaged;
+  const long long slots =
+      static_cast<long long>(per_sm < cap ? per_sm : cap) * n_sm;
+  const unsigned grid =
+      static_cast<unsigned>(n_items < slots ? n_items : slots);
+  kernel<<<grid, nt, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TRaw*>(wi), static_cast<const TRaw*>(wq), n_wave,
+      n_sym, n_tiles, n_items, tile, sps, span, taps, map, nco, out_sym, out_i,
+      out_q);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The RX instantiation for a carrier mode and an input type.
+// The RX instantiation for a shape, a carrier mode and an input type.
+template <bool kSoft, bool kPassband, typename TRaw>
+int launch_rx_shape(const void* wi, const void* wq, long long n_ch,
+                    long long n_wave, long long n_sym, const void* taps,
+                    int n_taps, int sps, int span,
+                    const modem::Constellation& map, const modem::Nco& nco,
+                    int* out_sym, float* out_i, float* out_q, void* stream) {
+  // the matched filter's sample window is exactly the tile's halo
+  if (n_taps != span * sps + 1 || n_taps > modem::kMaxTaps || sps < 1 ||
+      sps > modem::kMaxSps || span < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const modem::Taps& t = *static_cast<const modem::Taps*>(taps);
+  if (sps == 8 && span == 8)
+    return launch_rx<kSoft, kPassband, TRaw, 8, 8>(
+        wi, wq, n_ch, n_wave, n_sym, t, sps, span, map, nco, out_sym, out_i,
+        out_q, stream);
+  return launch_rx<kSoft, kPassband, TRaw, 0, 0>(
+      wi, wq, n_ch, n_wave, n_sym, t, sps, span, map, nco, out_sym, out_i,
+      out_q, stream);
+}
+
 template <bool kSoft, typename... Args>
 int launch_rx_mode(bool passband, int in_bf16, Args... args) {
+  using Bf16 = unsigned short;  // bf16 travels as its bits
   if (passband)
-    return in_bf16 ? launch_rx<kSoft, true, __nv_bfloat16>(args...)
-                   : launch_rx<kSoft, true, float>(args...);
-  return in_bf16 ? launch_rx<kSoft, false, __nv_bfloat16>(args...)
-                 : launch_rx<kSoft, false, float>(args...);
+    return in_bf16 ? launch_rx_shape<kSoft, true, Bf16>(args...)
+                   : launch_rx_shape<kSoft, true, float>(args...);
+  return in_bf16 ? launch_rx_shape<kSoft, false, Bf16>(args...)
+                 : launch_rx_shape<kSoft, false, float>(args...);
 }
 
 }  // namespace
@@ -266,10 +472,11 @@ int modem_tx(const int* syms, long long n_ch, long long k_sym,
 }
 
 // wi, wq [n_ch, n_wave] (f32, or bf16 with in_bf16; wq unused at passband)
-// with n_wave >= (n_sym+span)*sps -> out_sym [n_ch, n_sym] int32; the map
-// and carrier as modem_tx's; taps [span*sps+1] f32.
+// -> out_sym [n_ch, n_sym] int32, samples past n_wave read as zero; the map
+// and carrier as modem_tx's; taps a host pointer to the span*sps+1 taps in
+// a modem::Taps (n_taps <= 256, sps <= 64), passed to the kernel by value.
 int modem_rx_hard(const void* wi, const void* wq, int in_bf16, long long n_ch,
-                  long long n_wave, long long n_sym, const float* taps,
+                  long long n_wave, long long n_sym, const void* taps,
                   int n_taps, int sps, int span, const float* lut,
                   int n_points, int cshift, float ms, float a, float c,
                   float s, int hz, int sr, long long sym_offset, float scale,
@@ -285,7 +492,7 @@ int modem_rx_hard(const void* wi, const void* wq, int in_bf16, long long n_ch,
 
 // As modem_rx_hard, to the decision-point I/Q out_i, out_q [n_ch, n_sym].
 int modem_rx_soft(const void* wi, const void* wq, int in_bf16, long long n_ch,
-                  long long n_wave, long long n_sym, const float* taps,
+                  long long n_wave, long long n_sym, const void* taps,
                   int n_taps, int sps, int span, int hz, int sr,
                   long long sym_offset, float scale, float* out_i,
                   float* out_q, void* stream) {

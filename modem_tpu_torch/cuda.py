@@ -35,7 +35,9 @@ _U = ctypes.c_uint
 #: and carrier (hz, sr, sym_offset, 2*pi/sr) arguments
 _MAP = [_P, _I, _I, _F, _F, _F, _F]
 _NCO = [_I, _I, _L, _F]
-#: argument types of each C entry point (pointers and the stream as c_void_p)
+#: argument types of each C entry point (pointers and the stream as
+#: c_void_p; the taps of ``modem_chain``, ``modem_rx_hard`` and
+#: ``modem_rx_soft`` a host pointer, ``ops.txrx.kernel_taps``)
 SIGNATURES = {
     "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
     "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _P, _P, _P],

@@ -25,7 +25,9 @@ plain version.
 
 from __future__ import annotations
 
+import ctypes
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -38,6 +40,11 @@ from .polyphase import polyphase_decim, polyphase_interp
 from .slicer import as_lut, lut_slice
 
 MAX_LUT_POINTS = 64
+#: the most taps K1 and K3 take: their taps travel by value in a kernel
+#: parameter of this many floats (``csrc/common.cuh``, ``Taps``)
+MAX_KERNEL_TAPS = 256
+#: the most samples a symbol K1's and K3's shared-memory tiles fit
+MAX_KERNEL_SPS = 64
 
 TX_KERNEL = Kernel("modem_tx")
 RX_HARD_KERNEL = Kernel("modem_rx_hard")
@@ -162,6 +169,43 @@ def _kernel_map(lut, qam) -> tuple:
         return (lut.data_ptr(), lut.shape[0], 0, 0.0, 1.0, 1.0, 0.0)
     cshift, ms, a, c, s = qam
     return (None, 0, int(cshift), ms, a, c, s)
+
+
+class _Taps(ctypes.Structure):
+    """``csrc/common.cuh``'s ``Taps``: the taps as the kernel parameter."""
+    _fields_ = [("v", ctypes.c_float * MAX_KERNEL_TAPS)]
+
+
+#: id(taps) -> (weak reference, version, _Taps): one copy to the host per
+#: taps tensor (a chain's ``rrc`` buffer), not one per launch
+_HOST_TAPS: dict[int, tuple] = {}
+
+
+def kernel_taps(taps: torch.Tensor, sps: int) -> int:
+    """The address of a host copy of ``taps`` as K1 and K3 take them (by
+    value, in a kernel parameter), kept while ``taps`` lives and is not
+    modified. Raises ``ValueError`` for more than ``MAX_KERNEL_TAPS`` taps
+    or more than ``MAX_KERNEL_SPS`` samples a symbol."""
+    if taps.shape[0] > MAX_KERNEL_TAPS:
+        raise ValueError(f"the kernel takes at most {MAX_KERNEL_TAPS} taps, "
+                         f"got {taps.shape[0]}")
+    if sps > MAX_KERNEL_SPS:
+        raise ValueError(f"the kernel takes at most {MAX_KERNEL_SPS} samples "
+                         f"a symbol, got {sps}")
+    # an inference tensor has no version counter: copied at every launch
+    version = None if taps.is_inference() else taps._version
+    hit = _HOST_TAPS.get(id(taps))
+    if (version is not None and hit is not None and hit[0]() is taps
+            and hit[1] == version):
+        return ctypes.addressof(hit[2])
+    if len(_HOST_TAPS) >= 64:
+        for key in [k for k, v in _HOST_TAPS.items() if v[0]() is None]:
+            del _HOST_TAPS[key]
+    param = _Taps()
+    values = taps.detach().cpu().numpy()
+    param.v[:values.shape[0]] = values.tolist()
+    _HOST_TAPS[id(taps)] = (weakref.ref(taps), version, param)
+    return ctypes.addressof(param)
 
 
 def _kernel_carrier(carrier, sym_offset) -> tuple:
@@ -316,8 +360,8 @@ def rx_kernel(wi, wq, n_symbols: int, lut, taps, sps: int, span: int,
     shape = wi.shape[:-1] + (n_symbols,)
     bf16 = int(rails[0].dtype == torch.bfloat16)
     head = (rails[0].data_ptr(), rails[-1].data_ptr() if wq is not None
-            else None, bf16, c, n, n_symbols, taps.data_ptr(), taps.shape[0],
-            sps, span)
+            else None, bf16, c, n, n_symbols, kernel_taps(taps, sps),
+            taps.shape[0], sps, span)
     nco = _kernel_carrier(carrier, sym_offset)
     if soft:
         di = torch.empty((c, n_symbols), dtype=torch.float32, device=dev)

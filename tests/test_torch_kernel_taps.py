@@ -1,0 +1,51 @@
+"""The taps K1 and K3 take by value (``ops.txrx.kernel_taps``): the host
+copy the wrappers pass as the kernels' ``Taps`` parameter. Runs on the CPU:
+the copy is host memory whatever device the taps lie on."""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from modem_tpu_torch.ops import txrx
+from modem_tpu_torch.ops.filters import rrc_taps
+
+
+def _read(addr: int, n: int) -> np.ndarray:
+    return np.ctypeslib.as_array(
+        (ctypes.c_float * txrx.MAX_KERNEL_TAPS).from_address(addr))[:n].copy()
+
+
+@pytest.mark.parametrize("sps,span", [(8, 8), (4, 6), (2, 10), (64, 3)])
+def test_kernel_taps_hold_the_taps(sps, span):
+    taps = torch.as_tensor(rrc_taps(sps, span, 0.35))
+    addr = txrx.kernel_taps(taps, sps)
+    np.testing.assert_array_equal(_read(addr, taps.shape[0]), taps.numpy())
+
+
+def test_kernel_taps_are_copied_once_and_follow_changes():
+    """One host copy per taps tensor; an in-place change makes a new one."""
+    taps = torch.as_tensor(rrc_taps(8, 8, 0.35))
+    addr = txrx.kernel_taps(taps, 8)
+    assert txrx.kernel_taps(taps, 8) == addr
+    taps.mul_(2.0)
+    addr2 = txrx.kernel_taps(taps, 8)
+    np.testing.assert_array_equal(_read(addr2, 65), taps.numpy())
+    other = taps.clone()
+    np.testing.assert_array_equal(_read(txrx.kernel_taps(other, 8), 65),
+                                  taps.numpy())
+
+
+def test_kernel_taps_of_an_inference_tensor():
+    with torch.inference_mode():
+        taps = torch.as_tensor(rrc_taps(8, 8, 0.35)) + 0.0
+    np.testing.assert_array_equal(_read(txrx.kernel_taps(taps, 8), 65),
+                                  taps.numpy())
+
+
+@pytest.mark.parametrize("sps,span", [(8, 32), (65, 1), (128, 1)])
+def test_kernel_taps_refuse_what_the_kernels_do_not_take(sps, span):
+    taps = torch.as_tensor(rrc_taps(sps, span, 0.35))
+    with pytest.raises(ValueError, match="at most"):
+        txrx.kernel_taps(taps, sps)

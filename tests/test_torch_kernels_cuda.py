@@ -393,6 +393,245 @@ def test_kernels_refuse_mismatched_taps(dev):
         chain_kernel.chain_kernel(syms, lut, short, sps, span)
 
 
+# ---- K1 and K3 redesigned: register blocks, persistent tiles, taps by
+# value, the 32-bit NCO phase ----
+
+def _taps(sps, span):
+    return torch.as_tensor(rrc_taps(sps, span, 0.35))
+
+
+def _syms(shape, dev, seed, bps=2, sentinels=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    syms = torch.randint(0, 1 << bps, shape, generator=g, device=dev,
+                         dtype=torch.int32)
+    if sentinels:
+        syms[0, :16] = -1
+        syms[-1, -3:] = -1
+    return syms
+
+
+def _chain_exact(syms, lut, taps, sps, span, sent=True, **kw):
+    """K1 against ``chain_plain``: decisions equal wherever there is a
+    symbol, and (``sent``) equal to the symbols sent."""
+    args = (syms, lut, taps, sps, span, kw.get("qam"), kw.get("carrier"),
+            kw.get("sym_offset", 0), None, 0, kw.get("cs", 256))
+    got = _launches(chain_kernel.CHAIN_KERNEL, chain_kernel.chain_kernel,
+                    *args)
+    want = chain_kernel.chain_plain(*args)
+    real = syms >= 0
+    assert torch.equal(got[real], want[real])
+    assert not sent or torch.equal(got[real], syms[real])
+
+
+def _rx_exact(rails, k, lut, taps, sps, span, want_rails=None, **kw):
+    """K3 hard equal to ``rx_plain`` and soft within ATOL, on ``rails``
+    (the plain version on ``want_rails``, default the same)."""
+    want_rails = rails if want_rails is None else want_rails
+    common = (kw.get("qam"), kw.get("carrier"), kw.get("sym_offset", 0))
+    for soft, kernel in ((False, txrx.RX_HARD_KERNEL),
+                         (True, txrx.RX_SOFT_KERNEL)):
+        got = _launches(kernel, txrx.rx_kernel, *rails, k, lut, taps, sps,
+                        span, soft, *common)
+        want = txrx.rx_plain(*want_rails, k, lut, taps, sps, span, soft,
+                             *common)
+        if soft:
+            _close_waves(got, want)
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 255, 257, 513, 1030])
+def test_k1_k3_lengths_off_the_register_block(k, dev):
+    """Lengths that are not multiples of the 4 decisions a thread, of K1's
+    256-decision pass or of K3's 512-symbol tile; K1 noiseless in tiles of
+    256, of 100 (a pass that ends inside a register block) and of 600
+    (passes after the first)."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    taps = _taps(8, 8).to(dev)
+    syms = _syms((3, k), dev, k, sentinels=k > 20)
+    for cs in (256, 100, 600):
+        _chain_exact(syms, lut, taps, 8, 8, cs=cs)
+    syms = _syms((3, k), dev, k + 1)
+    wi, wq = txrx.tx_plain(syms, lut, taps, 8, 8)
+    _rx_exact((wi, wq), k, lut, taps, 8, 8)
+
+
+def test_k1_lane_boundary_and_sentinels(dev):
+    """130 channels cross the noise keys' 128-lane boundary; streaming
+    sentinels (-1) decide nothing and zero the waveform; noiseless
+    decisions exact, noisy ones agree on >= 99.99% with the plain version
+    (MODE_AGREE in chip_smoke.py), in tiles of 32, 256 and 600."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    taps = _taps(8, 8).to(dev)
+    syms = _syms((130, 700), dev, 11, sentinels=True)
+    syms[64, 100:140] = -1
+    _chain_exact(syms, lut, taps, 8, 8)
+    sigma = chain_kernel.snr_sigma(1.0, 7.0, None)
+    for cs in (32, 256, 600):
+        args = (syms, lut, taps, 8, 8, None, None, 0, sigma, 9, cs)
+        got = chain_kernel.chain_kernel(*args)
+        want = chain_kernel.chain_plain(*args)
+        real = syms >= 0
+        assert float((got[real] == want[real]).double().mean()) >= 0.9999
+
+
+def test_rx_short_and_misaligned_rows(dev):
+    """K3 reads a waveform shorter than (k + span) * sps as zeros past its
+    end, and rows that do not start on 16 bytes: an odd n_wave, the second
+    rail of a [2, C, N] tensor with C * N odd, bf16 rows of odd length."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    taps = _taps(8, 8).to(dev)
+    k = 1001
+    syms = _syms((3, k), dev, 12)
+    wi, wq = txrx.tx_plain(syms, lut, taps, 8, 8)
+    short = (wi[:, :-21].contiguous(), wq[:, :-21].contiguous())
+    padded = tuple(torch.nn.functional.pad(w, (0, 21)) for w in short)
+    _rx_exact(short, k, lut, taps, 8, 8, want_rails=padded)
+    odd = tuple(torch.cat([w, torch.ones_like(w[:, :3])], -1)
+                for w in (wi, wq))
+    _rx_exact(odd, k, lut, taps, 8, 8)
+    stacked = torch.stack([w[:, :-1] for w in (wi, wq)])  # 3 * 8063 odd
+    assert stacked[1].data_ptr() % 16 != 0
+    _rx_exact((stacked[0], stacked[1]), k - 1, lut, taps, 8, 8,
+              want_rails=(stacked[0].clone(), stacked[1].clone()))
+    for carrier in (None, (2000, 10000)):
+        wave = txrx.tx_plain(syms, lut, taps, 8, 8, None, carrier, -16, None,
+                             torch.bfloat16)
+        rails = wave if carrier is None else (wave, None)
+        rails = tuple(None if w is None else w[:, :-1].contiguous()
+                      for w in rails)
+        assert rails[0].shape[-1] % 2 == 1
+        _rx_exact(rails, k - 1, lut, taps, 8, 8, carrier=carrier,
+                  sym_offset=-16)
+
+
+@pytest.mark.parametrize("sps,span", [(4, 6), (2, 10), (16, 4), (64, 3)])
+def test_k1_k3_generic_instantiation(sps, span, dev):
+    """Shapes other than the flagship's sps 8, span 8 take the generic
+    instantiation, baseband and passband (a carrier at a fifth of the
+    sample rate, which at sps 2 folds the band onto itself: there the
+    decisions equal the plain version's, not the symbols)."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    taps = _taps(sps, span).to(dev)
+    syms = _syms((3, 700), dev, sps, sentinels=True)
+    sr = 10000 if sps * 1250 == 10000 else sps * 1000
+    for carrier, off in ((None, 0), ((sr // 5, sr), -7)):
+        _chain_exact(syms, lut, taps, sps, span, carrier is None or sps > 2,
+                     carrier=carrier, sym_offset=off)
+        clean = syms.clamp(min=0)
+        wave = txrx.tx_plain(clean, lut, taps, sps, span, None, carrier, off)
+        rails = wave if carrier is None else (wave, None)
+        _rx_exact(rails, 700, lut, taps, sps, span, carrier=carrier,
+                  sym_offset=off)
+
+
+@pytest.mark.parametrize("sps,span", [(2, 10), (4, 6), (3, 5), (8, 8)],
+                         ids=["halo20", "halo24", "halo15", "flagship"])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "passband", "passband_bf16"])
+def test_k3_continued_tiles(sps, span, mode, dev):
+    """300 channels x 2100 symbols give about 1500 (channel, tile) items,
+    more than K3's persistent grid, so a block walks consecutive tiles of a
+    channel and keeps each tile's lookahead on chip for the next: direct
+    f32, bf16 and passband staging (sym_offset -7), halos of 20, 24, 15
+    (partial stores and scalar loads) and 64 samples. K1 noiseless in
+    tiles of 600 (passes after the first) on the same symbols."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    taps = _taps(sps, span).to(dev)
+    k = 2100
+    syms = _syms((300, k), dev, 100 + sps)
+    carrier = (sps * 200, sps * 1000) if mode.startswith("passband") else None
+    off = -7 if carrier else 0
+    if mode == "f32":
+        _chain_exact(syms, lut, taps, sps, span, cs=600)
+    dtype = torch.bfloat16 if mode.endswith("bf16") else torch.float32
+    wave = txrx.tx_plain(syms, lut, taps, sps, span, None, carrier, off)
+    rails = (wave, None) if carrier else wave
+    g = torch.Generator(device=dev).manual_seed(sps)
+    rails = tuple(None if w is None else
+                  (w + 0.3 * torch.randn(w.shape, generator=g, device=dev))
+                  .to(dtype) for w in rails)
+    _rx_exact(rails, k, lut, taps, sps, span, carrier=carrier, sym_offset=off)
+
+
+def test_k1_k3_refuse_more_taps_than_the_parameter(dev):
+    """A chain with more taps than the kernel parameter holds (256), or
+    more samples a symbol than the tiles fit (64), is refused with
+    ValueError before any launch."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    syms = _syms((2, 50), dev, 13)
+    for sps, span in ((8, 32), (65, 1)):
+        taps = _taps(sps, span).to(dev)
+        before = (chain_kernel.CHAIN_KERNEL.launches,
+                  txrx.RX_HARD_KERNEL.launches, txrx.RX_SOFT_KERNEL.launches)
+        with pytest.raises(ValueError, match="at most"):
+            chain_kernel.chain_kernel(syms, lut, taps, sps, span)
+        wi, wq = txrx.tx_plain(syms, lut, taps, sps, span)
+        for soft in (False, True):
+            with pytest.raises(ValueError, match="at most"):
+                txrx.rx_kernel(wi, wq, 50, lut, taps, sps, span, soft)
+        assert before == (chain_kernel.CHAIN_KERNEL.launches,
+                          txrx.RX_HARD_KERNEL.launches,
+                          txrx.RX_SOFT_KERNEL.launches)
+
+
+@pytest.mark.parametrize("hz", [2000, 1700, 1999, 3000],
+                         ids=["5_phases", "100_phases", "10000_phases",
+                              "10_phases"])
+@pytest.mark.parametrize("off", [-16, 4099, -(1 << 40) + 3, (1 << 40) - 5],
+                         ids=["neg", "pos", "minus_2p40", "plus_2p40"])
+def test_passband_nco_phase(hz, off, dev):
+    """The 32-bit NCO walk against the plain version's phase: tables of 5,
+    10 and 100 phases, 10000 phases per sample (past the table's 2048);
+    sym_offset negative, positive and near +-2^40. K1 and K3 exact (K3
+    soft within ATOL), K2 within ATOL."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    taps = _taps(8, 8).to(dev)
+    syms = _syms((3, 600), dev, hz + 1)
+    carrier = (hz, 10000)
+    _chain_exact(syms, lut, taps, 8, 8, carrier=carrier, sym_offset=off)
+    args = (syms, lut, taps, 8, 8, None, carrier, off)
+    wave = _launches(txrx.TX_KERNEL, txrx.tx_kernel, *args)
+    _close_waves(wave, txrx.tx_plain(*args))
+    g = torch.Generator(device=dev).manual_seed(hz)
+    noisy = txrx.tx_plain(*args) + 0.1 * torch.randn(
+        wave.shape, generator=g, device=dev)
+    _rx_exact((noisy, None), 600, lut, taps, 8, 8, carrier=carrier,
+              sym_offset=off)
+
+
+@pytest.mark.parametrize("carrier_hz", [None, 1700])
+def test_streams_in_ragged_pushes_equal_one_shot(carrier_hz, dev):
+    """``StreamingFusedRx`` and ``StreamingFusedChain`` in ragged pushes
+    (K3's tiles and K1's passes cut at every offset) equal the one-shot
+    ``rx_fused`` and ``roundtrip_fused``."""
+    from modem_tpu_torch import StreamingFusedChain, StreamingFusedRx
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+
+    chain = PulseShapedChain(QPSK(0.0, 1.0), Rates(1250, 10000),
+                             carrier_hz=carrier_hz, device=dev)
+    k = 1500
+    g = torch.Generator(device=dev).manual_seed(14)
+    bits = torch.randint(0, 2, (5, 2 * k), generator=g, device=dev,
+                         dtype=torch.int32)
+    cuts = [0, 1, 7, 300, 813, 1024, 1499, k]
+    sc = StreamingFusedChain(chain, (5,))
+    out = [sc.push(bits[:, 2 * a:2 * b]) for a, b in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(out + [sc.flush()], -1),
+                       chain.roundtrip_fused(bits))
+    wave = chain.tx_fused(bits)
+    rails = (wave,) if carrier_hz else wave
+    n = rails[0].shape[-1]
+    sr = StreamingFusedRx(chain, (5,))
+    scuts = [8 * c for c in cuts] + [n]
+    out = []
+    for a, b in zip(scuts, scuts[1:]):
+        part = tuple(r[:, a:b] for r in rails)
+        out.append(sr.push(part[0] if carrier_hz else part))
+    assert torch.equal(torch.cat(out, -1), chain.rx_fused(wave, k))
+    assert torch.equal(torch.cat(out, -1), bits)
+
+
 # ---- K4 (fir.cu) and K5 (demod.cu) ----
 
 def _unit(shape, seed):
