@@ -315,6 +315,11 @@ WIDE_VIT_BLOCK = 256
 TURBO_K, TURBO_CW, TURBO_ITERS = 1024, 512, 6
 TURBO_SNR_DB = 1.0               # per code bit (BPSK LLRs)
 TURBO_SMALL = (40, 16)           # K, an explicit window through pick_guard
+TURBO_WINDOW = 256               # K14's many-row shape: 2560 rows of 324 steps
+#: K14's dependent f32 operations a trellis step (an add, the pair's max,
+#: the three-level max tree, the renormalising subtract) and the cycles each
+#: takes to feed the next (the arithmetic pipes' latency on this card)
+K14_CHAIN_OPS, K14_CHAIN_CYCLES = 6, 4
 POLAR_N, POLAR_K, POLAR_CW = 256, 128, 4096
 POLAR_SIGMAS = (0.3, 0.8)        # bench_fec's noise, and a noisier one
 FEC_LINK_FRAMES = 256
@@ -336,6 +341,15 @@ F32_FLOP_PER_S = 67e12
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def card_line() -> str:
@@ -2644,7 +2658,9 @@ def scl_work(b: int, n: int, n_bits: int, k: int) -> tuple[float, float]:
 
 def phase_fec_times(device, card: str) -> dict:
     """Phase 33: K14, K15 and K16 and their plain versions per call at the
-    main path's widths, the profiler's device time and the bound; the
+    main path's widths, the profiler's device time and the bound (K14 also
+    at window 256, 2560 rows, held bit for bit first; its time a lane's
+    step, share of the bound and serial floor); the
     encoders and decoders per call in Mbit/s of info bits; the two links'
     ``tx_fused`` and ``rx_fused`` per call at 256 frames with the device's
     busy time and idle share. Returns the report times."""
@@ -2662,10 +2678,16 @@ def phase_fec_times(device, card: str) -> dict:
                                         plain_calls=1)
     work = bcjr_work(TURBO_CW, TURBO_K)
     times[TURBO_NAME] = (ms, plain_ms, dev_ms, None, work)
-    step_us = (dev_ms or ms) / rows.shape[2] * 1e3
-    print_fec_times(TURBO_NAME, f"{rows.shape[1]} rows x {rows.shape[2]} "
-                    f"steps, per step {step_us:.4f} us", times[TURBO_NAME],
-                    card)
+    print_k14_times(TURBO_NAME, rows, g, w, times[TURBO_NAME], card)
+    rows, g, w = turbo_rows(code, llr, TURBO_WINDOW)[0]
+    check_exact("times", f"K14 window {TURBO_WINDOW}, {rows.shape[1]} rows "
+                f"x {rows.shape[2]} steps", bk.rows_kernel(rows, g, w),
+                bk.rows_plain(rows, g, w))
+    ms, plain_ms, dev_ms = kernel_times(bk.rows_kernel, bk.rows_plain,
+                                        (rows, g, w), device, "bcjr_kernel",
+                                        plain_calls=1)
+    print_k14_times(f"{TURBO_NAME} w{TURBO_WINDOW}", rows, g, w,
+                    (ms, plain_ms, dev_ms, None, work), card)
     for label, fn, args, info in (
             ("TurboCode(1024).encode", code.encode, (bits,), bits.numel()),
             (f"TurboCode(1024).decode {TURBO_ITERS} iters",
@@ -2675,8 +2697,10 @@ def phase_fec_times(device, card: str) -> dict:
              lambda x: code.decode(x, iters=TURBO_ITERS, early_exit=True),
              (llr,), bits.numel())):
         t = time_calls(fn, args, device, calls=3, reps=3)
+        busy = device_busy_ms(fn, args, device, calls=3)
         print(f"[times] {label:34s} per call {t:.4f} ms: {info / t / 1e3:.2f}"
-              f" Mbit/s of info bits ({TURBO_CW} codewords) on {card}",
+              f" Mbit/s of info bits ({TURBO_CW} codewords), device busy "
+              f"{busy:.4f} ms (idle share {1 - busy / t:.3f}) on {card}",
               flush=True)
 
     pcode, crc = PolarCode(POLAR_N, POLAR_K), crc16_ccitt()
@@ -2725,6 +2749,35 @@ def phase_fec_times(device, card: str) -> dict:
     return times
 
 
+def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
+    """Trellis steps the busier of K14's two lanes of a row walks: alpha
+    over 0 .. keep_lo + keep_n, beta over tw - 1 .. keep_lo, meeting at
+    tw // 2."""
+    mid = tw // 2
+    return max(max(mid, keep_lo + keep_n), tw - min(mid, keep_lo))
+
+
+def print_k14_times(name: str, rows, keep_lo: int, keep_n: int, t,
+                    card: str) -> None:
+    """K14's times, its time a trellis step of a lane, its share of the
+    bound and the serial floor: the steps a lane walks times the dependent
+    operations of a step times their latency, at the card's SM clock."""
+    ms, _, dev_ms, _, work = t
+    tw = rows.shape[2]
+    steps = k14_lane_steps(tw, keep_lo, keep_n)
+    dev = dev_ms or ms
+    clock = sm_clock_mhz()
+    floor_ms = steps * K14_CHAIN_OPS * K14_CHAIN_CYCLES / clock / 1e3
+    bound_ms, bound_by = bound(*work)
+    print_fec_times(name, f"{rows.shape[1]} rows x {tw} steps", t, card)
+    print(f"[times] {name}: {steps} steps a lane, {dev / steps * 1e6:.2f} ns "
+          f"({dev / steps * clock * 1e3:.1f} cycles at {clock:.0f} MHz) a "
+          f"step; {100 * bound_ms / dev:.3f}% of the bound ({bound_by}); "
+          f"serial floor {floor_ms:.6f} ms ({K14_CHAIN_OPS} dependent f32 "
+          f"operations x {K14_CHAIN_CYCLES} cycles a step), "
+          f"{100 * floor_ms / dev:.1f}% of it, on {card}", flush=True)
+
+
 def print_fec_times(name: str, shape: str, t, card: str) -> None:
     ms, plain_ms, dev_ms, _, (nbytes, flops) = t
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
@@ -2767,7 +2820,8 @@ def main() -> int:
     cuda.library()
     print(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s", flush=True)
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line:
+        if "Compiling entry" in line or "registers" in line or \
+                "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
 
     chain = qpsk_reference_chain(Rates(1250, 10000), device=device)

@@ -169,8 +169,10 @@ def rows_plain(x: torch.Tensor, keep_lo: int, keep_n: int) -> torch.Tensor:
 
 
 def rows_kernel(x: torch.Tensor, keep_lo: int, keep_n: int) -> torch.Tensor:
-    """Launch K14 (``modem_bcjr``) on CUDA rows, 8 lanes a row; the alpha
-    history goes to a scratch ``[R, tw, 8]``."""
+    """Launch K14 (``modem_bcjr``) on CUDA rows: one lane a row and
+    direction, alpha and beta swept from both ends of the row at once, with
+    a loader warp beside each; both sweeps' metrics go to a scratch ``[R,
+    tw, 8]`` (laid out per block of 16 rows as ``[tw][2][rows]`` float4)."""
     dev = x.device
     check_cuda("rows", x, torch.float32, dev)
     _, r, tw = x.shape

@@ -1430,6 +1430,94 @@ def test_turbo_decode_on_card(k, early, dev):
         code.decode(llr.to(dev), window=15)
 
 
+def _hazard_rows(r, tw, pins, seed):
+    """Rows ``[3, r, tw]`` of N(0, 3) LLRs; ``pins`` ``"random"`` (20% of
+    the steps) or ``"per_row"``: row 0 pinned throughout, row 1 nowhere,
+    row i > 1 every (i+1)-th step from its own offset, or a pinned head or
+    tail, so rows of one warp pin different steps."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 3, (3, r, tw)).astype(np.float32)
+    if pins == "random":
+        x[2] = rng.random((r, tw)) < 0.2
+        return torch.as_tensor(x)
+    t = np.arange(tw)
+    x[2] = 0.0
+    for i in range(r):
+        if i == 0:
+            x[2, i] = 1.0
+        elif i % 4 == 2:
+            x[2, i] = t < i
+        elif i % 4 == 3:
+            x[2, i] = t >= tw - i
+        elif i > 1:
+            x[2, i] = (t + i) % (i + 1) == 0
+    return torch.as_tensor(x)
+
+
+def _turbo_w256_rows(half):
+    """One half-iteration's rows of ``TurboCode(1024)`` at window 256 over
+    512 codewords: 2560 rows of 324 steps (``pick_guard``: guard 34), the
+    second half with the first's extrinsics as a-priori; ``(rows, guard,
+    window)``."""
+    from modem_tpu_torch.ops import bcjr_kernel as bk
+
+    k, window = 1024, 256
+    code, _, llr = _turbo_case(k, 512, 1.2, 45)
+    ls, lp1, lp2 = llr[:, :k], llr[:, k:2 * k], llr[:, 2 * k:3 * k]
+    tail = [llr[:, 3 * k + 3 * i:3 * k + 3 * i + 3] for i in range(4)]
+    g = bk.pick_guard(window, 32)
+    zero = torch.zeros_like(ls)
+    if half == 1:
+        rows, _ = bk.make_rows(ls, lp1, zero, tail[0], tail[1], window, g)
+    else:
+        le1 = bk.bcjr_windowed(ls, lp1, zero, tail[0], tail[1], window, g)
+        rows, _ = bk.make_rows(code._il(ls), lp2, code._il(le1), tail[2],
+                               tail[3], window, g)
+    return rows, g, window
+
+
+# (id, rows, tw, keep_lo, keep_n, pins): the kernel meets its two sweeps at
+# mid = tw // 2 and takes 16 rows a warp; "turbo1"/"turbo2" are the two
+# half-iterations of _turbo_w256_rows, 160 blocks of rows, more than one to
+# each of the card's SMs
+BCJR_HAZARDS = [
+    ("tw1", 5, 1, 0, 1, "random"),
+    ("tw2", 5, 2, 1, 1, "random"),
+    ("tw7_odd", 17, 7, 1, 5, "random"),
+    ("tw77_unaligned", 33, 77, 0, 77, "random"),
+    ("tw1093_odd_long", 20, 1093, 32, 1029, "random"),
+    ("keep_below_mid", 16, 100, 3, 40, "random"),
+    ("keep_above_mid", 16, 100, 60, 35, "random"),
+    ("keep_crossing_mid", 16, 101, 20, 60, "random"),
+    ("keep_at_mid", 16, 96, 48, 1, "random"),
+    ("ragged_rows_37", 37, 64, 8, 48, "random"),
+    ("pins_differ_in_warp", 32, 96, 0, 96, "per_row"),
+    ("pins_differ_unaligned", 19, 45, 5, 30, "per_row"),
+    ("turbo_w256_2560_rows_half1", 2560, 324, 34, 256, "turbo1"),
+    ("turbo_w256_2560_rows_half2", 2560, 324, 34, 256, "turbo2"),
+]
+
+
+@pytest.mark.parametrize("case", BCJR_HAZARDS,
+                         ids=[c[0] for c in BCJR_HAZARDS])
+def test_bcjr_kernel_hazards(case, dev):
+    """K14's two sweeps meeting mid-row: odd, tiny and unaligned rows, kept
+    ranges below, above and across the meeting point, a row count no
+    multiple of a warp's rows, rows of one warp with different pins, and
+    more blocks than SMs: extrinsics bit for bit against the plain
+    version, one launch each."""
+    from modem_tpu_torch.ops import bcjr_kernel as bk
+
+    name, r, tw, lo, n, pins = case
+    if pins.startswith("turbo"):
+        rows, lo, n = _turbo_w256_rows(int(pins[-1]))
+    else:
+        rows = _hazard_rows(r, tw, pins, 44 + len(name))
+    assert rows.shape == (3, r, tw) and (lo, n) == case[3:5]
+    got = _launches(bk.BCJR_KERNEL, bk.rows_kernel, rows.to(dev), lo, n)
+    assert torch.equal(got.cpu(), bk.rows_plain(rows, lo, n))
+
+
 # ---- K15 and K16: polar SC and CA-SCL-8 ----
 
 def _polar_llrs(n, b, seed, ties=False):
