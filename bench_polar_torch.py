@@ -1,0 +1,168 @@
+"""Times the PyTorch port's K16 (CA-SCL-8), the polar control link and the
+flagship's K1 and K3 on one CUDA card, alternating between source trees in
+one run.
+
+    python3 bench_polar_torch.py [--trees DIR ...] [--rounds N] [--reps N]
+
+Each tree is a checkout of the repo (``git archive`` of another commit,
+unpacked into a git-ignored directory); the default is this one. A round
+runs every tree in a fresh process, in order and then in reverse (two trees:
+A B B A), so that the card's drift falls on each alike. Each process builds
+its tree's kernels, then measures the profiler's device time per launch of:
+
+- K16 (``scl_kernel``) at ``PolarCode(256, 128)`` (CRC-16 inside K, BPSK
+  LLRs at noise sigma 0.8) over 4096 codewords (``bench_fec.py``'s width)
+  and over 1024 (``nr_like_control_link().rx_fused``'s at 256 frames), and
+  checks both bit for bit against ``scl_plain``; K15 at 4096;
+- K1 (``chain_kernel``), K3 hard and soft (``rx_kernel``) on the flagship
+  chain (``qpsk_reference_chain(Rates(1250, 10000))``, 256 x 4096 symbols),
+  the short route (taps as a kernel parameter), to show it unchanged;
+
+and ``nr_like_control_link().rx_fused`` at 256 frames and 3 dB: CUDA-event
+time per call (3 calls a rep) and, from one profile of 3 calls, the device's
+busy time per call split into K16's and every other kernel's and copy's.
+
+Each process prints one JSON line of its reps; the run ends with each
+metric's summary over the processes of each tree (``bench_turbo_torch.py``'s
+``summary``), then the card's name and power limit. Needs a CUDA card;
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+from bench_turbo_torch import event_ms, smoke, summary
+
+HERE = pathlib.Path(__file__).resolve().parent
+POLAR_N, POLAR_K, SIGMA = 256, 128, 0.8
+CODEWORDS = (4096, 1024)
+CHANNELS, SYMBOLS = 256, 4096
+LINK_FRAMES, LINK_SNR_DB = 256, 3.0
+SEED = 67
+
+
+def busy_ms(fn, args, symbol: str, calls: int = 3) -> tuple[float, float]:
+    """(the device time of kernels named ``symbol``, every other kernel's
+    and copy's) per call, from one profile of ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    mine = other = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if symbol in e.key:
+            mine += e.device_time_total
+        else:
+            other += e.device_time_total
+    return mine / calls / 1e3, other / calls / 1e3
+
+
+def run_one(tree: pathlib.Path, reps: int) -> dict:
+    """Every measurement on ``tree``'s package; the JSON line's dict."""
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import modem_tpu_torch
+    from modem_tpu_torch import Rates, cuda, presets, qpsk_reference_chain
+    from modem_tpu_torch.fec import PolarCode, crc16_ccitt
+    from modem_tpu_torch.ops import (chain_kernel as ck, sc_kernel as sk,
+                                     scl_kernel as lk, txrx)
+
+    pkg = pathlib.Path(modem_tpu_torch.__file__).resolve().parent
+    assert pkg.parent == tree.resolve(), f"{pkg} is not {tree}'s package"
+    sm = smoke()
+    device = torch.device("cuda", 0)
+    cuda.library()
+    res = {"tree": str(tree)}
+
+    def dev_ms(fn, args, symbol):
+        return [sm.kernel_device_ms(fn, args, device, symbol)
+                for _ in range(reps)]
+
+    code, crc = PolarCode(POLAR_N, POLAR_K), crc16_ccitt()
+    for cws in CODEWORDS:
+        _, lam = sm.polar_llrs(code, crc, cws, SIGMA, SEED, device)
+        u, pm = lk.scl_kernel(code, lam)
+        pu, ppm = lk.scl_plain(code, lam)
+        res[f"k16_x{cws}_exact"] = bool(torch.equal(u, pu)
+                                        and torch.equal(pm, ppm))
+        res[f"k16_x{cws}_device_ms"] = dev_ms(lk.scl_kernel, (code, lam),
+                                              "scl_kernel")
+        if cws == CODEWORDS[0]:
+            res[f"k15_x{cws}_device_ms"] = dev_ms(sk.sc_kernel, (code, lam),
+                                                  "sc_kernel")
+
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=device)
+    syms = sm.random_symbols((CHANNELS, SYMBOLS), device, False)
+    lut, taps = chain.lut, chain.rrc
+    res["k1_device_ms"] = dev_ms(ck.chain_kernel, (syms, lut, taps, 8, 8),
+                                 "pulse_chain_kernel")
+    wi, wq = txrx.tx_plain(syms, lut, taps, 8, 8)
+    for tag, soft in (("k3_hard", False), ("k3_soft", True)):
+        res[f"{tag}_device_ms"] = dev_ms(
+            txrx.rx_kernel, (wi, wq, SYMBOLS, lut, taps, 8, 8, soft),
+            sm.DEVICE_NAMES["fused_rx_soft" if soft else "fused_rx"])
+
+    link = presets.nr_like_control_link(device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    pay = torch.randint(0, 2, (LINK_FRAMES, link.payload_bits), generator=gen,
+                        device=device, dtype=torch.int32)
+    wave, nv = sm.link_noise(gen, link.tx_fused(pay), LINK_SNR_DB)
+    res["link_rx_fused_ms"] = event_ms(link.rx_fused, (wave, nv), 3, reps)
+    res["link_rx_fused_k16_ms"], res["link_rx_fused_other_ms"] = busy_ms(
+        link.rx_fused, (wave, nv), "scl_kernel")
+    got, ok = link.rx_fused(wave, nv)[:2]
+    res["link_crc_ok"] = int(ok.sum())
+    res["link_payload_exact"] = bool(torch.equal(got.to(torch.int32), pay))
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs="+", type=pathlib.Path, default=[HERE])
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_polar_torch: no CUDA device", file=sys.stderr)
+        return 1
+    if a.one is not None:
+        print(json.dumps(run_one(a.one, a.reps)), flush=True)
+        return 0
+    order = []
+    for _ in range(a.rounds):
+        order += a.trees + a.trees[::-1]
+    runs = []
+    for tree in order:
+        proc = subprocess.run(
+            [sys.executable, str(HERE / "bench_polar_torch.py"), "--one",
+             str(tree.resolve()), "--reps", str(a.reps)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    print(json.dumps(summary(runs), indent=1))
+    print(f"card: {smoke().card_line()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -180,6 +180,7 @@ count (256):
 30. K15 and K16 against their plain versions at 4096 x (256, 128), noise
     sigma 0.3 and 0.8: SC u and x, CA-SCL-8 u and path metrics bit for
     bit; ``decode`` and ``decode_list(8, crc)`` equal to the CPU route;
+    K16 also at the link's 1024 codewords;
 31. main paths: ``lte_like_turbo_link()`` at 256 frames and 1 dB per
     complex sample (K14), ``nr_like_control_link()`` at 3 dB (K16) and
     ``nr_like_control_link(list_size=None)`` at 5 dB (K15), each
@@ -190,10 +191,21 @@ count (256):
 32. CLI: ``link tx`` -> ``link rx`` on the card for ``lte_like_turbo``
     and ``nr_like_control``, 16 frames each, every verdict OK;
 33. times: K14, K15, K16 and their plain versions per call, the
-    profiler's device time and the bound; the turbo and polar encoders and
-    decoders in Mbit/s; the two presets' ``frame``, ``tx_fused`` and
-    ``rx_fused`` per call at 256 frames with the device's busy time and
-    idle share.
+    profiler's device time and the bound; K16 also at 1024 codewords, and
+    its serial floor (one codeword's chain of dependent operations); the
+    turbo and polar encoders and decoders in Mbit/s; the two presets'
+    ``frame``, ``tx_fused`` and ``rx_fused`` per call at 256 frames with
+    the device's busy time and idle share.
+
+K1's and K3's long route, for chains past the short route's 256 taps or 64
+samples a symbol:
+
+34. ``PulseShapedChain(QPSK)`` at sps 8 and span 32 (257 taps), sps 20
+    and span 16 (321 taps), sps 96 and span 1, 256 x 1024 symbols:
+    ``roundtrip_fused``, ``rx_fused(tx_fused)`` and ``rx_soft_fused`` give
+    the bits back with K1, K3 hard and K3 soft launched (counts set to 0
+    just before, read just after); each kernel against its plain version
+    (decisions bit for bit, soft points within 1e-5) and its times.
 
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5; K6
@@ -201,7 +213,8 @@ without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11; K12 hard and
 soft; K13; each mode of K1-K3, K1 with noise with ``agreement``; K13 at
-K = 3 and 15; K14, K15, K16), each
+K = 3 and 15; K14, K15, K16; K1, K3 hard and K3 soft on each long-route
+chain), each
 with its launches on its path, error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
 take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
@@ -322,6 +335,18 @@ TURBO_WINDOW = 256               # K14's many-row shape: 2560 rows of 324 steps
 K14_CHAIN_OPS, K14_CHAIN_CYCLES = 6, 4
 POLAR_N, POLAR_K, POLAR_CW = 256, 128, 4096
 POLAR_SIGMAS = (0.3, 0.8)        # bench_fec's noise, and a noisier one
+POLAR_LINK_CW = 1024             # nr_like_control_link().rx_fused's, 256 frames
+#: K16's serial chain a codeword, in dependent f32 operations: an f's
+#: (the sign product, the product with the min, and the min or sign before
+#: them: 3) on each of the n - 1 left turns of the walk, a g's (one add) on
+#: each of the n - 1 right turns, a leaf's metric add, and an info leaf's
+#: ranking (a compare, then the sum of two lanes' counts: 2); each takes
+#: K14_CHAIN_CYCLES to feed the next
+K16_F_OPS, K16_G_OPS, K16_LEAF_OPS, K16_RANK_OPS = 3, 1, 1, 2
+#: K1's and K3's long route: (Rates, span) past 256 taps or 64 samples a
+#: symbol (sps 8 span 32, sps 20 span 16, sps 96 span 1), 256 x 1024 symbols
+LONG_ROUTE = ((1250, 10000, 32), (500, 10000, 16), (100, 9600, 1))
+LONG_SYMBOLS = 1024
 FEC_LINK_FRAMES = 256
 FEC_LINK_SNR_DB = (1.0, 3.0, 5.0)  # turbo, polar SCL-8, polar SC
 TURBO_NAME, SC_NAME, SCL_NAME = "bcjr_half_iteration", "polar_sc", "polar_scl8"
@@ -2481,8 +2506,9 @@ def phase_polar_kernels(device) -> dict:
     ``PolarCode(256, 128)`` x 4096 codewords (CRC-16 inside K), noise
     sigma 0.3 (``bench_fec.py``'s) and 0.8: SC u and x, SCL-8 u and path
     metrics bit for bit; ``decode`` and ``decode_list(crc)`` on the card
-    equal to the CPU route, with K15 / K16 launched once a call. Returns
-    each kernel's largest error against its plain version."""
+    equal to the CPU route, with K15 / K16 launched once a call; K16 also
+    at the link's 1024 codewords. Returns each kernel's largest error
+    against its plain version."""
     from modem_tpu_torch.fec import PolarCode, crc16_ccitt
     from modem_tpu_torch.ops import sc_kernel as sk, scl_kernel as lk
 
@@ -2513,6 +2539,13 @@ def phase_polar_kernels(device) -> dict:
                   f"errors in {framed.numel()}", flush=True)
             if not torch.equal(got.cpu(), want):
                 fail(f"polar {name} on the card differs from the CPU")
+    # the link's shape: 1024 codewords, one partial wave of the card
+    _, lam = polar_llrs(code, crc, POLAR_LINK_CW, POLAR_SIGMAS[-1], SEED + 64,
+                        device)
+    errs[SCL_NAME] = max(errs[SCL_NAME], check_exact(
+        "polar kernel", f"K16 CA-SCL-8 u, pm at {POLAR_LINK_CW} x ({POLAR_N},"
+        f" {POLAR_K}), sigma {POLAR_SIGMAS[-1]}", lk.scl_kernel(code, lam),
+        lk.scl_plain(code, lam)))
     return errs
 
 
@@ -2660,10 +2693,11 @@ def phase_fec_times(device, card: str) -> dict:
     """Phase 33: K14, K15 and K16 and their plain versions per call at the
     main path's widths, the profiler's device time and the bound (K14 also
     at window 256, 2560 rows, held bit for bit first; its time a lane's
-    step, share of the bound and serial floor); the
-    encoders and decoders per call in Mbit/s of info bits; the two links'
-    ``tx_fused`` and ``rx_fused`` per call at 256 frames with the device's
-    busy time and idle share. Returns the report times."""
+    step, share of the bound and serial floor; K16 also at the link's 1024
+    codewords, with its serial floor); the encoders and decoders per call
+    in Mbit/s of info bits; the two links' ``tx_fused`` and ``rx_fused``
+    per call at 256 frames with the device's busy time and idle share.
+    Returns the report times."""
     from modem_tpu_torch import presets
     from modem_tpu_torch.fec import PolarCode, TurboCode, crc16_ccitt
     from modem_tpu_torch.ops import (bcjr_kernel as bk, sc_kernel as sk,
@@ -2716,6 +2750,16 @@ def phase_fec_times(device, card: str) -> dict:
         times[name] = (ms, plain_ms, dev_ms, None, work)
         print_fec_times(name, f"{POLAR_CW} x ({POLAR_N}, {POLAR_K})",
                         times[name], card)
+    print_k16_floor(f"{SCL_NAME}", POLAR_CW, times[SCL_NAME], card)
+    _, lam_link = polar_llrs(pcode, crc, POLAR_LINK_CW, POLAR_SIGMAS[-1],
+                             SEED + 69, device)
+    t_link = (*kernel_times(lk.scl_kernel, lk.scl_plain, (pcode, lam_link),
+                            device, "scl_kernel", plain_calls=1), None,
+              scl_work(POLAR_LINK_CW, POLAR_N, pcode.n_bits, POLAR_K))
+    print_fec_times(f"{SCL_NAME} x{POLAR_LINK_CW}",
+                    f"{POLAR_LINK_CW} x ({POLAR_N}, {POLAR_K})", t_link, card)
+    print_k16_floor(f"{SCL_NAME} x{POLAR_LINK_CW}", POLAR_LINK_CW, t_link,
+                    card)
     info = framed.numel()
     for label, fn, args in (
             ("PolarCode(256,128).encode", pcode.encode, (framed,)),
@@ -2749,6 +2793,111 @@ def phase_fec_times(device, card: str) -> dict:
     return times
 
 
+def long_route_names(sps: int, span: int) -> dict:
+    """Report names of K1, K3 hard and K3 soft on a long-route chain."""
+    tag = f"sps{sps}_span{span}"
+    return {"fused_pulse_chain": f"fused_pulse_chain_{tag}",
+            "fused_rx": f"fused_rx_{tag}",
+            "fused_rx_soft": f"fused_rx_soft_{tag}"}
+
+
+def long_route_entries() -> list:
+    """(name, source, replaced TPU kernel) of each long-route entry."""
+    out = []
+    for baud, sr, span in LONG_ROUTE:
+        names = long_route_names(sr // baud, span)
+        out += [(names["fused_pulse_chain"], "modem_tpu_torch/csrc/chain.cu",
+                 "modem_tpu/ops/pallas_chain.py:195"),
+                (names["fused_rx"], "modem_tpu_torch/csrc/txrx.cu",
+                 "modem_tpu/ops/pallas_txrx.py:277"),
+                (names["fused_rx_soft"], "modem_tpu_torch/csrc/txrx.cu",
+                 "modem_tpu/ops/pallas_txrx.py:277")]
+    return out
+
+
+def phase_long_route(device, card: str) -> tuple[dict, dict, dict]:
+    """Phase 34: K1's and K3's long route (taps from a device array in
+    shared memory), for chains past 256 taps or 64 samples a symbol
+    (LONG_ROUTE) at 256 x 1024 symbols: ``roundtrip_fused``,
+    ``rx_fused(tx_fused)`` and ``rx_soft_fused`` give the bits back, with
+    every launch count set to 0 just before and read just after; then K1
+    and K3 hard bit for bit and K3 soft within ATOL against their plain
+    versions, and their times beside the plain versions', the profiler's
+    device time, the bound and, for K3 soft, the ``conv1d`` yardstick.
+    Returns (errors, launches, times)."""
+    from modem_tpu_torch import Rates
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+    from modem_tpu_torch.ops import chain_kernel as ck, txrx
+    from modem_tpu_torch.ops.llr import llr_hard_bits
+
+    errs, launches, times = {}, {}, {}
+    for baud, sr, span in LONG_ROUTE:
+        chain = PulseShapedChain(QPSK(0.0, 1.0), Rates(baud, sr),
+                                 span_symbols=span, device=device)
+        sps, k = chain.sps, LONG_SYMBOLS
+        names = long_route_names(sps, span)
+        if txrx.kernel_taps(chain.rrc, sps)[0] is not None:
+            fail(f"sps {sps}, span {span} did not take the long route")
+        g = torch.Generator(device=device).manual_seed(SEED + 80 + sps)
+        bits = torch.randint(0, 2, (CHANNELS, 2 * k), generator=g,
+                             device=device, dtype=torch.int32)
+        label = f"sps {sps}, span {span} ({chain.rrc.shape[0]} taps)"
+        reset_launches()
+        ok = torch.equal(chain.roundtrip_fused(bits), bits)
+        launches.update(read_launches(
+            {names["fused_pulse_chain"]: ck.CHAIN_KERNEL},
+            f"{label} loopback", "long route"))
+        reset_launches()
+        wave = chain.tx_fused(bits)
+        ok &= torch.equal(chain.rx_fused(wave, k), bits)
+        ok &= torch.equal(llr_hard_bits(chain.rx_soft_fused(
+            wave, k, noise_var=0.5)), bits)
+        launches.update(read_launches(
+            {names["fused_rx"]: txrx.RX_HARD_KERNEL,
+             names["fused_rx_soft"]: txrx.RX_SOFT_KERNEL},
+            f"{label} tx_fused -> rx_fused, rx_soft_fused", "long route"))
+        print(f"[long route] {label}: the bits back through every fused form"
+              f": {ok}", flush=True)
+        if not ok:
+            fail(f"long route {label}: bits differ")
+        syms = random_symbols((CHANNELS, k), device, sentinels=True)
+        for name, _, kern, plain, make_args, exact, _, _ in kernel_cases(
+                chain):
+            if name not in names:
+                continue
+            args = make_args(syms if name != "fused_rx" else syms.clamp(0))
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            if name == "fused_pulse_chain":  # -1: no symbol, no decision
+                real = syms >= 0
+                got, want = got[real], want[real]
+            err = max_err(got, want)
+            print(f"[long route] {names[name]} vs plain at {CHANNELS} x {k}:"
+                  f" max |kernel - plain| = {err:.3e}"
+                  f"{' (exact)' if exact else ''}", flush=True)
+            if (exact and err != 0) or err > ATOL:
+                fail(f"long route {names[name]}: kernel and plain differ")
+            errs[names[name]] = err
+            ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
+                                                DEVICE_NAMES[name],
+                                                plain_calls=2)
+            lib_ms, lib_txt = None, "no library call"
+            if name == "fused_rx_soft":
+                fn, fargs, lib_err = rx_conv1d_yardstick(args)
+                if lib_err > 1e-4:
+                    fail(f"long route {names[name]}: conv1d yardstick "
+                         f"disagrees with K3 soft ({lib_err})")
+                lib_ms = time_calls(fn, fargs, device)
+                lib_txt = (f"conv1d {lib_ms:.4f} ms (max |err| vs K3 "
+                           f"{lib_err:.2e})")
+            times[names[name]] = (ms, plain_ms, dev_ms, lib_ms,
+                                  chain_work(chain, name, CHANNELS, k))
+            print_times(names[name], CHANNELS * k * sps, times[names[name]],
+                        card, lib_txt)
+    return errs, launches, times
+
+
 def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
     """Trellis steps the busier of K14's two lanes of a row walks: alpha
     over 0 .. keep_lo + keep_n, beta over tw - 1 .. keep_lo, meeting at
@@ -2776,6 +2925,25 @@ def print_k14_times(name: str, rows, keep_lo: int, keep_n: int, t,
           f"serial floor {floor_ms:.6f} ms ({K14_CHAIN_OPS} dependent f32 "
           f"operations x {K14_CHAIN_CYCLES} cycles a step), "
           f"{100 * floor_ms / dev:.1f}% of it, on {card}", flush=True)
+
+
+def print_k16_floor(name: str, cws: int, t, card: str) -> None:
+    """K16's serial floor: one codeword's chain of dependent operations
+    (K16_*_OPS) at K14_CHAIN_CYCLES each, at the card's SM clock; every
+    codeword runs at once, so no call can be shorter. Also the kernel's
+    time a leaf of a codeword if all ran at once."""
+    ms, _, dev_ms, _, _ = t
+    dev = dev_ms or ms
+    n, k = POLAR_N, POLAR_K
+    ops = ((n - 1) * (K16_F_OPS + K16_G_OPS) + n * K16_LEAF_OPS
+           + k * K16_RANK_OPS)
+    clock = sm_clock_mhz()
+    floor_ms = ops * K14_CHAIN_CYCLES / clock / 1e3
+    print(f"[times] {name}: {dev / n * 1e6:.2f} ns ({dev / n * clock * 1e3:.1f}"
+          f" cycles at {clock:.0f} MHz) a leaf over {cws} codewords; serial "
+          f"floor {floor_ms:.6f} ms ({ops} dependent f32 operations x "
+          f"{K14_CHAIN_CYCLES} cycles a codeword), {100 * floor_ms / dev:.1f}%"
+          f" of it, on {card}", flush=True)
 
 
 def print_fec_times(name: str, shape: str, t, card: str) -> None:
@@ -2865,6 +3033,10 @@ def main() -> int:
     launches.update(phase_fec_links(device, errs))
     phase_fec_cli(device)
     times.update(phase_fec_times(device, card))
+    long_errs, long_launches, long_times = phase_long_route(device, card)
+    errs.update(long_errs)
+    launches.update(long_launches)
+    times.update(long_times)
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
@@ -2881,7 +3053,8 @@ def main() -> int:
         (n, f"modem_tpu_torch/csrc/{'chain' if kind == 'chain' else 'txrx'}"
             ".cu", rep) for n, kind, _, _, rep in mode_cases()] + [
         (n, VIT_REPORT[2], VIT_REPORT[3]) for n in WIDE_VIT] + [
-        (n, src, rep) for n, (_, src, rep) in FEC_REPORT.items()]
+        (n, src, rep) for n, (_, src, rep) in FEC_REPORT.items()] + \
+        long_route_entries()
     report = {"kernels": []}
     for n, src, rep in entries:
         ms, plain_ms, dev_ms, lib_ms, work = times[n]

@@ -43,7 +43,7 @@ Every entry point builds on the card unless the caller asks for the CPU
 """
 
 from . import presets
-from .config import Rates
+from .config import Freq, Rates
 from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
                     OqpskChain, PulseShapedChain, qpsk_reference_chain)
 from .gmsk import GmskChain
@@ -57,7 +57,7 @@ from .tx import Modulator, TxState
 
 __all__ = [
     "DcqpskChain", "Demodulator", "DifferentialChain", "FramedLink",
-    "FskChain", "GmskChain", "LinkStats", "Modulator", "MskChain",
+    "Freq", "FskChain", "GmskChain", "LinkStats", "Modulator", "MskChain",
     "OqpskChain", "PulseShapedChain",
     "Rates", "presets", "ResampledChain", "RxState", "SCHEME_NAMES",
     "StreamingFusedChain", "StreamingFusedRx", "StreamingFusedTx",

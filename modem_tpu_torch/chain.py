@@ -88,18 +88,28 @@ def shape_iq(iq: torch.Tensor, rrc, sps: int, span: int, polyphase: bool):
     return si, sq
 
 
+def matched_filter_rails(yi, yq, rrc):
+    """The matched filter over every sample of both rails (``fir_filter``:
+    kernel K4 on CUDA), from a zero state."""
+    return fir_filter(yi, rrc)[0], fir_filter(yq, rrc)[0]
+
+
+def symbol_instants(yi, yq, sps: int, span: int, n_symbols: int):
+    """Samples ``span*sps + m*sps`` of both rails -> ``(di, dq) [..., K]``."""
+    idx = span * sps + torch.arange(n_symbols, device=yi.device) * sps
+    return yi[..., idx], yq[..., idx]
+
+
 def matched_decision_points(yi, yq, rrc, sps: int, span: int, n_symbols: int,
                             polyphase: bool):
     """Matched filter + symbol-instant sampling -> ``(di, dq) [..., K]``,
     decision instants ``span*sps + m*sps``."""
-    d = span * sps
     if polyphase:
+        d = span * sps
         return (polyphase_decim(yi, rrc, sps, d, n_symbols),
                 polyphase_decim(yq, rrc, sps, d, n_symbols))
-    yi, _ = fir_filter(yi, rrc)
-    yq, _ = fir_filter(yq, rrc)
-    idx = d + torch.arange(n_symbols, device=yi.device) * sps
-    return yi[..., idx], yq[..., idx]
+    return symbol_instants(*matched_filter_rails(yi, yq, rrc), sps, span,
+                           n_symbols)
 
 
 class PulseShapedChain(torch.nn.Module):
@@ -196,6 +206,16 @@ class PulseShapedChain(torch.nn.Module):
         return re
 
     # ---- RX ----
+
+    def matched_filter(self, i: torch.Tensor, q: torch.Tensor):
+        """The RRC matched filter over every sample of ``(i, q)``
+        (``fir_filter``: kernel K4 on CUDA), from a zero state."""
+        return matched_filter_rails(i, q, self.rrc)
+
+    def decimate(self, yi: torch.Tensor, yq: torch.Tensor, n_symbols: int):
+        """Sample at the symbol centers: delay ``span*sps``, stride
+        ``sps``."""
+        return symbol_instants(yi, yq, self.sps, self.span, n_symbols)
 
     def downconvert(self, x: torch.Tensor):
         """Real passband -> baseband ``(i, q)`` by coherent product

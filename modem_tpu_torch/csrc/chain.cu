@@ -52,6 +52,12 @@
 //   three waves;
 // - the carrier phase is walked a sample in 32-bit integers, from a table
 //   of up to 2048 phases (common.cuh, Nco).
+// The long route: a chain past the parameter's 256 taps or 64 samples a
+// symbol (the JAX kernel takes any) gets its taps as a device array, which
+// each block stages in shared memory, and the generic instantiation with
+// one decision a thread (passes of 64), so that long tiles still fit
+// shared memory; every mode is kept and decisions are bit for bit the
+// same (one fmaf chain an output, taps in order).
 // Noise adds two hashes, a logf, a sqrtf, a cosf and a sinf a sample, and a
 // carrier of more than 2048 phases a cosf and a sinf: those modes are bound
 // by those operations. The span-symbol overlap between neighbouring tiles
@@ -61,9 +67,15 @@
 
 namespace {
 
-constexpr int kChainThreads = 64;              // the block's threads
-constexpr int kChainR = 4;                     // decisions a thread
-constexpr int kSub = kChainThreads * kChainR;  // decisions a pass
+constexpr int kChainThreads = 64;  // the block's threads
+constexpr int kChainR = 4;         // decisions a thread (short route)
+
+// Decisions a thread: the long route takes one, a quarter of the short
+// route's pass, so that its longer tiles still fit shared memory.
+template <bool kLong>
+__host__ __device__ constexpr int chain_r() {
+  return kLong ? 1 : kChainR;
+}
 
 // One waveform sample's [up-mix, AWGN, product detection] in place.
 template <bool kPassband, bool kNoisy>
@@ -94,15 +106,19 @@ __device__ __forceinline__ void finish_sample(float& ai, float& aq, int row,
 }
 
 // Grid: one block per (channel, tile of cs symbols), flattened. SPS > 0 is
-// the instantiation for (SPS, SPAN); 0 the generic one.
-template <bool kPassband, bool kNoisy, int SPS, int SPAN>
+// the instantiation for (SPS, SPAN); 0 the generic one. kLong: the long
+// route (common.cuh, TapsPtr), always generic.
+template <bool kPassband, bool kNoisy, int SPS, int SPAN, bool kLong>
 __global__ void __launch_bounds__(kChainThreads, 8)
     pulse_chain_kernel(const int* __restrict__ syms, long long k_sym,
                        long long n_tiles, int cs, modem::Constellation map,
-                       const __grid_constant__ modem::Taps taps, int sps_rt,
-                       int span_rt, modem::Nco nco, float sigma,
+                       const __grid_constant__ modem::TapsArg<kLong> taps,
+                       int sps_rt, int span_rt, modem::Nco nco, float sigma,
                        unsigned seed, int* __restrict__ out) {
   constexpr bool kFixed = SPS > 0;
+  static_assert(!(kFixed && kLong), "the long route is generic");
+  constexpr int R = chain_r<kLong>();
+  constexpr int kSub = kChainThreads * R;  // decisions a pass
   const int sps = kFixed ? SPS : sps_rt;
   const int span = kFixed ? SPAN : span_rt;
   const int n_taps = span * sps + 1;
@@ -116,6 +132,7 @@ __global__ void __launch_bounds__(kChainThreads, 8)
   float* slut = reinterpret_cast<float*>(zp + ((z_len + 1) & ~1));
   float* tc = slut + (map.lut != nullptr ? 2 * map.n_points : 0);
   float* ts = tc + nco.period;
+  float* staps = tc + (kPassband && nco.table ? 2 * nco.period : 0);
 
   const int tid = threadIdx.x;
   const long long c = blockIdx.x / n_tiles;
@@ -123,6 +140,8 @@ __global__ void __launch_bounds__(kChainThreads, 8)
   const long long m0 = tile * cs;
   if (map.lut != nullptr) modem::stage(slut, map.lut, 2 * map.n_points);
   if (kPassband && nco.table) modem::stage_nco(tc, ts, nco);
+  if constexpr (kLong) modem::stage(staps, taps.p, n_taps);
+  const auto& tv = modem::tap_view(taps, staps);
   const unsigned key = seed +
                        static_cast<unsigned>(c / modem::kLane) * 1000003u +
                        static_cast<unsigned>(tile) * 7919u;
@@ -199,7 +218,7 @@ __global__ void __launch_bounds__(kChainThreads, 8)
         for (int p = 0; p < sps; ++p) {
           float ai = 0.f, aq = 0.f;
           for (int k = 0; k < kp && k * sps + p < n_taps; ++k) {
-            const float t = taps.v[k * sps + p];
+            const float t = modem::tap(tv, k * sps + p);
             const float2 z = zp[rl + kp - 1 - k];
             ai = fmaf(t, z.x, ai);
             aq = fmaf(t, z.y, aq);
@@ -214,34 +233,36 @@ __global__ void __launch_bounds__(kChainThreads, 8)
     __syncthreads();
 
     // the matched filter: decisions m0 + c0 + r0 .. + kChainR - 1
-    const int r0 = kChainR * tid;
+    const int r0 = R * tid;
     if (r0 < n_out) {
-      float ai[kChainR] = {}, aq[kChainR] = {};
+      float ai[R] = {}, aq[R] = {};
       if constexpr (kFixed)
-        modem::matched_fixed<kChainR, SPS, SPAN * SPS + 1>(wi, wq, r0 * SPS,
-                                                           taps, ai, aq);
+        modem::matched_fixed<R, SPS, SPAN * SPS + 1>(wi, wq, r0 * SPS, taps,
+                                                     ai, aq);
       else
-        modem::matched_generic<kChainR>(wi, wq, r0 * sps, sps, n_taps, taps,
-                                        ai, aq);
+        modem::matched_generic<R>(wi, wq, r0 * sps, sps, n_taps, tv, ai, aq);
       int* o = out + c * k_sym + m0 + c0 + r0;
 #pragma unroll
-      for (int r = 0; r < kChainR; ++r)
+      for (int r = 0; r < R; ++r)
         if (r0 + r < n_out) o[r] = modem::decide(ai[r], aq[r], map, slut);
     }
   }
 }
 
-template <bool kPassband, bool kNoisy, int SPS, int SPAN>
+template <bool kPassband, bool kNoisy, int SPS, int SPAN, bool kLong>
 int launch_chain(const int* syms, long long n_ch, long long k_sym, int cs,
-                 const modem::Constellation& map, const modem::Taps& taps,
-                 int sps, int span, const modem::Nco& nco, float sigma,
-                 unsigned seed, int* out, void* stream) {
-  auto kernel = pulse_chain_kernel<kPassband, kNoisy, SPS, SPAN>;
+                 const modem::Constellation& map,
+                 const modem::TapsArg<kLong>& taps, int sps, int span,
+                 const modem::Nco& nco, float sigma, unsigned seed, int* out,
+                 void* stream) {
+  auto kernel = pulse_chain_kernel<kPassband, kNoisy, SPS, SPAN, kLong>;
+  constexpr int kSub = kChainThreads * chain_r<kLong>();
   const long long n_tiles = (k_sym + cs - 1) / cs;
   const int z_len = kSub + 2 * span;
   const size_t smem =
       (2 * static_cast<size_t>(modem::skew_len((kSub + span) * sps + 4)) +
-       2 * ((z_len + 1) & ~1) + modem::side_floats(map, nco)) *
+       2 * ((z_len + 1) & ~1) + modem::side_floats(map, nco) +
+       (kLong ? span * sps + 1 : 0)) *
       sizeof(float);
   cudaError_t err = modem::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -252,20 +273,27 @@ int launch_chain(const int* syms, long long n_ch, long long k_sym, int cs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation for a carrier mode, the noise and the shape.
+// The instantiation for a carrier mode, the noise, the route and the
+// shape: taps is a host modem::Taps (the short route), or null for the long
+// route, which reads taps_dev.
 template <bool kPassband, bool kNoisy>
 int launch_chain_shape(const int* syms, long long n_ch, long long k_sym,
                        int cs, const modem::Constellation& map,
-                       const modem::Taps& taps, int sps, int span,
-                       const modem::Nco& nco, float sigma, unsigned seed,
-                       int* out, void* stream) {
+                       const void* taps, const float* taps_dev, int sps,
+                       int span, const modem::Nco& nco, float sigma,
+                       unsigned seed, int* out, void* stream) {
+  if (taps == nullptr)
+    return launch_chain<kPassband, kNoisy, 0, 0, true>(
+        syms, n_ch, k_sym, cs, map, modem::TapsPtr{taps_dev}, sps, span, nco,
+        sigma, seed, out, stream);
+  const modem::Taps& t = *static_cast<const modem::Taps*>(taps);
   if (sps == 8 && span == 8)
-    return launch_chain<kPassband, kNoisy, 8, 8>(
-        syms, n_ch, k_sym, cs, map, taps, sps, span, nco, sigma, seed, out,
+    return launch_chain<kPassband, kNoisy, 8, 8, false>(
+        syms, n_ch, k_sym, cs, map, t, sps, span, nco, sigma, seed, out,
         stream);
-  return launch_chain<kPassband, kNoisy, 0, 0>(syms, n_ch, k_sym, cs, map,
-                                               taps, sps, span, nco, sigma,
-                                               seed, out, stream);
+  return launch_chain<kPassband, kNoisy, 0, 0, false>(
+      syms, n_ch, k_sym, cs, map, t, sps, span, nco, sigma, seed, out,
+      stream);
 }
 
 }  // namespace
@@ -275,41 +303,45 @@ extern "C" {
 // syms [n_ch, k_sym] int32 -> out [n_ch, k_sym] int32 decisions, in tiles of
 // cs symbols. The map: lut [n_points, 2] f32, or with lut null square QAM
 // (cshift, ms, a, c, s); the carrier: sr == 0 baseband, else hz, sr,
-// sym_offset and scale = f32(2*pi/sr); taps a host pointer to the
-// span*sps+1 taps in a modem::Taps (n_taps <= 256, sps <= 64), passed to
-// the kernel by value; noisy != 0 adds sigma * N(0, 1) from the stream
-// keyed by seed. Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// sym_offset and scale = f32(2*pi/sr); the span*sps+1 taps: taps a host
+// pointer to them in a modem::Taps, passed to the kernel by value (the
+// short route: n_taps <= 256, sps <= 64), or taps null and taps_dev the
+// device array (the long route: any chain whose tile fits shared memory);
+// noisy != 0 adds sigma * N(0, 1) from the stream keyed by seed. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
 int modem_chain(const int* syms, long long n_ch, long long k_sym, int cs,
                 const float* lut, int n_points, int cshift, float ms, float a,
-                float c, float s, const void* taps, int n_taps, int sps,
-                int span, int hz, int sr, long long sym_offset, float scale,
-                int noisy, float sigma, unsigned seed, int* out,
-                void* stream) {
+                float c, float s, const void* taps, const float* taps_dev,
+                int n_taps, int sps, int span, int hz, int sr,
+                long long sym_offset, float scale, int noisy, float sigma,
+                unsigned seed, int* out, void* stream) {
   // the matched filter's sample window is exactly the tile's halo
-  if (n_taps != span * sps + 1 || n_taps > modem::kMaxTaps || sps < 1 ||
-      sps > modem::kMaxSps || span < 0 || cs < 1)
+  if (n_taps != span * sps + 1 || sps < 1 || span < 0 || cs < 1 ||
+      (taps == nullptr ? taps_dev == nullptr
+                       : n_taps > modem::kMaxTaps || sps > modem::kMaxSps))
     return static_cast<int>(cudaErrorInvalidValue);
   const modem::Constellation map =
       modem::make_map(lut, n_points, cshift, ms, a, c, s);
   modem::Nco nco;
   if (!modem::make_nco(hz, sr, sps, sym_offset, scale, nco))
     return static_cast<int>(cudaErrorInvalidValue);
-  const modem::Taps& t = *static_cast<const modem::Taps*>(taps);
   const bool passband = sr != 0;
   if (passband && noisy)
-    return launch_chain_shape<true, true>(syms, n_ch, k_sym, cs, map, t, sps,
-                                          span, nco, sigma, seed, out, stream);
+    return launch_chain_shape<true, true>(syms, n_ch, k_sym, cs, map, taps,
+                                          taps_dev, sps, span, nco, sigma,
+                                          seed, out, stream);
   if (passband)
-    return launch_chain_shape<true, false>(syms, n_ch, k_sym, cs, map, t, sps,
-                                           span, nco, sigma, seed, out,
-                                           stream);
+    return launch_chain_shape<true, false>(syms, n_ch, k_sym, cs, map, taps,
+                                           taps_dev, sps, span, nco, sigma,
+                                           seed, out, stream);
   if (noisy)
-    return launch_chain_shape<false, true>(syms, n_ch, k_sym, cs, map, t, sps,
-                                           span, nco, sigma, seed, out,
-                                           stream);
-  return launch_chain_shape<false, false>(syms, n_ch, k_sym, cs, map, t, sps,
-                                          span, nco, sigma, seed, out, stream);
+    return launch_chain_shape<false, true>(syms, n_ch, k_sym, cs, map, taps,
+                                           taps_dev, sps, span, nco, sigma,
+                                           seed, out, stream);
+  return launch_chain_shape<false, false>(syms, n_ch, k_sym, cs, map, taps,
+                                          taps_dev, sps, span, nco, sigma,
+                                          seed, out, stream);
 }
 
 }  // extern "C"

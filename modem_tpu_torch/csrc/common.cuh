@@ -14,6 +14,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace modem {
 
@@ -33,6 +34,33 @@ constexpr int kMaxSps = 64;    // samples a symbol K1's and K3's tiles fit
 struct Taps {
   float v[kMaxTaps];
 };
+
+// The long route of K1 and K3, for a chain past either limit (more than
+// kMaxTaps taps, or more than kMaxSps samples a symbol): the taps arrive as
+// a device array, which the kernel stages in shared memory and reads at a
+// run-time index from there.
+struct TapsPtr {
+  const float* p;
+};
+
+// The kernel parameter of the short route (false) or the long one (true).
+template <bool kLong>
+using TapsArg = std::conditional_t<kLong, TapsPtr, Taps>;
+
+// What the filters read a tap from: the parameter itself on the short
+// route, the shared-memory copy `staged` on the long one.
+__device__ __forceinline__ const Taps& tap_view(const Taps& t, const float*) {
+  return t;
+}
+
+__device__ __forceinline__ const float* tap_view(const TapsPtr&,
+                                                 const float* staged) {
+  return staged;
+}
+
+__device__ __forceinline__ float tap(const Taps& t, int j) { return t.v[j]; }
+
+__device__ __forceinline__ float tap(const float* t, int j) { return t[j]; }
 
 // The symbol <-> I/Q map of the pulse-shaped chain: a table of n_points
 // entries (lut, staged in shared memory by the kernel), or, with lut null,
@@ -335,14 +363,14 @@ __device__ __forceinline__ void matched_fixed(const float* __restrict__ yi,
   }
 }
 
-// The same for any (sps, L): scalar loads, the taps read from the
-// parameter bank at a run-time index.
-template <int R>
+// The same for any (sps, L): scalar loads, the taps read at a run-time
+// index from the parameter bank (Taps) or, on the long route, from shared
+// memory (a pointer).
+template <int R, typename T>
 __device__ __forceinline__ void matched_generic(const float* __restrict__ yi,
                                                 const float* __restrict__ yq,
                                                 int base, int sps, int L,
-                                                const Taps& taps,
-                                                float (&ai)[R],
+                                                const T& taps, float (&ai)[R],
                                                 float (&aq)[R]) {
   const int W = (R - 1) * sps + L;
   for (int i = 0; i < W; ++i) {
@@ -352,7 +380,7 @@ __device__ __forceinline__ void matched_generic(const float* __restrict__ yi,
     for (int r = 0; r < R; ++r) {
       const int j = i - (R - 1 - r) * sps;
       if (j >= 0 && j < L) {
-        const float t = taps.v[j];
+        const float t = tap(taps, j);
         ai[r] = fmaf(t, vi, ai[r]);
         aq[r] = fmaf(t, vq, aq[r]);
       }

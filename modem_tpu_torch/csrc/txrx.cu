@@ -50,6 +50,11 @@
 //   16-byte loads with the taps as constant operands (Taps, a
 //   __grid_constant__ parameter), instantiated for the flagship's sps 8,
 //   span 8 and once generically.
+// - the long route, for a chain past the parameter's 256 taps or 64 samples
+//   a symbol: the taps as a device array staged in shared memory, the
+//   generic instantiation with one decision a thread (tiles of 32 to 128
+//   symbols), each tile loading its whole window where the lookahead is
+//   longer than the tile.
 // Every decision keeps the first version's one fmaf chain a rail, taps in
 // order from j = 0, so pushes of a stream equal one shot and the decisions
 // equal the plain version's; tensor cores are no lever here, their TF32
@@ -127,7 +132,14 @@ __global__ void pulse_tx_kernel(const int* __restrict__ syms, long long k_sym,
   }
 }
 
-constexpr int kRxR = 4;  // decisions a thread
+constexpr int kRxR = 4;  // decisions a thread (short route)
+
+// Decisions a thread: one on the long route, so that its tiles of longer
+// samples a symbol still fit shared memory.
+template <bool kLong>
+__host__ __device__ constexpr int rx_r() {
+  return kLong ? 1 : kRxR;
+}
 // Persistent blocks an SM, at most: 2 where baseband f32 lands in the
 // filter's buffers directly, 3 where a staging pass converts it (on the
 // H100 a third block slowed the direct mode, by a coarser split of the
@@ -135,10 +147,10 @@ constexpr int kRxR = 4;  // decisions a thread
 constexpr int kRxBlocksDirect = 2;
 constexpr int kRxBlocksStaged = 3;
 
-// K3's threads a block, 32 to 128: a tile of kRxR * threads symbols holds
+// K3's threads a block, 32 to 128: a tile of r * threads symbols holds
 // about 4096 samples a rail (8192 where sps > 32 leaves 32 threads).
-inline int rx_threads(int sps) {
-  const int t = (4096 / (kRxR * sps)) & ~31;
+inline int rx_threads(int sps, int r) {
+  const int t = (4096 / (r * sps)) & ~31;
   return t < 32 ? 32 : t > 128 ? 128 : t;
 }
 
@@ -162,17 +174,21 @@ __device__ __forceinline__ void raw4(const unsigned short* p, float (&v)[4]) {
 
 // Persistent: block b takes items [b*n/G, (b+1)*n/G) of the n = C * n_tiles
 // (channel, tile of `tile` decided symbols) items in channel-major order.
-// SPS > 0 is the instantiation for (SPS, SPAN); 0 the generic one.
-template <bool kSoft, bool kPassband, typename TRaw, int SPS, int SPAN>
+// SPS > 0 is the instantiation for (SPS, SPAN); 0 the generic one. kLong:
+// the long route (common.cuh, TapsPtr), always generic.
+template <bool kSoft, bool kPassband, typename TRaw, int SPS, int SPAN,
+          bool kLong>
 __global__ void __launch_bounds__(128)
     pulse_rx_kernel(const TRaw* __restrict__ wi, const TRaw* __restrict__ wq,
                     long long n_wave, long long n_sym, long long n_tiles,
                     long long n_items, int tile, int sps_rt, int span_rt,
-                    const __grid_constant__ modem::Taps taps,
+                    const __grid_constant__ modem::TapsArg<kLong> taps,
                     modem::Constellation map, modem::Nco nco,
                     int* __restrict__ out_sym, float* __restrict__ out_i,
                     float* __restrict__ out_q) {
   constexpr bool kFixed = SPS > 0;
+  static_assert(!(kFixed && kLong), "the long route is generic");
+  constexpr int R = rx_r<kLong>();
   constexpr bool kDirect = !kPassband && sizeof(TRaw) == sizeof(float);
   constexpr int kRails = kPassband ? 1 : 2;  // rails read from device memory
   const int sps = kFixed ? SPS : sps_rt;
@@ -184,6 +200,9 @@ __global__ void __launch_bounds__(128)
   const int f_len = modem::skew_len(win + 4);
   const int s_len = (win + 7) & ~7;
   const int nt = blockDim.x;
+  // a tile's tail is the next one's lookahead, unless the lookahead is the
+  // longer (the long route's spans): then each tile loads its whole window
+  const bool reuse = !kLong || halo <= body;
 
   // filter buffers [kDirect ? 2 : 1][2 rails][f_len] f32, skewed; staging
   // [2][kRails][s_len] raw (not direct); the table; the phase table
@@ -194,11 +213,14 @@ __global__ void __launch_bounds__(128)
       reinterpret_cast<float*>(stg + (kDirect ? 0 : 2 * kRails * s_len));
   float* tc = slut + (map.lut != nullptr ? 2 * map.n_points : 0);
   float* ts = tc + nco.period;
+  float* staps = tc + (kPassband && nco.table ? 2 * nco.period : 0);
 
   const long long lo = blockIdx.x * n_items / gridDim.x;
   const long long hi = (blockIdx.x + 1) * n_items / gridDim.x;
   if (map.lut != nullptr) modem::stage(slut, map.lut, 2 * map.n_points);
   if (kPassband && nco.table) modem::stage_nco(tc, ts, nco);
+  if constexpr (kLong) modem::stage(staps, taps.p, span * sps + 1);
+  const auto& tv = modem::tap_view(taps, staps);
 
   // Bring item `it`'s samples into buffer b: the whole window, or past the
   // lookahead the tile before leaves (cont).
@@ -225,8 +247,8 @@ __global__ void __launch_bounds__(128)
   if (lo < hi) issue(lo, 0, false);
   for (long long it = lo; it < hi; ++it) {
     const int b = static_cast<int>((it - lo) & 1);
-    const bool cont = it != lo && it % n_tiles != 0;
-    const bool cont_next = it + 1 < hi && (it + 1) % n_tiles != 0;
+    const bool cont = reuse && it != lo && it % n_tiles != 0;
+    const bool cont_next = reuse && it + 1 < hi && (it + 1) % n_tiles != 0;
     if (it + 1 < hi) {
       issue(it + 1, b ^ 1, cont_next);
       modem::cp_async_wait<1>();
@@ -303,18 +325,17 @@ __global__ void __launch_bounds__(128)
     // the matched filter: decisions m0 + r0 .. m0 + r0 + kRxR - 1
     const long long left = n_sym - m0;
     const int n_out = left < tile ? static_cast<int>(left) : tile;
-    const int r0 = kRxR * static_cast<int>(threadIdx.x);
+    const int r0 = R * static_cast<int>(threadIdx.x);
     if (r0 < n_out) {
-      float ai[kRxR] = {}, aq[kRxR] = {};
+      float ai[R] = {}, aq[R] = {};
       if constexpr (kFixed)
-        modem::matched_fixed<kRxR, SPS, SPAN * SPS + 1>(yi, yq, r0 * SPS, taps,
-                                                        ai, aq);
+        modem::matched_fixed<R, SPS, SPAN * SPS + 1>(yi, yq, r0 * SPS, taps,
+                                                     ai, aq);
       else
-        modem::matched_generic<kRxR>(yi, yq, r0 * sps, sps, n_taps, taps, ai,
-                                     aq);
+        modem::matched_generic<R>(yi, yq, r0 * sps, sps, n_taps, tv, ai, aq);
       const long long o = c * n_sym + m0 + r0;
 #pragma unroll
-      for (int r = 0; r < kRxR; ++r) {
+      for (int r = 0; r < R; ++r) {
         if (r0 + r >= n_out) break;
         if (kSoft) {
           out_i[o + r] = ai[r];
@@ -367,24 +388,26 @@ int launch_tx_kind(int out_kind, Args... args) {
   }
 }
 
-template <bool kSoft, bool kPassband, typename TRaw, int SPS, int SPAN>
+template <bool kSoft, bool kPassband, typename TRaw, int SPS, int SPAN,
+          bool kLong>
 int launch_rx(const void* wi, const void* wq, long long n_ch,
-              long long n_wave, long long n_sym, const modem::Taps& taps,
-              int sps, int span, const modem::Constellation& map,
-              const modem::Nco& nco, int* out_sym, float* out_i, float* out_q,
-              void* stream) {
+              long long n_wave, long long n_sym,
+              const modem::TapsArg<kLong>& taps, int sps, int span,
+              const modem::Constellation& map, const modem::Nco& nco,
+              int* out_sym, float* out_i, float* out_q, void* stream) {
   constexpr bool kDirect = !kPassband && sizeof(TRaw) == sizeof(float);
   constexpr int kRails = kPassband ? 1 : 2;
-  auto kernel = pulse_rx_kernel<kSoft, kPassband, TRaw, SPS, SPAN>;
-  const int nt = rx_threads(sps);
-  const int tile = kRxR * nt;
+  auto kernel = pulse_rx_kernel<kSoft, kPassband, TRaw, SPS, SPAN, kLong>;
+  const int nt = rx_threads(sps, rx_r<kLong>());
+  const int tile = rx_r<kLong>() * nt;
   const int win = (tile + span) * sps;
   const long long n_tiles = (n_sym + tile - 1) / tile;
   const long long n_items = n_ch * n_tiles;
   const size_t smem =
       (kDirect ? 4 : 2) * sizeof(float) * modem::skew_len(win + 4) +
       (kDirect ? 0 : 2 * kRails * sizeof(TRaw) * ((win + 7) & ~7)) +
-      sizeof(float) * modem::side_floats(map, nco);
+      sizeof(float) * (modem::side_floats(map, nco) +
+                       (kLong ? span * sps + 1 : 0));
   cudaError_t err = modem::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the blocks that fit an SM, asked at every launch (a few microseconds)
@@ -409,23 +432,30 @@ int launch_rx(const void* wi, const void* wq, long long n_ch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The RX instantiation for a shape, a carrier mode and an input type.
+// The RX instantiation for a route, a shape, a carrier mode and an input
+// type: taps is a host modem::Taps (the short route), or null for the long
+// route, which reads taps_dev.
 template <bool kSoft, bool kPassband, typename TRaw>
 int launch_rx_shape(const void* wi, const void* wq, long long n_ch,
                     long long n_wave, long long n_sym, const void* taps,
-                    int n_taps, int sps, int span,
+                    const float* taps_dev, int n_taps, int sps, int span,
                     const modem::Constellation& map, const modem::Nco& nco,
                     int* out_sym, float* out_i, float* out_q, void* stream) {
   // the matched filter's sample window is exactly the tile's halo
-  if (n_taps != span * sps + 1 || n_taps > modem::kMaxTaps || sps < 1 ||
-      sps > modem::kMaxSps || span < 0)
+  if (n_taps != span * sps + 1 || sps < 1 || span < 0 ||
+      (taps == nullptr ? taps_dev == nullptr
+                       : n_taps > modem::kMaxTaps || sps > modem::kMaxSps))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (taps == nullptr)
+    return launch_rx<kSoft, kPassband, TRaw, 0, 0, true>(
+        wi, wq, n_ch, n_wave, n_sym, modem::TapsPtr{taps_dev}, sps, span, map,
+        nco, out_sym, out_i, out_q, stream);
   const modem::Taps& t = *static_cast<const modem::Taps*>(taps);
   if (sps == 8 && span == 8)
-    return launch_rx<kSoft, kPassband, TRaw, 8, 8>(
+    return launch_rx<kSoft, kPassband, TRaw, 8, 8, false>(
         wi, wq, n_ch, n_wave, n_sym, t, sps, span, map, nco, out_sym, out_i,
         out_q, stream);
-  return launch_rx<kSoft, kPassband, TRaw, 0, 0>(
+  return launch_rx<kSoft, kPassband, TRaw, 0, 0, false>(
       wi, wq, n_ch, n_wave, n_sym, t, sps, span, map, nco, out_sym, out_i,
       out_q, stream);
 }
@@ -473,34 +503,39 @@ int modem_tx(const int* syms, long long n_ch, long long k_sym,
 
 // wi, wq [n_ch, n_wave] (f32, or bf16 with in_bf16; wq unused at passband)
 // -> out_sym [n_ch, n_sym] int32, samples past n_wave read as zero; the map
-// and carrier as modem_tx's; taps a host pointer to the span*sps+1 taps in
-// a modem::Taps (n_taps <= 256, sps <= 64), passed to the kernel by value.
+// and carrier as modem_tx's; the span*sps+1 taps: taps a host pointer to
+// them in a modem::Taps, passed to the kernel by value (the short route:
+// n_taps <= 256, sps <= 64), or taps null and taps_dev the device array
+// (the long route: any chain whose tile fits shared memory).
 int modem_rx_hard(const void* wi, const void* wq, int in_bf16, long long n_ch,
                   long long n_wave, long long n_sym, const void* taps,
-                  int n_taps, int sps, int span, const float* lut,
-                  int n_points, int cshift, float ms, float a, float c,
-                  float s, int hz, int sr, long long sym_offset, float scale,
-                  int* out_sym, void* stream) {
+                  const float* taps_dev, int n_taps, int sps, int span,
+                  const float* lut, int n_points, int cshift, float ms,
+                  float a, float c, float s, int hz, int sr,
+                  long long sym_offset, float scale, int* out_sym,
+                  void* stream) {
   modem::Nco nco;
   if (!modem::make_nco(hz, sr, sps, sym_offset, scale, nco))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_rx_mode<false>(
-      sr != 0, in_bf16, wi, wq, n_ch, n_wave, n_sym, taps, n_taps, sps, span,
-      modem::make_map(lut, n_points, cshift, ms, a, c, s), nco, out_sym,
-      static_cast<float*>(nullptr), static_cast<float*>(nullptr), stream);
+      sr != 0, in_bf16, wi, wq, n_ch, n_wave, n_sym, taps, taps_dev, n_taps,
+      sps, span, modem::make_map(lut, n_points, cshift, ms, a, c, s), nco,
+      out_sym, static_cast<float*>(nullptr), static_cast<float*>(nullptr),
+      stream);
 }
 
 // As modem_rx_hard, to the decision-point I/Q out_i, out_q [n_ch, n_sym].
 int modem_rx_soft(const void* wi, const void* wq, int in_bf16, long long n_ch,
                   long long n_wave, long long n_sym, const void* taps,
-                  int n_taps, int sps, int span, int hz, int sr,
-                  long long sym_offset, float scale, float* out_i,
-                  float* out_q, void* stream) {
+                  const float* taps_dev, int n_taps, int sps, int span,
+                  int hz, int sr, long long sym_offset, float scale,
+                  float* out_i, float* out_q, void* stream) {
   modem::Nco nco;
   if (!modem::make_nco(hz, sr, sps, sym_offset, scale, nco))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_rx_mode<true>(
-      sr != 0, in_bf16, wi, wq, n_ch, n_wave, n_sym, taps, n_taps, sps, span,
+      sr != 0, in_bf16, wi, wq, n_ch, n_wave, n_sym, taps, taps_dev, n_taps,
+      sps, span,
       modem::make_map(nullptr, 0, 0, 0.f, 1.f, 1.f, 0.f), nco,
       static_cast<int*>(nullptr), out_i, out_q, stream);
 }

@@ -37,7 +37,8 @@ _MAP = [_P, _I, _I, _F, _F, _F, _F]
 _NCO = [_I, _I, _L, _F]
 #: argument types of each C entry point (pointers and the stream as
 #: c_void_p; the taps of ``modem_chain``, ``modem_rx_hard`` and
-#: ``modem_rx_soft`` a host pointer, ``ops.txrx.kernel_taps``)
+#: ``modem_rx_soft`` a host pointer or null, then a device pointer,
+#: ``ops.txrx.kernel_taps``)
 SIGNATURES = {
     "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
     "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _P, _P, _P],
@@ -52,12 +53,12 @@ SIGNATURES = {
                            _I, _P, _P, _P, _P],
     "modem_tx": [_P, _L, _L, *_MAP, _P, _I, _I, _I, *_NCO, _I, _F, _P, _P,
                  _P],
-    "modem_rx_hard": [_P, _P, _I, _L, _L, _L, _P, _I, _I, _I, *_MAP, *_NCO,
+    "modem_rx_hard": [_P, _P, _I, _L, _L, _L, _P, _P, _I, _I, _I, *_MAP,
+                      *_NCO, _P, _P],
+    "modem_rx_soft": [_P, _P, _I, _L, _L, _L, _P, _P, _I, _I, _I, *_NCO, _P,
                       _P, _P],
-    "modem_rx_soft": [_P, _P, _I, _L, _L, _L, _P, _I, _I, _I, *_NCO, _P, _P,
-                      _P],
-    "modem_chain": [_P, _L, _L, _I, *_MAP, _P, _I, _I, _I, *_NCO, _I, _F, _U,
-                    _P, _P],
+    "modem_chain": [_P, _L, _L, _I, *_MAP, _P, _P, _I, _I, _I, *_NCO, _I, _F,
+                    _U, _P, _P],
     "modem_fir": [_P, _P, _L, _L, _P, _I, _P, _P],
     "modem_demod": [_P, _I, _P, _L, _L, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     "modem_viterbi": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _L, _I,
@@ -71,6 +72,9 @@ SIGNATURES = {
 }
 
 _library: ctypes.CDLL | None = None
+#: the compilers' output of each library that failed to build in this
+#: process, so that later calls raise it again without re-running ``nvcc``
+_failed_builds: dict[Path, str] = {}
 
 
 def _nvcc() -> str:
@@ -87,13 +91,16 @@ def _nvcc() -> str:
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libmodem_kernels_<hash>.so``
     unless that file exists: one ``nvcc -c`` per source, all started
-    together, then one link. The compilers' output (``ptxas`` register and
+    together, then one link. A failed build is raised again, without a new
+    compile, for the rest of the process. The compilers' output (``ptxas`` register and
     shared-memory counts) goes to the ``.log`` beside the library."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(path.name.encode() + path.read_bytes())
     so = BUILD_DIR / f"libmodem_kernels_{digest.hexdigest()[:16]}.so"
+    if so in _failed_builds:  # the same sources failed: fail fast again
+        raise RuntimeError(_failed_builds[so])
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -115,7 +122,8 @@ def build_library() -> Path:
     for obj in objs:
         obj.unlink(missing_ok=True)
     if link is None or link.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + "".join(logs))
+        _failed_builds[so] = "nvcc failed:\n" + "".join(logs)
+        raise RuntimeError(_failed_builds[so])
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     return so
 

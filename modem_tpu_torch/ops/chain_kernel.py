@@ -216,11 +216,11 @@ def chain_kernel(symbols, lut, taps, sps: int, span: int, qam=None,
     if lut is not None:
         check_cuda("lut", lut, torch.float32, dev)
     out = torch.empty_like(flat)
-    host_taps = kernel_taps(taps, sps)
+    route_taps = kernel_taps(taps, sps)
     if out.numel():
         CHAIN_KERNEL.launch(
             dev, flat.data_ptr(), flat.shape[0], k, cs, *_kernel_map(lut, qam),
-            host_taps, taps.shape[0], sps, span,
+            *route_taps, taps.shape[0], sps, span,
             *_kernel_carrier(carrier, sym_offset), int(sigma is not None),
             0.0 if sigma is None else sigma, seed & _U32, out.data_ptr())
     return out.reshape(symbols.shape)

@@ -40,10 +40,11 @@ from .polyphase import polyphase_decim, polyphase_interp
 from .slicer import as_lut, lut_slice
 
 MAX_LUT_POINTS = 64
-#: the most taps K1 and K3 take: their taps travel by value in a kernel
-#: parameter of this many floats (``csrc/common.cuh``, ``Taps``)
+#: the most taps K1's and K3's short route takes: there the taps travel by
+#: value in a kernel parameter of this many floats (``csrc/common.cuh``,
+#: ``Taps``); a longer chain takes the long route
 MAX_KERNEL_TAPS = 256
-#: the most samples a symbol K1's and K3's shared-memory tiles fit
+#: the most samples a symbol K1's and K3's short route takes
 MAX_KERNEL_SPS = 64
 
 TX_KERNEL = Kernel("modem_tx")
@@ -181,23 +182,22 @@ class _Taps(ctypes.Structure):
 _HOST_TAPS: dict[int, tuple] = {}
 
 
-def kernel_taps(taps: torch.Tensor, sps: int) -> int:
-    """The address of a host copy of ``taps`` as K1 and K3 take them (by
-    value, in a kernel parameter), kept while ``taps`` lives and is not
-    modified. Raises ``ValueError`` for more than ``MAX_KERNEL_TAPS`` taps
-    or more than ``MAX_KERNEL_SPS`` samples a symbol."""
-    if taps.shape[0] > MAX_KERNEL_TAPS:
-        raise ValueError(f"the kernel takes at most {MAX_KERNEL_TAPS} taps, "
-                         f"got {taps.shape[0]}")
-    if sps > MAX_KERNEL_SPS:
-        raise ValueError(f"the kernel takes at most {MAX_KERNEL_SPS} samples "
-                         f"a symbol, got {sps}")
+def kernel_taps(taps: torch.Tensor, sps: int) -> tuple:
+    """K1's and K3's taps arguments, which pick the route: ``(host, device)``
+    with ``host`` the address of a host copy of ``taps`` as the short route
+    takes them (by value, in a kernel parameter), kept while ``taps`` lives
+    and is not modified; or ``(None, device)`` for a chain of more than
+    ``MAX_KERNEL_TAPS`` taps or ``MAX_KERNEL_SPS`` samples a symbol, which
+    takes the long route (the taps read from ``device``, the address of
+    ``taps`` on the card)."""
+    if taps.shape[0] > MAX_KERNEL_TAPS or sps > MAX_KERNEL_SPS:
+        return None, taps.data_ptr()
     # an inference tensor has no version counter: copied at every launch
     version = None if taps.is_inference() else taps._version
     hit = _HOST_TAPS.get(id(taps))
     if (version is not None and hit is not None and hit[0]() is taps
             and hit[1] == version):
-        return ctypes.addressof(hit[2])
+        return ctypes.addressof(hit[2]), taps.data_ptr()
     if len(_HOST_TAPS) >= 64:
         for key in [k for k, v in _HOST_TAPS.items() if v[0]() is None]:
             del _HOST_TAPS[key]
@@ -205,7 +205,7 @@ def kernel_taps(taps: torch.Tensor, sps: int) -> int:
     values = taps.detach().cpu().numpy()
     param.v[:values.shape[0]] = values.tolist()
     _HOST_TAPS[id(taps)] = (weakref.ref(taps), version, param)
-    return ctypes.addressof(param)
+    return ctypes.addressof(param), taps.data_ptr()
 
 
 def _kernel_carrier(carrier, sym_offset) -> tuple:
@@ -360,7 +360,7 @@ def rx_kernel(wi, wq, n_symbols: int, lut, taps, sps: int, span: int,
     shape = wi.shape[:-1] + (n_symbols,)
     bf16 = int(rails[0].dtype == torch.bfloat16)
     head = (rails[0].data_ptr(), rails[-1].data_ptr() if wq is not None
-            else None, bf16, c, n, n_symbols, kernel_taps(taps, sps),
+            else None, bf16, c, n, n_symbols, *kernel_taps(taps, sps),
             taps.shape[0], sps, span)
     nco = _kernel_carrier(carrier, sym_offset)
     if soft:

@@ -219,3 +219,46 @@ def test_bpsk_chain():
     np.testing.assert_array_equal(
         tc.roundtrip_fused(torch.as_tensor(bits)).numpy(),
         np.asarray(jc.roundtrip_fused(jnp.asarray(bits))))
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_matched_filter_and_decimate(chains, case, noisy):
+    """The staged RX's two steps on their own, against the JAX chain's."""
+    jc, tc = chains
+    _, clean, dirty = case
+    w = dirty if noisy else clean
+    want = [np.asarray(y) for y in jc.matched_filter(*_j(w))]
+    got = tc.matched_filter(*_t(w))
+    for g, y in zip(got, want):
+        assert g.shape == y.shape
+        np.testing.assert_allclose(g.numpy(), y, atol=ATOL)
+    # decimate on the same numpy inputs: a gather, so equal exactly
+    want_d = jc.decimate(*(jnp.asarray(y) for y in want), K)
+    got_d = tc.decimate(*(torch.as_tensor(y) for y in want), K)
+    for g, y in zip(got_d, want_d):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(y))
+
+
+@pytest.mark.parametrize("carrier_hz", [2000, 1700])
+def test_matched_filter_passband(carrier_hz):
+    """A passband chain: product detection, then the two steps, against
+    the JAX chain's on the JAX waveform."""
+    from modem_tpu.models.psk import QPSK as JQPSK
+    from modem_tpu_torch.models.psk import QPSK
+
+    jc = JChain(JQPSK(0.0, 1.0), JRates(1250, 10000), carrier_hz=carrier_hz)
+    tc = PulseShapedChain(QPSK(0.0, 1.0), Rates(1250, 10000),
+                          carrier_hz=carrier_hz, device="cpu")
+    np.testing.assert_array_equal(tc.rrc.numpy(), np.asarray(jc.rrc))
+    bits = np.random.default_rng(3).integers(0, 2, (C, 2 * K)).astype(np.int32)
+    x = np.asarray(jc.tx(jnp.asarray(bits)))
+    want = jc.matched_filter(*jc.downconvert(jnp.asarray(x)))
+    got = tc.matched_filter(*tc.downconvert(torch.as_tensor(x)))
+    for g, y in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(y), atol=ATOL)
+    di, dq = tc.decimate(*got, K)
+    jdi, jdq = jc.decimate(*want, K)
+    np.testing.assert_allclose(di.numpy(), np.asarray(jdi), atol=ATOL)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), atol=ATOL)
+    # the decisions the two steps lead to are the staged rx's
+    np.testing.assert_array_equal(tc.rx(torch.as_tensor(x), K).numpy(), bits)

@@ -113,3 +113,36 @@ def test_cpu_tensors_take_the_plain_version():
     with pytest.raises(ValueError, match="kernel takes"):
         chain_kernel.chain_kernel(syms, torch.as_tensor(QPSK_LUT),
                                   torch.as_tensor(RRC), SPS, SPAN)
+
+
+@pytest.mark.parametrize("sps,span", [(8, 32), (20, 16)])
+@pytest.mark.parametrize("carrier", [None, 5], ids=["baseband", "passband"])
+def test_long_chains_match_jax(sps, span, carrier):
+    """Chains past K1's short route on the card (more than 256 taps, or
+    sps 20): the plain version the CPU runs decides as the JAX kernel does
+    (a carrier at a fifth of the sample rate). The JAX K1 takes spans below
+    its 32-row halo only (``pallas_chain.HALO_ROWS``), so at span 32 the
+    port's loopback is held to the JAX one-way pair, ``fused_tx`` then
+    ``fused_rx``, in interpret mode."""
+    from modem_tpu.ops import pallas_txrx as jtxrx
+
+    rrc = rrc_taps(sps, span, 0.35)
+    assert len(rrc) > txrx.MAX_KERNEL_TAPS
+    syms = np.random.default_rng(sps).integers(0, 4, (2, 96)).astype(np.int32)
+    kw = {}
+    if carrier:
+        sr = sps * 1250
+        kw = {"carrier_hz": sr // carrier, "sample_rate": sr,
+              "sym_offset": -16}
+    if span < jchain.HALO_ROWS:
+        want = jchain.fused_pulse_chain(jnp.asarray(syms), QPSK_LUT, rrc,
+                                        sps, span, **kw)
+    else:
+        wave = jtxrx.fused_tx(jnp.asarray(syms), QPSK_LUT, rrc, sps, span,
+                              **kw)
+        want = jtxrx.fused_rx(wave, syms.shape[-1], QPSK_LUT, rrc, sps, span,
+                              **kw)
+    got = chain_kernel.fused_pulse_chain(torch.as_tensor(syms), QPSK_LUT, rrc,
+                                         sps, span, **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), syms)

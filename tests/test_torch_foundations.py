@@ -260,3 +260,21 @@ def test_error_counts():
     np.testing.assert_allclose(
         float(tmetrics.ser(_t(sa), _t(sb))),
         float(jmetrics.ser(jnp.asarray(sa), jnp.asarray(sb))), rtol=1e-6)
+
+
+def test_package_exports_freq_and_nco():
+    """``Freq`` at the top and ``nco`` in ``ops``, as ``modem_tpu``
+    exports them."""
+    import modem_tpu
+    import modem_tpu.ops
+    import modem_tpu_torch
+    import modem_tpu_torch.ops
+
+    assert "Freq" in modem_tpu.__all__ and "Freq" in modem_tpu_torch.__all__
+    assert modem_tpu_torch.Freq is tcfg.Freq
+    assert modem_tpu_torch.ops.__all__ == modem_tpu.ops.__all__ == ["nco"]
+    for name in ("carrier_phase", "mix_up", "mix_down"):
+        assert callable(getattr(modem_tpu_torch.ops.nco, name))
+        assert callable(getattr(modem_tpu.ops.nco, name))
+    jf, tf = modem_tpu.Freq(2000, 10000), modem_tpu_torch.Freq(2000, 10000)
+    assert (tf.ang_freq, tf.sample_freq) == (jf.ang_freq, jf.sample_freq)

@@ -553,25 +553,66 @@ def test_k3_continued_tiles(sps, span, mode, dev):
     _rx_exact(rails, k, lut, taps, sps, span, carrier=carrier, sym_offset=off)
 
 
-def test_k1_k3_refuse_more_taps_than_the_parameter(dev):
-    """A chain with more taps than the kernel parameter holds (256), or
-    more samples a symbol than the tiles fit (64), is refused with
-    ValueError before any launch."""
+#: K1's and K3's long route: more than 256 taps, more than 64 samples a
+#: symbol, or both; (96, 40) has a lookahead longer than K3's tile
+LONG = [(8, 32), (20, 16), (96, 1), (96, 40)]
+
+
+@pytest.mark.parametrize("sps,span", LONG, ids=[f"sps{a}_span{b}"
+                                                for a, b in LONG])
+@pytest.mark.parametrize("carrier", [False, True],
+                         ids=["baseband", "passband"])
+def test_k1_k3_long_route(sps, span, carrier, dev):
+    """Chains past the short route's limits take the long route (taps from
+    a device array, staged in shared memory): K1 and K3 hard bit for bit
+    against the plain version, K3 soft within ATOL, baseband and passband
+    (a carrier at a fifth of the sample rate, sym_offset -7), over 300
+    channels, so that K3's persistent blocks walk consecutive tiles."""
+    assert (sps * span + 1 > txrx.MAX_KERNEL_TAPS
+            or sps > txrx.MAX_KERNEL_SPS)
     lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
-    syms = _syms((2, 50), dev, 13)
-    for sps, span in ((8, 32), (65, 1)):
-        taps = _taps(sps, span).to(dev)
-        before = (chain_kernel.CHAIN_KERNEL.launches,
-                  txrx.RX_HARD_KERNEL.launches, txrx.RX_SOFT_KERNEL.launches)
-        with pytest.raises(ValueError, match="at most"):
-            chain_kernel.chain_kernel(syms, lut, taps, sps, span)
-        wi, wq = txrx.tx_plain(syms, lut, taps, sps, span)
-        for soft in (False, True):
-            with pytest.raises(ValueError, match="at most"):
-                txrx.rx_kernel(wi, wq, 50, lut, taps, sps, span, soft)
-        assert before == (chain_kernel.CHAIN_KERNEL.launches,
-                          txrx.RX_HARD_KERNEL.launches,
-                          txrx.RX_SOFT_KERNEL.launches)
+    taps = _taps(sps, span).to(dev)
+    assert txrx.kernel_taps(taps, sps)[0] is None
+    k = 400
+    syms = _syms((300, k), dev, sps + span, sentinels=True)
+    sr = sps * 1000
+    c, off = ((sr // 5, sr), -7) if carrier else (None, 0)
+    _chain_exact(syms, lut, taps, sps, span, carrier=c, sym_offset=off)
+    _chain_exact(syms, lut, taps, sps, span, carrier=c, sym_offset=off,
+                 cs=100)
+    clean = syms.clamp(min=0)
+    wave = txrx.tx_plain(clean, lut, taps, sps, span, None, c, off)
+    rails = (wave, None) if carrier else wave
+    g = torch.Generator(device=dev).manual_seed(sps)
+    rails = tuple(None if w is None else
+                  w + 0.2 * torch.randn(w.shape, generator=g, device=dev)
+                  for w in rails)
+    _rx_exact(rails, k, lut, taps, sps, span, carrier=c, sym_offset=off)
+
+
+def test_k1_k3_long_route_modes(dev):
+    """The long route keeps every mode: algebraic 256-QAM, bf16 input and
+    K1's in-kernel noise (the plain version's stream, decisions equal on
+    >= 99.99%), at sps 20, span 16."""
+    sps, span = 20, 16
+    taps = _taps(sps, span).to(dev)
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    syms = _syms((130, 300), dev, 21, bps=8)
+    _chain_exact(syms, None, taps, sps, span, qam=QAM256)
+    wave = txrx.tx_plain(syms, None, taps, sps, span, QAM256)
+    _rx_exact(wave, 300, None, taps, sps, span, qam=QAM256)
+    qsyms = _syms((130, 300), dev, 22)
+    for c in (None, (4000, 20000)):
+        wave = txrx.tx_plain(qsyms, lut, taps, sps, span, None, c, -16, None,
+                             torch.bfloat16)
+        rails = wave if c is None else (wave, None)
+        _rx_exact(rails, 300, lut, taps, sps, span, carrier=c, sym_offset=-16)
+        sigma = chain_kernel.snr_sigma(1.0, 6.0, c)
+        args = (qsyms, lut, taps, sps, span, None, c, -8, sigma, 5, 32)
+        got = _launches(chain_kernel.CHAIN_KERNEL, chain_kernel.chain_kernel,
+                        *args)
+        want = chain_kernel.chain_plain(*args)
+        assert float((got == want).double().mean()) >= 0.9999
 
 
 @pytest.mark.parametrize("hz", [2000, 1700, 1999, 3000],
@@ -1584,6 +1625,45 @@ def test_scl_kernel(idx, ties, dev):
         got = _launches(lk.SCL_KERNEL, code.decode_list, lam.to(dev), 8,
                         crc=crc)
         assert torch.equal(got.cpu(), code.decode_list(lam, 8, crc=crc))
+
+
+#: K16's hazards since its redesign: (id, n, k, codewords, LLR kind).
+#: "weak": LLRs of |llr| < 0.3, so that most info leaves keep both
+#: children of many paths (many clones a leaf, node buffers shared across
+#: slots for long); k = n: no frozen leaf at all; n = 8 and 32: the
+#: register-only tree and one word of x; 2500 codewords: more than one
+#: wave of the card; ties at n = 1024: equal metrics everywhere, 32 words
+#: of x a path
+SCL_HAZARDS = [
+    ("many_clones_n256_k200", 256, 200, 64, "weak"),
+    ("all_info_n64", 64, 64, 64, "weak"),
+    ("n32_k16", 32, 16, 64, "noisy"),
+    ("n8_k8", 8, 8, 64, "weak"),
+    ("wave_2500_n256", 256, 128, 2500, "noisy"),
+    ("ties_n1024", 1024, 512, 48, "ties"),
+    ("weak_n1024", 1024, 700, 48, "weak"),
+]
+
+
+@pytest.mark.parametrize("case", SCL_HAZARDS, ids=[c[0] for c in SCL_HAZARDS])
+def test_scl_kernel_hazards(case, dev):
+    """K16 against its plain version on the shapes its path sharing and
+    bit-packed partial sums must survive: decisions and metrics bit for
+    bit."""
+    from modem_tpu_torch.fec import PolarCode
+    from modem_tpu_torch.ops import scl_kernel as lk
+
+    _, n, k, b, kind = case
+    code = PolarCode(n, k)
+    if kind == "weak":
+        rng = np.random.default_rng(n + k)
+        lam = torch.as_tensor(rng.uniform(-0.3, 0.3, (b, n)),
+                              dtype=torch.float32)
+    else:
+        lam = _polar_llrs(n, b, 70 + n, kind == "ties")
+    u, pm = _launches(lk.SCL_KERNEL, lk.scl_kernel, code, lam.to(dev))
+    pu, ppm = lk.scl_plain(code, lam.to(dev))
+    assert torch.equal(u, pu) and torch.equal(pm, ppm)
 
 
 def test_polar_kernels_refuse_what_they_do_not_take(dev):

@@ -224,3 +224,39 @@ def test_cpu_tensors_take_the_plain_version():
         txrx.tx_kernel(syms, lut, taps, SPS, SPAN)
     with pytest.raises(ValueError, match="kernel takes"):
         txrx.rx_kernel(wi, wq, 20, lut, taps, SPS, SPAN, False)
+
+
+@pytest.mark.parametrize("sps,span", [(8, 32), (20, 16)])
+@pytest.mark.parametrize("carrier", [None, 5], ids=["baseband", "passband"])
+def test_long_chains_match_jax(sps, span, carrier):
+    """Chains past K3's short route on the card (more than 256 taps, or
+    sps 20): on the JAX TX's waveform with light noise, the plain version
+    the CPU runs decides as the JAX kernel does, and its soft points agree
+    (a carrier at a fifth of the sample rate)."""
+    rrc = rrc_taps(sps, span, 0.35)
+    assert len(rrc) > txrx.MAX_KERNEL_TAPS
+    rng = np.random.default_rng(sps)
+    syms = _syms(rng, (2, 96))
+    kw = {}
+    if carrier:
+        sr = sps * 1250
+        kw = {"carrier_hz": sr // carrier, "sample_rate": sr,
+              "sym_offset": -16}
+    wave = jtxrx.fused_tx(jnp.asarray(syms), QPSK_LUT, rrc, sps, span, **kw)
+    wave = (wave,) if carrier else wave
+    noisy = tuple((np.asarray(w) + rng.normal(0, 0.15, w.shape))
+                  .astype(np.float32) for w in wave)
+    jw = jnp.asarray(noisy[0]) if carrier else tuple(map(jnp.asarray, noisy))
+    tw = torch.as_tensor(noisy[0]) if carrier else tuple(
+        map(torch.as_tensor, noisy))
+    for soft in (False, True):
+        want = jtxrx.fused_rx(jw, 96, QPSK_LUT, rrc, sps, span, soft=soft,
+                              **kw)
+        got = txrx.fused_rx(tw, 96, QPSK_LUT, rrc, sps, span, soft=soft, **kw)
+        if soft:
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           atol=ATOL)
+        else:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            np.testing.assert_array_equal(got.numpy(), syms)
