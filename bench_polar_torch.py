@@ -23,51 +23,23 @@ time per call (3 calls a rep) and, from one profile of 3 calls, the device's
 busy time per call split into K16's and every other kernel's and copy's.
 
 Each process prints one JSON line of its reps; the run ends with each
-metric's summary over the processes of each tree (``bench_turbo_torch.py``'s
-``summary``), then the card's name and power limit. Needs a CUDA card;
-imports nothing of JAX.
+metric's summary over the processes of each tree, then the card's name and
+power limit (``bench_turbo_torch.py``'s ``alternate``, whose timers it
+shares). Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
 import pathlib
-import subprocess
 import sys
 
-from bench_turbo_torch import event_ms, smoke, summary
+from bench_turbo_torch import alternate, busy_ms, event_ms, smoke
 
-HERE = pathlib.Path(__file__).resolve().parent
 POLAR_N, POLAR_K, SIGMA = 256, 128, 0.8
 CODEWORDS = (4096, 1024)
 CHANNELS, SYMBOLS = 256, 4096
 LINK_FRAMES, LINK_SNR_DB = 256, 3.0
 SEED = 67
-
-
-def busy_ms(fn, args, symbol: str, calls: int = 3) -> tuple[float, float]:
-    """(the device time of kernels named ``symbol``, every other kernel's
-    and copy's) per call, from one profile of ``calls`` calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    mine = other = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if symbol in e.key:
-            mine += e.device_time_total
-        else:
-            other += e.device_time_total
-    return mine / calls / 1e3, other / calls / 1e3
 
 
 def run_one(tree: pathlib.Path, reps: int) -> dict:
@@ -130,39 +102,6 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
     return res
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--trees", nargs="+", type=pathlib.Path, default=[HERE])
-    ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)
-    a = ap.parse_args()
-    import torch
-
-    if not torch.cuda.is_available():
-        print("bench_polar_torch: no CUDA device", file=sys.stderr)
-        return 1
-    if a.one is not None:
-        print(json.dumps(run_one(a.one, a.reps)), flush=True)
-        return 0
-    order = []
-    for _ in range(a.rounds):
-        order += a.trees + a.trees[::-1]
-    runs = []
-    for tree in order:
-        proc = subprocess.run(
-            [sys.executable, str(HERE / "bench_polar_torch.py"), "--one",
-             str(tree.resolve()), "--reps", str(a.reps)],
-            capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return proc.returncode
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]), flush=True)
-    print(json.dumps(summary(runs), indent=1))
-    print(f"card: {smoke().card_line()}")
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(alternate(pathlib.Path(__file__).resolve(), __doc__, run_one,
+                       rounds=1, reps=5))

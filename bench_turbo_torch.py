@@ -91,9 +91,9 @@ def host_us(fn, args, reps: int) -> list[float]:
     return out
 
 
-def busy_ms(fn, args, calls: int = 3) -> tuple[float, float]:
-    """(K14's device time, every other kernel's and copy's) per call, from
-    one profile of ``calls`` calls."""
+def busy_ms(fn, args, symbol: str, calls: int = 3) -> tuple[float, float]:
+    """(the device time of kernels named ``symbol``, every other kernel's
+    and copy's) per call, from one profile of ``calls`` calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -104,15 +104,15 @@ def busy_ms(fn, args, calls: int = 3) -> tuple[float, float]:
         for _ in range(calls):
             fn(*args)
         torch.cuda.synchronize()
-    k14 = other = 0.0
+    mine = other = 0.0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        if "bcjr_kernel" in e.key:
-            k14 += e.device_time_total
+        if symbol in e.key:
+            mine += e.device_time_total
         else:
             other += e.device_time_total
-    return k14 / calls / 1e3, other / calls / 1e3
+    return mine / calls / 1e3, other / calls / 1e3
 
 
 def ptxas_lines(so) -> list[str]:
@@ -167,7 +167,8 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
              lambda x: code.decode(x, iters=ITERS, early_exit=True), (llr,)),
             ("link_rx_fused", link.rx_fused, (wave, nv))):
         res[f"{tag}_ms"] = event_ms(fn, args, 3, reps)
-        res[f"{tag}_k14_ms"], res[f"{tag}_other_ms"] = busy_ms(fn, args)
+        res[f"{tag}_k14_ms"], res[f"{tag}_other_ms"] = busy_ms(
+            fn, args, "bcjr_kernel")
     dec = code.decode(llr, iters=ITERS)
     res["decode_bit_errors"] = int((dec.to(torch.int32) != bits).sum())
     got, ok = link.rx_fused(wave, nv)[:2]
@@ -211,17 +212,25 @@ def summary(runs: list[dict]) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def alternate(script: pathlib.Path, doc: str, run_one, rounds: int,
+              reps: int) -> int:
+    """The command line of an A/B timing script: parse ``--trees``,
+    ``--rounds`` and ``--reps``; run ``run_one(tree, reps)`` for every tree
+    in a fresh process of ``script`` (``--one``), A B B A for each round;
+    print each process's JSON line, then :func:`summary`, whether every
+    process gave the same output hashes (its keys ending in ``_sha``) and
+    the card's name and power limit. Exits non-zero without a CUDA device,
+    when a process fails or when two processes' hashes differ."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", type=pathlib.Path, default=[HERE])
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--rounds", type=int, default=rounds)
+    ap.add_argument("--reps", type=int, default=reps)
     ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)
     a = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
-        print("bench_turbo_torch: no CUDA device", file=sys.stderr)
+        print(f"{script.stem}: no CUDA device", file=sys.stderr)
         return 1
     if a.one is not None:
         print(json.dumps(run_one(a.one, a.reps)), flush=True)
@@ -232,8 +241,8 @@ def main() -> int:
     runs = []
     for tree in order:
         proc = subprocess.run(
-            [sys.executable, str(HERE / "bench_turbo_torch.py"), "--one",
-             str(tree.resolve()), "--reps", str(a.reps)],
+            [sys.executable, str(script), "--one", str(tree.resolve()),
+             "--reps", str(a.reps)],
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -241,9 +250,16 @@ def main() -> int:
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     print(json.dumps(summary(runs), indent=1))
+    shas = sorted({k for r in runs for k in r if k.endswith("_sha")})
+    differ = [k for k in shas if len({r.get(k) for r in runs}) > 1]
+    if shas:
+        print(f"output hashes ({len(shas)} cases): "
+              + (f"DIFFER in {differ}" if differ else
+                 "equal in every process of every tree"))
     print(f"card: {smoke().card_line()}")
-    return 0
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(alternate(pathlib.Path(__file__).resolve(), __doc__, run_one,
+                       rounds=2, reps=7))

@@ -32,25 +32,32 @@ The reference modulate -> demodulate path (``Modulator``, ``Demodulator``,
 the two CLIs) runs at the JAX package's demod-bank size (``bench_demod.py``:
 256 channels x 32768 samples, ``sample_rate`` 10000, carrier 2000 Hz):
 
-7. FIR and product-detector kernels: K4 (23, 64 and 65 taps) and K5 against
-   their plain versions, at a small shape with carried state and at
-   256 x 32768, unit-scale inputs, max |error| <= 1e-5;
+7. FIR and product-detector kernels: K4 on every route (23, 32, 64 and 65
+   taps compiled; 7 and 256 generic; 257 and 1000 the long route) and K5
+   with its carrier table (2000 Hz at 10000) and without (2001 Hz at 10007)
+   against their plain versions, at a small shape with carried state, at
+   256 x 32768 and on rows of 1, 5 and 5001 samples, unit-scale inputs, max
+   |error| <= 1e-5; each in ragged pushes equal to one shot exactly;
 8. reference path: a 16-cycle preamble and 256 x 4096 QPSK symbols of
    passband from ``Modulator``, then ``Demodulator.lock_phase`` on 64
-   samples and ``demodulate`` (K4) and ``demodulate_fused`` (K5) over the
-   rest, one shot and in 4 pushes: fused within 1e-5 of staged (relative to
-   max |x|), pushes equal to one shot exactly, the card equal to the CPU on
-   two channels; then the flagship chain's staged ``chain.roundtrip`` at
-   256 x 4096, which now runs K4, gives the bits back exactly. Each path is
-   driven with every launch count set to 0 just before and read just after;
+   samples (K4, 23 taps) and ``demodulate`` (K4) and ``demodulate_fused``
+   (K5) over the rest, one shot and in 4 pushes: fused within 1e-5 of
+   staged (relative to max |x|), pushes equal to one shot exactly, the card
+   equal to the CPU on two channels; then the flagship chain's staged
+   ``chain.roundtrip`` at 256 x 4096, which now runs K4, gives the bits back
+   exactly. Each path is driven with every launch count set to 0 just
+   before and read just after;
 9. CLI: ``modulate`` -> i16 -> ``demodulate --fused`` on the card for one
    channel of 20,000 bits, its text equal to ``Demodulator`` called as a
    library (rtol 1e-4);
-10. times: K4 (64 taps, one rail; and the staged chain's 65 taps) and K5 per
-   call beside their plain versions and the profiler's device time, K4's
-   ``conv1d`` yardstick, and ``Modulator.passband``, ``Demodulator.demodulate``
-   and ``demodulate_fused`` per call in samples/s, with the device's busy
-   time per call from ``torch.profiler`` and its idle share.
+10. times: K4 on each route of phase 7 (the staged chain's 65 taps at its
+   waveform's length) and K5 with and without its table per call beside
+   their plain versions, the profiler's device time (which also shows that
+   each count took the route ``ops.fir.fir_route`` names) and the bound,
+   K4's ``conv1d`` yardstick, and ``Modulator.passband``,
+   ``Demodulator.demodulate`` and ``demodulate_fused`` per call in
+   samples/s, with the device's busy time per call from ``torch.profiler``
+   and its idle share.
 
 Config #3, the FSK/MSK discriminator family, at ``bench_oneway.py``'s
 block (256 channels x 4096 symbols, ``Rates(1250, 10000)``: 16-MFSK at
@@ -207,8 +214,20 @@ samples a symbol:
     just before, read just after); each kernel against its plain version
     (decisions bit for bit, soft points within 1e-5) and its times.
 
+K4's generic and long routes and K5 without its carrier table, through the
+demodulator a user builds with other filters or another carrier:
+
+35. ``Demodulator(2000, 10000, hilbert=<7 taps>, lowpass=<256 taps>)``:
+    ``lock_phase`` (K4 generic, 7 taps) and ``demodulate`` (K4 generic, 256
+    taps); ``lowpass`` of 257 and 1000 taps: ``demodulate`` (the long
+    route); ``Demodulator(2001, 10007)``: ``lock_phase`` and
+    ``demodulate_fused`` (K5 without a table) against ``demodulate``; each at
+    256 x 32768 with the launch counts set to 0 just before and read just
+    after, and the card against the CPU on two channels.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
-demodulator's 64-tap lowpass and with the chain's 65-tap RRC, K5; K6
+demodulator's 64-tap lowpass, the chain's 65-tap RRC and each other count of
+phase 7, K5 with and without its carrier table; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11; K12 hard and
@@ -247,6 +266,17 @@ ATOL = 1e-5
 SEED = 0
 # the reference path at bench_demod.py's demod bank
 REF_SR, REF_CF, REF_BAUD = 10000, 2000, 1250
+#: K4's routes: the tap counts of the paths (23 the Hilbert filter, 32 the
+#: GMSK transient, 64 the lowpass, 65 the RRC: compiled), 7 and 256 (the
+#: generic instantiation), 257 and 1000 (the long route)
+FIR_ROUTE_TAPS = (23, 32, 64, 65, 7, 256, 257, 1000)
+FIR_ROWS = ((3, 1), (3, 5), (3, 5001))  # one sample, under K-1, odd
+FIR_PUSHES = (0, 5, 6, 9, 2100, 2150, 2151, 9000)
+#: K5's carriers and their report names: 2000 Hz at 10000 (a table of 5
+#: phases), 2001 Hz at 10007 (10007 phases: no table, a sincosf a sample)
+K5_UNTABLED = (2001, 10007)
+DEMOD_NAMES = {(REF_CF, REF_SR): "fused_product_detect",
+               K5_UNTABLED: "fused_product_detect_untabled"}
 REF_SAMPLES = 32768              # per channel and block: 4096 QPSK symbols
 PREAMBLE_CYCLES = 16
 CLI_BITS = 20000
@@ -611,8 +641,9 @@ def time_calls(fn, args, device, calls=20, reps=5) -> float:
 
 
 def kernel_device_ms(fn, args, device, symbol: str, calls=20):
-    """Device time per launch of the CUDA kernel whose name contains
-    ``symbol``, from ``torch.profiler``; None if the trace has none."""
+    """Device time per launch of the CUDA kernel whose name, spaces dropped,
+    contains ``symbol``, from ``torch.profiler``; None if the trace has
+    none."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -620,7 +651,7 @@ def kernel_device_ms(fn, args, device, symbol: str, calls=20):
             fn(*args)
         torch.cuda.synchronize(device)
     for evt in prof.key_averages():
-        if symbol in evt.key and evt.count:
+        if symbol in evt.key.replace(" ", "") and evt.count:
             total = getattr(evt, "device_time_total", None)
             if total is None:
                 total = evt.cuda_time_total
@@ -732,16 +763,53 @@ def unit(shape, gen, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device) * 2.0 - 1.0
 
 
+def windowed_lowpass(n: int):
+    """An ``n``-tap Kaiser-windowed sinc lowpass, cut-off at a quarter of
+    the sample rate, unit DC gain (float32 numpy)."""
+    import numpy as np
+
+    m = np.arange(n) - (n - 1) / 2.0
+    h = np.sinc(0.25 * m) * 0.25 * np.kaiser(n, 6.0)
+    return (h / h.sum()).astype(np.float32)
+
+
 def path_taps(chain, device) -> dict:
-    """K4's filters on the path, by length: the Hilbert FIR of
-    ``lock_phase`` (23), the demodulator's lowpass (64), the staged
-    chain's RRC (65)."""
+    """K4's filters by length (FIR_ROUTE_TAPS): the Hilbert FIR of
+    ``lock_phase`` (23), the demodulator's lowpass (64), the staged chain's
+    RRC (65), a 7-tap Hilbert FIR and windowed lowpasses for the other
+    counts."""
     from modem_tpu_torch.ops import filters
 
-    return {23: torch.as_tensor(filters.hilbert_taps(), device=device),
-            64: torch.as_tensor(filters.lowpass_taps(sample_rate=REF_SR),
-                                device=device),
-            65: chain.rrc}
+    taps = {23: filters.hilbert_taps(), 7: filters.hilbert_taps(7),
+            64: filters.lowpass_taps(sample_rate=REF_SR)}
+    out = {k: torch.as_tensor(taps[k] if k in taps else windowed_lowpass(k),
+                              device=device) for k in FIR_ROUTE_TAPS}
+    out[65] = chain.rrc
+    return out
+
+
+def fir_name(k: int) -> str:
+    """The report name of K4 at ``k`` taps."""
+    return {64: "fir_filter", 65: "fir_filter_rrc"}.get(k, f"fir_filter_{k}")
+
+
+def fir_symbol(k: int) -> str:
+    """The profiler name of the K4 instantiation ``ops.fir.fir_route``
+    sends ``k`` taps to."""
+    from modem_tpu_torch.ops import fir
+
+    return {"fixed": f"fir_core_kernel<{k}>", "generic": "fir_core_kernel<0>",
+            "long": "fir_long_kernel"}[fir.fir_route(k)]
+
+
+def demod_symbol(k: int, hz: int, sr: int) -> str:
+    """The profiler name (spaces dropped) of the K5 instantiation for ``k``
+    taps and the carrier ``hz`` at ``sr``."""
+    from modem_tpu_torch.ops import demod_kernel as dk
+
+    table = dk.carrier_walk(hz, sr)[3]
+    return (f"demod_kernel<{k if k in (64, 65) else 0},"
+            f"{'true' if table else 'false'}>")
 
 
 def fir_case(taps, shape, gen, device):
@@ -752,46 +820,74 @@ def fir_case(taps, shape, gen, device):
             unit(shape[:-1] + (k - 1,), gen, device))
 
 
-def demod_case(taps, shape, gen, device):
+def demod_case(taps, shape, gen, device, hz=REF_CF, sr=REF_SR):
     """K5's arguments ``(x, history, taps, hz, sr, off, phi)``: unit-scale
     passband, the lowpass's lookback of history, a phase per channel and a
     stream counter."""
     hist = unit(shape[:-1] + (taps.shape[0] - 1,), gen, device)
     phi = unit(shape[:-1], gen, device) * math.pi
     off = torch.tensor(9971, dtype=torch.int32, device=device)
-    return (unit(shape, gen, device), hist, taps, REF_CF, REF_SR, off, phi)
+    return (unit(shape, gen, device), hist, taps, hz, sr, off, phi)
 
 
 def phase_ref_kernels(chain, device) -> dict:
-    """Phase 7: K4 with each filter of the path and K5 against their plain
-    versions, at a small shape and at 256 x 32768; returns the max |error|
-    of each report entry."""
+    """Phase 7: K4 on every route and K5 with and without its carrier table
+    against their plain versions, at a small shape, at 256 x 32768 and on
+    short and odd rows, then in ragged pushes against one shot (exact);
+    returns the max |error| of each report entry."""
     from modem_tpu_torch.ops import demod_kernel as dk, fir
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     taps = path_taps(chain, device)
-    errs = {"fir_filter": 0.0, "fir_filter_rrc": 0.0,
-            "fused_product_detect": 0.0}
+    errs = {}
 
     def check(entry, what, shape, got, want):
         torch.cuda.synchronize(device)
         err = max_err(got, want)
         if err > ATOL:
             fail(f"{what} at {shape}: kernel vs plain max |err| {err}")
-        errs[entry] = max(errs[entry], err)
-        print(f"[kernels] {what:22s} {shape[0]:4d} ch x {shape[1]:5d} "
+        errs[entry] = max(errs.get(entry, 0.0), err)
+        print(f"[kernels] {what:34s} {shape[0]:4d} ch x {shape[1]:5d} "
               f"samples: max |kernel - plain| = {err:.3e} (tol {ATOL})",
               flush=True)
 
-    for shape in ((3, 5000), (CHANNELS, REF_SAMPLES)):
-        for k, t in taps.items():
-            args = fir_case(t, shape, gen, device)
-            check("fir_filter_rrc" if k == 65 else "fir_filter",
-                  f"fir_filter {k} taps", shape, fir.fir_kernel(*args),
+    def pushes_equal(what, one, parts):
+        torch.cuda.synchronize(device)
+        if not torch.equal(torch.cat(parts, -1), one):
+            fail(f"{what} in {len(parts)} pushes differs from one shot")
+        print(f"[kernels] {what} in {len(parts)} ragged pushes == one shot "
+              "(exact)", flush=True)
+
+    for k in FIR_ROUTE_TAPS:
+        what = f"fir_filter {k} taps ({fir.fir_route(k)})"
+        for shape in ((3, 5000), (CHANNELS, REF_SAMPLES), *FIR_ROWS):
+            args = fir_case(taps[k], shape, gen, device)
+            check(fir_name(k), what, shape, fir.fir_kernel(*args),
                   fir.fir_plain(*args))
-        args = demod_case(taps[64], shape, gen, device)
-        check("fused_product_detect", "fused_product_detect", shape,
-              dk.demod_kernel(*args), dk.demod_plain(*args))
+        x = unit((4, FIR_PUSHES[-1]), gen, device)
+        state, parts = None, []
+        for a, b in zip(FIR_PUSHES[:-1], FIR_PUSHES[1:]):
+            y, state = fir.fir_filter(x[:, a:b], taps[k], state)
+            parts.append(y)
+        pushes_equal(what, fir.fir_filter(x, taps[k])[0], parts)
+
+    lowpass = taps[64]
+    for (hz, sr), name in DEMOD_NAMES.items():
+        what = f"{name} {hz} Hz at {sr}"
+        for shape in ((3, 5000), (CHANNELS, REF_SAMPLES), (3, 1), (3, 5001)):
+            args = demod_case(lowpass, shape, gen, device, hz, sr)
+            check(name, what, shape, dk.demod_kernel(*args),
+                  dk.demod_plain(*args))
+        x = unit((4, FIR_PUSHES[-1]), gen, device)
+        phi = unit((4,), gen, device) * math.pi
+        s0, lb = -12345, lowpass.shape[0] - 1
+        hist, parts = x.new_zeros((4, lb)), []
+        for a, b in zip(FIR_PUSHES[:-1], FIR_PUSHES[1:]):
+            parts.append(torch.stack(dk.fused_product_detect(
+                x[:, a:b], hz, sr, lowpass, phi, s0 + a, hist)))
+            hist = torch.cat([hist, x[:, a:b]], -1)[:, -lb:]
+        pushes_equal(what, torch.stack(dk.fused_product_detect(
+            x, hz, sr, lowpass, phi, s0)), parts)
     return errs
 
 
@@ -803,13 +899,16 @@ def ref_bits(gen, device) -> torch.Tensor:
                          device=device, dtype=torch.int32)
 
 
-def reference_path(device, bits):
+def reference_path(device, bits, launches=None):
     """The reference's path as a user drives it: ``Modulator`` (preamble,
     then QPSK passband), ``Demodulator.lock_phase`` on the first 64 samples,
     then ``demodulate`` and ``demodulate_fused`` over the rest. Returns
     ``(modulator, demodulator, x, locked state, staged (i, q), fused
-    (i, q))``."""
+    (i, q))``. With ``launches``, every launch count is set to 0 just
+    before ``lock_phase`` and again just after it, where its K4 launches
+    (23 taps) go into ``launches["fir_filter_23"]``."""
     from modem_tpu_torch import Demodulator, Modulator, Rates, make_scheme
+    from modem_tpu_torch.ops import fir
 
     rates = Rates(REF_BAUD, REF_SR)
     n_ch = bits.shape[0]
@@ -820,7 +919,13 @@ def reference_path(device, bits):
     wave, state = mod.passband(bits, state)
     x = torch.cat([tone.expand(n_ch, -1), wave], dim=-1)
     dem = Demodulator(REF_CF, REF_SR, device=device)
+    if launches is not None:
+        reset_launches()
     locked = dem.lock_phase(x[:, :64], dem.init_state((n_ch,)))
+    if launches is not None:
+        torch.cuda.synchronize(device)
+        launches["fir_filter_23"] = fir.FIR_KERNEL.launches
+        reset_launches()
     staged, _ = dem.demodulate(x[:, 64:], locked)
     fused, _, _ = dem.demodulate_fused(x[:, 64:], locked)
     return mod, dem, x, locked, staged, fused
@@ -835,8 +940,8 @@ def phase_ref_path(chain, device) -> dict:
 
     g = torch.Generator(device=device).manual_seed(SEED + 6)
     bits = ref_bits(g, device)
-    reset_launches()
-    _, dem, x, locked, staged, fused = reference_path(device, bits)
+    launches = {}
+    _, dem, x, locked, staged, fused = reference_path(device, bits, launches)
     rest = x[:, 64:]
     n = rest.shape[-1]
     cuts = (0, 1000, 1031, n // 2, n)
@@ -848,8 +953,8 @@ def phase_ref_path(chain, device) -> dict:
         y, s_fused, tail = dem.demodulate_fused(rest[:, a:b], s_fused, tail)
         parts_fused.append(y)
     torch.cuda.synchronize(device)
-    launches = {"fir_filter": fir.FIR_KERNEL.launches,
-                "fused_product_detect": dk.DEMOD_KERNEL.launches}
+    launches.update({"fir_filter": fir.FIR_KERNEL.launches,
+                     "fused_product_detect": dk.DEMOD_KERNEL.launches})
     print(f"[ref] {CHANNELS} ch x {x.shape[-1]} samples ({PREAMBLE_CYCLES}-"
           f"cycle preamble + {bits.shape[-1] // 2} QPSK symbols), launches: "
           f"{json.dumps(launches)}", flush=True)
@@ -962,8 +1067,8 @@ def phase_ref_times(chain, device, card: str) -> dict:
     taps = path_taps(chain, device)
     times = {}
     n_wave = (N_SYMBOLS + chain.span) * chain.sps
-    for name, k, n in (("fir_filter", 64, REF_SAMPLES),
-                       ("fir_filter_rrc", 65, n_wave)):
+    for k in FIR_ROUTE_TAPS:
+        name, n = fir_name(k), n_wave if k == 65 else REF_SAMPLES
         args = fir_case(taps[k], (CHANNELS, n), gen, device)
         x, t, state = args
         # conv1d computes the same causal FIR over state ++ x with the
@@ -973,27 +1078,42 @@ def phase_ref_times(chain, device, card: str) -> dict:
         lib_err = max_err(F.conv1d(xp, w).squeeze(1), fir.fir_kernel(*args))
         if lib_err > 1e-3:
             fail(f"conv1d yardstick disagrees with K4 ({lib_err})")
-        ms, plain_ms, dev_ms = kernel_times(fir.fir_kernel, fir.fir_plain,
-                                            args, device, "fir_kernel")
+        ms, plain_ms, dev_ms = kernel_times(
+            fir.fir_kernel, fir.fir_plain, args, device, fir_symbol(k),
+            plain_calls=20 if k <= 65 else 2)
+        if dev_ms is None:
+            fail(f"K4 at {k} taps: no {fir_symbol(k)} in the profile (the "
+                 f"route fir_route names)")
         lib_ms = time_calls(F.conv1d, (xp, w), device)
         work = (4 * (2 * CHANNELS * n + CHANNELS * (k - 1) + k),
                 2 * k * CHANNELS * n)
         times[name] = (ms, plain_ms, dev_ms, lib_ms, work)
-        print_times(f"{name} ({k} taps)", CHANNELS * n, times[name], card,
+        print_times(f"{name} ({k} taps, {fir.fir_route(k)})", CHANNELS * n,
+                    times[name], card,
                     f"conv1d {lib_ms:.4f} ms (max |err| vs K4 {lib_err:.2e})")
 
-    args = demod_case(taps[64], (CHANNELS, REF_SAMPLES), gen, device)
-    ms, plain_ms, dev_ms = kernel_times(dk.demod_kernel, dk.demod_plain, args,
-                                        device, "demod_kernel")
-    k, h, n = taps[64].shape[0], args[1].shape[-1], REF_SAMPLES
-    # x, history, phi, taps and the counter in; two rails out. Per sample:
-    # 2 rails x k MACs, the x2 gain on each, the mix's two products, the
-    # phase's multiply and add, one cos and one sin (as one operation each)
-    work = (4 * (CHANNELS * (n + h + 1) + k + 1) + 2 * 4 * CHANNELS * n,
-            CHANNELS * n * (4 * k + 8))
-    times["fused_product_detect"] = (ms, plain_ms, dev_ms, None, work)
-    print_times("fused_product_detect", CHANNELS * n,
-                times["fused_product_detect"], card, "no library call")
+    lowpass = taps[64]
+    k, n = lowpass.shape[0], REF_SAMPLES
+    for (hz, sr), name in DEMOD_NAMES.items():
+        args = demod_case(lowpass, (CHANNELS, n), gen, device, hz, sr)
+        symbol = demod_symbol(k, hz, sr)
+        ms, plain_ms, dev_ms = kernel_times(dk.demod_kernel, dk.demod_plain,
+                                            args, device, symbol)
+        if dev_ms is None:
+            fail(f"K5 at {hz} Hz of {sr}: no {symbol} in the profile")
+        h = args[1].shape[-1]
+        period, _, _, table = dk.carrier_walk(hz, sr)
+        # x, history, phi, taps and the counter in; two rails out. Per
+        # sample: 2 rails x k MACs, the x2 gain on each and the mix's two
+        # products; the phase's multiply and add, one cos and one sin (as
+        # one operation each) per sample, or with the table once per phase
+        # and channel
+        trig = CHANNELS * (period if table else n) * 4
+        work = (4 * (CHANNELS * (n + h + 1) + k + 1) + 2 * 4 * CHANNELS * n,
+                CHANNELS * n * (4 * k + 4) + trig)
+        times[name] = (ms, plain_ms, dev_ms, None, work)
+        print_times(f"{name} ({hz} Hz at {sr})", CHANNELS * n, times[name],
+                    card, "no library call")
 
     # the entry points a user calls, per call of one 256 x 32768 block
     bits = ref_bits(gen, device)
@@ -1194,7 +1314,7 @@ def phase_fsk_main(chains, device) -> dict:
     bits = bits_for(1, FSK_SIDE_CHANNELS)
     reset_launches()
     same("GMSK (BT 0.3) roundtrip(bits) == bits", gmsk.roundtrip(bits), bits)
-    read_launches({"fir_filter": fir.FIR_KERNEL}, "GMSK")
+    launches.update(read_launches({"fir_filter_32": fir.FIR_KERNEL}, "GMSK"))
 
     r = Rates(FSK_BAUD, REF_SR)
     dq = DifferentialChain(make_scheme("dqpsk", r), r, device=device)
@@ -2898,6 +3018,67 @@ def phase_long_route(device, card: str) -> tuple[dict, dict, dict]:
     return errs, launches, times
 
 
+def phase_fir_routes(device) -> dict:
+    """Phase 35: K4's generic and long routes and K5 without its carrier
+    table, through the demodulator a user builds with other filters or
+    another carrier, at 256 x 32768 (the reference path's passband): each
+    call with every launch count set to 0 just before it and read just
+    after, and the card against the CPU on two channels (and
+    ``demodulate_fused`` against ``demodulate`` without the table). Returns
+    the launches of each report entry."""
+    from modem_tpu_torch import Demodulator
+    from modem_tpu_torch.ops import demod_kernel as dk, filters, fir
+
+    g = torch.Generator(device=device).manual_seed(SEED + 90)
+    x = reference_path(device, ref_bits(g, device))[2]
+    scale = float(x.abs().max())
+    launches = {}
+
+    def run(name, kernel, build, call, prep=lambda d, v: None):
+        """``call(dem, x, prep(dem, x))`` for ``dem = build(device)`` on the
+        card with the launches of ``call`` alone counted, then on the CPU
+        for two channels; the outputs compared."""
+        d = build(device)
+        st = prep(d, x)
+        reset_launches()
+        got = call(d, x, st)
+        launches.update(read_launches({name: kernel}, name, "fir routes"))
+        d, xc = build(torch.device("cpu")), x[:2].cpu()
+        want = call(d, xc, prep(d, xc))
+        err = max_err(tuple(v[:2].cpu() for v in got), want)
+        print(f"[fir routes] {name}: card vs CPU, 2 channels, max |err| "
+              f"{err:.3e} (tol {ATOL} x max |x| = {ATOL * scale:.3e})",
+              flush=True)
+        if err > ATOL * scale:
+            fail(f"{name}: the card differs from the CPU")
+        return got
+
+    def dem(lowpass=None, hilbert=None, carrier=(REF_CF, REF_SR)):
+        return lambda d: Demodulator(*carrier, lowpass=lowpass,
+                                     hilbert=hilbert, device=d)
+
+    def locked(d, v):
+        return d.lock_phase(v[:, :64], d.init_state((v.shape[0],)))
+
+    run("fir_filter_7", fir.FIR_KERNEL, dem(hilbert=filters.hilbert_taps(7)),
+        lambda d, v, _: (locked(d, v).phase_offset,))
+    for k in (256, 257, 1000):
+        run(fir_name(k), fir.FIR_KERNEL, dem(lowpass=windowed_lowpass(k)),
+            lambda d, v, st: d.demodulate(v[:, 64:], st)[0], locked)
+    name = DEMOD_NAMES[K5_UNTABLED]
+    build = dem(carrier=K5_UNTABLED)
+    fused = run(name, dk.DEMOD_KERNEL, build,
+                lambda d, v, st: d.demodulate_fused(v[:, 64:], st)[0], locked)
+    d = build(device)
+    staged = d.demodulate(x[:, 64:], locked(d, x))[0]
+    err = max_err(fused, staged)
+    print(f"[fir routes] {name}: demodulate_fused vs demodulate max |err| "
+          f"{err:.3e}", flush=True)
+    if err > ATOL * scale:
+        fail(f"{name}: demodulate_fused differs from demodulate")
+    return launches
+
+
 def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
     """Trellis steps the busier of K14's two lanes of a row walks: alpha
     over 0 .. keep_lo + keep_n, beta over tw - 1 .. keep_lo, meeting at
@@ -3037,15 +3218,15 @@ def main() -> int:
     errs.update(long_errs)
     launches.update(long_launches)
     times.update(long_times)
+    launches.update(phase_fir_routes(device))
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
-        ("fir_filter", "modem_tpu_torch/csrc/fir.cu",
-         "modem_tpu/ops/pallas_fir.py:44"),
-        ("fir_filter_rrc", "modem_tpu_torch/csrc/fir.cu",
-         "modem_tpu/ops/pallas_fir.py:44"),
-        ("fused_product_detect", "modem_tpu_torch/csrc/demod.cu",
-         "modem_tpu/ops/pallas_demod.py:43")] + [
+        (fir_name(k), "modem_tpu_torch/csrc/fir.cu",
+         "modem_tpu/ops/pallas_fir.py:44") for k in FIR_ROUTE_TAPS] + [
+        (name, "modem_tpu_torch/csrc/demod.cu",
+         "modem_tpu/ops/pallas_demod.py:43")
+        for name in DEMOD_NAMES.values()] + [
         (n, "modem_tpu_torch/csrc/fsk.cu", f"modem_tpu/ops/pallas_fsk.py:{line}")
         for n, (line, _) in FSK_REPORT.items()] + [
         (n, src, rep) for n, (_, src, rep) in RS_REPORT.items()] + [

@@ -235,16 +235,18 @@ __global__ void __launch_bounds__(kChainThreads, 8)
     // the matched filter: decisions m0 + c0 + r0 .. + kChainR - 1
     const int r0 = R * tid;
     if (r0 < n_out) {
-      float ai[R] = {}, aq[R] = {};
+      float acc[2][R] = {};
+      const float* const rails[2] = {wi, wq};
       if constexpr (kFixed)
-        modem::matched_fixed<R, SPS, SPAN * SPS + 1>(wi, wq, r0 * SPS, taps,
-                                                     ai, aq);
+        modem::matched_fixed<R, SPS, SPAN * SPS + 1>(rails, r0 * SPS, taps,
+                                                     acc);
       else
-        modem::matched_generic<R>(wi, wq, r0 * sps, sps, n_taps, tv, ai, aq);
+        modem::matched_generic<R>(rails, r0 * sps, sps, n_taps, tv, acc);
       int* o = out + c * k_sym + m0 + c0 + r0;
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        if (r0 + r < n_out) o[r] = modem::decide(ai[r], aq[r], map, slut);
+        if (r0 + r < n_out)
+          o[r] = modem::decide(acc[0][r], acc[1][r], map, slut);
     }
   }
 }

@@ -1,13 +1,16 @@
 // Shared pieces of the kernels: the pulse-shaped chain's (txrx.cu,
 // chain.cu: constellations, the passband NCO, waveform storage, the taps
-// as a kernel parameter and the register-blocked matched filter) and the
-// noise stream the FSK and pulse-shaped loopbacks draw (fsk.cu, chain.cu).
+// as a kernel parameter and the register-blocked matched filter), the
+// causal FIR core of K4 and K5 (fir.cu, demod.cu: the same filter, the
+// persistent tile walk's pieces) and the noise stream the FSK and
+// pulse-shaped loopbacks draw (fsk.cu, chain.cu).
 //
 // Layout everywhere: one row per channel, time contiguous ([C, K] symbols,
 // [C, N] waveform samples), threads along time. The constellation table
 // arrives as a device array and is staged in shared memory; K1's and K3's
-// RRC taps arrive by value in a kernel parameter (Taps), K2's as a device
-// array from which it builds its polyphase bank in shared memory.
+// RRC taps and K4's and K5's filter taps arrive by value in a kernel
+// parameter (Taps), K2's as a device array from which it builds its
+// polyphase bank in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,10 +26,10 @@ constexpr int kTile = 256;     // symbols per block (time tile)
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kNcoTable = 2048;  // carrier phases held in a table, at most
 constexpr int kLane = 128;     // channels per JAX tile (the noise keys)
-constexpr int kMaxTaps = 256;  // taps K1 and K3 take (Taps, 1 KB)
+constexpr int kMaxTaps = 256;  // taps K1, K3, K4 and K5 take (Taps, 1 KB)
 constexpr int kMaxSps = 64;    // samples a symbol K1's and K3's tiles fit
 
-// RRC taps by value. Passed as a __grid_constant__ kernel parameter, they
+// Filter taps by value. Passed as a __grid_constant__ kernel parameter, they
 // live in the constant bank: with the filter loops unrolled at compile time
 // each tap reaches its FFMA as a constant-bank or uniform-register operand,
 // with no shared-memory or per-thread load, as the TPU kernel's taps baked
@@ -286,6 +289,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
+// 4-byte asynchronous copy (an element of a row that is not 16-byte
+// aligned).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -295,58 +306,82 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy n elements from src (device memory) to logical positions pos0 ..
-// pos0 + n - 1 of dst (shared memory, skewed or not), all threads of the
-// block: the first n_valid from src, the rest zero (samples past the end of
-// the waveform read as zero). Where src and the destination are 16-byte
-// aligned the whole 16-byte pieces go by cp.async (commit and wait are the
-// caller's); a misaligned row, and the tail, by scalar loads.
+// Copy elements first .. n - 1 of src (device memory) to logical positions
+// pos0 + first .. pos0 + n - 1 of dst (shared memory, skewed or not), all
+// threads of the block: those below n_valid from src, the rest zero
+// (samples past the end of the waveform read as zero). Where src and the
+// destination are 16-byte aligned the whole 16-byte pieces go by cp.async
+// (commit and wait are the caller's); a misaligned row, and a piece's head
+// or tail, element by element: 4-byte elements by cp.async too, 2-byte
+// ones by loads.
 template <bool kSkew, typename T>
 __device__ inline void load_span(T* dst, const T* __restrict__ src, int pos0,
-                                 int n, int n_valid) {
+                                 int n, int n_valid, int first = 0) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  int done = 0;
+  int a = n, b = n;  // the pieces copy elements a .. b - 1
   if (((reinterpret_cast<uintptr_t>(src) |
         static_cast<uintptr_t>(pos0) * sizeof(T)) & 15) == 0) {
-    const int pieces = n_valid / kVec;
-    for (int k = threadIdx.x; k < pieces; k += blockDim.x) {
+    const int p0 = (first + kVec - 1) / kVec;
+    const int p1 = n_valid / kVec;
+    if (p1 > p0) {
+      a = p0 * kVec;
+      b = p1 * kVec;
+    }
+    for (int k = p0 + threadIdx.x; k < p1; k += blockDim.x) {
       const int p = pos0 + k * kVec;
       cp_async16(dst + (kSkew ? skew(p) : p), src + k * kVec);
     }
-    done = pieces * kVec;
   }
-  for (int e = done + threadIdx.x; e < n; e += blockDim.x) {
+  auto one = [&](int e) {
     const int p = pos0 + e;
-    dst[kSkew ? skew(p) : p] = e < n_valid ? src[e] : T(0);
-  }
+    T* d = dst + (kSkew ? skew(p) : p);
+    if constexpr (sizeof(T) == 4) {
+      if (e < n_valid)
+        cp_async4(d, src + e);
+      else
+        *d = T(0);
+    } else {
+      *d = e < n_valid ? src[e] : T(0);
+    }
+  };
+  for (int e = first + threadIdx.x; e < a; e += blockDim.x) one(e);
+  for (int e = b + threadIdx.x; e < n; e += blockDim.x) one(e);
 }
 
-// The register-blocked polyphase matched filter: R consecutive decision
-// points of both rails,
-//   z[r] = sum_j taps[j] * y[base + r*sps + d - j],  d = L - 1,
-// from the skewed tiles yi, yq. Each thread walks the (R-1)*sps + L
-// samples of its run once, newest first, and feeds each to every output it
-// belongs to: one fmaf chain per output and rail with the taps in the order
-// j = 0, 1, ..., L-1 from 0, the order of the plain version, so an output
-// never depends on the run or the tile it falls in. acc[] start at 0.
-// The flagship shape (sps, L at compile time, base a multiple of 32): the
-// samples in 16-byte loads, every tap a constant or uniform operand.
-template <int R, int SPS, int L>
-__device__ __forceinline__ void matched_fixed(const float* __restrict__ yi,
-                                              const float* __restrict__ yq,
+// The register-blocked filter of K1, K3 (the polyphase matched filter, two
+// rails) and K4, K5 (a causal FIR, SPS = 1; K4 one rail, K5 two): R
+// consecutive outputs of each of the NR rails y[],
+//   z[r] = sum_{j < L} taps[j] * y[base + r*SPS + LEAD + L - 1 - j],
+// from skewed tiles. Each thread walks the (R-1)*SPS + LEAD + L samples of
+// its run once, newest first, and feeds each to every output it belongs
+// to: one fmaf chain per output and rail with the taps in the order
+// j = 0, 1, ..., L-1 from 0, the order of the plain versions, so an output
+// never depends on the run or the tile it falls in. acc[][] start at 0.
+// The run starts at `base`, a multiple of 4; its first LEAD samples are
+// loaded and not used (K4 and K5 put them before the history so that the
+// new samples land 16-byte aligned). SPS, L at compile time: the samples
+// in 16-byte loads, every tap a constant or uniform operand.
+template <int R, int SPS, int L, int LEAD = 0, int NR>
+__device__ __forceinline__ void matched_fixed(const float* const (&y)[NR],
                                               int base, const Taps& taps,
-                                              float (&ai)[R], float (&aq)[R]) {
-  static_assert(R * SPS % 32 == 0, "a run starts on a skew row");
-  constexpr int W = (R - 1) * SPS + L;
+                                              float (&acc)[NR][R]) {
+  static_assert(R * SPS % 4 == 0, "a run starts 16-byte aligned");
+  constexpr int W = (R - 1) * SPS + LEAD + L;
   constexpr int NQ = (W + 3) / 4;
+  constexpr bool kRow = R * SPS % 32 == 0;  // every run starts a skew row
   const int pb = skew(base);
 #pragma unroll
   for (int q = NQ - 1; q >= 0; --q) {
-    const int off = pb + 4 * q + 4 * (q >> 3);
-    const float4 vi = *reinterpret_cast<const float4*>(yi + off);
-    const float4 vq = *reinterpret_cast<const float4*>(yq + off);
-    const float ei[4] = {vi.x, vi.y, vi.z, vi.w};
-    const float eq[4] = {vq.x, vq.y, vq.z, vq.w};
+    const int off = kRow ? pb + 4 * q + 4 * (q >> 3) : skew(base + 4 * q);
+    float e[NR][4];
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(y[k] + off);
+      e[k][0] = v.x;
+      e[k][1] = v.y;
+      e[k][2] = v.z;
+      e[k][3] = v.w;
+    }
 #pragma unroll
     for (int u = 3; u >= 0; --u) {
       const int i = W - 1 - (4 * q + u);  // newest sample first
@@ -355,37 +390,172 @@ __device__ __forceinline__ void matched_fixed(const float* __restrict__ yi,
       for (int r = 0; r < R; ++r) {
         const int j = i - (R - 1 - r) * SPS;
         if (j >= 0 && j < L) {
-          ai[r] = fmaf(taps.v[j], ei[u], ai[r]);
-          aq[r] = fmaf(taps.v[j], eq[u], aq[r]);
+#pragma unroll
+          for (int k = 0; k < NR; ++k)
+            acc[k][r] = fmaf(taps.v[j], e[k][u], acc[k][r]);
         }
       }
     }
   }
 }
 
-// The same for any (sps, L): scalar loads, the taps read at a run-time
-// index from the parameter bank (Taps) or, on the long route, from shared
-// memory (a pointer).
-template <int R, typename T>
-__device__ __forceinline__ void matched_generic(const float* __restrict__ yi,
-                                                const float* __restrict__ yq,
+// The same for any (sps, L): the taps read at a run-time index from the
+// parameter bank (Taps) or, on the long route, from shared memory (a
+// pointer). Any sps (SPS = 0): scalar loads, a run at any base. SPS = 1
+// (K4's and K5's generic route; base + L - 1 a multiple of 4): the taps in
+// chunks of C from j = 0, each chunk's C + R - 1 samples in 16-byte loads,
+// then each tap of the chunk to every output, so one tap read feeds R
+// outputs and the order of every output's chain is still j = 0, 1, ...
+template <int R, int SPS = 0, int NR, typename T>
+__device__ __forceinline__ void matched_generic(const float* const (&y)[NR],
                                                 int base, int sps, int L,
-                                                const T& taps, float (&ai)[R],
-                                                float (&aq)[R]) {
-  const int W = (R - 1) * sps + L;
-  for (int i = 0; i < W; ++i) {
-    const int p = skew(base + W - 1 - i);
-    const float vi = yi[p], vq = yq[p];
+                                                const T& taps,
+                                                float (&acc)[NR][R]) {
+  if constexpr (SPS == 1) {
+    constexpr int C = 16;
+    static_assert((C + R) % 4 == 0, "a chunk's window is whole pieces");
+    for (int j0 = 0; j0 < L; j0 += C) {
+      const int cnt = L - j0 < C ? L - j0 : C;
+      // e[k] = y[s + k]: output r at tap j0 + m reads e[C + r - m]
+      const int s = base + L - 1 - j0 - C;
+      float e[NR][C + R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int j = i - (R - 1 - r) * sps;
-      if (j >= 0 && j < L) {
-        const float t = tap(taps, j);
-        ai[r] = fmaf(t, vi, ai[r]);
-        aq[r] = fmaf(t, vq, aq[r]);
+      for (int g = 0; g < (C + R) / 4; ++g) {
+        if (4 * g + 3 > C - cnt) {  // a piece some tap of the chunk reads
+          const int p = skew(s + 4 * g);
+#pragma unroll
+          for (int k = 0; k < NR; ++k) {
+            const float4 v = *reinterpret_cast<const float4*>(y[k] + p);
+            e[k][4 * g] = v.x;
+            e[k][4 * g + 1] = v.y;
+            e[k][4 * g + 2] = v.z;
+            e[k][4 * g + 3] = v.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < C; ++m) {
+        if (m < cnt) {
+          const float t = tap(taps, j0 + m);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int k = 0; k < NR; ++k)
+              acc[k][r] = fmaf(t, e[k][C + r - m], acc[k][r]);
+          }
+        }
+      }
+    }
+  } else {
+    const int W = (R - 1) * sps + L;
+    for (int i = 0; i < W; ++i) {
+      const int p = skew(base + W - 1 - i);
+      float v[NR];
+#pragma unroll
+      for (int k = 0; k < NR; ++k) v[k] = y[k][p];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = i - (R - 1 - r) * sps;
+        if (j >= 0 && j < L) {
+          const float t = tap(taps, j);
+#pragma unroll
+          for (int k = 0; k < NR; ++k) acc[k][r] = fmaf(t, v[k], acc[k][r]);
+        }
       }
     }
   }
+}
+
+// ---- the causal FIR core of K4 (fir.cu) and K5 (demod.cu) ----
+//
+// A persistent block of kCoreThreads threads walks a contiguous range of
+// (channel, tile of R * kCoreThreads outputs) items; thread t owns the R
+// outputs R*t .. R*t + R - 1 of a tile (R: each kernel's own, K4 16, K5 8).
+// A tile's filter input lies in a skewed buffer: position lead + i holds
+// stream sample o0 - h + i (h = L - 1 samples of history before the tile's
+// first output o0, then the tile's own), lead = fir_lead(L) so that the
+// tile's own samples start 16-byte aligned at fir_pos0(L) and stream in by
+// cp.async. The next tile's history is this tile's last h samples, copied
+// in shared memory.
+constexpr int kCoreThreads = 128;  // threads a block
+constexpr int kCoreBlocks = 8;     // persistent blocks an SM, at most
+
+__host__ __device__ constexpr int fir_lead(int L) { return (1 - L) & 3; }
+
+__host__ __device__ constexpr int fir_pos0(int L) {
+  return fir_lead(L) + L - 1;
+}
+
+// Floats of a skewed filter buffer for L taps and tiles of `tile` outputs.
+__host__ __device__ inline int fir_buf_len(int L, int tile) {
+  return skew_len(fir_pos0(L) + tile);
+}
+
+// This block's items [lo, hi) of n_items, in order.
+__device__ __forceinline__ void block_items(long long n_items, long long& lo,
+                                            long long& hi) {
+  lo = blockIdx.x * n_items / gridDim.x;
+  hi = (blockIdx.x + 1) * n_items / gridDim.x;
+}
+
+// A thread's R outputs of every rail into the skewed staging rows ys[]
+// (16-byte stores), times `gain`.
+template <int NR, int R>
+__device__ __forceinline__ void stage_run(float* const (&ys)[NR], int r0,
+                                          const float (&acc)[NR][R],
+                                          float gain) {
+  static_assert(R % 4 == 0, "whole 16-byte pieces");
+#pragma unroll
+  for (int k = 0; k < NR; ++k) {
+#pragma unroll
+    for (int m = 0; m < R; m += 4)
+      *reinterpret_cast<float4*>(ys[k] + skew(r0 + m)) =
+          make_float4(gain * acc[k][m], gain * acc[k][m + 1],
+                      gain * acc[k][m + 2], gain * acc[k][m + 3]);
+  }
+}
+
+// Staged outputs first .. end - 1 (skewed ys) to the same places of dst in
+// device memory, all threads: consecutive threads store consecutive 16-byte
+// pieces where dst is 16-byte aligned, else, and at a piece's head or tail,
+// single floats.
+__device__ inline void store_tile(float* __restrict__ dst, const float* ys,
+                                  int first, int end) {
+  int a = end, b = end;  // the pieces store outputs a .. b - 1
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int p0 = (first + 3) >> 2;
+    const int p1 = end >> 2;
+    if (p1 > p0) {
+      a = p0 << 2;
+      b = p1 << 2;
+    }
+    for (int q = p0 + threadIdx.x; q < p1; q += blockDim.x)
+      *reinterpret_cast<float4*>(dst + 4 * q) =
+          *reinterpret_cast<const float4*>(ys + skew(4 * q));
+  }
+  for (int e = first + threadIdx.x; e < a; e += blockDim.x)
+    dst[e] = ys[skew(e)];
+  for (int e = b + threadIdx.x; e < end; e += blockDim.x)
+    dst[e] = ys[skew(e)];
+}
+
+// How far (in floats, 0 to 3) p lies past a 16-byte boundary. K4 and K5
+// start a row's tiles that many samples early, so that every tile's samples
+// and outputs but the first tile's head lie on 16-byte boundaries.
+__host__ __device__ __forceinline__ int misalign(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Tiles of `tile` samples a row of n takes, starting up to `shift` early.
+__host__ __device__ __forceinline__ long long fir_tiles(long long n,
+                                                        int shift, int tile) {
+  return (n + shift + tile - 1) / tile;
+}
+
+// The shift K4 and K5 must allow for rows of n floats from x: none where
+// every row starts on a 16-byte boundary.
+inline int fir_shift(const float* x, long long n) {
+  return misalign(x) == 0 && n % 4 == 0 ? 0 : 3;
 }
 
 // Blocks of a flattened (channel, tile) grid, or 0 if they exceed the
@@ -469,6 +639,28 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The grid of a persistent kernel: as many blocks as fit the card, at most
+// `cap` an SM, and never more than the n_items items (asked at every
+// launch, a few microseconds).
+template <typename Kernel>
+inline cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem,
+                                   int cap, long long n_items,
+                                   unsigned& grid) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long slots = static_cast<long long>(per_sm < cap ? per_sm : cap) *
+                          n_sm;
+  grid = static_cast<unsigned>(n_items < slots ? n_items : slots);
+  return cudaSuccess;
 }
 
 }  // namespace modem

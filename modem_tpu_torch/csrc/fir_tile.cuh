@@ -1,4 +1,5 @@
-// The causal FIR inner loop shared by fir.cu (K4) and demod.cu (K5).
+// The causal FIR inner loop of K4's long route (fir.cu, more than 256 taps:
+// the taps staged in shared memory).
 //
 // A block of kFirThreads threads computes kFirTile consecutive outputs of
 // one channel; thread t owns the kFirPer outputs 8t .. 8t+7. The tile's

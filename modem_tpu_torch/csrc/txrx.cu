@@ -215,8 +215,8 @@ __global__ void __launch_bounds__(128)
   float* ts = tc + nco.period;
   float* staps = tc + (kPassband && nco.table ? 2 * nco.period : 0);
 
-  const long long lo = blockIdx.x * n_items / gridDim.x;
-  const long long hi = (blockIdx.x + 1) * n_items / gridDim.x;
+  long long lo, hi;
+  modem::block_items(n_items, lo, hi);
   if (map.lut != nullptr) modem::stage(slut, map.lut, 2 * map.n_points);
   if (kPassband && nco.table) modem::stage_nco(tc, ts, nco);
   if constexpr (kLong) modem::stage(staps, taps.p, span * sps + 1);
@@ -327,21 +327,22 @@ __global__ void __launch_bounds__(128)
     const int n_out = left < tile ? static_cast<int>(left) : tile;
     const int r0 = R * static_cast<int>(threadIdx.x);
     if (r0 < n_out) {
-      float ai[R] = {}, aq[R] = {};
+      float acc[2][R] = {};
+      const float* const rails[2] = {yi, yq};
       if constexpr (kFixed)
-        modem::matched_fixed<R, SPS, SPAN * SPS + 1>(yi, yq, r0 * SPS, taps,
-                                                     ai, aq);
+        modem::matched_fixed<R, SPS, SPAN * SPS + 1>(rails, r0 * SPS, taps,
+                                                     acc);
       else
-        modem::matched_generic<R>(yi, yq, r0 * sps, sps, n_taps, tv, ai, aq);
+        modem::matched_generic<R>(rails, r0 * sps, sps, n_taps, tv, acc);
       const long long o = c * n_sym + m0 + r0;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r0 + r >= n_out) break;
         if (kSoft) {
-          out_i[o + r] = ai[r];
-          out_q[o + r] = aq[r];
+          out_i[o + r] = acc[0][r];
+          out_q[o + r] = acc[1][r];
         } else {
-          out_sym[o + r] = modem::decide(ai[r], aq[r], map, slut);
+          out_sym[o + r] = modem::decide(acc[0][r], acc[1][r], map, slut);
         }
       }
     }
@@ -410,21 +411,11 @@ int launch_rx(const void* wi, const void* wq, long long n_ch,
                        (kLong ? span * sps + 1 : 0));
   cudaError_t err = modem::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the blocks that fit an SM, asked at every launch (a few microseconds)
-  int dev = 0, n_sm = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
-                                                        smem);
+  unsigned grid = 0;
+  err = modem::persistent_grid(kernel, nt, smem,
+                               kDirect ? kRxBlocksDirect : kRxBlocksStaged,
+                               n_items, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int cap = kDirect ? kRxBlocksDirect : kRxBlocksStaged;
-  const long long slots =
-      static_cast<long long>(per_sm < cap ? per_sm : cap) * n_sm;
-  const unsigned grid =
-      static_cast<unsigned>(n_items < slots ? n_items : slots);
   kernel<<<grid, nt, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TRaw*>(wi), static_cast<const TRaw*>(wq), n_wave,
       n_sym, n_tiles, n_items, tile, sps, span, taps, map, nco, out_sym, out_i,

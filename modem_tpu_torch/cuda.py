@@ -10,6 +10,8 @@ loaded when the package is imported.
 
 A :class:`Kernel` is one entry point with its launch count: it counts a
 launch only where the C function ran and reported success.
+:func:`host_taps` keeps the host copy of a taps tensor that K1, K3, K4 and
+K5 take by value, in a kernel parameter.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
 
 import torch
@@ -36,9 +39,9 @@ _U = ctypes.c_uint
 _MAP = [_P, _I, _I, _F, _F, _F, _F]
 _NCO = [_I, _I, _L, _F]
 #: argument types of each C entry point (pointers and the stream as
-#: c_void_p; the taps of ``modem_chain``, ``modem_rx_hard`` and
-#: ``modem_rx_soft`` a host pointer or null, then a device pointer,
-#: ``ops.txrx.kernel_taps``)
+#: c_void_p; the taps of ``modem_chain``, ``modem_rx_hard``,
+#: ``modem_rx_soft`` and ``modem_fir`` a host pointer (:func:`host_taps`) or
+#: null, then a device pointer; ``modem_demod``'s a host pointer)
 SIGNATURES = {
     "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
     "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _P, _P, _P],
@@ -59,8 +62,9 @@ SIGNATURES = {
                       _P, _P],
     "modem_chain": [_P, _L, _L, _I, *_MAP, _P, _P, _I, _I, _I, *_NCO, _I, _F,
                     _U, _P, _P],
-    "modem_fir": [_P, _P, _L, _L, _P, _I, _P, _P],
-    "modem_demod": [_P, _I, _P, _L, _L, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    "modem_fir": [_P, _P, _L, _L, _P, _P, _I, _P, _P],
+    "modem_demod": [_P, _I, _P, _L, _L, _P, _I, _I, _I, _F, _I, _I, _I, _I,
+                    _P, _P, _P, _P, _P],
     "modem_viterbi": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _L, _I,
                       _L, _F, _I, _I, _L, _P, _P],
     "modem_viterbi_block": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,
@@ -70,6 +74,21 @@ SIGNATURES = {
     "modem_polar_sc": [_P, _L, _I, _I, _P, _P, _P, _P],
     "modem_polar_scl": [_P, _L, _I, _I, _P, _P, _P, _P],
 }
+
+#: floats of ``csrc/common.cuh``'s ``Taps``: the most taps a kernel takes
+#: by value, in a kernel parameter
+TAPS_PARAM = 256
+
+
+class _Taps(ctypes.Structure):
+    """``csrc/common.cuh``'s ``Taps``: the taps as the kernel parameter."""
+    _fields_ = [("v", ctypes.c_float * TAPS_PARAM)]
+
+
+#: id(taps) -> (weak reference, version, _Taps): one copy to the host per
+#: taps tensor (a chain's ``rrc``, a demodulator's ``lowpass``), not one per
+#: launch
+_HOST_TAPS: dict[int, tuple] = {}
 
 _library: ctypes.CDLL | None = None
 #: the compilers' output of each library that failed to build in this
@@ -153,6 +172,31 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
             "no CUDA device: modem_tpu_torch runs on the card unless the "
             "caller asks for the CPU (device='cpu')")
     return dev
+
+
+def host_taps(taps: torch.Tensor) -> int:
+    """The address of a host copy of ``taps`` (at most :data:`TAPS_PARAM`)
+    as the kernels take them by value, in a ``Taps`` kernel parameter. The
+    copy is kept while ``taps`` lives and is not modified in place (its
+    version counter), so a filter's taps cross to the host once, not at
+    every launch; an inference tensor, which has no version counter, is
+    copied at every call."""
+    if taps.shape[0] > TAPS_PARAM:
+        raise ValueError(f"a Taps parameter holds at most {TAPS_PARAM} taps, "
+                         f"got {taps.shape[0]}")
+    version = None if taps.is_inference() else taps._version
+    hit = _HOST_TAPS.get(id(taps))
+    if (version is not None and hit is not None and hit[0]() is taps
+            and hit[1] == version):
+        return ctypes.addressof(hit[2])
+    if len(_HOST_TAPS) >= 64:
+        for key in [k for k, v in _HOST_TAPS.items() if v[0]() is None]:
+            del _HOST_TAPS[key]
+    param = _Taps()
+    values = taps.detach().cpu().numpy()
+    param.v[:values.shape[0]] = values.tolist()
+    _HOST_TAPS[id(taps)] = (weakref.ref(taps), version, param)
+    return ctypes.addressof(param)
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -11,6 +11,9 @@ phase plus the per-channel acquired offset ``phi``, the mix
 :func:`fused_product_detect` takes a CPU tensor to :func:`demod_plain` and a
 CUDA tensor to :func:`demod_kernel`, never to the plain version. Outputs
 match :meth:`modem_tpu_torch.rx.Demodulator.demodulate` to f32 rounding.
+The kernel walks the carrier phase in 32-bit integers (:func:`carrier_walk`)
+and takes cos and sin from a per-channel table where the carrier has at
+most :data:`NCO_TABLE` phases.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from ..config import TWO_PI
-from ..cuda import Kernel, check_cuda
+from ..cuda import Kernel, check_cuda, host_taps
 from .fir import as_taps, fir_plain
 from .nco import carrier_phase, mix_down
 
@@ -29,6 +32,24 @@ DEMOD_KERNEL = Kernel("modem_demod")
 
 #: the lowpass lookback the kernel takes (taps - 1 <= 64), as the JAX one
 MAX_DEMOD_TAPS = 65
+#: the most carrier phases the kernel holds in a table
+#: (``csrc/common.cuh``'s ``kNcoTable``)
+NCO_TABLE = 2048
+
+
+def carrier_walk(hz: int, sr: int) -> tuple[int, int, int, bool]:
+    """How K5 walks the carrier phase ``u = (s * hz) mod sr`` of sample
+    ``s``: ``(period, step, unit, table)``. ``u`` is always a multiple of
+    ``g = gcd(hz, sr)``; the kernel counts it as ``k = u // unit`` and
+    advances ``k`` by ``step`` a sample modulo ``period``. Where the
+    carrier's ``sr // g`` phases fit :data:`NCO_TABLE`, ``unit`` is ``g``,
+    ``period`` is ``sr // g`` and ``table`` is True (cos and sin from a
+    table of ``period`` entries); else ``unit`` is 1 and ``period`` is
+    ``sr``."""
+    g = math.gcd(hz, sr)
+    table = sr // g <= NCO_TABLE
+    unit = g if table else 1
+    return sr // unit, (hz % sr) // unit, unit, table
 
 
 def fused_product_detect(x: torch.Tensor, carrier_hz: int, sample_rate: int,
@@ -97,8 +118,9 @@ def demod_kernel(x, history, taps, hz: int, sr: int, off, phi):
     oq = torch.empty_like(fx)
     if oi.numel():
         w = float(np.float32(TWO_PI / sr))
+        period, step, unit, table = carrier_walk(hz, sr)
         DEMOD_KERNEL.launch(dev, fh.data_ptr(), h, fx.data_ptr(), fx.shape[0],
-                            n, taps.data_ptr(), taps.shape[0], hz, sr, w,
-                            off.data_ptr(), fphi.data_ptr(), oi.data_ptr(),
-                            oq.data_ptr())
+                            n, host_taps(taps), taps.shape[0], hz, sr, w,
+                            period, step, unit, int(table), off.data_ptr(),
+                            fphi.data_ptr(), oi.data_ptr(), oq.data_ptr())
     return oi.reshape(x.shape), oq.reshape(x.shape)

@@ -6,7 +6,8 @@ kernel K4, in ``modem_tpu_torch/csrc/fir.cu``.
 `fir.rs:10-34`), as a block transform over ``[..., n]`` tensors with an
 explicit ``taps-1``-sample tail carried between blocks. :func:`fir_filter`
 takes a CPU tensor to :func:`fir_plain` and a CUDA tensor to
-:func:`fir_kernel`, never to the plain version. The JAX package's ``conv``,
+:func:`fir_kernel`, never to the plain version. :func:`fir_route` says which
+of the kernel's routes a tap count takes. The JAX package's ``conv``,
 ``matmul`` and ``fft`` backends are not ported yet.
 """
 
@@ -16,12 +17,16 @@ import math
 
 import torch
 
-from ..cuda import Kernel, check_cuda
+from ..cuda import TAPS_PARAM, Kernel, check_cuda, host_taps
 
 FIR_KERNEL = Kernel("modem_fir")
 
-#: outputs per block of the CUDA kernel (``fir_tile.cuh``'s ``kFirTile``)
+#: outputs per block of the long route (``fir_tile.cuh``'s ``kFirTile``)
 _TILE = 2048
+#: the tap counts the short route has compiled instantiations for
+#: (``csrc/fir.cu``, ``modem_fir``): the Hilbert filter, the GMSK transient,
+#: the demodulator's lowpass, the RRC
+FIR_FIXED_TAPS = (23, 32, 64, 65)
 
 
 def _padded(n: int) -> int:
@@ -29,12 +34,27 @@ def _padded(n: int) -> int:
 
 
 def fir_smem_bytes(k: int) -> int:
-    """Shared memory the kernel's block takes for ``k`` taps (``fir.cu``)."""
+    """Shared memory a block of the long route takes for ``k`` taps
+    (``fir.cu``)."""
     return 4 * (-(-k // 4) * 4 + _padded(_TILE + k - 1) + _padded(_TILE))
 
 
-#: the most taps whose tile fits a block's shared memory
+#: the most taps whose tile fits a block's shared memory on the long route
 FIR_MAX_TAPS = 25176
+
+
+def fir_route(k: int) -> str:
+    """The route of K4 for ``k`` taps: ``"fixed"`` (a compiled
+    instantiation, :data:`FIR_FIXED_TAPS`), ``"generic"`` (any other count
+    up to ``TAPS_PARAM``; on both the taps travel by value in a kernel
+    parameter) or ``"long"`` (up to :data:`FIR_MAX_TAPS`, the taps read
+    from the device). Raises ``ValueError`` past that."""
+    if k < 1 or k > FIR_MAX_TAPS:
+        raise ValueError(f"the FIR kernel takes 1 to at most {FIR_MAX_TAPS} "
+                         f"taps, got {k}")
+    if k in FIR_FIXED_TAPS:
+        return "fixed"
+    return "generic" if k <= TAPS_PARAM else "long"
 
 
 def as_taps(taps, device) -> torch.Tensor:
@@ -91,12 +111,10 @@ def fir_plain(x: torch.Tensor, taps: torch.Tensor,
 
 def fir_kernel(x: torch.Tensor, taps: torch.Tensor,
                state: torch.Tensor) -> torch.Tensor:
-    """Launch K4 (``modem_fir``) on CUDA tensors; the history is read from
-    ``state`` in place."""
+    """Launch K4 (``modem_fir``) on CUDA tensors, by :func:`fir_route`'s
+    route; the history is read from ``state`` in place."""
     k = taps.shape[0]
-    if k > FIR_MAX_TAPS:
-        raise ValueError(f"the FIR kernel takes at most {FIR_MAX_TAPS} taps, "
-                         f"got {k}")
+    route = fir_route(k)
     if state.shape[:-1] != x.shape[:-1]:
         raise ValueError("state and x differ in batch shape")
     dev = x.device
@@ -107,6 +125,7 @@ def fir_kernel(x: torch.Tensor, taps: torch.Tensor,
         check_cuda(name, t, torch.float32, dev)
     y = torch.empty_like(fx)
     if y.numel():
+        host = None if route == "long" else host_taps(taps)
         FIR_KERNEL.launch(dev, fx.data_ptr(), fs.data_ptr(), fx.shape[0], n,
-                          taps.data_ptr(), k, y.data_ptr())
+                          host, taps.data_ptr(), k, y.data_ptr())
     return y.reshape(x.shape)

@@ -25,15 +25,13 @@ plain version.
 
 from __future__ import annotations
 
-import ctypes
 import math
-import weakref
 
 import numpy as np
 import torch
 
 from ..config import TWO_PI
-from ..cuda import Kernel, check_cuda
+from ..cuda import TAPS_PARAM, Kernel, check_cuda, host_taps
 from .fir import as_taps
 from .nco import carrier_phase
 from .polyphase import polyphase_decim, polyphase_interp
@@ -43,7 +41,7 @@ MAX_LUT_POINTS = 64
 #: the most taps K1's and K3's short route takes: there the taps travel by
 #: value in a kernel parameter of this many floats (``csrc/common.cuh``,
 #: ``Taps``); a longer chain takes the long route
-MAX_KERNEL_TAPS = 256
+MAX_KERNEL_TAPS = TAPS_PARAM
 #: the most samples a symbol K1's and K3's short route takes
 MAX_KERNEL_SPS = 64
 
@@ -172,40 +170,17 @@ def _kernel_map(lut, qam) -> tuple:
     return (None, 0, int(cshift), ms, a, c, s)
 
 
-class _Taps(ctypes.Structure):
-    """``csrc/common.cuh``'s ``Taps``: the taps as the kernel parameter."""
-    _fields_ = [("v", ctypes.c_float * MAX_KERNEL_TAPS)]
-
-
-#: id(taps) -> (weak reference, version, _Taps): one copy to the host per
-#: taps tensor (a chain's ``rrc`` buffer), not one per launch
-_HOST_TAPS: dict[int, tuple] = {}
-
-
 def kernel_taps(taps: torch.Tensor, sps: int) -> tuple:
     """K1's and K3's taps arguments, which pick the route: ``(host, device)``
-    with ``host`` the address of a host copy of ``taps`` as the short route
-    takes them (by value, in a kernel parameter), kept while ``taps`` lives
-    and is not modified; or ``(None, device)`` for a chain of more than
-    ``MAX_KERNEL_TAPS`` taps or ``MAX_KERNEL_SPS`` samples a symbol, which
-    takes the long route (the taps read from ``device``, the address of
-    ``taps`` on the card)."""
+    with ``host`` the address of the host copy of ``taps`` as the short route
+    takes them (by value, in a kernel parameter:
+    :func:`~modem_tpu_torch.cuda.host_taps`); or ``(None, device)`` for a
+    chain of more than ``MAX_KERNEL_TAPS`` taps or ``MAX_KERNEL_SPS``
+    samples a symbol, which takes the long route (the taps read from
+    ``device``, the address of ``taps`` on the card)."""
     if taps.shape[0] > MAX_KERNEL_TAPS or sps > MAX_KERNEL_SPS:
         return None, taps.data_ptr()
-    # an inference tensor has no version counter: copied at every launch
-    version = None if taps.is_inference() else taps._version
-    hit = _HOST_TAPS.get(id(taps))
-    if (version is not None and hit is not None and hit[0]() is taps
-            and hit[1] == version):
-        return ctypes.addressof(hit[2]), taps.data_ptr()
-    if len(_HOST_TAPS) >= 64:
-        for key in [k for k, v in _HOST_TAPS.items() if v[0]() is None]:
-            del _HOST_TAPS[key]
-    param = _Taps()
-    values = taps.detach().cpu().numpy()
-    param.v[:values.shape[0]] = values.tolist()
-    _HOST_TAPS[id(taps)] = (weakref.ref(taps), version, param)
-    return ctypes.addressof(param), taps.data_ptr()
+    return host_taps(taps), taps.data_ptr()
 
 
 def _kernel_carrier(carrier, sym_offset) -> tuple:

@@ -680,10 +680,18 @@ def _unit(shape, seed):
         -1, 1, shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("k", [2, 7, 23, 64, 65, 300])
-@pytest.mark.parametrize("shape", [(3, 1000), (2, 2, 4097)], ids=str)
+#: K4's routes: the compiled tap counts, generic ones and the long route
+FIR_KS = [23, 32, 64, 65, 2, 7, 256, 257, 300, 1000]
+
+
+@pytest.mark.parametrize("k", FIR_KS)
+@pytest.mark.parametrize("shape", [(3, 1000), (2, 2, 4097), (3, 1), (2, 5),
+                                   (2, 4096), (64, 40001)], ids=str)
 def test_fir_kernel(k, shape, dev):
-    """K4 vs fir_plain with a carried state, unit-scale inputs."""
+    """K4 vs fir_plain with a carried state, unit-scale inputs, on every
+    route: rows of one sample, shorter than the history, odd (misaligned
+    from the second row on), whole tiles, and more tiles than the card has
+    blocks (a block walks several)."""
     from modem_tpu_torch.ops import fir
 
     taps = _unit(k, k).to(dev) / k ** 0.5
@@ -693,13 +701,55 @@ def test_fir_kernel(k, shape, dev):
                                rtol=0)
 
 
-def test_fir_kernel_pushes_equal_one_shot(dev):
+@pytest.mark.parametrize("k", [23, 64, 7])
+@pytest.mark.parametrize("skip", [1, 2, 3])
+def test_fir_kernel_off_a_16_byte_boundary(k, skip, dev):
+    """K4 on rows whose storage starts 1-3 floats past a 16-byte boundary
+    (a contiguous slice), of odd and even lengths: the tiles shift, the
+    outputs do not."""
+    from modem_tpu_torch.ops import fir
+
+    taps = _unit(k, k).to(dev) / k ** 0.5
+    for c, n in ((3, 5001), (4, 4096), (2, 3)):
+        x = _unit((c * n + skip,), 9).to(dev)[skip:].view(c, n)
+        st = _unit((c, k - 1), 10).to(dev)
+        got = fir.fir_kernel(x, taps, st)
+        torch.testing.assert_close(got, fir.fir_plain(x, taps, st),
+                                   atol=ATOL, rtol=0)
+        assert torch.equal(got, _fir_long(x, taps, st))
+
+
+def _fir_long(x, taps, st):
+    """K4's long route whatever the tap count (the taps from the device)."""
+    from modem_tpu_torch.ops import fir
+
+    c, n, k = math.prod(x.shape[:-1]), x.shape[-1], taps.shape[0]
+    y = torch.empty_like(x)
+    fir.FIR_KERNEL.launch(x.device, x.data_ptr(), st.data_ptr(), c, n, None,
+                          taps.data_ptr(), k, y.data_ptr())
+    return y
+
+
+@pytest.mark.parametrize("k", [23, 32, 64, 65, 2, 7, 256])
+def test_fir_routes_agree_bit_for_bit(k, dev):
+    """The short route (compiled or generic) equals the long route bit for
+    bit: one fmaf chain an output, taps from j = 0, on both."""
+    from modem_tpu_torch.ops import fir
+
+    taps = _unit(k, k + 1).to(dev) / k ** 0.5
+    x, st = _unit((5, 9001), 3).to(dev), _unit((5, k - 1), 4).to(dev)
+    assert torch.equal(fir.fir_kernel(x, taps, st), _fir_long(x, taps, st))
+
+
+@pytest.mark.parametrize("k", [23, 32, 64, 65, 7, 256, 257])
+def test_fir_kernel_pushes_equal_one_shot(k, dev):
     from modem_tpu_torch.ops.fir import fir_filter
 
-    taps, x = _unit(64, 3).to(dev) / 8, _unit((4, 9000), 4).to(dev)
+    taps, x = _unit(k, 3).to(dev) / k ** 0.5, _unit((4, 9000), 4).to(dev)
     one, _ = fir_filter(x, taps)
     state, outs = None, []
-    for a, b in ((0, 5), (5, 2100), (2100, 2150), (2150, 9000)):
+    for a, b in ((0, 5), (5, 6), (6, 9), (9, 2100), (2100, 2150),
+                 (2150, 2151), (2151, 9000)):
         y, state = fir_filter(x[:, a:b], taps, state)
         outs.append(y)
     assert torch.equal(torch.cat(outs, -1), one)
@@ -713,24 +763,101 @@ def test_fir_kernel_refuses_too_many_taps(dev):
     with pytest.raises(ValueError, match="at most"):
         fir.fir_filter(torch.zeros(2, 10, device=dev), torch.ones(k))
     assert fir.FIR_KERNEL.launches == before
+    # the short route's parameter holds 256 taps: more by value is refused
+    taps = torch.ones(257, device=dev)
+    x, st = torch.zeros(2, 10, device=dev), torch.zeros(2, 256, device=dev)
+    y = torch.empty_like(x)
+    with pytest.raises(RuntimeError, match="modem_fir"):
+        fir.FIR_KERNEL.launch(dev, x.data_ptr(), st.data_ptr(), 2, 10,
+                              fir.host_taps(taps[:256]), taps.data_ptr(),
+                              257, y.data_ptr())
+    assert fir.FIR_KERNEL.launches == before
 
 
+#: K5's carriers: a table of 5 phases (the reference path's), of 100, and
+#: none (10007 phases: one sincosf a sample)
+DEMOD_CARRIERS = [(2000, 10000), (1700, 10000), (2001, 10007)]
+
+
+@pytest.mark.parametrize("carrier", DEMOD_CARRIERS, ids=str)
+@pytest.mark.parametrize("k", [64, 65, 23])
 @pytest.mark.parametrize("hist", [0, 63, 100])
-def test_demod_kernel(hist, dev):
+def test_demod_kernel(hist, k, carrier, dev):
     """K5 vs demod_plain: phases per channel, a stream counter, a
-    history read in place."""
+    history read in place; 64 and 65 taps compiled, 23 generic; the
+    carrier's phases from a table and without one."""
+    from modem_tpu_torch.ops import demod_kernel as dk
+    from modem_tpu_torch.ops.filters import lowpass_taps
+
+    taps = (torch.as_tensor(lowpass_taps(), device=dev) if k == 64
+            else _unit(k, k).to(dev) / k ** 0.5)
+    hz, sr = carrier
+    x, h = _unit((2, 3, 5000), 5).to(dev), _unit((2, 3, hist), 6).to(dev)
+    phi = _unit((2, 3), 7).to(dev) * 3
+    off = torch.tensor(9971, dtype=torch.int32, device=dev)
+    got = _launches(dk.DEMOD_KERNEL, dk.demod_kernel, x, h, taps, hz, sr,
+                    off, phi)
+    want = dk.demod_plain(x, h, taps, hz, sr, off, phi)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("carrier", DEMOD_CARRIERS, ids=str)
+@pytest.mark.parametrize("k", [64, 65, 23])
+def test_demod_kernel_pushes_equal_one_shot(k, carrier, dev):
+    """K5 in ragged pushes (shorter than the history, odd, across tiles,
+    more tiles than the card has blocks) equals one shot bit for bit, from
+    a negative stream counter."""
+    from modem_tpu_torch.ops.demod_kernel import fused_product_detect
+
+    taps = _unit(k, k + 2).to(dev) / k ** 0.5
+    hz, sr = carrier
+    x = _unit((70, 20011), 8).to(dev)
+    phi = _unit((70,), 9).to(dev) * 3
+    s0 = -12345
+    one = fused_product_detect(x, hz, sr, taps, phi, s0)
+    hist = x.new_zeros((70, k - 1))
+    parts = []
+    for a, b in ((0, 1), (1, 4), (4, 2049), (2049, 2050), (2050, 20011)):
+        part = fused_product_detect(x[:, a:b], hz, sr, taps, phi, s0 + a,
+                                    hist)
+        parts.append(torch.stack(part))
+        hist = torch.cat([hist, x[:, a:b]], -1)[:, -(k - 1):]
+    assert torch.equal(torch.cat(parts, -1), torch.stack(one))
+
+
+@pytest.mark.parametrize("skip", [1, 3])
+def test_demod_kernel_off_a_16_byte_boundary(skip, dev):
+    """K5 on rows whose storage starts past a 16-byte boundary, with a
+    history: the tiles shift, the outputs do not."""
     from modem_tpu_torch.ops import demod_kernel as dk
     from modem_tpu_torch.ops.filters import lowpass_taps
 
     taps = torch.as_tensor(lowpass_taps(), device=dev)
-    x, h = _unit((2, 3, 5000), 5).to(dev), _unit((2, 3, hist), 6).to(dev)
-    phi = _unit((2, 3), 7).to(dev) * 3
-    off = torch.tensor(9971, dtype=torch.int32, device=dev)
-    got = _launches(dk.DEMOD_KERNEL, dk.demod_kernel, x, h, taps, 2000, 10000,
-                    off, phi)
-    want = dk.demod_plain(x, h, taps, 2000, 10000, off, phi)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    c, n = 3, 5001
+    x = _unit((c * n + skip,), 11).to(dev)[skip:].view(c, n)
+    h, phi = _unit((c, 63), 12).to(dev), _unit((c,), 13).to(dev)
+    off = torch.tensor(-77, dtype=torch.int32, device=dev)
+    for hz, sr in DEMOD_CARRIERS:
+        got = dk.demod_kernel(x, h, taps, hz, sr, off, phi)
+        want = dk.demod_plain(x, h, taps, hz, sr, off, phi)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+def test_demod_kernel_refuses_what_it_does_not_take(dev):
+    from modem_tpu_torch.ops import demod_kernel as dk
+
+    x, h = torch.zeros(2, 10, device=dev), torch.zeros(2, 65, device=dev)
+    phi = torch.zeros(2, device=dev)
+    off = torch.tensor(0, dtype=torch.int32, device=dev)
+    before = dk.DEMOD_KERNEL.launches
+    with pytest.raises(RuntimeError, match="modem_demod"):
+        dk.demod_kernel(x, h, torch.ones(66, device=dev), 2000, 10000, off,
+                        phi)
+    with pytest.raises(ValueError, match="65 taps"):
+        dk.fused_product_detect(x, 2000, 10000, torch.ones(66, device=dev))
+    assert dk.DEMOD_KERNEL.launches == before
 
 
 def test_demodulator_on_card(dev):
