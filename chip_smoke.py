@@ -121,7 +121,10 @@ trellis rows of 652 steps) and ``bench_link.py``'s (``reference_link()``,
 19. K13 against its plain version, bit for bit: CCSDS at 256 x 4096 with
     windows of 512 (also 256 and 1024), noisy and noiseless; K=5 and K=7
     rate 1/3 at 64 x 1024, noisy and noiseless; ready windows with free and
-    pinned ends;
+    pinned ends; the warp route's packed rows (K = 2..6: 64/S rows a warp)
+    with a partly empty last warp, windows of 203 steps (no multiple of
+    8), free and pinned ends mixed, on zero and signed-zero LLRs (every
+    compare ties), on -1/0/+1 LLRs and on LLRs of magnitude 1e4;
 20. main path: ``reference_link()`` at 384 frames, ``tx_fused`` -> seeded
     AWGN at 2 dB -> ``rx_fused``, every payload back and every CRC true,
     with K2, K3 soft and K13 launched; then K2 and K3 soft against their
@@ -134,8 +137,9 @@ trellis rows of 652 steps) and ``bench_link.py``'s (``reference_link()``,
 21. CLI: ``link tx`` -> ``link rx`` on the card for 40 frames, every
     payload back with 40 ``frame: OK`` lines, K13 launched;
 22. times: K13 and its plain version per call, the profiler's device time,
-    the bound and the time per trellis step; ``decode_soft_windowed``'s
-    info rate; ``FramedLink.tx_fused`` and ``rx_fused`` per call at 384
+    the bound, the time per trellis step, the share of the bound and the
+    serial floor, at bench_fec's width and at ``reference_link()``'s 768
+    rows; ``decode_soft_windowed``'s info rate; ``FramedLink.tx_fused`` and ``rx_fused`` per call at 384
     frames (and the RS presets' ``rx_fused`` at 64) with the device's busy
     time and idle share.
 
@@ -167,8 +171,8 @@ BER harness on them, and K13 on the code shapes its repair widened:
     through ``decode_soft_windowed``, bit for bit against the plain
     version;
 27. (e) times: each mode's kernel and plain version per call, the
-    profiler's device time and the bound; widened K13 per call and per
-    trellis step.
+    profiler's device time and the bound; widened K13 per call, per
+    trellis step, its share of the bound and its serial floor.
 
 The turbo and polar inner codes, at ``bench_fec.py``'s widths
 (``TurboCode(1024)`` at 512 codewords, 6 iterations; ``PolarCode(256,
@@ -335,6 +339,17 @@ LINK_SNR_DB = 2.0                # per complex sample
 RS_LINK_FRAMES = 64
 RS_LINK_SNR_DB = {"ccsds_deep_space_link": 0.0, "dvb_like_link": 3.0}
 CLI_FRAMES = 40
+#: the warp route's packed rows in phase 19: (K, polynomials) for S = 2..32
+#: and the window length (no multiple of 8)
+VIT_PACKED = ((2, (0o3, 0o1)), (3, (0o7, 0o5)), (4, (0o15, 0o17)),
+              (5, (0o23, 0o35)), (6, (0o53, 0o75)))
+VIT_PACKED_TW = 203
+#: K13's serial floor: the dependent f32 operations of one ACS step (the
+#: candidate's add, the compare, the select; each at K14_CHAIN_CYCLES), the
+#: renormalisation's share (a min tree over the S states and a subtract,
+#: every 8 steps), and the traceback's dependent operations a step (the
+#: decision's shift and mask, the state's shift-or), counted apart
+K13_ACS_OPS, K13_TRACE_OPS = 3, 3
 VIT_REPORT = ("viterbi_decode_stream", "viterbi_kernel",
               "modem_tpu_torch/csrc/viterbi.cu",
               "modem_tpu/ops/pallas_viterbi.py:102")
@@ -1795,6 +1810,7 @@ def vit_case(k: int, polys, shape, sigma, seed: int, device):
 def phase_viterbi_kernel(device) -> float:
     """Phase 19: K13 against its plain version on the card, bit for bit.
     Returns the max |difference| at bench_fec's width (0 or it fails)."""
+    from modem_tpu_torch.fec import ConvCode
     from modem_tpu_torch.ops import viterbi_kernel as vk
 
     worst = 0.0
@@ -1838,7 +1854,41 @@ def phase_viterbi_kernel(device) -> float:
     check(f"{VIT_CHANNELS} ready windows of {win.shape[1]} steps, "
           f"{int(pin.sum())} pinned", vk.windows_kernel(code, win, pin),
           vk.windows_plain(code, win, pin))
+    for k, polys in VIT_PACKED:
+        code = ConvCode(k, polys)
+        rpw = vk.rows_per_warp_max(code.n_states)
+        rows = 5 * rpw + rpw // 2 + 1  # the last warp partly empty
+        for kind in ("zero", "ties", "large"):
+            lam = hazard_costs(kind, code, rows, VIT_PACKED_TW,
+                               SEED + 40 + k, device)
+            pin = (torch.arange(rows, device=device) % 3 == 1).float()
+            check(f"K={k} (S={code.n_states}, {rpw} rows a warp) {rows} "
+                  f"windows of {VIT_PACKED_TW} steps, {kind} LLRs, "
+                  f"{int(pin.sum())} pinned",
+                  vk.windows_kernel(code, lam, pin),
+                  vk.windows_plain(code, lam, pin))
+            check(f"K={k} {rows} ch x {VIT_PACKED_TW} steps, B=64, {kind} "
+                  f"LLRs", vk.stream_kernel(code, lam, 64, 10 * k, 1e6),
+                  vk.stream_plain(code, lam, 64, 10 * k, 1e6))
     return worst
+
+
+def hazard_costs(kind: str, code, rows: int, steps: int, seed: int,
+                 device) -> torch.Tensor:
+    """Costs ``[rows, steps, n]`` on which K13's compares tie or its
+    metrics grow: ``zero`` (+0 and -0 only: every compare ties), ``ties``
+    (-1, +1 and signed zeros), ``large`` (Gaussian times 1e4)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (rows, steps, code.n)
+    if kind == "large":
+        return 1e4 * torch.randn(shape, generator=g, device=device)
+    sign = torch.where(torch.rand(shape, generator=g, device=device) < 0.5,
+                       1.0, -1.0)
+    zero = 0.0 * sign
+    if kind == "zero":
+        return zero
+    v = torch.randint(-1, 2, shape, generator=g, device=device).float()
+    return torch.where(v == 0, zero, v)
 
 
 def link_noise(g, wave, snr_db: float):
@@ -2034,6 +2084,12 @@ def phase_link_times(device, card: str) -> tuple:
     times = viterbi_times(VIT_REPORT[0], VIT_REPORT[1], code, lam,
                           VIT_CHANNELS, VIT_BLOCK, VIT_HALO, device, card,
                           plain_calls=2)
+    # reference_link()'s trellis: 384 frames of 1024 steps, 2 windows each
+    _, _, link_lam = vit_case(7, (0o171, 0o133), (LINK_FRAMES, 1024 - 6),
+                              0.8, SEED + 38, device)
+    viterbi_times("viterbi_link_rows", VIT_REPORT[1], code, link_lam,
+                  LINK_FRAMES, VIT_BLOCK, VIT_HALO, device, card,
+                  plain_calls=1)
     llr = lam.reshape(VIT_CHANNELS, -1)
     dec_ms = time_calls(code.decode_soft_windowed, (llr, VIT_BLOCK), device)
     info = VIT_CHANNELS * VIT_BITS
@@ -2492,7 +2548,29 @@ def viterbi_times(name: str, sym: str, code, lam, channels: int, block: int,
           f"({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); per trellis "
           f"step {step / t_w * 1e3:.4f} us; {rows} rows x {t_w} steps x "
           f"{code.n_states} states on {card}", flush=True)
+    acs_ms, trace_ms = k13_floor(code, t_w)
+    clock = sm_clock_mhz()
+    print(f"[times] {name}: {step / t_w * clock * 1e3:.1f} cycles a trellis "
+          f"step at {clock:.0f} MHz; {100 * bound_ms / step:.3f}% of the "
+          f"bound; serial floor {acs_ms:.6f} ms of ACS + {trace_ms:.6f} ms "
+          f"of traceback a row ({K13_ACS_OPS} dependent f32 operations a "
+          f"step and the renormalisation's share, {K13_TRACE_OPS} a "
+          f"traceback step, x {K14_CHAIN_CYCLES} cycles), "
+          f"{100 * (acs_ms + trace_ms) / step:.1f}% of it, on {card}",
+          flush=True)
     return ms, plain_ms, dev_ms, None, (nbytes, flops)
+
+
+def k13_floor(code, t_w: int) -> tuple[float, float]:
+    """K13's serial floor in ms at the card's SM clock: one row's ACS
+    chain (t_w steps of K13_ACS_OPS dependent operations, plus a min tree
+    of log2(S) levels and a subtract every 8 steps) and its traceback's
+    (t_w steps of K13_TRACE_OPS), each K14_CHAIN_CYCLES; every row runs at
+    once, so no call can be shorter than their sum."""
+    per_step = K13_ACS_OPS + (math.log2(code.n_states) + 1) / 8
+    clock = sm_clock_mhz()
+    cycles = K14_CHAIN_CYCLES / clock / 1e3
+    return t_w * per_step * cycles, t_w * K13_TRACE_OPS * cycles
 
 
 # ---- the turbo and polar inner codes (K14, K15, K16) ----

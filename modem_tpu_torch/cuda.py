@@ -65,8 +65,8 @@ SIGNATURES = {
     "modem_fir": [_P, _P, _L, _L, _P, _P, _I, _P, _P],
     "modem_demod": [_P, _I, _P, _L, _L, _P, _I, _I, _I, _F, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P],
-    "modem_viterbi": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _L, _I,
-                      _L, _F, _I, _I, _L, _P, _P],
+    "modem_viterbi": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _L, _I, _L, _F, _I, _I, _L, _P, _P],
     "modem_viterbi_block": [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,
                             _I, _L, _L, _P, _P, _L, _I, _L, _F, _I, _I, _L,
                             _P, _P],

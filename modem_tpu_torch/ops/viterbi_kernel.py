@@ -19,11 +19,13 @@ which a CPU tensor runs, and a kernel wrapper (:func:`windows_kernel`,
 :func:`stream_kernel`), which a CUDA tensor runs; a CUDA tensor never takes
 the plain version. The two decide bit for bit alike, for every code shape
 :class:`~modem_tpu_torch.fec.ConvCode` builds (K >= 2, any n) and any
-window length. The kernel has two routes (:func:`warp_route`): a warp a
-row with everything in shared memory (``S <= 256``, ``n <= 32``, a row
-that fits), counted by :data:`VITERBI_KERNEL`; otherwise a block a row,
-metrics and decisions in a global scratch where shared memory is too small
-(:func:`block_plan`), counted by :data:`VITERBI_BLOCK_KERNEL`.
+window length. The kernel has two routes (:func:`warp_route`): the warp
+route (``S <= 256``, ``n <= 32``, a row that fits), path metrics in
+registers passed between lanes by shuffles, ``64 / S`` rows a warp below
+64 states, each row's costs and decisions in shared memory
+(:func:`row_layout`), counted by :data:`VITERBI_KERNEL`; otherwise a block
+a row, metrics and decisions in a global scratch where shared memory is
+too small (:func:`block_plan`), counted by :data:`VITERBI_BLOCK_KERNEL`.
 """
 
 from __future__ import annotations
@@ -153,21 +155,55 @@ def stream_kernel(code, lam, b: int, h: int, guard: float):
 # the launch
 # --------------------------------------------------------------------------
 
-def row_layout(n_states: int, n: int, t_w: int) -> tuple[int, int, int]:
-    """The warp route's shared memory for one row (one warp), in floats, as
-    ``(dec_off, pm_off, row_floats)``: the window's costs at 0, its
-    decisions (one bit per state and step, ``max(1, S/32)`` 32-bit words a
-    step) at ``dec_off``, two buffers of path metrics at ``pm_off``, the
-    row's size rounded up to 4 floats so every row starts 16-byte
-    aligned. The kernel takes this layout as given."""
-    dec_off = t_w * n
-    pm_off = dec_off + t_w * max(1, n_states // 32)
-    return dec_off, pm_off, (pm_off + 2 * n_states + 3) // 4 * 4
+def _steps(t_w: int) -> int:
+    """The window's steps with the front padding: a multiple of 8."""
+    return t_w + (-t_w) % RENORM
+
+
+def rows_per_warp_max(n_states: int) -> int:
+    """Rows one warp of the warp route holds: ``64 / S`` below 64 states
+    (a butterfly a lane, ``S/2`` lanes a row), else one."""
+    return 64 // n_states if n_states < 64 else 1
+
+
+def _decision_words(n_states: int) -> int:
+    """32-bit decision words a step of a warp: a lo and a hi ballot up to
+    64 states (each row's field in them), ``S/32`` past that."""
+    return 2 if n_states <= 64 else n_states // 32
+
+
+def _warp_layout(n_states: int, n: int, t_w: int,
+                 rows: int) -> tuple[int, int, int, int]:
+    steps = _steps(t_w)
+    cost = (steps * n + 3) // 4 * 4
+    if rows > 1:  # rows 16 bytes apart in the banks: no conflicts a step
+        cost += (4 - cost) % 32
+    dec_off = rows * cost
+    return rows, cost, dec_off, dec_off + steps * _decision_words(n_states)
+
+
+def row_layout(n_states: int, n: int, t_w: int) -> tuple[int, int, int, int]:
+    """The warp route's shared memory for one warp, in floats, as ``(rows,
+    cost_floats, dec_off, warp_floats)``: the costs of each of its
+    ``rows`` rows (the window's steps after ``(-t_w) % 8`` zero steps,
+    ``n`` floats a step, padded to 16 bytes and, with several rows, to
+    rows 16 bytes apart modulo the 32 banks) at ``r * cost_floats``, the
+    warp's decision words (two a step up to 64 states, ``S/32`` past that)
+    at ``dec_off``. ``rows`` is the most the warp takes
+    (:func:`rows_per_warp_max`) that fit one block's shared memory, at
+    least one. A block holds up to 4 such warps one after another, as many
+    as fit. The kernel takes this layout as given."""
+    for rows in range(rows_per_warp_max(n_states), 0, -1):
+        layout = _warp_layout(n_states, n, t_w, rows)
+        if 4 * layout[3] <= MAX_SMEM_BYTES:
+            return layout
+    return layout
 
 
 def smem_bytes_per_row(n_states: int, n: int, t_w: int) -> int:
-    """Bytes of shared memory the warp route gives one row."""
-    return 4 * row_layout(n_states, n, t_w)[2]
+    """Bytes of shared memory the warp route needs for one row, a warp
+    holding it alone: its costs and its decision words."""
+    return 4 * _warp_layout(n_states, n, t_w, 1)[3]
 
 
 def warp_route(code, t_w: int) -> bool:
@@ -193,6 +229,15 @@ def block_plan(n_states: int, n: int, t_w: int) -> tuple[int, int, int, int]:
     dec_smem = pm_smem and head + pm_bytes + dec_bytes <= MAX_SMEM_BYTES
     smem = head + pm_bytes * pm_smem + dec_bytes * dec_smem
     return threads, int(pm_smem), int(dec_smem), smem
+
+
+def symmetric(code) -> bool:
+    """Whether every generator taps the newest and the oldest register bit
+    alike: then a transition into ``s + S/2`` emits what the one into ``s``
+    from the other predecessor does, and the warp route needs two branch
+    sums a butterfly, not four."""
+    top = code.k - 1
+    return all((g >> top) & 1 == g & 1 for g in code.polys)
 
 
 def _masks(code) -> np.ndarray:
@@ -223,7 +268,7 @@ def _launch(code, lam, pin, *, n_ch: int, t_stream: int, t_w: int,
                           torch.int32, dev)
         VITERBI_KERNEL.launch(
             dev, lam.data_ptr(), pin_ptr, masks.data_ptr(), n_ch, t_stream,
-            code.n, code.n_states, code.k - 2, t_w,
+            code.n, code.n_states, code.k - 2, int(symmetric(code)), t_w,
             *row_layout(code.n_states, code.n, t_w), *tail)
         return
     s = code.n_states

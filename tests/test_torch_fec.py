@@ -508,17 +508,29 @@ def test_conv_arguments_checked():
 
 def test_kernel_limits_named():
     """Every code shape has a route: the warp route takes S <= 256 (S = 4
-    included), n <= 32 and a row that fits shared memory; K = 10, 33 code
-    bits and 30000-step windows take the block route, whose metrics and
-    decisions move to the global scratch past shared memory."""
+    included), n <= 32 and a row that fits shared memory, 64 / S rows a
+    warp below 64 states and fewer where a warp of them would not fit;
+    K = 10, 33 code bits and 30000-step windows take the block route, whose
+    metrics and decisions move to the global scratch past shared memory."""
     assert vk.warp_route(tconv.ConvCode(3, (0o7, 0o5)), 100)
     assert vk.warp_route(tconv.ccsds_code(), 652)
     assert not vk.warp_route(tconv.ConvCode(10, (0o1001, 0o1777)), 100)
     assert not vk.warp_route(tconv.ccsds_code(), 30000)
     assert not vk.warp_route(tconv.ConvCode(3, (0o7,) * 33), 10)
-    assert vk.smem_bytes_per_row(64, 2, 652) == 4 * (652 * 4 + 128)
-    assert vk.row_layout(64, 2, 652) == (1304, 2608, 2736)
-    assert vk.row_layout(8, 3, 10) == (30, 40, 56)
+    # bench_fec's rows: 652 steps + 4 zero steps, 2 costs and 2 decision
+    # words a step, one row a warp
+    assert vk.smem_bytes_per_row(64, 2, 652) == 4 * (656 * 2 + 656 * 2)
+    assert vk.row_layout(64, 2, 652) == (1, 1312, 1312, 2624)
+    # S = 8: 8 rows a warp, each row's costs padded to 68 floats (4 mod 32)
+    assert vk.row_layout(8, 3, 10) == (8, 68, 544, 576)
+    # rows a warp for S = 4 (K = 3 at windows of 316 steps), 32, 64, 256
+    assert [vk.row_layout(s, 2, 316)[0] for s in (4, 32, 64, 256)] == [
+        16, 2, 1, 1]
+    assert vk.row_layout(4, 2, 316) == (16, 644, 10304, 10944)
+    assert vk.row_layout(256, 2, 652) == (1, 1312, 1312, 1312 + 656 * 8)
+    # 16 rows of 5000 steps would not fit: the warp takes 4
+    assert vk.row_layout(4, 2, 5000)[0] == 4
+    assert 4 * vk.row_layout(4, 2, 5000)[3] <= vk.MAX_SMEM_BYTES
     head = 4 * (2 + 64)
     assert vk.block_plan(512, 2, 100) == (512, 1, 1, head + 4096 + 6400)
     assert vk.block_plan(64, 2, 30000) == (64, 1, 0, head + 512)
@@ -526,6 +538,38 @@ def test_kernel_limits_named():
     assert vk.block_plan(256, 2, 8000) == (256, 1, 0, head + 2048)
     assert vk.block_plan(1 << 15, 2, 40) == (1024, 0, 0, head)
     assert vk.block_plan(4, 2, 10)[0] == 32
+
+
+def _tie_llrs(shape, seed):
+    """LLRs on which many compares tie: the first row all +0 and -0, the
+    others -1, 1 or a signed zero."""
+    rng = np.random.default_rng(seed)
+    llr = rng.integers(-1, 2, shape).astype(np.float32)
+    zero = np.where(rng.random(shape) < 0.5, np.float32(0.0),
+                    np.float32(-0.0))
+    llr = np.where(llr == 0, zero, llr)
+    llr[0] = zero[0]
+    return llr
+
+
+@pytest.mark.parametrize("k,polys", [(7, (0o171, 0o133)), (4, (0o15, 0o17))],
+                         ids=["k7", "k4"])
+def test_ties_and_zero_llrs_equal_pallas(k, polys):
+    """Zero LLRs, signed zeros and +-1 (every or many compares a tie, where
+    the even predecessor wins): ``decode_soft_windowed`` and
+    ``viterbi_decode_windows`` with free and pinned ends against the JAX
+    Pallas kernel in interpret mode, the reference that K13 on the card is
+    held to."""
+    jc, tc = jconv.ConvCode(k, polys), tconv.ConvCode(k, polys)
+    llr = _tie_llrs((3, 160 * jc.n), 41 + k)
+    want = jax.jit(lambda x: jc.decode_soft_windowed(
+        x, 48, backend="pallas"))(jnp.asarray(llr))
+    _eq(tc.decode_soft_windowed(_t(llr), 48), want)
+    win = llr.reshape(3, -1, jc.n)[:, 5:106]
+    pin = np.array([0.0, 1.0, 1.0], np.float32)
+    want = jax.jit(lambda w, p: jpv.viterbi_decode_windows(
+        jc, w, p, interpret=True))(jnp.asarray(win), jnp.asarray(pin))
+    _eq(vk.viterbi_decode_windows(tc, _t(win), _t(pin)), want)
 
 
 def test_fec_exports_only_what_is_ported():

@@ -1306,9 +1306,10 @@ def test_viterbi_stream_kernel_bench_fec_width(block, dev):
 
 def test_viterbi_kernel_refuses_what_it_does_not_take(dev):
     """The C entry points refuse, before any launch, what their callers
-    route elsewhere: the warp route a state count over 256 and a row over
-    the card's shared memory per block, the block route a block that is no
-    whole number of warps."""
+    route elsewhere: the warp route a state count over 256, a warp over the
+    card's shared memory per block and more rows a warp than its state
+    count packs, the block route a block that is no whole number of
+    warps."""
     from modem_tpu_torch.ops import viterbi_kernel as vk
 
     before = (vk.VITERBI_KERNEL.launches, vk.VITERBI_BLOCK_KERNEL.launches)
@@ -1316,12 +1317,13 @@ def test_viterbi_kernel_refuses_what_it_does_not_take(dev):
     out = torch.zeros((1, 64), dtype=torch.int32, device=dev)
     masks = torch.zeros((2, 512), dtype=torch.int32, device=dev)
     for s, layout in ((512, vk.row_layout(512, 2, 64)),
-                      (64, (128, 256, 1 << 20))):
+                      (64, (1, 128, 128, 1 << 20)),
+                      (64, (2, 128, 256, 384))):
         with pytest.raises(RuntimeError, match="CUDA error"):
             vk.VITERBI_KERNEL.launch(dev, lam.data_ptr(), None,
                                      masks.data_ptr(), 1, 64, 2, s,
-                                     s.bit_length() - 2, 64, *layout, 0, 0,
-                                     1, 0.0, 0, 64, 64, out.data_ptr())
+                                     s.bit_length() - 2, 1, 64, *layout, 0,
+                                     0, 1, 0.0, 0, 64, 64, out.data_ptr())
     with pytest.raises(RuntimeError, match="CUDA error"):
         vk.VITERBI_BLOCK_KERNEL.launch(
             dev, lam.data_ptr(), None, masks.data_ptr(), 1, 64, 2, 64, 5, 64,
@@ -1329,6 +1331,62 @@ def test_viterbi_kernel_refuses_what_it_does_not_take(dev):
             out.data_ptr())
     assert (vk.VITERBI_KERNEL.launches,
             vk.VITERBI_BLOCK_KERNEL.launches) == before
+
+
+#: (K, polynomials) of each state count that the warp route packs several
+#: rows a warp for (S = 2 .. 32: 64 / S rows), and S = 64 (one)
+PACKED = [(2, (0o3, 0o1)), (3, (0o7, 0o5)), (4, (0o15, 0o17)),
+          (5, (0o23, 0o35)), (6, (0o53, 0o75)), (7, (0o171, 0o133))]
+
+
+def _hazard_llrs(kind, code, shape, t, seed, dev):
+    """LLRs ``[*shape, n * t]`` of a kind that stresses the recursion:
+    ``noisy`` (a codeword at sigma 1), ``zero`` (+0 and -0 only: every
+    compare ties), ``ties`` (-1, +1 and signed zeros: many tie) and
+    ``large`` (the noisy ones times 1e4)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind in ("noisy", "large"):
+        _, _, llr = _code_llrs(code.k, code.polys, shape, t - code.k + 1,
+                               1.0, seed, dev)
+        return llr * (1e4 if kind == "large" else 1.0)
+    n = code.n * t
+    sign = torch.where(torch.rand(shape + (n,), generator=g, device=dev)
+                       < 0.5, 1.0, -1.0)
+    zero = 0.0 * sign  # +0 or -0
+    if kind == "zero":
+        return zero
+    v = torch.randint(-1, 2, shape + (n,), generator=g,
+                      device=dev).to(torch.float32)
+    return torch.where(v == 0, zero, v)
+
+
+@pytest.mark.parametrize("kind", ["noisy", "zero", "ties", "large"])
+@pytest.mark.parametrize("case", PACKED, ids=[f"k{k}" for k, _ in PACKED])
+def test_viterbi_kernel_packed_rows(case, kind, dev):
+    """The warp route's packed rows: a row count that leaves the last warp
+    partly empty, free and pinned ends mixed, windows whose length is no
+    multiple of 8 (the renormalisation cadence runs from the window's
+    end), on noisy, all-zero and signed-zero, tie-heavy and 1e4-large
+    LLRs: ready windows and the stream form bit for bit the plain
+    version's."""
+    from modem_tpu_torch.fec import ConvCode
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code = ConvCode(*case)
+    rpw = vk.rows_per_warp_max(code.n_states)
+    rows = 3 * rpw + rpw // 2 + 1
+    for t_w in (61, 100, 203):
+        llr = _hazard_llrs(kind, code, (rows,), t_w, 30 + t_w, dev)
+        win = llr.reshape(rows, t_w, code.n)
+        pin = (torch.arange(rows, device=dev) % 3 == 1).float()
+        assert vk.warp_route(code, t_w)
+        got = _launches(vk.VITERBI_KERNEL, vk.viterbi_decode_windows, code,
+                        win, pin)
+        assert torch.equal(got, vk.windows_plain(code, win, pin)), t_w
+    llr = _hazard_llrs(kind, code, (rows,), 300, 29, dev)
+    got = _launches(vk.VITERBI_KERNEL, code.decode_soft_windowed, llr, 37)
+    lam = llr.reshape(rows, -1, code.n)
+    assert torch.equal(got, vk.stream_plain(code, lam, 37, 10 * code.k, 1e6))
 
 
 #: (K, polynomials, channels, data bits, block steps): every code shape of
