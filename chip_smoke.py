@@ -92,23 +92,29 @@ channel), and the MSK loopback at config #3's block:
 
 15. kernel vs plain: K7 (noiseless and with noise; at 130 x 600 slots in
     tiles of 32, which crosses the noise stream's lane and tile keys, and
-    at 256 x 8192 slots), K11 and K12 hard and soft (3 x 500 symbols and
-    256 x 4096, at 3/2 and 2/3): decisions equal (K7 with noise on
-    >= 99.99%), waveforms and soft points within 1e-5;
+    at 256 x 8192 slots), K11 and K12 hard and soft on every route (3/2 and
+    its 64-QAM, 2/3: the compiled instantiations; 5/4 and 3/2 with 257 RRC
+    taps: the long route) at 3 x 500, 3 x 257 (rows off a 16-byte
+    boundary), 2 x 1 and 256 x 4096 symbols: decisions equal (K7 with noise
+    on >= 99.99%), waveforms and soft points within 1e-5;
 16. main path: config #4's ``roundtrip_fused``, ``rx_fused(tx_fused)`` and
     the hard bits of ``rx_soft_fused`` give the bits back exactly;
     ``tx_fused`` within 1e-5 of the staged ``tx``, ``rx_fused`` equal to
-    ``rx``; 64-QAM and 2/3 at 64 x 1024; ``StreamingResampledChain`` in
-    ragged pushes equal to one shot on 4 channels; ``MskChain
-    .roundtrip_fused`` gives the bits back exactly; each path with every
-    launch count set to 0 just before and read just after;
+    ``rx``; 64-QAM, 2/3, 5/4 and 3/2 with 257 RRC taps at 64 x 1024;
+    ``StreamingResampledChain`` in ragged pushes equal to one shot on 4
+    channels; ``MskChain.roundtrip_fused`` gives the bits back exactly;
+    each path with every launch count set to 0 just before and read just
+    after;
 17. noise: MSK ``roundtrip_fused(snr_db=7, seed)`` against the staged path
     (``tx``, seeded noise of the same sigma, ``rx``): slot error rates
     (about 1e-2) within 10%; config #4 with seeded channel-rate noise:
     ``rx_fused`` equal to ``rx`` on >= 99.99% of the bits;
 18. times: K7 (without and with noise), K11, K12 hard and soft per call
-    beside their plain versions, the profiler's device time, the bound and
-    K12 soft's ``conv1d`` yardstick; ``ResampledChain.tx_fused``,
+    beside their plain versions (K11 and K12 hard also on the 2/3 and long
+    routes), the profiler's device time of the kernel each route runs
+    (failing where the profile has none: the C entry sent the shape
+    elsewhere), the bound and K12 soft's ``conv1d`` yardstick;
+    ``ResampledChain.tx_fused``,
     ``rx_fused``, ``roundtrip_fused`` and ``MskChain.roundtrip_fused`` per
     call with the device's busy time and idle share.
 
@@ -234,9 +240,9 @@ demodulator's 64-tap lowpass, the chain's 65-tap RRC and each other count of
 phase 7, K5 with and without its carrier table; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
-K10; K7 without and with noise, with ``agreement``; K11; K12 hard and
-soft; K13; each mode of K1-K3, K1 with noise with ``agreement``; K13 at
-K = 3 and 15; K14, K15, K16; K1, K3 hard and K3 soft on each long-route
+K10; K7 without and with noise, with ``agreement``; K11 and K12 hard on
+each route (3/2, 2/3, long), K12 soft; K13; each mode of K1-K3, K1 with
+noise with ``agreement``; K13 at K = 3 and 15; K14, K15, K16; K1, K3 hard and K3 soft on each long-route
 chain), each
 with its launches on its path, error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
@@ -308,25 +314,35 @@ RS_STREAM_CHANNELS = 4
 RS_STREAM_CUTS = (7, 1, 1000, 2000)  # ragged pushes, then the rest
 RS_NOISE_SNR_DB = 5.0            # per channel sample: 16-QAM BER ~3e-3
 RS_AGREE = 0.9999
+#: K11's and K12's routes (csrc/resampled.cu's C entries choose them):
+#: report suffix -> (up, down, RRC span, the profiler names, spaces dropped,
+#: of the K11 and K12 kernels the route runs, K12's with {} for its mode).
+#: Config #4's 3/2 and 2/3 the core's compiled instantiations, 257 RRC taps
+#: (span 32) the long route
+RS_ROUTES = {
+    "": (3, 2, 8, "resampled_tx_core<8,65,3,2,17>",
+         "resampled_rx_core<{},1,12,112>"),
+    "_2_3": (2, 3, 8, "resampled_tx_core<8,65,2,3,17>",
+             "resampled_rx_core<{},3,16,71>"),
+    "_long": (3, 2, 32, "resampled_tx_kernel", "resampled_rx_kernel<{}>"),
+}
+RS_EDGES = ((3, 257), (2, 1))    # tile edges beside SMALL: odd rows, one symbol
 MSK_SMALL = (130, 600)
 MSK_SNR_DB = 7.0                 # per complex sample: slot SER ~9e-3
 MSK_SER_RTOL = 0.10
-#: profiler name, source and replaced TPU kernel of each config #4 and MSK
-#: loopback report entry
+#: profiler name (K11's and K12's: ``rs_symbol``), source and replaced TPU
+#: kernel of each config #4 and MSK loopback report entry
 RS_REPORT = {
     "fused_msk_slots": ("msk_chain_kernel", "modem_tpu_torch/csrc/fsk.cu",
                         "modem_tpu/ops/pallas_fsk.py:313"),
     "fused_msk_slots_noisy": ("msk_chain_kernel",
                               "modem_tpu_torch/csrc/fsk.cu",
                               "modem_tpu/ops/pallas_fsk.py:313"),
-    "fused_resampled_tx": ("resampled_tx_kernel",
-                           "modem_tpu_torch/csrc/resampled.cu",
-                           "modem_tpu/ops/pallas_resampled.py:111"),
-    "fused_resampled_rx": ("resampled_rx_kernel<false>",
-                           "modem_tpu_torch/csrc/resampled.cu",
-                           "modem_tpu/ops/pallas_resampled.py:235"),
-    "fused_resampled_rx_soft": ("resampled_rx_kernel<true>",
-                                "modem_tpu_torch/csrc/resampled.cu",
+    **{f"fused_resampled_{d}{suffix}": (
+        None, "modem_tpu_torch/csrc/resampled.cu",
+        f"modem_tpu/ops/pallas_resampled.py:{111 if d == 'tx' else 235}")
+       for suffix in RS_ROUTES for d in ("tx", "rx")},
+    "fused_resampled_rx_soft": (None, "modem_tpu_torch/csrc/resampled.cu",
                                 "modem_tpu/ops/pallas_resampled.py:235"),
 }
 # the coded link: bench_fec.py:48-50,121-125's Viterbi width and
@@ -1446,14 +1462,35 @@ def phase_fsk_times(chains, device, card: str) -> dict:
 # ---- config #4 (K11, K12) and the MSK loopback (K7) ----
 
 def resampled_chain(device, bps: int = 4, up: int = RS_UP,
-                    down: int = RS_DOWN):
+                    down: int = RS_DOWN, span: int = 8):
     """``bench_rows.py:65``'s chain: ``ResampledChain(QAM(4, 0.0, 1.0),
     Rates(1250, 10000), 3, 2)``."""
     from modem_tpu_torch import Rates, ResampledChain
     from modem_tpu_torch.models.qam import QAM
 
     return ResampledChain(QAM(bps, 0.0, 1.0), Rates(FSK_BAUD, REF_SR), up,
-                          down, device=device)
+                          down, span_symbols=span, device=device)
+
+
+def rs_route_chains(device) -> list:
+    """``[(label, chain, report suffix)]``: the chains of RS_ROUTES, then
+    config #4's 64-QAM and a 5/4 chain (the long route at 65 RRC taps),
+    checked but with no report entry of their own (suffix None)."""
+    return [(f"{up}/{down} span {span}",
+             resampled_chain(device, up=up, down=down, span=span), suffix)
+            for suffix, (up, down, span, _, _) in RS_ROUTES.items()] + [
+        ("64-QAM 3/2", resampled_chain(device, bps=6), None),
+        ("5/4", resampled_chain(device, up=5, down=4), None)]
+
+
+def rs_symbol(name: str) -> str:
+    """The profiler name (spaces dropped) of the kernel that K11 or K12
+    report entry ``name`` runs on its route (RS_ROUTES)."""
+    tx = name.startswith("fused_resampled_tx")
+    soft = name.endswith("_soft")
+    suffix = name[len("fused_resampled_tx"):].removesuffix("_soft")
+    _, _, _, tx_name, rx_name = RS_ROUTES[suffix]
+    return tx_name if tx else rx_name.format("true" if soft else "false")
 
 
 def rs_cases(chain, shape, device, seed: int):
@@ -1508,8 +1545,10 @@ def msk_cases(msk, shape, cs: int, device, seed: int):
 
 
 def phase_rs_kernels(msk, device) -> dict:
-    """Phase 15: K7, K11 and K12 against their plain versions on the card;
-    returns each report entry's (max |error|, agreement) at full width."""
+    """Phase 15: K7, K11 and K12 against their plain versions on the card,
+    K11 and K12 on every route (rs_route_chains) at the tile edges and at
+    full width; returns each report entry's (max |error|, agreement) at full
+    width."""
     from modem_tpu_torch.ops import fsk_kernel as fk
 
     errs = {}
@@ -1519,22 +1558,24 @@ def phase_rs_kernels(msk, device) -> dict:
             errs[name] = compare_decisions(
                 name, fk.msk_chain_kernel(*args), fk.msk_chain_plain(*args),
                 shape, args[6] is not None)
-    for up, down in ((RS_UP, RS_DOWN), (RS_DOWN, RS_UP)):
-        chain = resampled_chain(device, up=up, down=down)
-        for shape in (SMALL, (CHANNELS, N_SYMBOLS)):
+    for label, chain, suffix in rs_route_chains(device):
+        for shape in (SMALL,) + RS_EDGES + ((CHANNELS, N_SYMBOLS),):
             cases = rs_cases(chain, shape, device, SEED + 21)
             for name, kern, plain, args, exact in cases:
                 got, want = kern(*args), plain(*args)
                 torch.cuda.synchronize(device)
                 err = max_err(got, want)
                 if (exact and err != 0) or err > ATOL:
-                    fail(f"{name} {up}/{down} at {shape}: kernel vs plain "
+                    fail(f"{name} {label} at {shape}: kernel vs plain "
                          f"max |err| {err}")
-                if (up, down) == (RS_UP, RS_DOWN):
-                    errs[name] = (err, None)
-                print(f"[rs kernels] {name:24s} {up}/{down} {shape[0]:4d} ch "
-                      f"x {shape[1]:5d} sym: max |kernel - plain| = {err:.3e} "
-                      f"({'exact' if exact else f'tol {ATOL}'})", flush=True)
+                entry = name + (suffix or "")
+                if (suffix is not None and shape[0] == CHANNELS
+                        and entry in RS_REPORT):
+                    errs[entry] = (err, None)
+                print(f"[rs kernels] {name:24s} {label:14s} {shape[0]:4d} ch "
+                      f"x {shape[1]:5d} sym: max |kernel - plain| = "
+                      f"{err:.3e} ({'exact' if exact else f'tol {ATOL}'})",
+                      flush=True)
     return errs
 
 
@@ -1587,16 +1628,19 @@ def phase_rs_main(msk, device) -> dict:
     same("rx_fused(tx(bits)) == rx(tx(bits))", chain.rx_fused(staged, N_SYMBOLS),
          chain.rx(staged, N_SYMBOLS))
 
-    for label, side in (("64-QAM 3/2", resampled_chain(device, bps=6)),
-                        ("16-QAM 2/3", resampled_chain(device, up=RS_DOWN,
-                                                       down=RS_UP))):
+    for label, side, suffix in rs_route_chains(device):
+        if suffix == "":
+            continue  # config #4's chain, above
         b = bits_for(side, *RS_SIDE)
         reset_launches()
         same(f"{label} roundtrip_fused(bits) == bits", side.roundtrip_fused(b),
              b)
         same(f"{label} rx_fused(tx_fused(bits)) == bits",
              side.rx_fused(side.tx_fused(b), RS_SIDE[1]), b)
-        read_launches({**tx_k, **rx_k}, label)
+        counts = read_launches({**tx_k, **rx_k}, label)
+        if suffix is not None:
+            for name, n in counts.items():
+                launches[name + suffix] = n
 
     b = bits[:RS_STREAM_CHANNELS]
     bps = chain.bits_per_symbol
@@ -1688,7 +1732,7 @@ def rs_work(name: str, args) -> tuple[float, float]:
         if sigma is not None:
             ops += k * n_s * 16
         return 3 * 4 * k, ops
-    if name == "fused_resampled_tx":
+    if name.startswith("fused_resampled_tx"):
         syms, lut, taps, table, _, sps, up, down, n_modem = args
         c, k = syms.shape
         n_out = n_modem * up // down
@@ -1706,6 +1750,14 @@ def rs_work(name: str, args) -> tuple[float, float]:
         ops += 5 * lut.shape[0] * c * k
     return (2 * 4 * wi.numel() + out_bytes
             + 4 * (lut.numel() + table.numel())), ops
+
+
+def rs_samples(name: str, args) -> int:
+    """The channel-rate samples a call of K11 writes or of K12 reads."""
+    if name.startswith("fused_resampled_tx"):
+        syms, _, _, _, _, _, up, down, n_modem = args
+        return syms.shape[0] * n_modem * up // down
+    return args[0].numel()
 
 
 def conv1d_yardstick(args, device):
@@ -1734,23 +1786,38 @@ def conv1d_yardstick(args, device):
 
 
 def phase_rs_times(msk, device, card: str) -> dict:
-    """Phase 18: each kernel and its plain version per call, the profiler's
-    device time, the bound and K12 soft's ``conv1d`` yardstick; then the
-    config #4 and MSK loopback entry points per call with the device's busy
-    time and idle share."""
+    """Phase 18: each kernel and its plain version per call (K11 and K12 on
+    every route), the profiler's device time of the kernel each route runs
+    (rs_symbol; failing where the profile has none), the bound and K12
+    soft's ``conv1d`` yardstick; then
+    the config #4 and MSK loopback entry points per call with the device's
+    busy time and idle share."""
     from modem_tpu_torch.ops import fsk_kernel as fk
 
     chain = resampled_chain(device)
     cases = rs_cases(chain, (CHANNELS, N_SYMBOLS), device, SEED + 25)
     cases = [(n, k, p, a) for n, k, p, a, _ in cases]
+    for _, side, suffix in rs_route_chains(device):
+        if not suffix:
+            continue  # config #4's chain, above; chains without an entry
+        cases += [(n + suffix, k, p, a) for n, k, p, a, _ in rs_cases(
+            side, (CHANNELS, N_SYMBOLS), device, SEED + 25)
+            if n + suffix in RS_REPORT]
     cases += [(n, fk.msk_chain_kernel, fk.msk_chain_plain, a)
               for n, a in msk_cases(msk, (CHANNELS, 2 * N_SYMBOLS), 256,
                                     device, SEED + 26)]
     samples = CHANNELS * chain._padded_len(N_SYMBOLS) * RS_UP // RS_DOWN
     times = {}
     for name, kern, plain, args in cases:
-        ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
-                                            RS_REPORT[name][0])
+        symbol = (RS_REPORT[name][0] if name.startswith("fused_msk")
+                  else rs_symbol(name))
+        ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device, symbol)
+        for _ in range(2):  # a profile that lost its kernel records, once
+            if dev_ms is None:
+                dev_ms = kernel_device_ms(kern, args, device, symbol)
+        if dev_ms is None:
+            fail(f"{name}: no {symbol} in three profiles (the kernel its "
+                 f"route runs)")
         lib_ms, extra = None, "no library call"
         if name == "fused_resampled_rx_soft":
             fn, fargs, lib_err = conv1d_yardstick(args, device)
@@ -1759,9 +1826,9 @@ def phase_rs_times(msk, device, card: str) -> dict:
             lib_ms = time_calls(fn, fargs, device)
             extra = f"conv1d {lib_ms:.4f} ms (max |err| vs K12 {lib_err:.2e})"
         times[name] = (ms, plain_ms, dev_ms, lib_ms, rs_work(name, args))
-        n = (CHANNELS * 2 * N_SYMBOLS * msk.spb
-             if name.startswith("fused_msk") else samples)
-        print_times(name, n, times[name], card, extra)
+        n = (CHANNELS * 2 * N_SYMBOLS * msk.spb if name.startswith("fused_msk")
+             else rs_samples(name, args))
+        print_times(name, n, times[name], card, f"{extra}, {symbol}")
 
     g = torch.Generator(device=device).manual_seed(SEED + 27)
     bits = torch.randint(0, 2, (CHANNELS, 4 * N_SYMBOLS), generator=g,

@@ -10,8 +10,8 @@ loaded when the package is imported.
 
 A :class:`Kernel` is one entry point with its launch count: it counts a
 launch only where the C function ran and reported success.
-:func:`host_taps` keeps the host copy of a taps tensor that K1, K3, K4 and
-K5 take by value, in a kernel parameter.
+:func:`host_taps` keeps the host copy of the taps or tables that K1, K3, K4,
+K5, K11 and K12 take by value, in a kernel parameter.
 """
 
 from __future__ import annotations
@@ -40,8 +40,10 @@ _MAP = [_P, _I, _I, _F, _F, _F, _F]
 _NCO = [_I, _I, _L, _F]
 #: argument types of each C entry point (pointers and the stream as
 #: c_void_p; the taps of ``modem_chain``, ``modem_rx_hard``,
-#: ``modem_rx_soft`` and ``modem_fir`` a host pointer (:func:`host_taps`) or
-#: null, then a device pointer; ``modem_demod``'s a host pointer)
+#: ``modem_rx_soft`` and ``modem_fir``, and the tables of
+#: ``modem_resampled_tx`` and ``modem_resampled_rx``, a host pointer
+#: (:func:`host_taps`) or null, then the device pointers; ``modem_demod``'s
+#: a host pointer)
 SIGNATURES = {
     "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
     "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _P, _P, _P],
@@ -50,10 +52,10 @@ SIGNATURES = {
                         _I, _I, _F, _U, _P, _P],
     "modem_msk_chain": [_P, _P, _L, _L, _I, _F, _F, _I, _I, _I, _F, _U, _P,
                         _P],
-    "modem_resampled_tx": [_P, _L, _L, _P, _I, _P, _I, _I, _P, _I, _I, _I,
-                           _I, _L, _P, _P, _P],
-    "modem_resampled_rx": [_P, _P, _L, _L, _L, _P, _I, _I, _I, _I, _P, _I,
-                           _I, _P, _P, _P, _P],
+    "modem_resampled_tx": [_P, _L, _L, _P, _I, _P, _P, _I, _I, _P, _I, _I,
+                           _I, _I, _L, _P, _P, _P],
+    "modem_resampled_rx": [_P, _P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _P,
+                           _I, _I, _P, _P, _P, _P],
     "modem_tx": [_P, _L, _L, *_MAP, _P, _I, _I, _I, *_NCO, _I, _F, _P, _P,
                  _P],
     "modem_rx_hard": [_P, _P, _I, _L, _L, _L, _P, _P, _I, _I, _I, *_MAP,
@@ -85,9 +87,9 @@ class _Taps(ctypes.Structure):
     _fields_ = [("v", ctypes.c_float * TAPS_PARAM)]
 
 
-#: id(taps) -> (weak reference, version, _Taps): one copy to the host per
-#: taps tensor (a chain's ``rrc``, a demodulator's ``lowpass``), not one per
-#: launch
+#: ids of the tensors -> (weak references, versions, _Taps): one copy to
+#: the host per taps tensor or tuple of tables (a chain's ``rrc``, a
+#: demodulator's ``lowpass``, config #4's tables), not one per launch
 _HOST_TAPS: dict[int, tuple] = {}
 
 _library: ctypes.CDLL | None = None
@@ -174,28 +176,36 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     return dev
 
 
-def host_taps(taps: torch.Tensor) -> int:
-    """The address of a host copy of ``taps`` (at most :data:`TAPS_PARAM`)
-    as the kernels take them by value, in a ``Taps`` kernel parameter. The
-    copy is kept while ``taps`` lives and is not modified in place (its
-    version counter), so a filter's taps cross to the host once, not at
-    every launch; an inference tensor, which has no version counter, is
-    copied at every call."""
-    if taps.shape[0] > TAPS_PARAM:
+def host_taps(*parts: torch.Tensor) -> int:
+    """The address of a host copy of ``parts`` as the kernels take them by
+    value, in a ``Taps`` kernel parameter: each tensor flattened, one after
+    another (K1, K3, K4 and K5 pass their taps; K11 its RRC taps and then
+    its stage table; K12 its composite table), :data:`TAPS_PARAM` floats in
+    all at most. The copy is kept while the tensors live and are not
+    modified in place (their version counters), so a filter's taps cross to
+    the host once, not at every launch; an inference tensor, which has no
+    version counter, is copied at every call."""
+    n = sum(t.numel() for t in parts)
+    if n > TAPS_PARAM:
         raise ValueError(f"a Taps parameter holds at most {TAPS_PARAM} taps, "
-                         f"got {taps.shape[0]}")
-    version = None if taps.is_inference() else taps._version
-    hit = _HOST_TAPS.get(id(taps))
-    if (version is not None and hit is not None and hit[0]() is taps
-            and hit[1] == version):
+                         f"got {n}")
+    key = tuple(id(t) for t in parts)
+    versions = (None if any(t.is_inference() for t in parts)
+                else tuple(t._version for t in parts))
+    hit = _HOST_TAPS.get(key)
+    if (versions is not None and hit is not None
+            and all(r() is t for r, t in zip(hit[0], parts))
+            and hit[1] == versions):
         return ctypes.addressof(hit[2])
     if len(_HOST_TAPS) >= 64:
-        for key in [k for k, v in _HOST_TAPS.items() if v[0]() is None]:
-            del _HOST_TAPS[key]
+        for k in [k for k, v in _HOST_TAPS.items()
+                  if any(r() is None for r in v[0])]:
+            del _HOST_TAPS[k]
     param = _Taps()
-    values = taps.detach().cpu().numpy()
-    param.v[:values.shape[0]] = values.tolist()
-    _HOST_TAPS[id(taps)] = (weakref.ref(taps), version, param)
+    values = [v for t in parts
+              for v in t.detach().reshape(-1).cpu().numpy().tolist()]
+    param.v[:n] = values
+    _HOST_TAPS[key] = (tuple(weakref.ref(t) for t in parts), versions, param)
     return ctypes.addressof(param)
 
 

@@ -21,6 +21,13 @@ The TPU tiling (halo rows, chunk and window searches, lane padding) is not
 carried over: ``[C, N]`` in and out. Each wrapper takes a CPU tensor to its
 plain version and a CUDA tensor to its kernel, never to the plain version.
 Constellations of up to 64 points.
+
+On the card both kernels run on one polyphase core (``resampled.cu``) with
+their tables passed by value in a ``Taps`` kernel parameter
+(:func:`host_tables`: K11 its RRC taps and then its stage table, K12 its
+composite table). The C entry points choose the route: config #4's tables
+at 3/2 and 2/3 take a compiled instantiation of the core, every other shape
+the long route, the first version, which reads the tables from the device.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from ..cuda import Kernel, check_cuda
+from ..cuda import TAPS_PARAM, Kernel, check_cuda, host_taps
 from .polyphase import polyphase_interp
 from .slicer import as_lut, lut_slice
 from .txrx import MAX_LUT_POINTS, map_plain
@@ -39,6 +46,14 @@ from .txrx import MAX_LUT_POINTS, map_plain
 RESAMPLED_TX_KERNEL = Kernel("modem_resampled_tx")
 #: hard and soft modes, one C entry point
 RESAMPLED_RX_KERNEL = Kernel("modem_resampled_rx")
+
+def host_tables(*tables: torch.Tensor) -> int | None:
+    """The host copy of ``tables`` (:func:`~modem_tpu_torch.cuda.host_taps`)
+    that the core takes by value where they fit its ``Taps`` parameter, else
+    ``None``: the C entry point then takes the long route."""
+    if sum(t.numel() for t in tables) > TAPS_PARAM:
+        return None
+    return host_taps(*tables)
 
 
 def _stage_weights(h, L: int, M: int, base_off: int):
@@ -255,9 +270,9 @@ def resampled_tx_kernel(symbols, lut, taps, table, first: int, sps: int,
     if wi.numel():
         RESAMPLED_TX_KERNEL.launch(
             dev, flat.data_ptr(), flat.shape[0], k, lut.data_ptr(),
-            lut.shape[0], taps.data_ptr(), taps.shape[0], sps,
-            table.data_ptr(), up, down, table.shape[1], first, n_out,
-            wi.data_ptr(), wq.data_ptr())
+            lut.shape[0], host_tables(taps, table), taps.data_ptr(),
+            taps.shape[0], sps, table.data_ptr(), up, down, table.shape[1],
+            first, n_out, wi.data_ptr(), wq.data_ptr())
     shape = symbols.shape[:-1] + (n_out,)
     return wi.reshape(shape), wq.reshape(shape)
 
@@ -322,8 +337,9 @@ def resampled_rx_kernel(wi, wq, n_symbols: int, lut, table, period: int,
     if c * n_symbols:
         RESAMPLED_RX_KERNEL.launch(
             dev, fi.data_ptr(), fq.data_ptr(), c, n, n_symbols,
-            table.data_ptr(), period, width, table.shape[1], first,
-            lut.data_ptr(), lut.shape[0], int(soft), *out)
+            host_tables(table), table.data_ptr(), period, width,
+            table.shape[1], first, lut.data_ptr(), lut.shape[0], int(soft),
+            *out)
     if soft:
         return di.reshape(shape), dq.reshape(shape)
     return dec.reshape(shape)

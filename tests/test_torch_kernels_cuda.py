@@ -1109,9 +1109,16 @@ def test_msk_roundtrip_fused_on_card(dev):
 # ---- K11 and K12 (resampled.cu) ----
 
 # (up, down, bits per symbol, symbol shape): P = 1 (3/2, 5/4, 2/1, 1/2) and
-# P = 3 (2/3); 64-QAM; tile edges
+# P = 3 (2/3); 64-QAM; tile edges. The routes (csrc/resampled.cu's C
+# entries): 3/2 and 2/3 the core's compiled instantiations, 5/4, 2/1 and
+# 1/2 the long route; rows of 1, 257 and 500 symbols, three rows so that two
+# start off a 16-byte boundary (the channel rows are odd at 500 and 257
+# symbols); tables past the parameter below
 RESAMPLED = [(3, 2, 4, (3, 500)), (2, 3, 4, (2, 3, 300)), (5, 4, 6, (2, 257)),
-             (2, 1, 4, (2, 700)), (1, 2, 4, (2, 1000)), (3, 2, 4, (2, 1))]
+             (2, 1, 4, (2, 700)), (1, 2, 4, (2, 1000)), (3, 2, 4, (2, 1)),
+             (3, 2, 4, (3, 257)), (3, 2, 6, (3, 500)), (2, 3, 4, (3, 1)),
+             (2, 3, 4, (3, 257)), (2, 3, 6, (3, 500)), (5, 4, 4, (3, 500)),
+             (1, 2, 4, (3, 257))]
 RESAMPLED_IDS = [f"{u}_{d}_qam{1 << b}_{'x'.join(map(str, s))}"
                  for u, d, b, s in RESAMPLED]
 
@@ -1168,6 +1175,101 @@ def test_resampled_rx_kernel(case, soft, dev):
     params = rk._rx_params(h["rrc"].tobytes(), h["taps2"].tobytes(), chain.sps,
                            chain.up, chain.down, chain.delay, dev)
     want = rk.resampled_rx_plain(wi, wq, k, chain.lut, *params, soft)
+    if soft:
+        for g_, w in zip(got, want):
+            torch.testing.assert_close(g_, w, atol=ATOL, rtol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+# (up, down, RRC span, symbol shape): tables past the parameter's 256 floats
+# (257 RRC taps), the first version's kernels
+RESAMPLED_LONG = [(3, 2, 32, (3, 500)), (3, 2, 32, (2, 1)),
+                  (2, 3, 32, (3, 257))]
+
+
+@pytest.mark.parametrize("case", [c + (8,) for c in RESAMPLED]
+                         + [(u, d, 4, s, sp) for u, d, sp, s in RESAMPLED_LONG],
+                         ids=RESAMPLED_IDS + [f"long_{u}_{d}_{s[-1]}"
+                                              for u, d, _, s in RESAMPLED_LONG])
+def test_resampled_kernel_routes(case, dev):
+    """Each case runs the kernel its route names, as the profiler sees it:
+    config #4's tables at 3/2 and 2/3 the core's compiled instantiations,
+    every other shape the long route (the first version); every launch
+    counted once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from modem_tpu_torch import ResampledChain
+    from modem_tpu_torch.models.qam import QAM
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    up, down, bps, shape, span = case
+    chain = ResampledChain(QAM(bps, 0.0, 1.0), Rates(1250, 10000), up, down,
+                           span_symbols=span, device=dev)
+    want = {(3, 2, 8): ("resampled_tx_core<8,65,3,2,17>",
+                        "resampled_rx_core<false,1,12,112>"),
+            (2, 3, 8): ("resampled_tx_core<8,65,2,3,17>",
+                        "resampled_rx_core<false,3,16,71>")}.get(
+        (up, down, span), ("resampled_tx_kernel", "resampled_rx_kernel<false>"))
+    bits = _unpack(torch.randint(0, 1 << bps, shape, device=dev,
+                                 dtype=torch.int32), chain)
+    before = (rk.RESAMPLED_TX_KERNEL.launches, rk.RESAMPLED_RX_KERNEL.launches)
+    assert torch.equal(chain.roundtrip_fused(bits), bits)
+    after = (rk.RESAMPLED_TX_KERNEL.launches, rk.RESAMPLED_RX_KERNEL.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    for _ in range(3):  # again only where a profile lost every record
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chain.roundtrip_fused(bits)
+            torch.cuda.synchronize(dev)
+        ran = [e.key.replace(" ", "") for e in prof.key_averages()
+               if "resampled_" in e.key]
+        if ran:
+            break
+    for name in want:
+        assert [k for k in ran if name in k], (name, ran)
+    assert len(ran) == 2, ran
+
+
+@pytest.mark.parametrize("case", RESAMPLED_LONG,
+                         ids=[f"{u}_{d}_span{sp}_{s[-1]}"
+                              for u, d, sp, s in RESAMPLED_LONG])
+@pytest.mark.parametrize("soft", [False, True])
+def test_resampled_long_route(case, soft, dev):
+    """K11 and K12 on the long route against their plain versions: waveforms
+    and soft points within ATOL, decisions equal; sentinels in front."""
+    from modem_tpu_torch import ResampledChain
+    from modem_tpu_torch.models.qam import QAM
+    from modem_tpu_torch.ops import resampled_kernel as rk
+
+    up, down, span, shape = case
+    chain = ResampledChain(QAM(4, 0.0, 1.0), Rates(1250, 10000), up, down,
+                           span_symbols=span, device=dev)
+    rng = np.random.default_rng(span + shape[-1])
+    syms = torch.as_tensor(rng.integers(0, 16, shape).astype(np.int32),
+                           device=dev)
+    if shape[-1] > 20:
+        syms[0, :16] = -1
+    h = chain._host
+    n_modem = chain._padded_len(shape[-1])
+    params = rk._tx_params(h["rrc"].tobytes(), h["taps1"].tobytes(), up,
+                           down, dev)
+    got = _launches(rk.RESAMPLED_TX_KERNEL, rk.fused_resampled_tx, syms,
+                    chain.lut, h["rrc"], chain.sps, chain.span, up, down,
+                    h["taps1"], n_modem)
+    want = rk.resampled_tx_plain(syms, chain.lut, *params, chain.sps, up,
+                                 down, n_modem)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    wi = want[0] + 0.02 * torch.randn(want[0].shape, generator=g, device=dev)
+    wq = want[1] + 0.02 * torch.randn(want[1].shape, generator=g, device=dev)
+    k = shape[-1]
+    got = _launches(rk.RESAMPLED_RX_KERNEL, rk.fused_resampled_rx, (wi, wq), k,
+                    chain.lut, h["rrc"], chain.sps, chain.span, up, down,
+                    h["taps2"], chain.delay, soft=soft)
+    rparams = rk._rx_params(h["rrc"].tobytes(), h["taps2"].tobytes(),
+                            chain.sps, up, down, chain.delay, dev)
+    want = rk.resampled_rx_plain(wi, wq, k, chain.lut, *rparams, soft)
     if soft:
         for g_, w in zip(got, want):
             torch.testing.assert_close(g_, w, atol=ATOL, rtol=0)
