@@ -1,6 +1,6 @@
-"""Times the PyTorch port's K16 (CA-SCL-8), the polar control link and the
-flagship's K1 and K3 on one CUDA card, alternating between source trees in
-one run.
+"""Times the PyTorch port's K15 (SC), K16 (CA-SCL-8), the polar control
+links and the flagship's K1 and K3 on one CUDA card, alternating between
+source trees in one run.
 
     python3 bench_polar_torch.py [--trees DIR ...] [--rounds N] [--reps N]
 
@@ -10,17 +10,20 @@ runs every tree in a fresh process, in order and then in reverse (two trees:
 A B B A), so that the card's drift falls on each alike. Each process builds
 its tree's kernels, then measures the profiler's device time per launch of:
 
-- K16 (``scl_kernel``) at ``PolarCode(256, 128)`` (CRC-16 inside K, BPSK
-  LLRs at noise sigma 0.8) over 4096 codewords (``bench_fec.py``'s width)
-  and over 1024 (``nr_like_control_link().rx_fused``'s at 256 frames), and
-  checks both bit for bit against ``scl_plain``; K15 at 4096;
+- K16 (``scl_kernel``) and K15 (``sc_kernel``) at ``PolarCode(256, 128)``
+  (CRC-16 inside K, BPSK LLRs at noise sigma 0.8) over 4096 codewords
+  (``bench_fec.py``'s width) and over 1024 (the control link's at 256
+  frames), each checked bit for bit against its plain version, and K15's
+  u and x hashed (``k15_x*_sha``: every tree must give the same);
 - K1 (``chain_kernel``), K3 hard and soft (``rx_kernel``) on the flagship
   chain (``qpsk_reference_chain(Rates(1250, 10000))``, 256 x 4096 symbols),
   the short route (taps as a kernel parameter), to show it unchanged;
 
-and ``nr_like_control_link().rx_fused`` at 256 frames and 3 dB: CUDA-event
-time per call (3 calls a rep) and, from one profile of 3 calls, the device's
-busy time per call split into K16's and every other kernel's and copy's.
+and ``nr_like_control_link().rx_fused`` at 256 frames and 3 dB (CA-SCL-8,
+K16) and ``nr_like_control_link(list_size=None).rx_fused`` at 5 dB (SC,
+K15): CUDA-event time per call (3 calls a rep) and, from one profile of 3
+calls, the device's busy time per call split into the inner decoder's and
+every other kernel's and copy's.
 
 Each process prints one JSON line of its reps; the run ends with each
 metric's summary over the processes of each tree, then the card's name and
@@ -30,6 +33,7 @@ shares). Needs a CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import pathlib
 import sys
 
@@ -38,8 +42,17 @@ from bench_turbo_torch import alternate, busy_ms, event_ms, smoke
 POLAR_N, POLAR_K, SIGMA = 256, 128, 0.8
 CODEWORDS = (4096, 1024)
 CHANNELS, SYMBOLS = 256, 4096
-LINK_FRAMES, LINK_SNR_DB = 256, 3.0
+LINK_FRAMES = 256
+#: (preset keywords, SNR per complex sample, inner kernel, result tag)
+LINKS = (({}, 3.0, "scl_kernel", "link"),
+         ({"list_size": None}, 5.0, "sc_kernel", "sc_link"))
 SEED = 67
+
+
+def sha(*outs) -> str:
+    """The first 16 hex digits of the SHA-256 of the outputs' bytes."""
+    raw = b"".join(o.detach().cpu().numpy().tobytes() for o in outs)
+    return hashlib.sha256(raw).hexdigest()[:16]
 
 
 def run_one(tree: pathlib.Path, reps: int) -> dict:
@@ -73,9 +86,13 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
                                         and torch.equal(pm, ppm))
         res[f"k16_x{cws}_device_ms"] = dev_ms(lk.scl_kernel, (code, lam),
                                               "scl_kernel")
-        if cws == CODEWORDS[0]:
-            res[f"k15_x{cws}_device_ms"] = dev_ms(sk.sc_kernel, (code, lam),
-                                                  "sc_kernel")
+        u, x = sk.sc_kernel(code, lam)
+        pu, px = sk.sc_plain(code, lam)
+        res[f"k15_x{cws}_exact"] = bool(torch.equal(u, pu)
+                                        and torch.equal(x, px))
+        res[f"k15_x{cws}_sha"] = sha(u, x)
+        res[f"k15_x{cws}_device_ms"] = dev_ms(sk.sc_kernel, (code, lam),
+                                              "sc_kernel")
 
     chain = qpsk_reference_chain(Rates(1250, 10000), device=device)
     syms = sm.random_symbols((CHANNELS, SYMBOLS), device, False)
@@ -88,17 +105,20 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
             txrx.rx_kernel, (wi, wq, SYMBOLS, lut, taps, 8, 8, soft),
             sm.DEVICE_NAMES["fused_rx_soft" if soft else "fused_rx"])
 
-    link = presets.nr_like_control_link(device=device)
-    gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    pay = torch.randint(0, 2, (LINK_FRAMES, link.payload_bits), generator=gen,
-                        device=device, dtype=torch.int32)
-    wave, nv = sm.link_noise(gen, link.tx_fused(pay), LINK_SNR_DB)
-    res["link_rx_fused_ms"] = event_ms(link.rx_fused, (wave, nv), 3, reps)
-    res["link_rx_fused_k16_ms"], res["link_rx_fused_other_ms"] = busy_ms(
-        link.rx_fused, (wave, nv), "scl_kernel")
-    got, ok = link.rx_fused(wave, nv)[:2]
-    res["link_crc_ok"] = int(ok.sum())
-    res["link_payload_exact"] = bool(torch.equal(got.to(torch.int32), pay))
+    for kw, snr, symbol, tag in LINKS:
+        link = presets.nr_like_control_link(device=device, **kw)
+        gen = torch.Generator(device=device).manual_seed(SEED + 2)
+        pay = torch.randint(0, 2, (LINK_FRAMES, link.payload_bits),
+                            generator=gen, device=device, dtype=torch.int32)
+        wave, nv = sm.link_noise(gen, link.tx_fused(pay), snr)
+        res[f"{tag}_rx_fused_ms"] = event_ms(link.rx_fused, (wave, nv), 3,
+                                             reps)
+        res[f"{tag}_rx_fused_inner_ms"], res[f"{tag}_rx_fused_other_ms"] = \
+            busy_ms(link.rx_fused, (wave, nv), symbol)
+        got, ok = link.rx_fused(wave, nv)[:2]
+        res[f"{tag}_crc_ok"] = int(ok.sum())
+        res[f"{tag}_payload_exact"] = bool(torch.equal(got.to(torch.int32),
+                                                       pay))
     return res
 
 

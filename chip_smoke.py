@@ -197,7 +197,7 @@ count (256):
 30. K15 and K16 against their plain versions at 4096 x (256, 128), noise
     sigma 0.3 and 0.8: SC u and x, CA-SCL-8 u and path metrics bit for
     bit; ``decode`` and ``decode_list(8, crc)`` equal to the CPU route;
-    K16 also at the link's 1024 codewords;
+    both also at the link's 1024 codewords;
 31. main paths: ``lte_like_turbo_link()`` at 256 frames and 1 dB per
     complex sample (K14), ``nr_like_control_link()`` at 3 dB (K16) and
     ``nr_like_control_link(list_size=None)`` at 5 dB (K15), each
@@ -208,9 +208,11 @@ count (256):
 32. CLI: ``link tx`` -> ``link rx`` on the card for ``lte_like_turbo``
     and ``nr_like_control``, 16 frames each, every verdict OK;
 33. times: K14, K15, K16 and their plain versions per call, the
-    profiler's device time and the bound; K16 also at 1024 codewords, and
-    its serial floor (one codeword's chain of dependent operations); the
-    turbo and polar encoders and decoders in Mbit/s; the two presets'
+    profiler's device time and the bound; K15 and K16 also at 1024
+    codewords, and their serial floors (one codeword's chain of dependent
+    operations; K15's over the nodes outside its skipped subtrees); the
+    turbo and polar encoders and decoders in Mbit/s; the three presets'
+    (``nr_like_control_link`` with CA-SCL-8 at 3 dB and with SC at 5 dB)
     ``frame``, ``tx_fused`` and ``rx_fused`` per call at 256 frames with
     the device's busy time and idle share.
 
@@ -404,6 +406,9 @@ POLAR_LINK_CW = 1024             # nr_like_control_link().rx_fused's, 256 frames
 #: ranking (a compare, then the sum of two lanes' counts: 2); each takes
 #: K14_CHAIN_CYCLES to feed the next
 K16_F_OPS, K16_G_OPS, K16_LEAF_OPS, K16_RANK_OPS = 3, 1, 1, 2
+#: K15's decision at an information leaf (a compare), in dependent f32
+#: operations; its f's and g's are K16's
+K15_LEAF_OPS = 1
 #: K1's and K3's long route: (Rates, span) past 256 taps or 64 samples a
 #: symbol (sps 8 span 32, sps 20 span 16, sps 96 span 1), 256 x 1024 symbols
 LONG_ROUTE = ((1250, 10000, 32), (500, 10000, 16), (100, 9600, 1))
@@ -2771,7 +2776,7 @@ def phase_polar_kernels(device) -> dict:
     ``PolarCode(256, 128)`` x 4096 codewords (CRC-16 inside K), noise
     sigma 0.3 (``bench_fec.py``'s) and 0.8: SC u and x, SCL-8 u and path
     metrics bit for bit; ``decode`` and ``decode_list(crc)`` on the card
-    equal to the CPU route, with K15 / K16 launched once a call; K16 also
+    equal to the CPU route, with K15 / K16 launched once a call; both also
     at the link's 1024 codewords. Returns each kernel's largest error
     against its plain version."""
     from modem_tpu_torch.fec import PolarCode, crc16_ccitt
@@ -2807,6 +2812,10 @@ def phase_polar_kernels(device) -> dict:
     # the link's shape: 1024 codewords, one partial wave of the card
     _, lam = polar_llrs(code, crc, POLAR_LINK_CW, POLAR_SIGMAS[-1], SEED + 64,
                         device)
+    errs[SC_NAME] = max(errs[SC_NAME], check_exact(
+        "polar kernel", f"K15 SC u, x at {POLAR_LINK_CW} x ({POLAR_N}, "
+        f"{POLAR_K}), sigma {POLAR_SIGMAS[-1]}", sk.sc_kernel(code, lam),
+        sk.sc_plain(code, lam)))
     errs[SCL_NAME] = max(errs[SCL_NAME], check_exact(
         "polar kernel", f"K16 CA-SCL-8 u, pm at {POLAR_LINK_CW} x ({POLAR_N},"
         f" {POLAR_K}), sigma {POLAR_SIGMAS[-1]}", lk.scl_kernel(code, lam),
@@ -2934,12 +2943,20 @@ def bcjr_work(cws: int, k: int) -> tuple[float, float]:
             cws * ((k + 3) * (8 * 10 + 4 * 3) + k * (8 * 6 + 2)))
 
 
-def sc_work(b: int, n: int, n_bits: int) -> tuple[float, float]:
+def sc_work(b: int, code) -> tuple[float, float]:
     """Bytes K15 must move (the LLRs read once, u and x written once as
-    bytes) and its f32 operations: per level n/2 f's (2 abs, a min, 2
-    sign products: 5) and n/2 g's (2x, 1 - 2x, the product, the add: 4),
-    a compare a leaf."""
-    return 4.0 * b * n + 2.0 * b * n, b * (n_bits * n / 2 * 9 + n)
+    bytes) and its f32 operations on ``b`` codewords of ``code``: at each
+    node outside the all-frozen subtrees, whose outputs do not depend on
+    the LLRs, an f (2 abs, a min, 2 sign products: 5) or a g (2x, 1 - 2x,
+    the product, the add: 4) an element, and a compare at each information
+    leaf."""
+    fz, ops, w = code.frozen, 0, 1
+    while w < code.n:
+        for lo in range(0, code.n, w):
+            if not fz[lo:lo + w].all():
+                ops += (5 if lo % (2 * w) == 0 else 4) * w
+        w *= 2
+    return 6.0 * b * code.n, float(b * (ops + int((~fz).sum())))
 
 
 def scl_work(b: int, n: int, n_bits: int, k: int) -> tuple[float, float]:
@@ -2958,11 +2975,12 @@ def phase_fec_times(device, card: str) -> dict:
     """Phase 33: K14, K15 and K16 and their plain versions per call at the
     main path's widths, the profiler's device time and the bound (K14 also
     at window 256, 2560 rows, held bit for bit first; its time a lane's
-    step, share of the bound and serial floor; K16 also at the link's 1024
-    codewords, with its serial floor); the encoders and decoders per call
-    in Mbit/s of info bits; the two links' ``tx_fused`` and ``rx_fused``
-    per call at 256 frames with the device's busy time and idle share.
-    Returns the report times."""
+    step, share of the bound and serial floor; K15 and K16 also at the
+    link's 1024 codewords, with their serial floors); the encoders and
+    decoders per call in Mbit/s of info bits; the three links' (the polar
+    one with CA-SCL-8 and with SC) ``tx_fused`` and ``rx_fused`` per call
+    at 256 frames with the device's busy time and idle share. Returns the
+    report times."""
     from modem_tpu_torch import presets
     from modem_tpu_torch.fec import PolarCode, TurboCode, crc16_ccitt
     from modem_tpu_torch.ops import (bcjr_kernel as bk, sc_kernel as sk,
@@ -3007,7 +3025,7 @@ def phase_fec_times(device, card: str) -> dict:
                              SEED + 67, device)
     for name, kern, plain, sym, work in (
             (SC_NAME, sk.sc_kernel, sk.sc_plain, "sc_kernel",
-             sc_work(POLAR_CW, POLAR_N, pcode.n_bits)),
+             sc_work(POLAR_CW, pcode)),
             (SCL_NAME, lk.scl_kernel, lk.scl_plain, "scl_kernel",
              scl_work(POLAR_CW, POLAR_N, pcode.n_bits, POLAR_K))):
         ms, plain_ms, dev_ms = kernel_times(kern, plain, (pcode, lam),
@@ -3015,16 +3033,24 @@ def phase_fec_times(device, card: str) -> dict:
         times[name] = (ms, plain_ms, dev_ms, None, work)
         print_fec_times(name, f"{POLAR_CW} x ({POLAR_N}, {POLAR_K})",
                         times[name], card)
+    print_k15_floor(SC_NAME, pcode, POLAR_CW, times[SC_NAME], card)
     print_k16_floor(f"{SCL_NAME}", POLAR_CW, times[SCL_NAME], card)
     _, lam_link = polar_llrs(pcode, crc, POLAR_LINK_CW, POLAR_SIGMAS[-1],
                              SEED + 69, device)
-    t_link = (*kernel_times(lk.scl_kernel, lk.scl_plain, (pcode, lam_link),
-                            device, "scl_kernel", plain_calls=1), None,
-              scl_work(POLAR_LINK_CW, POLAR_N, pcode.n_bits, POLAR_K))
-    print_fec_times(f"{SCL_NAME} x{POLAR_LINK_CW}",
-                    f"{POLAR_LINK_CW} x ({POLAR_N}, {POLAR_K})", t_link, card)
-    print_k16_floor(f"{SCL_NAME} x{POLAR_LINK_CW}", POLAR_LINK_CW, t_link,
-                    card)
+    for name, kern, plain, sym, work in (
+            (SC_NAME, sk.sc_kernel, sk.sc_plain, "sc_kernel",
+             sc_work(POLAR_LINK_CW, pcode)),
+            (SCL_NAME, lk.scl_kernel, lk.scl_plain, "scl_kernel",
+             scl_work(POLAR_LINK_CW, POLAR_N, pcode.n_bits, POLAR_K))):
+        t_link = (*kernel_times(kern, plain, (pcode, lam_link), device, sym,
+                                plain_calls=1), None, work)
+        label = f"{name} x{POLAR_LINK_CW}"
+        print_fec_times(label, f"{POLAR_LINK_CW} x ({POLAR_N}, {POLAR_K})",
+                        t_link, card)
+        if name == SC_NAME:
+            print_k15_floor(label, pcode, POLAR_LINK_CW, t_link, card)
+        else:
+            print_k16_floor(label, POLAR_LINK_CW, t_link, card)
     info = framed.numel()
     for label, fn, args in (
             ("PolarCode(256,128).encode", pcode.encode, (framed,)),
@@ -3037,9 +3063,14 @@ def phase_fec_times(device, card: str) -> dict:
               f" Mbit/s of coded-block bits ({POLAR_CW} codewords) on {card}",
               flush=True)
 
-    for name, snr in (("lte_like_turbo_link", FEC_LINK_SNR_DB[0]),
-                      ("nr_like_control_link", FEC_LINK_SNR_DB[1])):
-        link = getattr(presets, name)(device=device)
+    for name, kw, snr in (
+            ("lte_like_turbo_link", {}, FEC_LINK_SNR_DB[0]),
+            ("nr_like_control_link", {}, FEC_LINK_SNR_DB[1]),
+            ("nr_like_control_link", {"list_size": None},
+             FEC_LINK_SNR_DB[2])):
+        link = getattr(presets, name)(device=device, **kw)
+        if kw:
+            name = f"{name}(list_size=None)"
         g = torch.Generator(device=device).manual_seed(SEED + 68)
         pay = torch.randint(0, 2, (FEC_LINK_FRAMES, link.payload_bits),
                             generator=g, device=device, dtype=torch.int32)
@@ -3270,6 +3301,37 @@ def print_k16_floor(name: str, cws: int, t, card: str) -> None:
           f"floor {floor_ms:.6f} ms ({ops} dependent f32 operations x "
           f"{K14_CHAIN_CYCLES} cycles a codeword), {100 * floor_ms / dev:.1f}%"
           f" of it, on {card}", flush=True)
+
+
+def k15_chain_ops(code) -> int:
+    """K15's serial chain a codeword, in dependent f32 operations: at every
+    node outside the skipped (all-frozen) subtrees an f (K16_F_OPS, a left
+    child) or a g (K16_G_OPS, a right child), and K15_LEAF_OPS at every
+    information leaf."""
+    fz, ops, w = code.frozen, 0, 1
+    while w < code.n:
+        for lo in range(0, code.n, w):
+            if not fz[lo:lo + w].all():
+                ops += K16_F_OPS if lo % (2 * w) == 0 else K16_G_OPS
+        w *= 2
+    return ops + int((~fz).sum()) * K15_LEAF_OPS
+
+
+def print_k15_floor(name: str, code, cws: int, t, card: str) -> None:
+    """K15's serial floor: one codeword's chain (:func:`k15_chain_ops`) at
+    K14_CHAIN_CYCLES an operation, at the card's SM clock; every codeword
+    runs at once, so no call can be shorter."""
+    ms, _, dev_ms, _, _ = t
+    dev = dev_ms or ms
+    ops = k15_chain_ops(code)
+    clock = sm_clock_mhz()
+    floor_ms = ops * K14_CHAIN_CYCLES / clock / 1e3
+    print(f"[times] {name}: {dev / code.n * 1e6:.2f} ns "
+          f"({dev / code.n * clock * 1e3:.1f} cycles at {clock:.0f} MHz) a "
+          f"leaf over {cws} codewords; serial floor {floor_ms:.6f} ms ({ops} "
+          f"dependent f32 operations x {K14_CHAIN_CYCLES} cycles a codeword, "
+          f"the skipped subtrees left out), {100 * floor_ms / dev:.1f}% of it,"
+          f" on {card}", flush=True)
 
 
 def print_fec_times(name: str, shape: str, t, card: str) -> None:

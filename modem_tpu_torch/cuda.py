@@ -43,7 +43,8 @@ _NCO = [_I, _I, _L, _F]
 #: ``modem_rx_soft`` and ``modem_fir``, and the tables of
 #: ``modem_resampled_tx`` and ``modem_resampled_rx``, a host pointer
 #: (:func:`host_taps`) or null, then the device pointers; ``modem_demod``'s
-#: a host pointer)
+#: a host pointer; ``modem_polar_sc``'s plan a host pointer to the code's
+#: ``ScPlan``, ``ops.sc_kernel.host_plan``)
 SIGNATURES = {
     "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
     "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _P, _P, _P],

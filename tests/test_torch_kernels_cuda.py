@@ -1953,6 +1953,55 @@ def test_scl_kernel_hazards(case, dev):
     assert torch.equal(u, pu) and torch.equal(pm, ppm)
 
 
+#: K15's hazards since its redesign (eight codewords a warp, all-frozen
+#: subtrees skipped): (id, code, codewords, LLR kind). k = n: nothing
+#: skipped; k = 1: all but one leaf's path skipped; "weak": |llr| < 0.3;
+#: n = 8 and 32: the register-only tree and one word of x; 2500 codewords:
+#: not a multiple of eight, more than one wave; ties at n = 1024: exact
+#: zeros and equal magnitudes, 32 words of x; the link's shortened code;
+#: "offset": LLRs whose storage starts one float past a 16-byte boundary
+SC_HAZARDS = [
+    ("all_info_n256", (256, 256), 64, "noisy"),
+    ("k1_n1024", (1024, 1), 64, "noisy"),
+    ("k1_n256", (256, 1), 64, "ties"),
+    ("weak_n256", (256, 128), 64, "weak"),
+    ("n8_k4", (8, 4), 64, "noisy"),
+    ("n32_k16", (32, 16), 64, "ties"),
+    ("wave_2500_n256", (256, 128), 2500, "noisy"),
+    ("ties_n1024", (1024, 512), 48, "ties"),
+    ("link_shortened", (100, 180), 1024, "noisy"),
+    ("offset_n64", (64, 32), 37, "offset"),
+]
+
+
+@pytest.mark.parametrize("case", SC_HAZARDS, ids=[c[0] for c in SC_HAZARDS])
+def test_sc_kernel_hazards(case, dev):
+    """K15 against its plain version on the shapes its skipped subtrees,
+    shared warps and bit-packed partial sums must survive: one launch, u
+    and x bit for bit."""
+    from modem_tpu_torch.fec import PolarCode, RateMatchedPolar
+    from modem_tpu_torch.ops import sc_kernel as sk
+
+    name, (a, b), cws, kind = case
+    code = (RateMatchedPolar(a, b, n=256).code if name == "link_shortened"
+            else PolarCode(a, b))
+    n = code.n
+    if kind == "weak":
+        rng = np.random.default_rng(n + code.k)
+        lam = torch.as_tensor(rng.uniform(-0.3, 0.3, (cws, n)),
+                              dtype=torch.float32)
+    else:
+        lam = _polar_llrs(n, cws, 80 + n, kind == "ties")
+    lam = lam.to(dev)
+    if kind == "offset":
+        flat = torch.empty(cws * n + 4, device=dev)
+        lam = flat[1:1 + cws * n].view(cws, n).copy_(lam)
+        assert lam.data_ptr() % 16 == 4
+    u, x = _launches(sk.SC_KERNEL, sk.sc_kernel, code, lam)
+    pu, px = sk.sc_plain(code, lam)
+    assert torch.equal(u, pu) and torch.equal(x, px)
+
+
 def test_polar_kernels_refuse_what_they_do_not_take(dev):
     from modem_tpu_torch.fec import PolarCode
     from modem_tpu_torch.ops import sc_kernel as sk, scl_kernel as lk
