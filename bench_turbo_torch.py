@@ -183,7 +183,8 @@ def summary(runs: list[dict]) -> dict:
     processes' medians, those medians in run order, and the least of every
     rep (the host's time with the least interference); for each tree after
     the first, ``lower``: in how many of its pairs with the first tree (its
-    k-th process against the first tree's k-th) its median was lower."""
+    k-th process against the first tree's k-th) its median was lower,
+    where the first tree has the metric."""
     meds, floors = {}, {}
     for r in runs:
         for key, val in r.items():
@@ -205,7 +206,7 @@ def summary(runs: list[dict]) -> dict:
             out[tree][key] = {"median": statistics.median(v), "min": min(v),
                               "max": max(v), "iqr": q[2] - q[0], "runs": v,
                               "rep_min": min(floors[tree, key])}
-            if t is not first:
+            if t is not first and key in first:
                 pairs = list(zip(v, first[key]))
                 out[tree][key]["lower"] = (
                     f"{sum(a < b for a, b in pairs)}/{len(pairs)}")

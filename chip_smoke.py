@@ -24,7 +24,8 @@ It drives the flagship QPSK chain through the port's public entry points at
 6. times: each kernel and its plain version per call, CUDA events, median
    of 5 runs of 20 calls after warm-up, in complex samples/s; and the
    kernel's own device time from ``torch.profiler``; K3 soft's ``conv1d``
-   yardstick (each rail one strided cross-correlation, TF32 off); and per
+   yardstick (each rail one strided cross-correlation, TF32 off) and K2's
+   ``conv_transpose1d`` one (the shaping alone, stride sps); and per
    call of the chain's ``roundtrip_fused``, ``tx_fused`` and ``rx_fused``,
    bits included.
 
@@ -216,15 +217,16 @@ count (256):
     ``frame``, ``tx_fused`` and ``rx_fused`` per call at 256 frames with
     the device's busy time and idle share.
 
-K1's and K3's long route, for chains past the short route's 256 taps or 64
-samples a symbol:
+The long route of K1, K2 and K3, for chains past the short route's 256
+taps or 64 samples a symbol:
 
 34. ``PulseShapedChain(QPSK)`` at sps 8 and span 32 (257 taps), sps 20
     and span 16 (321 taps), sps 96 and span 1, 256 x 1024 symbols:
     ``roundtrip_fused``, ``rx_fused(tx_fused)`` and ``rx_soft_fused`` give
-    the bits back with K1, K3 hard and K3 soft launched (counts set to 0
-    just before, read just after); each kernel against its plain version
-    (decisions bit for bit, soft points within 1e-5) and its times.
+    the bits back with K1, K2, K3 hard and K3 soft launched (counts set to
+    0 just before, read just after); each kernel against its plain version
+    (decisions bit for bit, waveforms and soft points within 1e-5) and its
+    times, K2's from the profile of the long route's kernel.
 
 K4's generic and long routes and K5 without its carrier table, through the
 demodulator a user builds with other filters or another carrier:
@@ -237,6 +239,20 @@ demodulator a user builds with other filters or another carrier:
     256 x 32768 with the launch counts set to 0 just before and read just
     after, and the card against the CPU on two channels.
 
+K2's two routes:
+
+36. the short route (sps 8, span 8) against the long route (the first
+    version's body, ``_tx_launch(..., host=None)``) bit for bit, both
+    against the plain version within phase 23's bars, and the kernel each
+    call ran by the profiler: every K2 mode and 1999 Hz (past the carrier
+    table) at a sym_offset near 10^9, at 256 x 4096; K = 1, 31 and 257
+    at sps 8, and sps 2, 4 and 16 (the long route both ways) in f32, bf16,
+    int16 and at 1700 and 1999 Hz; then ``StreamingFusedTx`` in 5 ragged
+    pushes and its flush equal to one ``tx_fused`` (sps 4 in f32 and
+    int16, sps 16 at 1700 Hz); a push of the flagship's stream and the
+    links' ``tx_fused`` run the short route. Phases 6 and 27 fail too
+    where a K2 call of the flagship's shape runs any other kernel.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass, the chain's 65-tap RRC and each other count of
 phase 7, K5 with and without its carrier table; K6
@@ -244,14 +260,15 @@ without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11 and K12 hard on
 each route (3/2, 2/3, long), K12 soft; K13; each mode of K1-K3, K1 with
-noise with ``agreement``; K13 at K = 3 and 15; K14, K15, K16; K1, K3 hard and K3 soft on each long-route
-chain), each
-with its launches on its path, error, per-call times (``ms`` from CUDA
+noise with ``agreement``; K13 at K = 3 and 15; K14, K15, K16; K1, K2, K3
+hard and K3 soft on each long-route chain), each with its launches on its path, error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
 take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
 its f32 operations at 67 TFLOP/s, the H100 SXM's published peaks at 700 W;
-``bound_by`` says which) and the time of one PyTorch call computing the
-same function where there is one (``library_ms``, else null); then the
+``bound_by`` says which), ``share`` (``bound_ms`` over ``device_ms``) and
+the time of one PyTorch call computing the same function where there is
+one (``library_ms``, else null; K2's ``conv_transpose1d`` times the
+shaping only); then the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line; without a CUDA device it
 exits non-zero at once.
@@ -409,6 +426,13 @@ K16_F_OPS, K16_G_OPS, K16_LEAF_OPS, K16_RANK_OPS = 3, 1, 1, 2
 #: K15's decision at an information leaf (a compare), in dependent f32
 #: operations; its f's and g's are K16's
 K15_LEAF_OPS = 1
+#: K2's odd shapes in phase 36: (sps, span, K), sps 8 span 8 the short
+#: route's, sps 2, 4 and 16 (rows off a 16-byte boundary among them) the
+#: long route's
+TX_ODD = ((8, 8, 1), (8, 8, 31), (8, 8, 257), (2, 10, 31), (2, 10, 1),
+          (4, 6, 257), (4, 5, 31), (16, 4, 31), (16, 4, 257))
+#: phase 36's sym_offset on a carrier of more phases than the table holds
+TX_FAR_OFFSET = 987654321
 #: K1's and K3's long route: (Rates, span) past 256 taps or 64 samples a
 #: symbol (sps 8 span 32, sps 20 span 16, sps 96 span 1), 256 x 1024 symbols
 LONG_ROUTE = ((1250, 10000, 32), (500, 10000, 16), (100, 9600, 1))
@@ -711,7 +735,7 @@ def device_busy_ms(fn, args, device, calls=20) -> float:
 
 #: substring of each kernel's name in a profiler trace
 DEVICE_NAMES = {"fused_pulse_chain": "pulse_chain_kernel",
-                "fused_tx": "pulse_tx_kernel",
+                "fused_tx": "pulse_tx_core",
                 "fused_rx": "pulse_rx_kernel<false,",
                 "fused_rx_soft": "pulse_rx_kernel<true,"}
 
@@ -749,6 +773,32 @@ def rx_conv1d_yardstick(args):
     return both, (xi, xq, w), err
 
 
+def tx_conv_yardstick(args):
+    """K2's shaping at baseband as ``conv_transpose1d``: the mapped points
+    of both rails as ``[2*C, 1, K + span]`` (``span`` zero flush points),
+    the taps as the weight, ``stride=sps``; the first ``(K + span)*sps``
+    outputs are K2's ``w[n] = sum_m z[m] taps[n - m*sps]``. The map is left
+    out: the yardstick times the shaping only. Returns ``(fn, fn args, max
+    |error| against the kernel)``; the port never calls it."""
+    import torch.nn.functional as F
+    from modem_tpu_torch.ops import txrx
+
+    syms, lut, taps, sps, span = args[:5]
+    c, k = syms.shape
+    n = (k + span) * sps
+    zi, zq = txrx.map_plain(syms, lut)
+    z = torch.cat([torch.stack([zi, zq]).reshape(2 * c, 1, k),
+                   torch.zeros((2 * c, 1, span), device=syms.device)], -1)
+    w = taps.reshape(1, 1, -1)
+
+    def shape(z, w):
+        return F.conv_transpose1d(z, w, stride=sps)[..., :n]
+
+    got = shape(z, w).reshape(2, c, n)
+    err = max_err((got[0], got[1]), txrx.tx_kernel(*args))
+    return shape, (z, w), err
+
+
 def phase_times(chain, device, card: str) -> dict:
     """Phase 6: kernel and plain time per call at the flagship shape, and
     K3 soft's ``conv1d`` yardstick."""
@@ -759,15 +809,21 @@ def phase_times(chain, device, card: str) -> dict:
         args = make_args(syms)
         ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
                                             DEVICE_NAMES[name])
+        if name == "fused_tx":
+            tx_route_check("the flagship's K2", kern, args, device)
         lib_ms, lib_txt = None, "no library call"
-        if name == "fused_rx_soft":
-            fn, fargs, lib_err = rx_conv1d_yardstick(args)
+        if name in ("fused_rx_soft", "fused_tx"):
+            soft = name == "fused_rx_soft"
+            what, lib = (("conv1d", "K3 soft") if soft else
+                         ("conv_transpose1d (shaping only)", "K2"))
+            fn, fargs, lib_err = (rx_conv1d_yardstick if soft else
+                                  tx_conv_yardstick)(args)
             if lib_err > 1e-4:
-                fail(f"conv1d yardstick disagrees with K3 soft ({lib_err})")
+                fail(f"{what} yardstick disagrees with {lib} ({lib_err})")
             lib_ms = time_calls(fn, fargs, device)
             lib_dev = device_busy_ms(fn, fargs, device)
-            lib_txt = (f"conv1d {lib_ms:.4f} ms, device busy {lib_dev:.4f} ms"
-                       f" (max |err| vs K3 {lib_err:.2e})")
+            lib_txt = (f"{what} {lib_ms:.4f} ms, device busy {lib_dev:.4f} "
+                       f"ms (max |err| vs {lib} {lib_err:.2e})")
         times[name] = (ms, plain_ms, dev_ms, lib_ms)
         dev_txt = ("not measured" if dev_ms is None else
                    f"{dev_ms:.4f} ms ({samples / dev_ms * 1e3:.4e} samples/s)")
@@ -2212,7 +2268,7 @@ def mode_cases():
     pb, pb17 = (2000, REF_SR), (1700, REF_SR)
     sig_bb = math.sqrt(0.5 / 10.0 ** (MODE_SNR_DB / 10.0))
     chain = ("chain", "pulse_chain_kernel", "modem_tpu/ops/pallas_chain.py:195")
-    tx = ("tx", "pulse_tx_kernel", "modem_tpu/ops/pallas_txrx.py:61")
+    tx = ("tx", "pulse_tx_core", "modem_tpu/ops/pallas_txrx.py:61")
     rx = ("rx", "pulse_rx_kernel<false,", "modem_tpu/ops/pallas_txrx.py:277")
     rxs = ("rx", "pulse_rx_kernel<true,", "modem_tpu/ops/pallas_txrx.py:277")
     cases = [
@@ -2583,6 +2639,8 @@ def phase_mode_times(chain, device, card: str) -> dict:
         kern, plain = mode_fns(kind)
         ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device, sym,
                                             plain_calls=5)
+        if kind == "tx":
+            tx_route_check(name, kern, args, device)
         times[name] = (ms, plain_ms, dev_ms, None,
                        mode_work(kind, spec, CHANNELS, N_SYMBOLS, chain))
         print_times(name, CHANNELS * N_SYMBOLS * chain.sps, times[name], card,
@@ -3090,11 +3148,17 @@ def phase_fec_times(device, card: str) -> dict:
 
 
 def long_route_names(sps: int, span: int) -> dict:
-    """Report names of K1, K3 hard and K3 soft on a long-route chain."""
+    """Report names of K1, K2, K3 hard and K3 soft on a long-route chain."""
     tag = f"sps{sps}_span{span}"
     return {"fused_pulse_chain": f"fused_pulse_chain_{tag}",
+            "fused_tx": f"fused_tx_{tag}",
             "fused_rx": f"fused_rx_{tag}",
             "fused_rx_soft": f"fused_rx_soft_{tag}"}
+
+
+#: the profiler's names of the long route's kernels where they differ from
+#: the short route's (DEVICE_NAMES)
+LONG_DEVICE_NAMES = {"fused_tx": "pulse_tx_kernel"}
 
 
 def long_route_entries() -> list:
@@ -3104,6 +3168,8 @@ def long_route_entries() -> list:
         names = long_route_names(sr // baud, span)
         out += [(names["fused_pulse_chain"], "modem_tpu_torch/csrc/chain.cu",
                  "modem_tpu/ops/pallas_chain.py:195"),
+                (names["fused_tx"], "modem_tpu_torch/csrc/txrx.cu",
+                 "modem_tpu/ops/pallas_txrx.py:61"),
                 (names["fused_rx"], "modem_tpu_torch/csrc/txrx.cu",
                  "modem_tpu/ops/pallas_txrx.py:277"),
                 (names["fused_rx_soft"], "modem_tpu_torch/csrc/txrx.cu",
@@ -3112,15 +3178,16 @@ def long_route_entries() -> list:
 
 
 def phase_long_route(device, card: str) -> tuple[dict, dict, dict]:
-    """Phase 34: K1's and K3's long route (taps from a device array in
-    shared memory), for chains past 256 taps or 64 samples a symbol
+    """Phase 34: the long route of K1, K2 and K3 (taps from a device array
+    in shared memory), for chains past 256 taps or 64 samples a symbol
     (LONG_ROUTE) at 256 x 1024 symbols: ``roundtrip_fused``,
     ``rx_fused(tx_fused)`` and ``rx_soft_fused`` give the bits back, with
     every launch count set to 0 just before and read just after; then K1
-    and K3 hard bit for bit and K3 soft within ATOL against their plain
-    versions, and their times beside the plain versions', the profiler's
-    device time, the bound and, for K3 soft, the ``conv1d`` yardstick.
-    Returns (errors, launches, times)."""
+    and K3 hard bit for bit and K2 and K3 soft within ATOL against their
+    plain versions, and their times beside the plain versions', the
+    profiler's device time (of the long route's kernel), the bound and,
+    for K3 soft and K2, the ``conv1d`` and ``conv_transpose1d``
+    yardsticks. Returns (errors, launches, times)."""
     from modem_tpu_torch import Rates
     from modem_tpu_torch.chain import PulseShapedChain
     from modem_tpu_torch.models.psk import QPSK
@@ -3150,7 +3217,8 @@ def phase_long_route(device, card: str) -> tuple[dict, dict, dict]:
         ok &= torch.equal(llr_hard_bits(chain.rx_soft_fused(
             wave, k, noise_var=0.5)), bits)
         launches.update(read_launches(
-            {names["fused_rx"]: txrx.RX_HARD_KERNEL,
+            {names["fused_tx"]: txrx.TX_KERNEL,
+             names["fused_rx"]: txrx.RX_HARD_KERNEL,
              names["fused_rx_soft"]: txrx.RX_SOFT_KERNEL},
             f"{label} tx_fused -> rx_fused, rx_soft_fused", "long route"))
         print(f"[long route] {label}: the bits back through every fused form"
@@ -3175,17 +3243,25 @@ def phase_long_route(device, card: str) -> tuple[dict, dict, dict]:
             if (exact and err != 0) or err > ATOL:
                 fail(f"long route {names[name]}: kernel and plain differ")
             errs[names[name]] = err
-            ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
-                                                DEVICE_NAMES[name],
-                                                plain_calls=2)
+            ms, plain_ms, dev_ms = kernel_times(
+                kern, plain, args, device,
+                LONG_DEVICE_NAMES.get(name, DEVICE_NAMES[name]),
+                plain_calls=2)
+            if dev_ms is None and name in LONG_DEVICE_NAMES:
+                fail(f"long route {names[name]}: the profile holds no "
+                     "launch of the long route's kernel")
             lib_ms, lib_txt = None, "no library call"
-            if name == "fused_rx_soft":
-                fn, fargs, lib_err = rx_conv1d_yardstick(args)
+            if name in ("fused_rx_soft", "fused_tx"):
+                soft = name == "fused_rx_soft"
+                what, lib = (("conv1d", "K3 soft") if soft else
+                             ("conv_transpose1d (shaping only)", "K2"))
+                fn, fargs, lib_err = (rx_conv1d_yardstick if soft else
+                                      tx_conv_yardstick)(args)
                 if lib_err > 1e-4:
-                    fail(f"long route {names[name]}: conv1d yardstick "
-                         f"disagrees with K3 soft ({lib_err})")
+                    fail(f"long route {names[name]}: {what} yardstick "
+                         f"disagrees with {lib} ({lib_err})")
                 lib_ms = time_calls(fn, fargs, device)
-                lib_txt = (f"conv1d {lib_ms:.4f} ms (max |err| vs K3 "
+                lib_txt = (f"{what} {lib_ms:.4f} ms (max |err| vs {lib} "
                            f"{lib_err:.2e})")
             times[names[name]] = (ms, plain_ms, dev_ms, lib_ms,
                                   chain_work(chain, name, CHANNELS, k))
@@ -3253,6 +3329,136 @@ def phase_fir_routes(device) -> dict:
     if err > ATOL * scale:
         fail(f"{name}: demodulate_fused differs from demodulate")
     return launches
+
+
+def tx_route_check(what: str, fn, args, device, short: bool = True,
+                   calls: int = 20):
+    """Fails unless ``calls`` calls of ``fn`` run K2's short route
+    (``pulse_tx_core``) and not its long route (``pulse_tx_kernel``), or,
+    with ``short=False``, the long route alone, as the profiler sees it
+    (profiled again, up to three times, only where a profile lost every
+    record: a profile of one short call can end before its record
+    arrives)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ran = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize(device)
+        ran = {e.key.replace(" ", "") for e in prof.key_averages()
+               if "pulse_tx_" in e.key}
+        if ran:
+            break
+    want, other = (("pulse_tx_core", "pulse_tx_kernel") if short else
+                   ("pulse_tx_kernel", "pulse_tx_core"))
+    if not any(want in k for k in ran) or any(other in k for k in ran):
+        fail(f"K2 routes: {what} ran {sorted(ran)}, not {want} alone")
+
+
+def phase_tx_routes(chain, device) -> None:
+    """Phase 36: K2's short route (``pulse_tx_core``, sps 8 and span 8)
+    against its long route (the first version's body, which
+    ``_tx_launch(..., host=None)`` takes at any shape) bit for bit, both
+    against ``tx_plain`` within phase 23's bars, and each call's kernel by
+    the profiler: every K2 mode of phase 23, the baseband f32 one and 1999
+    Hz (more phases than the table, cosf and sinf a sample) with a
+    sym_offset near 10^9, at 256 x 4096; the odd shapes TX_ODD (K = 1, 31
+    and 257 at sps 8; sps 2, 4 and 16, the long route both ways) in f32,
+    bf16, int16 and at 1700 and 1999 Hz; then ``StreamingFusedTx`` in
+    ragged pushes equal to one ``tx_fused`` (baseband and int16 at sps 4,
+    passband at sps 16), and one push of the flagship's stream and every
+    link's ``tx_fused`` on the short route."""
+    from modem_tpu_torch import Rates, StreamingFusedTx, presets
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+    from modem_tpu_torch.ops import txrx
+
+    def both(what, args, spec):
+        got = txrx.tx_kernel(*args)
+        ref = txrx._tx_launch(*args, host=None)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            fail(f"K2 routes: {what}: the short route differs from the long")
+        err, _ = mode_compare(f"K2 routes: {what}", spec,
+                              got if len(got) == 2 else got[0],
+                              txrx.tx_plain(*args))
+        tx_route_check(what, txrx.tx_kernel, args, device,
+                       short=args[3:5] == (8, 8))
+        return err
+
+    far = {"carrier": (1999, REF_SR)}
+    for name, kind, spec, _, _ in [("fused_tx", "tx", {}, None, None)] + \
+            mode_cases() + [("fused_tx_passband_1999", "tx", far, None,
+                             None)]:
+        if kind != "tx":
+            continue
+        bps = MODE_QAM_BPS if "qam" in spec else 2
+        syms = mode_symbols((CHANNELS, N_SYMBOLS), bps, device, SEED + 90)
+        off = TX_FAR_OFFSET if spec is far else N_SYMBOLS
+        err = both(name, mode_args("tx", spec, syms, off, 256, chain), spec)
+        print(f"[tx routes] {name:22s} {CHANNELS} ch x {N_SYMBOLS} sym, "
+              f"sym_offset {off}: short == long route, pulse_tx_core ran, "
+              f"max |kernel - plain| = {err:.3e}", flush=True)
+    stores = (("f32", (None, torch.float32)), ("bf16", (None, torch.bfloat16)),
+              ("int16", (MODE_OUT_SCALE, torch.int16)))
+    for sps, span, k in TX_ODD:
+        tc = PulseShapedChain(QPSK(0.0, 1.0), Rates(1, sps),
+                              span_symbols=span, device=device)
+        syms = random_symbols((3, k), device, sentinels=k > 20)
+        for tag, store in stores:
+            args = (syms, tc.lut, tc.rrc, sps, span, None, None, 0, *store)
+            both(f"sps {sps} span {span} K {k} {tag}", args,
+                 {"store": store})
+        for hz, off in ((1700, -16), (1999, TX_FAR_OFFSET)):
+            args = (syms, tc.lut, tc.rrc, sps, span, None, (hz, REF_SR), off)
+            err = both(f"sps {sps} span {span} K {k} at {hz} Hz", args,
+                       {"carrier": (hz, REF_SR)})
+        route = "short" if (sps, span) == (8, 8) else "long"
+        print(f"[tx routes] sps {sps:2d} span {span:2d} K {k:3d}: short == "
+              f"long route in f32, bf16, int16, at 1700 and 1999 Hz, the "
+              f"{route} route ran, max |kernel - plain| {err:.3e}",
+              flush=True)
+    g = torch.Generator(device=device).manual_seed(SEED + 91)
+    for sps, span, hz, scale in ((4, 6, None, None), (4, 6, None, 3000.0),
+                                 (16, 4, 1700, None)):
+        tc = PulseShapedChain(QPSK(0.0, 1.0), Rates(10000 // sps, 10000),
+                              span_symbols=span, carrier_hz=hz, device=device)
+        bits = torch.randint(0, 2, (CHANNELS, 2 * 1000), generator=g,
+                             device=device, dtype=torch.int32)
+        one = tc.tx_fused(bits, out_scale=scale)
+        st = StreamingFusedTx(tc, (CHANNELS,), out_scale=scale)
+        cuts = (0, 2, 66, 700, 1234, 2000)
+        parts = [st.push(bits[:, a:b]) for a, b in zip(cuts, cuts[1:])]
+        parts.append(st.flush())
+        one = one if isinstance(one, tuple) else (one,)
+        parts = [q if isinstance(q, tuple) else (q,) for q in parts]
+        for r, o in enumerate(one):
+            if not torch.equal(torch.cat([q[r] for q in parts], -1), o):
+                fail(f"K2 routes: sps {sps} stream pushes differ from one "
+                     "shot")
+        print(f"[tx routes] StreamingFusedTx sps {sps} span {span}"
+              f"{f' at {hz} Hz' if hz else ''}"
+              f"{' int16' if scale else ''}: 5 ragged pushes and the flush "
+              "== tx_fused", flush=True)
+    bits = torch.randint(0, 2, (CHANNELS, 2 * (N_SYMBOLS // N_PUSH)),
+                         generator=g, device=device, dtype=torch.int32)
+    tx_route_check("a StreamingFusedTx push of the flagship",
+                   lambda: StreamingFusedTx(chain, (CHANNELS,)).push(bits),
+                   (), device)
+    links = ("reference_link", "lte_like_turbo_link", "nr_like_control_link")
+    for name in links:
+        link = getattr(presets, name)(device=device)
+        payload = torch.randint(0, 2, (LINK_FRAMES, link.payload_bits),
+                                generator=g, device=device,
+                                dtype=torch.int32)
+        tx_route_check(f"{name}().tx_fused", link.tx_fused, (payload,),
+                       device)
+    print(f"[tx routes] a StreamingFusedTx push of the flagship and "
+          f"{', '.join(links)} tx_fused at {LINK_FRAMES} frames ran "
+          "pulse_tx_core", flush=True)
 
 
 def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
@@ -3426,6 +3632,7 @@ def main() -> int:
     launches.update(long_launches)
     times.update(long_times)
     launches.update(phase_fir_routes(device))
+    phase_tx_routes(chain, device)
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
@@ -3451,7 +3658,8 @@ def main() -> int:
             "name": n, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[n], "max_abs_err": errs[n], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "device_ms": dev_ms})
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "share": None if dev_ms is None else bound_ms / dev_ms})
         if n in fsk_errs and fsk_errs[n][1] is not None:
             report["kernels"][-1]["agreement"] = fsk_errs[n][1]
     print(json.dumps(report))

@@ -73,9 +73,21 @@ def upsample_zero_stuff(x: torch.Tensor, factor: int) -> torch.Tensor:
     return u.reshape(x.shape[:-1] + (x.shape[-1] * factor,))
 
 
-def shape_iq(iq: torch.Tensor, rrc, sps: int, span: int, polyphase: bool):
+def check_fir_backend(fir_backend: str) -> None:
+    """Raise ``NotImplementedError`` for a FIR backend other than
+    ``"direct"``: the JAX package's others are not ported."""
+    if fir_backend != "direct":
+        raise NotImplementedError(
+            f"fir_backend {fir_backend!r} is not ported yet (ROADMAP.md "
+            "queue 1: the conv, matmul and fft backends of fir_filter)")
+
+
+def shape_iq(iq: torch.Tensor, rrc, sps: int, span: int, polyphase: bool,
+             fir_backend: str = "direct"):
     """Per-symbol I/Q ``[..., K, 2]`` -> RRC-shaped baseband ``(i, q)``
-    ``[..., (K+span)*sps]``, ``span`` flush symbols appended."""
+    ``[..., (K+span)*sps]``, ``span`` flush symbols appended.
+    ``fir_backend`` takes ``"direct"`` only."""
+    check_fir_backend(fir_backend)
     flush = torch.zeros(iq.shape[:-2] + (span, 2), dtype=iq.dtype,
                         device=iq.device)
     iq = torch.cat([iq, flush], dim=-2)
@@ -94,22 +106,29 @@ def matched_filter_rails(yi, yq, rrc):
     return fir_filter(yi, rrc)[0], fir_filter(yq, rrc)[0]
 
 
-def symbol_instants(yi, yq, sps: int, span: int, n_symbols: int):
-    """Samples ``span*sps + m*sps`` of both rails -> ``(di, dq) [..., K]``."""
-    idx = span * sps + torch.arange(n_symbols, device=yi.device) * sps
+def symbol_instants(yi, yq, sps: int, span: int, n_symbols: int,
+                    delay: int | None = None):
+    """Samples ``d + m*sps`` of both rails -> ``(di, dq) [..., K]``, with
+    ``d = span*sps`` unless ``delay`` is given."""
+    d = span * sps if delay is None else delay
+    idx = d + torch.arange(n_symbols, device=yi.device) * sps
     return yi[..., idx], yq[..., idx]
 
 
 def matched_decision_points(yi, yq, rrc, sps: int, span: int, n_symbols: int,
-                            polyphase: bool):
+                            polyphase: bool, fir_backend: str = "direct",
+                            delay: int | None = None):
     """Matched filter + symbol-instant sampling -> ``(di, dq) [..., K]``,
-    decision instants ``span*sps + m*sps``."""
+    decision instants ``d + m*sps``: ``d = span*sps`` unless ``delay``
+    overrides it (a cascade that adds its own group delay).
+    ``fir_backend`` takes ``"direct"`` only."""
+    check_fir_backend(fir_backend)
+    d = span * sps if delay is None else delay
     if polyphase:
-        d = span * sps
         return (polyphase_decim(yi, rrc, sps, d, n_symbols),
                 polyphase_decim(yq, rrc, sps, d, n_symbols))
     return symbol_instants(*matched_filter_rails(yi, yq, rrc), sps, span,
-                           n_symbols)
+                           n_symbols, d)
 
 
 class PulseShapedChain(torch.nn.Module):
@@ -135,10 +154,7 @@ class PulseShapedChain(torch.nn.Module):
         super().__init__()
         if not hasattr(scheme, "lut"):
             raise TypeError("PulseShapedChain needs a constellation-LUT scheme")
-        if fir_backend != "direct":
-            raise NotImplementedError(
-                f"fir_backend {fir_backend!r} is not ported yet (ROADMAP.md "
-                "queue 1: the conv, matmul and fft backends of fir_filter)")
+        check_fir_backend(fir_backend)
         self.scheme = scheme
         self.rates = rates
         self.span = span_symbols

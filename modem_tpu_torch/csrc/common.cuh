@@ -7,10 +7,10 @@
 //
 // Layout everywhere: one row per channel, time contiguous ([C, K] symbols,
 // [C, N] waveform samples), threads along time. The constellation table
-// arrives as a device array and is staged in shared memory; K1's and K3's
-// RRC taps and K4's and K5's filter taps arrive by value in a kernel
-// parameter (Taps), K2's as a device array from which it builds its
-// polyphase bank in shared memory.
+// arrives as a device array and is staged in shared memory; K1's, K2's and
+// K3's RRC taps and K4's and K5's filter taps arrive by value in a kernel
+// parameter (Taps); on K2's long route as a device array from which it
+// builds its polyphase bank in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,7 +26,7 @@ constexpr int kTile = 256;     // symbols per block (time tile)
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kNcoTable = 2048;  // carrier phases held in a table, at most
 constexpr int kLane = 128;     // channels per JAX tile (the noise keys)
-constexpr int kMaxTaps = 256;  // taps K1, K3, K4 and K5 take (Taps, 1 KB)
+constexpr int kMaxTaps = 256;  // taps K1-K5 take (Taps, 1 KB)
 constexpr int kMaxSps = 64;    // samples a symbol K1's and K3's tiles fit
 
 // Filter taps by value. Passed as a __grid_constant__ kernel parameter, they

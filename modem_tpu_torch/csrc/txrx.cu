@@ -20,12 +20,47 @@
 //
 // TX (K2). What bounds it on this card: bytes. It reads 4 B a symbol and
 // writes 2 x 4 B a sample (64 B a symbol at sps = 8; half that at passband
-// or in bf16, int16) with about 9*2 FMAs a sample, far below the FMA rate,
-// so its floor is the device-memory write. Each block stages its span
-// symbols of history in shared memory and stores along time, so a warp's
-// stores are contiguous. The carrier phase is walked a sample in 32-bit
-// integers (common.cuh, Nco). Its body is the first version's: it issues
-// about 27 shared-memory loads per 18 FMAs.
+// or in bf16, int16) against about 2*L FMAs a symbol (L = span*sps + 1
+// taps: 130 at the flagship's sps 8, span 8), far below the FMA rate, so
+// its floor is the device-memory write. The first version ran one thread a
+// sample with a run-time t / sps and tap loop, and issued about 27
+// shared-memory loads (its polyphase bank, staged by every block, and the
+// points) per 18 FMAs. The design (pulse_tx_core), on K1's synthesis
+// (chain.cu):
+// - the taps are a __grid_constant__ kernel parameter (common.cuh, Taps):
+//   with the loops unrolled each entry of the polyphase bank reaches its
+//   FFMA as a constant operand, and no block stages a bank; compiled
+//   for the flagship's sps 8, span 8, the one shape every preset and link
+//   runs;
+// - a block of 128 threads makes a tile of 256 rows (a row: a symbol's sps
+//   samples). Each thread loads its symbols of the tile's points (the
+//   rows and span before them) first, so that their latency runs under
+//   the staging of the tables, then maps them once into shared memory as
+//   float2, zero outside [0, K) and for negative symbols (the streaming
+//   sentinel);
+// - synthesis: a thread makes all sps phases of kTxRows consecutive rows
+//   from a window of span + 1 points in registers, one new point (an
+//   8-byte load) a row for 2*L FMAs;
+// - stores: the rows go into a skewed tile in shared memory (float4 a
+//   quarter row) and the block writes the tile out in 16-byte pieces,
+//   consecutive threads on consecutive pieces (8 bf16 or int16 samples a
+//   piece, converted there, store_wave's rounding; a row at sps 8 is two
+//   pieces in f32 and one in bf16 or int16, so every row starts on a
+//   16-byte boundary). On the H100 this beat each thread storing its
+//   rows' 32-byte sectors straight from registers at baseband by 2x, and
+//   persistent blocks that prefetch the next tile's symbols lost to one
+//   tile a block (PERF.md, section 6);
+// - at passband the phase walks a row in 32-bit integers from the table of
+//   up to 2048 phases (common.cuh, Nco), each sample mixed with the first
+//   version's __fmul_rn / __fsub_rn; the unrolled rows are compiled apart
+//   for a carrier from the table and one computed by cosf and sinf, so
+//   that the table's code runs without the other's in between.
+// Every sample is one fmaf chain a rail, bank[p][k] * z[m - k] for k from
+// 0, as in the first version (whose zero bank entries past the last tap
+// add nothing), so the outputs are its bit for bit and pushes of a stream
+// equal one shot. The long route, for every other shape: the first
+// version's body unchanged (pulse_tx_kernel, its bank staged from a device
+// array, one sample a thread).
 //
 // RX (K3). What bounds it on this card: bytes, 8 B read a sample (4 at
 // passband, half that in bf16) against 65*2 FMAs a symbol, 16 a sample:
@@ -67,7 +102,8 @@ namespace {
 using modem::kThreads;
 using modem::kTile;
 
-// Grid: one block per (channel, tile of kTile output symbols), flattened.
+// K2's long route, the first version. Grid: one block per (channel, tile of
+// kTile output symbols), flattened.
 template <bool kPassband, typename TOut>
 __global__ void pulse_tx_kernel(const int* __restrict__ syms, long long k_sym,
                                 long long n_tiles, modem::Constellation map,
@@ -130,6 +166,225 @@ __global__ void pulse_tx_kernel(const int* __restrict__ syms, long long k_sym,
       modem::store_wave(out_q + base + t, aq, out_scale);
     }
   }
+}
+
+constexpr int kTxThreads = 128;  // K2 short route: threads a block
+constexpr int kTxRows = 2;       // rows a thread
+constexpr int kTxTile = kTxThreads * kTxRows;  // rows a block
+
+// The 16 bits of a stored bf16 or int16 sample.
+__device__ __forceinline__ unsigned short wave_bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+__device__ __forceinline__ unsigned short wave_bits(short v) {
+  return static_cast<unsigned short>(v);
+}
+
+// Two samples in their storage form (common.cuh, store_wave), as the
+// 32-bit word that holds them side by side.
+template <typename TOut>
+__device__ __forceinline__ unsigned wave_pair(float a, float b,
+                                              float out_scale) {
+  TOut lo, hi;
+  modem::store_wave(&lo, a, out_scale);
+  modem::store_wave(&hi, b, out_scale);
+  return wave_bits(lo) | (static_cast<unsigned>(wave_bits(hi)) << 16);
+}
+
+// 16 bytes of samples in storage form at dst (16-byte aligned) from the
+// floats x[0 .. 16 / sizeof(TOut)).
+__device__ __forceinline__ void store_piece(float* dst, const float* x,
+                                            float) {
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+template <typename TOut>
+__device__ __forceinline__ void store_piece(TOut* dst, const float* x,
+                                            float out_scale) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(
+      wave_pair<TOut>(x[0], x[1], out_scale),
+      wave_pair<TOut>(x[2], x[3], out_scale),
+      wave_pair<TOut>(x[4], x[5], out_scale),
+      wave_pair<TOut>(x[6], x[7], out_scale));
+}
+
+// The staged samples 0 .. n - 1 (skewed floats ys; n a whole number of
+// 16-byte pieces) to dst[0 .. n - 1] in device memory (16-byte aligned) in
+// storage form, all threads: consecutive threads on consecutive pieces.
+template <typename TOut>
+__device__ inline void store_rows(TOut* __restrict__ dst, const float* ys,
+                                  int n, float out_scale) {
+  constexpr int V = 16 / static_cast<int>(sizeof(TOut));
+  for (int q = threadIdx.x; q < n / V; q += blockDim.x) {
+    float x[V];
+#pragma unroll
+    for (int h = 0; h < V; h += 4) {
+      const float4 f =
+          *reinterpret_cast<const float4*>(ys + modem::skew(q * V + h));
+      x[h] = f.x;
+      x[h + 1] = f.y;
+      x[h + 2] = f.z;
+      x[h + 3] = f.w;
+    }
+    store_piece(dst + q * V, x, out_scale);
+  }
+}
+
+// The carrier's cos and sin at phase k, as common.cuh's nco_cos_sin
+// computes them, with the table (or not) known at compile time.
+template <bool kTable>
+__device__ __forceinline__ void tx_carrier(const modem::Nco& n, int k,
+                                           const float* tc, const float* ts,
+                                           float& c, float& s) {
+  if (kTable) {
+    c = tc[k];
+    s = ts[k];
+  } else {
+    const float th = __fmul_rn(static_cast<float>(k), n.scale);
+    c = cosf(th);
+    s = sinf(th);
+  }
+}
+
+// The point of an already loaded symbol s, as common.cuh's map_point gives
+// it: zero for a negative symbol (the streaming sentinel, and -1 for no
+// symbol) and past a table's end.
+__device__ __forceinline__ void map_value(int s, const modem::Constellation& m,
+                                          const float* slut, float& zi,
+                                          float& zq) {
+  zi = 0.f;
+  zq = 0.f;
+  if (m.lut != nullptr) {
+    if (s >= 0 && s < m.n_points) {
+      zi = slut[2 * s];
+      zq = slut[2 * s + 1];
+    }
+  } else if (s >= 0) {
+    modem::qam_point(s, m, zi, zq);
+  }
+}
+
+// K2's short route, compiled for the flagship's (SPS, SPAN) = (8, 8).
+// Grid: one block per (channel, tile of kTxTile waveform rows), flattened;
+// row m is symbol m's sps samples w[m*sps + p].
+template <bool kPassband, typename TOut, int SPS, int SPAN>
+__global__ void __launch_bounds__(kTxThreads)
+    pulse_tx_core(const int* __restrict__ syms, long long k_sym,
+                  long long n_tiles, modem::Constellation map,
+                  const __grid_constant__ modem::Taps taps, modem::Nco nco,
+                  float out_scale, TOut* __restrict__ out_i,
+                  TOut* __restrict__ out_q) {
+  static_assert(SPS % 4 == 0 && SPS * sizeof(TOut) % 16 == 0,
+                "rows staged and stored in 16-byte pieces");
+  constexpr int kRails = kPassband ? 1 : 2;
+  constexpr int L = SPAN * SPS + 1;
+  constexpr int KP = SPAN + 1;  // points a row is made of
+  // symbols a thread loads for its block's points: the tile's rows and the
+  // span before them
+  constexpr int kSyms = (kTxTile + SPAN + kTxThreads - 1) / kTxThreads;
+  const int f_len = modem::skew_len(kTxTile * SPS);
+  // the rows, skewed, a rail each [kRails][f_len]; the points of symbols
+  // m0 - span .. m0 + kTxTile - 1; the table; the phase table
+  extern __shared__ __align__(16) float smem[];
+  float* ys = smem;
+  float2* zp = reinterpret_cast<float2*>(ys + kRails * f_len);
+  float* slut = reinterpret_cast<float*>(zp + ((kTxTile + SPAN + 1) & ~1));
+  float* tc = slut + (map.lut != nullptr ? 2 * map.n_points : 0);
+  float* ts = tc + nco.period;
+
+  const int tid = threadIdx.x;
+  const long long c = blockIdx.x / n_tiles;
+  const long long m0 = (blockIdx.x % n_tiles) * kTxTile;
+  const long long left = k_sym + SPAN - m0;
+  const int rows = left < kTxTile ? static_cast<int>(left) : kTxTile;
+  // the symbols of points tid, tid + kTxThreads, ..., loaded while the
+  // tables are staged: -1 (no point) outside [0, K)
+  const int* row = syms + c * k_sym;
+  int sv[kSyms];
+#pragma unroll
+  for (int j = 0; j < kSyms; ++j) {
+    const long long g = m0 - SPAN + tid + j * kTxThreads;
+    sv[j] = tid + j * kTxThreads < rows + SPAN && g >= 0 && g < k_sym
+                ? row[g]
+                : -1;
+  }
+  __shared__ int ph_tile;  // the carrier phase of the tile's first sample
+  if (map.lut != nullptr) modem::stage(slut, map.lut, 2 * map.n_points);
+  if (kPassband && nco.table) modem::stage_nco(tc, ts, nco);
+  if (kPassband && tid == 0) ph_tile = modem::nco_phase(nco, m0 * SPS);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSyms; ++j) {
+    const int z = tid + j * kTxThreads;
+    if (z < rows + SPAN) {
+      float zi, zq;
+      map_value(sv[j], map, slut, zi, zq);
+      zp[z] = make_float2(zi, zq);
+    }
+  }
+  __syncthreads();
+
+  const long long base = c * (k_sym + SPAN) * SPS + m0 * SPS;
+  float* const rail_i = ys;
+  float* const rail_q = ys + (kPassband ? 0 : f_len);
+  const int r_first = kTxRows * tid;
+  // one copy of the unrolled rows for a carrier from its table and one for
+  // a carrier computed by cosf and sinf (more than 2048 phases), so that
+  // the table's code runs without the other's in between
+  auto make_rows = [&](auto table) {
+    constexpr bool kTable = decltype(table)::value;
+    float2 w[KP];  // the points of rows rl - KP + 1 .. rl, oldest first
+#pragma unroll
+    for (int k = 0; k < KP - 1; ++k) w[k] = zp[r_first + k];
+    int ph = kPassband ? modem::nco_skip(nco, ph_tile, r_first * SPS) : 0;
+#pragma unroll
+    for (int i = 0; i < kTxRows; ++i) {
+      const int rl = r_first + i;
+      if (rl >= rows) break;
+      w[KP - 1] = zp[rl + KP - 1];
+      float yi[SPS], yq[SPS];
+#pragma unroll
+      for (int p = 0; p < SPS; ++p) {
+        float ai = 0.f, aq = 0.f;
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {  // bank[p][k] = taps[k*SPS + p]
+          if (k * SPS + p < L) {
+            ai = fmaf(taps.v[k * SPS + p], w[KP - 1 - k].x, ai);
+            aq = fmaf(taps.v[k * SPS + p], w[KP - 1 - k].y, aq);
+          }
+        }
+        if (kPassband) {
+          float cs, sn;
+          tx_carrier<kTable>(nco, ph, tc, ts, cs, sn);
+          ph = modem::nco_add(nco, ph, nco.step);
+          ai = __fsub_rn(__fmul_rn(ai, cs), __fmul_rn(aq, sn));
+        }
+        yi[p] = ai;
+        yq[p] = aq;
+      }
+#pragma unroll
+      for (int h = 0; h < SPS; h += 4) {
+        const int sk = modem::skew(rl * SPS + h);
+        *reinterpret_cast<float4*>(rail_i + sk) =
+            make_float4(yi[h], yi[h + 1], yi[h + 2], yi[h + 3]);
+        if (!kPassband)
+          *reinterpret_cast<float4*>(rail_q + sk) =
+              make_float4(yq[h], yq[h + 1], yq[h + 2], yq[h + 3]);
+      }
+#pragma unroll
+      for (int k = 0; k < KP - 1; ++k) w[k] = w[k + 1];
+    }
+  };
+  if (r_first < rows) {
+    if (!kPassband || nco.table)
+      make_rows(std::true_type{});
+    else
+      make_rows(std::false_type{});
+  }
+  __syncthreads();
+  store_rows(out_i + base, rail_i, rows * SPS, out_scale);
+  if (!kPassband) store_rows(out_q + base, rail_q, rows * SPS, out_scale);
 }
 
 constexpr int kRxR = 4;  // decisions a thread (short route)
@@ -357,6 +612,7 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// The long route: the first version's kernel.
 template <bool kPassband, typename TOut>
 int launch_tx(const int* syms, long long n_ch, long long k_sym,
               const modem::Constellation& map, const float* taps, int n_taps,
@@ -378,13 +634,59 @@ int launch_tx(const int* syms, long long n_ch, long long k_sym,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The short route.
+template <bool kPassband, typename TOut, int SPS, int SPAN>
+int launch_tx_core(const int* syms, long long n_ch, long long k_sym,
+                   const modem::Constellation& map, const modem::Taps& taps,
+                   const modem::Nco& nco, float out_scale, void* out_i,
+                   void* out_q, void* stream) {
+  auto kernel = pulse_tx_core<kPassband, TOut, SPS, SPAN>;
+  constexpr int kRails = kPassband ? 1 : 2;
+  const long long n_tiles = (k_sym + SPAN + kTxTile - 1) / kTxTile;
+  const size_t smem =
+      kRails * modem::skew_len(kTxTile * SPS) * sizeof(float) +
+      ((kTxTile + SPAN + 1) & ~1) * sizeof(float2) +
+      modem::side_floats(map, nco) * sizeof(float);
+  cudaError_t err = modem::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<modem::grid_blocks(n_ch, n_tiles), kTxThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      syms, k_sym, n_tiles, map, taps, nco, out_scale,
+      static_cast<TOut*>(out_i), static_cast<TOut*>(out_q));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The TX route for a shape: the short route for the flagship's sps 8,
+// span 8 with taps a host modem::Taps (its rows go out in 16-byte pieces:
+// the outputs must be 16-byte aligned); every other shape, and taps null,
+// the long route, which reads taps_dev.
+template <bool kPassband, typename TOut>
+int launch_tx_shape(const int* syms, long long n_ch, long long k_sym,
+                    const modem::Constellation& map, const void* taps,
+                    const float* taps_dev, int n_taps, int sps, int span,
+                    const modem::Nco& nco, float out_scale, void* out_i,
+                    void* out_q, void* stream) {
+  if (taps != nullptr && sps == 8 && span == 8) {
+    if (((reinterpret_cast<uintptr_t>(out_i) |
+          reinterpret_cast<uintptr_t>(out_q)) & 15) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tx_core<kPassband, TOut, 8, 8>(
+        syms, n_ch, k_sym, map, *static_cast<const modem::Taps*>(taps), nco,
+        out_scale, out_i, out_q, stream);
+  }
+  return launch_tx<kPassband, TOut>(syms, n_ch, k_sym, map, taps_dev, n_taps,
+                                    sps, span, nco, out_scale, out_i, out_q,
+                                    stream);
+}
+
 // The TX instantiation for a storage kind (common.cuh, WaveKind).
 template <bool kPassband, typename... Args>
 int launch_tx_kind(int out_kind, Args... args) {
   switch (out_kind) {
-    case modem::kF32: return launch_tx<kPassband, float>(args...);
-    case modem::kBf16: return launch_tx<kPassband, __nv_bfloat16>(args...);
-    case modem::kI16: return launch_tx<kPassband, short>(args...);
+    case modem::kF32: return launch_tx_shape<kPassband, float>(args...);
+    case modem::kBf16:
+      return launch_tx_shape<kPassband, __nv_bfloat16>(args...);
+    case modem::kI16: return launch_tx_shape<kPassband, short>(args...);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -468,16 +770,24 @@ extern "C" {
 // syms [n_ch, k_sym] int32 -> out_i, out_q [n_ch, (k_sym+span)*sps]
 // (out_q unused at passband) of out_kind (0 f32, 1 bf16, 2 int16 with
 // out_scale). The map: lut [n_points, 2] f32, or with lut null square QAM
-// (cshift, ms, a, c, s); the carrier: sr == 0 baseband, else hz, sr,
-// sym_offset and scale = f32(2*pi/sr); taps [n_taps] f32. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a carrier the NCO does
-// not take.
+// (cshift, ms, a, c, s); the span*sps+1 taps: taps_dev the device array,
+// and taps a host pointer to them in a modem::Taps (n_taps <= 256,
+// sps <= 64) or null. The route: at sps 8, span 8 with taps given, the
+// short route (the taps by value); otherwise the long route, from
+// taps_dev. The carrier: sr == 0 baseband, else hz, sr, sym_offset and
+// scale = f32(2*pi/sr). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 int modem_tx(const int* syms, long long n_ch, long long k_sym,
              const float* lut, int n_points, int cshift, float ms, float a,
-             float c, float s, const float* taps, int n_taps, int sps,
-             int span, int hz, int sr, long long sym_offset, float scale,
-             int out_kind, float out_scale, void* out_i, void* out_q,
-             void* stream) {
+             float c, float s, const void* taps, const float* taps_dev,
+             int n_taps, int sps, int span, int hz, int sr,
+             long long sym_offset, float scale, int out_kind,
+             float out_scale, void* out_i, void* out_q, void* stream) {
+  if (n_taps != span * sps + 1 || sps < 1 || span < 0 ||
+      taps_dev == nullptr ||
+      (taps != nullptr &&
+       (n_taps > modem::kMaxTaps || sps > modem::kMaxSps)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const modem::Constellation map =
       modem::make_map(lut, n_points, cshift, ms, a, c, s);
   modem::Nco nco;
@@ -485,11 +795,11 @@ int modem_tx(const int* syms, long long n_ch, long long k_sym,
     return static_cast<int>(cudaErrorInvalidValue);
   if (sr != 0)
     return launch_tx_kind<true>(out_kind, syms, n_ch, k_sym, map, taps,
-                                n_taps, sps, span, nco, out_scale, out_i,
-                                out_q, stream);
-  return launch_tx_kind<false>(out_kind, syms, n_ch, k_sym, map, taps, n_taps,
-                               sps, span, nco, out_scale, out_i, out_q,
-                               stream);
+                                taps_dev, n_taps, sps, span, nco, out_scale,
+                                out_i, out_q, stream);
+  return launch_tx_kind<false>(out_kind, syms, n_ch, k_sym, map, taps,
+                               taps_dev, n_taps, sps, span, nco, out_scale,
+                               out_i, out_q, stream);
 }
 
 // wi, wq [n_ch, n_wave] (f32, or bf16 with in_bf16; wq unused at passband)

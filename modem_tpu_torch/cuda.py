@@ -10,8 +10,8 @@ loaded when the package is imported.
 
 A :class:`Kernel` is one entry point with its launch count: it counts a
 launch only where the C function ran and reported success.
-:func:`host_taps` keeps the host copy of the taps or tables that K1, K3, K4,
-K5, K11 and K12 take by value, in a kernel parameter.
+:func:`host_taps` keeps the host copy of the taps or tables that K1-K5,
+K11 and K12 take by value, in a kernel parameter.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ _U = ctypes.c_uint
 _MAP = [_P, _I, _I, _F, _F, _F, _F]
 _NCO = [_I, _I, _L, _F]
 #: argument types of each C entry point (pointers and the stream as
-#: c_void_p; the taps of ``modem_chain``, ``modem_rx_hard``,
+#: c_void_p; the taps of ``modem_chain``, ``modem_tx``, ``modem_rx_hard``,
 #: ``modem_rx_soft`` and ``modem_fir``, and the tables of
 #: ``modem_resampled_tx`` and ``modem_resampled_rx``, a host pointer
 #: (:func:`host_taps`) or null, then the device pointers; ``modem_demod``'s
@@ -57,8 +57,8 @@ SIGNATURES = {
                            _I, _I, _L, _P, _P, _P],
     "modem_resampled_rx": [_P, _P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _P,
                            _I, _I, _P, _P, _P, _P],
-    "modem_tx": [_P, _L, _L, *_MAP, _P, _I, _I, _I, *_NCO, _I, _F, _P, _P,
-                 _P],
+    "modem_tx": [_P, _L, _L, *_MAP, _P, _P, _I, _I, _I, *_NCO, _I, _F, _P,
+                 _P, _P],
     "modem_rx_hard": [_P, _P, _I, _L, _L, _L, _P, _P, _I, _I, _I, *_MAP,
                       *_NCO, _P, _P],
     "modem_rx_soft": [_P, _P, _I, _L, _L, _L, _P, _P, _I, _I, _I, *_NCO, _P,
@@ -180,7 +180,7 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
 def host_taps(*parts: torch.Tensor) -> int:
     """The address of a host copy of ``parts`` as the kernels take them by
     value, in a ``Taps`` kernel parameter: each tensor flattened, one after
-    another (K1, K3, K4 and K5 pass their taps; K11 its RRC taps and then
+    another (K1-K5 pass their taps; K11 its RRC taps and then
     its stage table; K12 its composite table), :data:`TAPS_PARAM` floats in
     all at most. The copy is kept while the tensors live and are not
     modified in place (their version counters), so a filter's taps cross to

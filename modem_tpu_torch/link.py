@@ -241,19 +241,19 @@ class FramedLink:
             crc_ok = crc_ok & ok
         return payload, crc_ok
 
-    def rx(self, wave, noise_var: float):
+    def rx(self, iq, noise_var: float):
         """Received waveform -> ``(payload, ok)`` via the chain's soft RX."""
-        llrs = self.chain.rx_soft(wave, self.n_symbols, noise_var=noise_var)
+        llrs = self.chain.rx_soft(iq, self.n_symbols, noise_var=noise_var)
         return self.decode(llrs)
 
-    def rx_fused(self, wave, noise_var: float):
+    def rx_fused(self, iq, noise_var: float):
         """Like :meth:`rx`, through the chain's fused matched filter (K3
         soft) for a waveform on the card (``(i, q)`` at baseband, one real
         tensor at passband); a CPU waveform, or a chain without fused forms,
         takes :meth:`rx`."""
-        first = wave if torch.is_tensor(wave) else wave[0]
+        first = iq if torch.is_tensor(iq) else iq[0]
         if self._fused_ok(first):
-            llrs = self.chain.rx_soft_fused(wave, self.n_symbols,
+            llrs = self.chain.rx_soft_fused(iq, self.n_symbols,
                                             noise_var=noise_var)
             return self.decode(llrs)
-        return self.rx(wave, noise_var)
+        return self.rx(iq, noise_var)

@@ -38,11 +38,11 @@ from .polyphase import polyphase_decim, polyphase_interp
 from .slicer import as_lut, lut_slice
 
 MAX_LUT_POINTS = 64
-#: the most taps K1's and K3's short route takes: there the taps travel by
-#: value in a kernel parameter of this many floats (``csrc/common.cuh``,
-#: ``Taps``); a longer chain takes the long route
+#: the most taps the short route of K1, K2 and K3 takes: there the taps
+#: travel by value in a kernel parameter of this many floats
+#: (``csrc/common.cuh``, ``Taps``); a longer chain takes the long route
 MAX_KERNEL_TAPS = TAPS_PARAM
-#: the most samples a symbol K1's and K3's short route takes
+#: the most samples a symbol the short route of K1, K2 and K3 takes
 MAX_KERNEL_SPS = 64
 
 TX_KERNEL = Kernel("modem_tx")
@@ -171,13 +171,15 @@ def _kernel_map(lut, qam) -> tuple:
 
 
 def kernel_taps(taps: torch.Tensor, sps: int) -> tuple:
-    """K1's and K3's taps arguments, which pick the route: ``(host, device)``
-    with ``host`` the address of the host copy of ``taps`` as the short route
-    takes them (by value, in a kernel parameter:
+    """The taps arguments of K1, K2 and K3, which pick the route:
+    ``(host, device)`` with ``host`` the address of the host copy of
+    ``taps`` as the short route takes them (by value, in a kernel parameter:
     :func:`~modem_tpu_torch.cuda.host_taps`); or ``(None, device)`` for a
     chain of more than ``MAX_KERNEL_TAPS`` taps or ``MAX_KERNEL_SPS``
     samples a symbol, which takes the long route (the taps read from
-    ``device``, the address of ``taps`` on the card)."""
+    ``device``, the address of ``taps`` on the card). K2's short route is
+    compiled for sps 8, span 8 alone: its C entry sends every other shape
+    to the long route."""
     if taps.shape[0] > MAX_KERNEL_TAPS or sps > MAX_KERNEL_SPS:
         return None, taps.data_ptr()
     return host_taps(taps), taps.data_ptr()
@@ -249,7 +251,19 @@ def tx_plain(symbols, lut, taps, sps: int, span: int, qam=None,
 def tx_kernel(symbols, lut, taps, sps: int, span: int, qam=None,
               carrier=None, sym_offset: int = 0, out_scale=None,
               out_dtype=torch.float32):
-    """Launch K2 (``modem_tx``) on CUDA tensors."""
+    """Launch K2 (``modem_tx``) on CUDA tensors: the short route at sps 8,
+    span 8, the long route at any other shape."""
+    return _tx_launch(symbols, lut, taps, sps, span, qam, carrier,
+                      sym_offset, out_scale, out_dtype,
+                      host=kernel_taps(taps, sps)[0])
+
+
+def _tx_launch(symbols, lut, taps, sps: int, span: int, qam=None,
+               carrier=None, sym_offset: int = 0, out_scale=None,
+               out_dtype=torch.float32, *, host):
+    """K2 with ``host``, the host taps of :func:`kernel_taps`, or None: the
+    long route at any shape (the route checks hold the short route to it,
+    bit for bit)."""
     dev = symbols.device
     k = symbols.shape[-1]
     flat = symbols.reshape(-1, k).contiguous()
@@ -264,7 +278,7 @@ def tx_kernel(symbols, lut, taps, sps: int, span: int, qam=None,
     if outs[0].numel():
         TX_KERNEL.launch(
             dev, flat.data_ptr(), flat.shape[0], k, *_kernel_map(lut, qam),
-            taps.data_ptr(), taps.shape[0], sps, span,
+            host, taps.data_ptr(), taps.shape[0], sps, span,
             *_kernel_carrier(carrier, sym_offset), _WAVE_KINDS[out_dtype],
             _f32(1.0 if out_scale is None else out_scale), outs[0].data_ptr(),
             outs[-1].data_ptr() if n_out == 2 else None)

@@ -262,3 +262,90 @@ def test_matched_filter_passband(carrier_hz):
     np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), atol=ATOL)
     # the decisions the two steps lead to are the staged rx's
     np.testing.assert_array_equal(tc.rx(torch.as_tensor(x), K).numpy(), bits)
+
+
+# ---- the shared chain helpers' signatures (the JAX package's) ----
+
+def _helper_case(seed):
+    """Per-symbol I/Q ``[C, K, 2]`` and a waveform ``[C, (K+8)*8]`` (two
+    rails) with numpy noise, from a seed."""
+    rng = np.random.default_rng(seed)
+    iq = rng.choice([-0.7071, 0.7071], (C, 64, 2)).astype(np.float32)
+    wave = tuple(rng.normal(0, 0.7, (C, (64 + 8) * 8)).astype(np.float32)
+                 for _ in range(2))
+    return iq, wave
+
+
+@pytest.mark.parametrize("polyphase", [False, True])
+def test_shape_iq_takes_fir_backend(chains, polyphase):
+    """``shape_iq(..., fir_backend="direct")`` against
+    ``modem_tpu.chain.shape_iq``, within f32 reassociation."""
+    from modem_tpu.chain import shape_iq as j_shape_iq
+    from modem_tpu_torch.chain import shape_iq
+
+    jc, tc = chains
+    iq, _ = _helper_case(11)
+    want = j_shape_iq(jnp.asarray(iq), jc.rrc, 8, 8, polyphase,
+                      fir_backend="direct")
+    got = shape_iq(torch.as_tensor(iq), tc.rrc, 8, 8, polyphase,
+                   fir_backend="direct")
+    for g, y in zip(got, want):
+        assert g.shape == y.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(y), atol=ATOL)
+
+
+@pytest.mark.parametrize("polyphase", [False, True])
+@pytest.mark.parametrize("delay", [None, 64, 61])
+def test_matched_decision_points_takes_delay(chains, polyphase, delay):
+    """``matched_decision_points(..., fir_backend="direct", delay=d)``
+    against the JAX function for ``delay`` None, ``span*sps`` and another
+    value, on both routes: decision points within f32 reassociation, their
+    slices equal."""
+    from modem_tpu.chain import matched_decision_points as j_mdp
+    from modem_tpu_torch.chain import matched_decision_points
+
+    jc, tc = chains
+    _, wave = _helper_case(12)
+    n = 60
+    want = j_mdp(*_j(wave), jc.rrc, 8, 8, n, polyphase, fir_backend="direct",
+                 delay=delay)
+    got = matched_decision_points(*_t(wave), tc.rrc, 8, 8, n, polyphase,
+                                  fir_backend="direct", delay=delay)
+    for g, y in zip(got, want):
+        assert g.shape == (C, n)
+        np.testing.assert_allclose(g.numpy(), np.asarray(y), atol=ATOL)
+    from modem_tpu.ops.slicer import lut_slice as j_lut_slice
+    from modem_tpu_torch.ops.slicer import lut_slice
+
+    np.testing.assert_array_equal(lut_slice(*got, tc.lut).numpy(),
+                                  np.asarray(j_lut_slice(*want, jc.lut)))
+
+
+def test_delay_moves_the_decision_instants(chains):
+    """``delay = span*sps`` is the default, and another delay samples the
+    same filter output elsewhere."""
+    from modem_tpu_torch.chain import matched_decision_points
+
+    _, tc = chains
+    _, wave = _helper_case(13)
+    w = _t(wave)
+    base = matched_decision_points(*w, tc.rrc, 8, 8, 40, False)
+    same = matched_decision_points(*w, tc.rrc, 8, 8, 40, False, delay=64)
+    late = matched_decision_points(*w, tc.rrc, 8, 8, 48, False, delay=56)
+    for b, s, l in zip(base, same, late):
+        assert torch.equal(b, s)
+        assert torch.equal(b, l[:, 1:41])
+
+
+@pytest.mark.parametrize("fn", ["shape_iq", "matched_decision_points"])
+def test_other_fir_backends_not_ported(chains, fn):
+    """A ``fir_backend`` other than ``"direct"`` raises
+    ``NotImplementedError``, as ``PulseShapedChain`` does."""
+    from modem_tpu_torch import chain as tchain
+
+    _, tc = chains
+    iq, wave = _helper_case(14)
+    args = ((torch.as_tensor(iq), tc.rrc, 8, 8, False) if fn == "shape_iq"
+            else (*_t(wave), tc.rrc, 8, 8, 10, True))
+    with pytest.raises(NotImplementedError, match="fir_backend"):
+        getattr(tchain, fn)(*args, fir_backend="fft")

@@ -615,6 +615,165 @@ def test_k1_k3_long_route_modes(dev):
         assert float((got == want).double().mean()) >= 0.9999
 
 
+# ---- K2's routes: the short route (pulse_tx_core) against the long route
+# (the first version's body), bit for bit ----
+
+#: (id, keywords of tx_kernel, bits per symbol): every mode, sym_offset
+#: other than 0 on the carriers; 1999 Hz of 10000 has more phases than the
+#: table holds (cosf and sinf a sample)
+TX_MODES = [
+    ("f32", {}, 2),
+    ("bf16", {"out_dtype": torch.bfloat16}, 2),
+    ("i16", {"out_scale": 1000.0, "out_dtype": torch.int16}, 2),
+    ("pb2000", {"carrier": (2000, 10000), "sym_offset": -16}, 2),
+    ("pb1999", {"carrier": (1999, 10000), "sym_offset": 987654321}, 2),
+    ("pb1700_bf16", {"carrier": (1700, 10000), "sym_offset": 4099,
+                     "out_dtype": torch.bfloat16}, 2),
+    ("pb1700_i16", {"carrier": (1700, 10000), "sym_offset": -5,
+                    "out_scale": 1000.0, "out_dtype": torch.int16}, 2),
+    ("qam256", {"qam": QAM256}, 8),
+    ("qam256_pb2000", {"qam": QAM256, "carrier": (2000, 10000),
+                       "sym_offset": 7}, 8),
+]
+TX_MODE_IDS = [m[0] for m in TX_MODES]
+
+
+def _tx_both(syms, lut, taps, sps, span, kw):
+    """K2 on the route its shape picks and on the long route: bit for bit
+    equal, and within the plain version's bars."""
+    kw = dict(kw)
+    qam = kw.pop("qam", None)
+    args = (syms, None if qam is not None else lut, taps, sps, span, qam)
+    got = _launches(txrx.TX_KERNEL, txrx.tx_kernel, *args, **kw)
+    ref = _launches(txrx.TX_KERNEL, txrx._tx_launch, *args, **kw, host=None)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    want = txrx.tx_plain(*args, kw.get("carrier"), kw.get("sym_offset", 0),
+                         kw.get("out_scale"),
+                         kw.get("out_dtype", torch.float32))
+    _close_waves(got if len(got) == 2 else got[0], want,
+                 kw.get("out_dtype", torch.float32))
+
+
+@pytest.mark.parametrize("mode", TX_MODES, ids=TX_MODE_IDS)
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_tx_short_route_equals_long_route(case, mode, dev):
+    """K2's short route (sps 8, span 8; K = 1, 31, 257, batched) equals the
+    long route bit for bit in every mode, with the streaming sentinels;
+    the other shapes (sps 2, 4 and 16) take the long route both ways."""
+    syms, lut, taps, sps, span = _setup(case, dev)
+    _, kw, bps = mode
+    if bps != 2:
+        syms = _syms(syms.shape, dev, syms.shape[-1], bps=bps,
+                     sentinels=syms.shape[-1] > 20)
+    _tx_both(syms, lut, taps, sps, span, kw)
+
+
+def _tx_ran(fn, *args, **kw) -> list:
+    """The names of the K2 kernels five calls of ``fn`` ran, by the
+    profiler (again only where a profile lost every record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn(*args, **kw)
+            torch.cuda.synchronize()
+        ran = [e.key.replace(" ", "") for e in prof.key_averages()
+               if "pulse_tx_" in e.key]
+        if ran:
+            return ran
+    return ran
+
+
+@pytest.mark.parametrize("sps,span,k", [(8, 8, 4096), (8, 8, 1), (2, 10, 31),
+                                        (4, 6, 257), (16, 4, 257)])
+@pytest.mark.parametrize("mode", TX_MODES[:5], ids=TX_MODE_IDS[:5])
+def test_tx_kernel_routes(sps, span, k, mode, dev):
+    """K2 runs the kernel its route names, as the profiler sees it: the
+    short route's ``pulse_tx_core`` at sps 8, span 8 (the flagship's 4096
+    symbols over 5 channels, and K = 1), the long route's
+    ``pulse_tx_kernel`` at every other shape; and equals the long route."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    syms = _syms((5, k), dev, sps + k, sentinels=k > 20)
+    taps = _taps(sps, span).to(dev)
+    ran = _tx_ran(txrx.tx_kernel, syms, lut, taps, sps, span, **mode[1])
+    want = "pulse_tx_core" if (sps, span) == (8, 8) else "pulse_tx_kernel"
+    assert len(ran) == 1 and want in ran[0], ran
+    _tx_both(syms, lut, taps, sps, span, mode[1])
+
+
+@pytest.mark.parametrize("sps,span,carrier", [
+    (8, 8, None), (8, 8, 2000), (4, 6, None), (16, 4, 1700)])
+@pytest.mark.parametrize("int16", [False, True], ids=["f32", "i16"])
+def test_tx_stream_pushes_equal_one_shot(sps, span, carrier, int16, dev):
+    """``StreamingFusedTx`` in ragged pushes (each one K2 launch: the short
+    route at sps 8, as the profiler sees on a push of a fresh stream, the
+    long route at sps 4 and 16) equals ``tx_fused`` in one shot, bit for
+    bit."""
+    from modem_tpu_torch import StreamingFusedTx
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+
+    chain = PulseShapedChain(QPSK(0.0, 1.0), Rates(10000 // sps, 10000),
+                             span_symbols=span, carrier_hz=carrier,
+                             device=dev)
+    g = torch.Generator(device=dev).manual_seed(sps)
+    bits = torch.randint(0, 2, (6, 2 * 1000), generator=g, device=dev,
+                         dtype=torch.int32)
+    scale = 3000.0 if int16 else None
+    ran = _tx_ran(lambda: StreamingFusedTx(chain, (6,), out_scale=scale)
+                  .push(bits[:, :700]))
+    want = "pulse_tx_core" if sps == 8 else "pulse_tx_kernel"
+    assert len(ran) == 1 and want in ran[0], ran
+    one = chain.tx_fused(bits, out_scale=scale)
+    st = StreamingFusedTx(chain, (6,), out_scale=scale)
+    cuts = [0, 2, 66, 700, 1234, 2000]
+    parts = [_launches(txrx.TX_KERNEL, st.push, bits[:, a:b])
+             for a, b in zip(cuts, cuts[1:])] + [st.flush()]
+    one = one if isinstance(one, tuple) else (one,)
+    parts = [p if isinstance(p, tuple) else (p,) for p in parts]
+    for r, o in enumerate(one):
+        assert torch.equal(torch.cat([p[r] for p in parts], -1), o)
+
+
+@pytest.mark.parametrize("preset", ["reference_link", "lte_like_turbo_link",
+                                    "nr_like_control_link"])
+def test_tx_links_take_the_short_route(preset, dev):
+    """Every link's ``tx_fused`` (the flagship's QPSK chain, sps 8, span 8)
+    launches K2's short route once, as the profiler sees it, and gives the
+    staged ``tx``'s waveform."""
+    from modem_tpu_torch import presets
+
+    link = getattr(presets, preset)(device=dev)
+    g = torch.Generator(device=dev).manual_seed(len(preset))
+    payload = torch.randint(0, 2, (4, link.payload_bits), generator=g,
+                            device=dev, dtype=torch.int32)
+    ran = _tx_ran(link.tx_fused, payload)
+    assert len(ran) == 1 and "pulse_tx_core" in ran[0], ran
+    wave = _launches(txrx.TX_KERNEL, link.tx_fused, payload)
+    _close_waves(wave, link.tx(payload))
+
+
+def test_tx_long_route_on_its_chains(dev):
+    """A chain past 256 taps or 64 samples a symbol launches K2's long
+    route through ``tx_fused``: the plain version's waveform."""
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+
+    for baud, sr, span in ((1250, 10000, 32), (100, 6500, 1)):
+        chain = PulseShapedChain(QPSK(0.0, 1.0), Rates(baud, sr),
+                                 span_symbols=span, device=dev)
+        assert txrx.kernel_taps(chain.rrc, chain.sps)[0] is None
+        g = torch.Generator(device=dev).manual_seed(span)
+        bits = torch.randint(0, 2, (4, 600), generator=g, device=dev,
+                             dtype=torch.int32)
+        wave = _launches(txrx.TX_KERNEL, chain.tx_fused, bits)
+        _close_waves(wave, chain.tx(bits))
+
+
 @pytest.mark.parametrize("hz", [2000, 1700, 1999, 3000],
                          ids=["5_phases", "100_phases", "10000_phases",
                               "10_phases"])

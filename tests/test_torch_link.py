@@ -557,3 +557,16 @@ def test_cli_turbo_and_polar_presets_equal_jax(preset, snr):
     assert err.count("frame: OK") == 2
     got = np.array([int(c) for c in "".join(out.decode().split())])
     assert np.array_equal(got, bits)
+
+
+def test_rx_takes_iq_by_keyword(runs):
+    """``FramedLink.rx(iq=..., noise_var=...)`` and ``rx_fused(iq=...)``
+    (the JAX package's parameter names) equal the positional calls."""
+    run, tl = runs["reference_link"], _link("reference_link")
+    wave = tuple(_t(r) for r in run["noisy"])
+    for fn in (tl.rx, tl.rx_fused):
+        want = fn(wave, run["nv"])
+        got = fn(iq=wave, noise_var=run["nv"])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        _eq(got[0], run["out"])
