@@ -69,18 +69,27 @@ block (256 channels x 4096 symbols, ``Rates(1250, 10000)``: 16-MFSK at
     lane and tile keys, and at 256 x 4096), K8 (FSK waveform), K9 (the
     discriminator means, groups of 8 and 4) and K10 (MSK waveform) against
     their plain versions: decisions equal (with noise, on >= 99.99%),
-    waveforms and means within 1e-5;
+    waveforms and means within 1e-5; K6's long route (den 20000, past its
+    core's cap) likewise; K6's core against its long route bit for bit at
+    the odd cases (``fsk_odd_cases``) and the probes that read the mean to
+    a few ulps, its tone table against the plain twin within 1e-6, and
+    which kernel 16-MFSK's ``roundtrip_fused`` with and without noise,
+    BFSK's and the den-20000 chain's run, by the profiler;
 12. main path: 16-MFSK and BFSK ``FskChain`` (``roundtrip_fused``,
     ``rx_fused(tx_fused)``, the hard bits of ``rx_soft_fused``), MSK
     ``rx_fused(tx_fused)``, GMSK ``roundtrip`` and the DQPSK
     ``DifferentialChain`` (``rx_fused(tx_fused)``, ``roundtrip_fused``)
-    give the bits back exactly, each path with every launch count set to 0
-    just before and read just after;
+    give the bits back exactly, and 16-MFSK at den 20000 (K6's long
+    route) through ``roundtrip_fused``, each path with every launch count
+    set to 0 just before and read just after (the tone table's cache
+    cleared before the FSK paths, which make it);
 13. noise: 16-MFSK ``roundtrip_fused(snr_db=21, seed)`` over 1,048,576
     symbols, SER within 10% of the staged path's (``tx``, seeded Gaussian
     noise of the same sigma, ``rx``);
-14. times: K6 (without and with noise), K8, K9 and K10 per call beside
-    their plain versions, the profiler's device time and the bound, and
+14. times: K6 (without and with noise, and its long route), K8, K9 and
+    K10 per call beside their plain versions, the profiler's device time
+    and the bound; K6's tone table kernel, and 0 launches of it over 10
+    ``roundtrip_fused`` after the first; and
     ``FskChain.roundtrip_fused``/``tx_fused``/``rx_fused`` and
     ``MskChain.tx_fused``/``rx_fused`` per call with the device's busy time
     and idle share.
@@ -93,7 +102,10 @@ channel), and the MSK loopback at config #3's block:
 
 15. kernel vs plain: K7 (noiseless and with noise; at 130 x 600 slots in
     tiles of 32, which crosses the noise stream's lane and tile keys, and
-    at 256 x 8192 slots), K11 and K12 hard and soft on every route (3/2 and
+    at 256 x 8192 slots; its long route at spb 100, 256 x 2048), K7's core
+    against its long route bit for bit at the odd cases
+    (``msk_odd_cases``) and which kernel MSK's ``roundtrip_fused`` with and
+    without noise and at spb 100 run, by the profiler; K11 and K12 hard and soft on every route (3/2 and
     its 64-QAM, 2/3: the compiled instantiations; 5/4 and 3/2 with 257 RRC
     taps: the long route) at 3 x 500, 3 x 257 (rows off a 16-byte
     boundary), 2 x 1 and 256 x 4096 symbols: decisions equal (K7 with noise
@@ -103,14 +115,15 @@ channel), and the MSK loopback at config #3's block:
     ``tx_fused`` within 1e-5 of the staged ``tx``, ``rx_fused`` equal to
     ``rx``; 64-QAM, 2/3, 5/4 and 3/2 with 257 RRC taps at 64 x 1024;
     ``StreamingResampledChain`` in ragged pushes equal to one shot on 4
-    channels; ``MskChain.roundtrip_fused`` gives the bits back exactly;
-    each path with every launch count set to 0 just before and read just
-    after;
+    channels; ``MskChain.roundtrip_fused`` gives the bits back exactly,
+    at spb 4 and at spb 100 (K7's long route); each path with every launch
+    count set to 0 just before and read just after;
 17. noise: MSK ``roundtrip_fused(snr_db=7, seed)`` against the staged path
     (``tx``, seeded noise of the same sigma, ``rx``): slot error rates
     (about 1e-2) within 10%; config #4 with seeded channel-rate noise:
     ``rx_fused`` equal to ``rx`` on >= 99.99% of the bits;
-18. times: K7 (without and with noise), K11, K12 hard and soft per call
+18. times: K7 (without and with noise, and its long route), K11, K12
+    hard and soft per call
     beside their plain versions (K11 and K12 hard also on the 2/3 and long
     routes), the profiler's device time of the kernel each route runs
     (failing where the profile has none: the C entry sent the shape
@@ -317,10 +330,25 @@ FSK_SIDE_CHANNELS = 256          # BFSK and GMSK channels in phase 12
 FSK_SNR_DB = 21.0                # per complex sample: 16-MFSK SER ~1e-2
 FSK_AGREE = 0.9999               # noisy K6 decisions, kernel vs plain
 FSK_SER_RTOL = 0.10
-#: profiler name and replaced TPU kernel of each config #3 report entry
+#: K6's and K7's odd shapes: two 128-lane keys of the noise stream; rows
+#: not a whole number of runs, most of them off a 16-byte boundary
+FSK_ODD = ((130, 600), (7, 603))
+FSK_ODD_SPS = (2, 8, 16)
+MSK_ODD_SPB = (2, 4, 8)
+FSK_ODD_SNR_DB = 12.0            # noisy odd shapes: errors at every sps
+#: past the cores' caps (the long route): 16-MFSK at this sample rate (den
+#: 20000, sps 8); MSK at this baud (spb 100) over 256 x MSK_FAR_SLOTS slots
+FSK_FAR_SR = 20000
+MSK_FAR_BAUD = 50
+MSK_FAR_SLOTS = 2048
+TONE_ATOL = 1e-6                 # K6's tone table against its plain twin
+#: profiler name (of the kernel the route runs) and replaced TPU kernel of
+#: each config #3 report entry
 FSK_REPORT = {
-    "fused_fsk_chain": ("63", "fsk_chain_kernel"),
-    "fused_fsk_chain_noisy": ("63", "fsk_chain_kernel"),
+    "fused_fsk_chain": ("63", "fsk_chain_core"),
+    "fused_fsk_chain_noisy": ("63", "fsk_chain_core"),
+    "fused_fsk_chain_long": ("63", "fsk_chain_kernel"),
+    "fsk_tone_table": ("63", "fsk_tone_kernel"),
     "fused_fsk_tx": ("460", "fsk_tx_kernel"),
     "fused_discriminator_means": ("545", "disc_means_kernel"),
     "fused_discriminator_means_msk": ("545", "disc_means_kernel"),
@@ -352,11 +380,14 @@ MSK_SER_RTOL = 0.10
 #: profiler name (K11's and K12's: ``rs_symbol``), source and replaced TPU
 #: kernel of each config #4 and MSK loopback report entry
 RS_REPORT = {
-    "fused_msk_slots": ("msk_chain_kernel", "modem_tpu_torch/csrc/fsk.cu",
+    "fused_msk_slots": ("msk_chain_core", "modem_tpu_torch/csrc/fsk.cu",
                         "modem_tpu/ops/pallas_fsk.py:313"),
-    "fused_msk_slots_noisy": ("msk_chain_kernel",
+    "fused_msk_slots_noisy": ("msk_chain_core",
                               "modem_tpu_torch/csrc/fsk.cu",
                               "modem_tpu/ops/pallas_fsk.py:313"),
+    "fused_msk_slots_long": ("msk_chain_kernel",
+                             "modem_tpu_torch/csrc/fsk.cu",
+                             "modem_tpu/ops/pallas_fsk.py:313"),
     **{f"fused_resampled_{d}{suffix}": (
         None, "modem_tpu_torch/csrc/resampled.cu",
         f"modem_tpu/ops/pallas_resampled.py:{111 if d == 'tx' else 235}")
@@ -558,8 +589,9 @@ def reset_launches() -> None:
 
     for k in (chain_kernel.CHAIN_KERNEL, txrx.TX_KERNEL, txrx.RX_HARD_KERNEL,
               txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL,
-              fk.FSK_CHAIN_KERNEL, fk.FSK_TX_KERNEL, fk.DISC_MEANS_KERNEL,
-              fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL, rk.RESAMPLED_TX_KERNEL,
+              fk.FSK_CHAIN_KERNEL, fk.FSK_TONE_KERNEL, fk.FSK_TX_KERNEL,
+              fk.DISC_MEANS_KERNEL, fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL,
+              rk.RESAMPLED_TX_KERNEL,
               rk.RESAMPLED_RX_KERNEL, vk.VITERBI_KERNEL,
               vk.VITERBI_BLOCK_KERNEL, bcjr_kernel.BCJR_KERNEL,
               sc_kernel.SC_KERNEL, scl_kernel.SCL_KERNEL):
@@ -702,20 +734,22 @@ def time_calls(fn, args, device, calls=20, reps=5) -> float:
 
 def kernel_device_ms(fn, args, device, symbol: str, calls=20):
     """Device time per launch of the CUDA kernel whose name, spaces dropped,
-    contains ``symbol``, from ``torch.profiler``; None if the trace has
-    none."""
+    contains ``symbol``, from ``torch.profiler``; None if three profiles
+    hold none (profiled again only where one lost every record of it, as
+    a profile now and then does)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize(device)
-    for evt in prof.key_averages():
-        if symbol in evt.key.replace(" ", "") and evt.count:
-            total = getattr(evt, "device_time_total", None)
-            if total is None:
-                total = evt.cuda_time_total
-            return total / evt.count / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize(device)
+        for evt in prof.key_averages():
+            if symbol in evt.key.replace(" ", "") and evt.count:
+                total = getattr(evt, "device_time_total", None)
+                if total is None:
+                    total = evt.cuda_time_total
+                return total / evt.count / 1e3
     return None
 
 
@@ -1247,12 +1281,26 @@ def fsk_chains(device):
                                                              device=device)
 
 
+def far_chains(device):
+    """The chains past K6's and K7's core caps (the long route): 16-MFSK
+    at ``Rates(2500, 20000)`` (den 20000, sps 8, 50 Hz) and MSK at
+    ``Rates(50, 10000)`` (spb 100)."""
+    import numpy as np
+    from modem_tpu_torch import FskChain, MskChain, Rates, make_scheme
+
+    r = Rates(FSK_FAR_SR // 8, FSK_FAR_SR)
+    return (FskChain(make_scheme("mfsk", r), r, 2 * np.arange(16),
+                     2 * math.pi * 50 / FSK_FAR_SR, device=device),
+            MskChain(Rates(MSK_FAR_BAUD, REF_SR), device=device))
+
+
 def fsk_kernel_cases(mfsk, msk, device):
     """``(16-MFSK program, cases)``, a case ``(name, kernel fn, plain fn,
     args at the full shape, decisions?)`` for each of K6 (noiseless and
-    noisy), K8, K9 (the FSK symbol and the MSK slot) and K10, with the
-    inputs the main path gives them: 16-MFSK phase programs, their waveform
-    with noise for K9 (means off the tones), MSK slot signs."""
+    noisy; and at the den of ``far_chains``, the long route), K8, K9 (the
+    FSK symbol and the MSK slot) and K10, with the inputs the main path
+    gives them: 16-MFSK phase programs, their waveform with noise for K9
+    (means off the tones), MSK slot signs."""
     from modem_tpu_torch.models.base import f32
     from modem_tpu_torch.ops import fsk_kernel as fk
 
@@ -1278,11 +1326,19 @@ def fsk_kernel_cases(mfsk, msk, device):
     mi, mq = fk.msk_tx_plain(s0, s1, msk.spb, 1.0)
     mi = mi + sigma * torch.randn(mi.shape, generator=g, device=device)
     mq = mq + sigma * torch.randn(mq.shape, generator=g, device=device)
+    far = far_chains(device)[0]
+    fp = far._phase_program(bits)
+    far_args = (fp.fnum, fp.pnum,
+                fk._candidate_increments(fk.fsk_coef_table(far.scheme),
+                                         fp.den, device),
+                fp.den, far.sps, 1.0, f32(fp.qshift), 1, 256, None, SEED + 9)
     return prog, [
         ("fused_fsk_chain", fk.fsk_chain_kernel, fk.fsk_chain_plain,
          chain_args(prog, 256, False), True),
         ("fused_fsk_chain_noisy", fk.fsk_chain_kernel, fk.fsk_chain_plain,
          chain_args(prog, 256, True), True),
+        ("fused_fsk_chain_long", fk.fsk_chain_kernel, fk.fsk_chain_plain,
+         far_args, True),
         ("fused_fsk_tx", fk.fsk_tx_kernel, fk.fsk_tx_plain, tx_args, False),
         ("fused_discriminator_means", fk.disc_means_kernel,
          fk.disc_means_plain, (wi, wq, mfsk.sps, 1), False),
@@ -1310,19 +1366,197 @@ def compare_decisions(name: str, got, want, shape, noisy: bool) -> tuple:
     return err, agree
 
 
-def phase_fsk_kernels(mfsk, msk, device) -> dict:
+def fsk_odd_cases(device, seed: int):
+    """K6's arguments ``(label, args)`` at the odd cases: 16-MFSK (the
+    ``increase`` and ``default`` maps) and BFSK at den 10000 and sps
+    FSK_ODD_SPS, on each shape of FSK_ODD, at guard 1, sps/2 and sps - 1,
+    without noise and with noise in tiles of 32 and 256 symbols."""
+    from modem_tpu_torch import Rates
+    from modem_tpu_torch.models import fsk
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    schemes = {"16-MFSK increase": fsk.MFSK(4, 50, REF_SR, 1.0, "increase"),
+               "16-MFSK default": fsk.MFSK(4, 50, REF_SR, 1.0, "default"),
+               "BFSK": fsk.BFSK(200, REF_SR, 1.0)}
+    sigma = f32(fk.fsk_noise_sigma(1.0, FSK_ODD_SNR_DB))
+    g = torch.Generator(device=device).manual_seed(seed)
+    for tag, scheme in schemes.items():
+        targets = fk._candidate_increments(fk.fsk_coef_table(scheme), REF_SR,
+                                           device)
+        for sps in FSK_ODD_SPS:
+            for shape in FSK_ODD:
+                syms = torch.randint(0, 1 << scheme.bits_per_symbol, shape,
+                                     generator=g, device=device,
+                                     dtype=torch.int32)
+                p, _ = scheme.program(
+                    syms, scheme.init_state(shape[:-1], device),
+                    Rates(REF_SR // sps, REF_SR), 0)
+                for guard in sorted({1, sps // 2, sps - 1}):
+                    for cs, sig in ((256, None), (32, sigma), (256, sigma)):
+                        yield (f"{tag} sps {sps} guard {guard} {shape[0]}x"
+                               f"{shape[1]} {f'cs {cs}' if sig else 'clean'}",
+                               (p.fnum, p.pnum, targets, p.den, sps, 1.0,
+                                f32(p.qshift), guard, cs, sig, seed))
+
+
+def msk_odd_cases(device, seed: int):
+    """K7's arguments ``(label, args)`` at the odd cases: spb MSK_ODD_SPB on
+    each shape of FSK_ODD, guard 1 and spb - 1, without noise and at 4 dB
+    in tiles of 32 and 256 slots."""
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    sigma = f32(fk.fsk_noise_sigma(0.9, 4.0))
+    g = torch.Generator(device=device).manual_seed(seed)
+    for spb in MSK_ODD_SPB:
+        for shape in FSK_ODD:
+            s0, s1 = (2 * torch.randint(0, 2, shape, generator=g,
+                                        device=device, dtype=torch.int32) - 1
+                      for _ in range(2))
+            for guard in sorted({1, spb - 1}):
+                for cs, sig in ((256, None), (32, sigma), (256, sigma)):
+                    yield (f"MSK spb {spb} guard {guard} {shape[0]}x"
+                           f"{shape[1]} {f'cs {cs}' if sig else 'clean'}",
+                           (s0, s1, spb, 0.9, guard, cs, sig, seed))
+
+
+def k6_probe_cases(device, seed: int):
+    """K6's arguments ``(label, args)`` whose decisions read the mean to a
+    few ulps: one tone (fnum 10 of den 10000, sps 8) at random phases, and
+    256 candidates spread evenly over the range of the means the plain
+    version finds; guard 1 and 3, without noise and with sigma 1e-4."""
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape, den, sps, qshift = (CHANNELS, 1024), REF_SR, 8, f32(-math.pi / 2)
+    fnum = torch.full(shape, 10, dtype=torch.int32, device=device)
+    pnum = torch.randint(0, den, shape, generator=g, device=device,
+                         dtype=torch.int32)
+    for guard in (1, 3):
+        for sigma in (None, f32(1e-4)):
+            wi, wq = fk.fsk_tx_plain(fnum, pnum, den, sps, 1.0, qshift)
+            if sigma is not None:
+                gi, gq = fk.fsk_noise(shape, sps, 256, seed, device)
+                wi = wi + sigma * gi.reshape(wi.shape)
+                wq = wq + sigma * gq.reshape(wq.shape)
+            mean = fk.disc_means_plain(wi, wq, sps, guard)
+            ladder = torch.linspace(float(mean.min()), float(mean.max()),
+                                    256, device=device)
+            yield (f"probe guard {guard} sigma {sigma}",
+                   (fnum, pnum, ladder, den, sps, 1.0, qshift, guard, 256,
+                    sigma, seed))
+
+
+def route_check(what: str, fn, args, device, family: str, want: str,
+                other: str, calls: int = 20) -> None:
+    """Fails unless ``calls`` calls of ``fn`` run a kernel named ``want``
+    and none named ``other``, among the kernels whose names hold
+    ``family``, as the profiler sees them (profiled again, up to three
+    times, only where a profile lost every record: a profile of one short
+    call can end before its record arrives)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ran = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize(device)
+        ran = {e.key.replace(" ", "") for e in prof.key_averages()
+               if family in e.key}
+        if ran:
+            break
+    if not any(want in k for k in ran) or any(other in k for k in ran):
+        fail(f"routes: {what} ran {sorted(ran)}, not {want} alone")
+
+
+def hold_routes(name: str, cases, core, long, plain=None) -> int:
+    """Each case's decisions on the core (``core``) equal the long route's
+    (``long``) bit for bit, and noiseless the plain version's (``plain``,
+    where given); returns the cases held."""
+    n = 0
+    for label, args in cases:
+        got, ref = core(*args), long(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"{name} routes: {label}: the core differs from the long "
+                 f"route on {int((got != ref).sum())} of {got.numel()}")
+        noisy = args[9 if name == "K6" else 6] is not None
+        if plain and not noisy and not torch.equal(got, plain(*args)):
+            fail(f"{name} routes: {label}: the kernel differs from plain")
+        n += 1
+    return n
+
+
+def phase_k6_routes(chains, device) -> float:
+    """Phase 11, K6's routes: the core against the long route (the first
+    version, ``_fsk_launch(..., tone=None)``) bit for bit at every odd case
+    and probe case, noiseless also against the plain version; the tone
+    table against its plain twin; then which kernel each entry point runs,
+    by the profiler: the core for 16-MFSK's ``roundtrip_fused`` with and
+    without noise and BFSK's, the long route at a den past the cap.
+    Returns the table's max |kernel - twin|."""
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    def long(*a):
+        return fk._fsk_launch(*a, tone=None)
+
+    n = hold_routes("K6", fsk_odd_cases(device, SEED + 40),
+                    fk.fsk_chain_kernel, long, fk.fsk_chain_plain)
+    probes = list(k6_probe_cases(device, SEED + 41))
+    hold_routes("K6", probes, fk.fsk_chain_kernel, long)
+    spread = min(len(torch.unique(fk.fsk_chain_kernel(*a))) for _, a in probes)
+    if spread < 100:
+        fail(f"K6 routes: the probe reads the mean on {spread} candidates")
+    mfsk, bfsk = chains[0], chains[1]
+    qshift = f32(mfsk._phase_program(torch.zeros(
+        (1, 4), dtype=torch.int32, device=device)).qshift)
+    err = max_err(fk.tone_table_kernel(REF_SR, 1.0, qshift, device),
+                  fk.tone_table_plain(REF_SR, 1.0, qshift, device))
+    if err > TONE_ATOL:
+        fail(f"K6's tone table against its plain twin: {err}")
+    print(f"[fsk kernels] K6 core == long route bit for bit at {n} odd cases "
+          f"and {len(probes)} probes (the mean read on >= {spread} "
+          f"candidates); tone table vs plain twin max |err| {err:.3e} "
+          f"(tol {TONE_ATOL})", flush=True)
+    g = torch.Generator(device=device).manual_seed(SEED + 42)
+    far = far_chains(device)[0]
+    for what, fn, bps, want in (
+            ("16-MFSK roundtrip_fused", mfsk.roundtrip_fused, 4, True),
+            ("16-MFSK roundtrip_fused at 21 dB",
+             lambda b: mfsk.roundtrip_fused(b, snr_db=FSK_SNR_DB, seed=1), 4,
+             True),
+            ("BFSK roundtrip_fused", bfsk.roundtrip_fused, 1, True),
+            (f"16-MFSK at den {FSK_FAR_SR} roundtrip_fused",
+             far.roundtrip_fused, 4, False)):
+        bits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * bps), generator=g,
+                             device=device, dtype=torch.int32)
+        names = ("fsk_chain_core", "fsk_chain_kernel")
+        route_check(what, fn, (bits,), device, "fsk_chain_",
+                    *(names if want else names[::-1]))
+        print(f"[fsk kernels] {what} ran {names[0 if want else 1]} alone",
+              flush=True)
+    return err
+
+
+def phase_fsk_kernels(chains, device) -> dict:
     """Phase 11: K6 (noiseless and noisy, at 130 x 600 in tiles of 32
     symbols, which crosses the 128-lane and tile keys of the noise stream,
-    and at 256 x 4096), K8, K9 (groups 8 and 4) and K10 against their plain
-    versions on the card. Returns each report entry's (max |error|,
-    agreement)."""
-    prog, cases = fsk_kernel_cases(mfsk, msk, device)
+    and at 256 x 4096; and the long route at a den past the core's cap),
+    K8, K9 (groups 8 and 4) and K10 against their plain versions on the
+    card; then K6's routes (phase_k6_routes). Returns each report entry's
+    (max |error|, agreement)."""
+    mfsk, msk = chains[0], chains[2]
+    _, cases = fsk_kernel_cases(mfsk, msk, device)
     errs = {}
     small = (slice(0, FSK_SMALL[0]), slice(0, FSK_SMALL[1]))
     for name, kern, plain, args, exact in cases:
         if exact:  # K6: the small tiled shape, then the full one
             noisy = args[9] is not None
-            lo = (prog.fnum[small].contiguous(), prog.pnum[small].contiguous()
+            lo = (args[0][small].contiguous(), args[1][small].contiguous()
                   ) + args[2:8] + (FSK_SMALL_CHUNK,) + args[9:]
             compare_decisions(name, kern(*lo), plain(*lo), FSK_SMALL, noisy)
             errs[name] = compare_decisions(name, kern(*args), plain(*args),
@@ -1336,6 +1570,7 @@ def phase_fsk_kernels(mfsk, msk, device) -> dict:
         errs[name] = (err, None)
         print(f"[fsk kernels] {name:30s} {tuple(args[0].shape)} in: max "
               f"|kernel - plain| = {err:.3e} (tol {ATOL})", flush=True)
+    errs["fsk_tone_table"] = (phase_k6_routes(chains, device), None)
     return errs
 
 
@@ -1374,11 +1609,13 @@ def phase_fsk_main(chains, device) -> dict:
 
     fsk_kernels = {"fused_fsk_chain": fk.FSK_CHAIN_KERNEL,
                    "fused_fsk_tx": fk.FSK_TX_KERNEL,
-                   "fused_discriminator_means": fk.DISC_MEANS_KERNEL}
+                   "fused_discriminator_means": fk.DISC_MEANS_KERNEL,
+                   "fsk_tone_table": fk.FSK_TONE_KERNEL}
     launches = {}
     for label, chain, n_ch in (("16-MFSK", mfsk, CHANNELS),
                                ("BFSK", bfsk, FSK_SIDE_CHANNELS)):
         bits = bits_for(chain.scheme.bits_per_symbol, n_ch)
+        fk.tone_table.cache_clear()  # the path makes its tone table
         reset_launches()
         same(f"{label} roundtrip_fused(bits) == bits",
              chain.roundtrip_fused(bits), bits)
@@ -1393,6 +1630,15 @@ def phase_fsk_main(chains, device) -> dict:
         counts = read_launches(fsk_kernels, label)
         if label == "16-MFSK":
             launches.update(counts)
+
+    far = far_chains(device)[0]
+    bits = bits_for(4)
+    reset_launches()
+    same(f"16-MFSK at den {FSK_FAR_SR} (the long route) roundtrip_fused(bits)"
+         " == bits", far.roundtrip_fused(bits), bits)
+    launches["fused_fsk_chain_long"] = read_launches(
+        {"fused_fsk_chain_long": fk.FSK_CHAIN_KERNEL},
+        f"16-MFSK at den {FSK_FAR_SR}")["fused_fsk_chain_long"]
 
     bits = bits_for(2)
     reset_launches()
@@ -1465,6 +1711,8 @@ def fsk_work(name: str, args) -> tuple[float, float]:
     (4 products, 2 sums, the atan2, the running sum); noise 16 (log, sqrt,
     cos, sin, 2 uniforms of 2, the -2 and the angle's product, 2 products by
     r, 2 of sigma and 2 adds)."""
+    if name == "fsk_tone_table":  # den entries: theta, 2 cos, 2 gains, add
+        return 8 * args[0], 6 * args[0]
     if name.startswith("fused_fsk_chain"):
         fnum, targets, sps, guard = args[0], args[2], args[4], args[7]
         k = fnum.numel()
@@ -1486,8 +1734,12 @@ def fsk_work(name: str, args) -> tuple[float, float]:
 
 def phase_fsk_times(chains, device, card: str) -> dict:
     """Phase 14: each kernel and its plain version per call, the profiler's
-    device time, the bound; then the config #3 entry points per call with
-    the device's busy time and idle share."""
+    device time, the bound; K6's tone table kernel, and its launches over
+    10 calls of ``roundtrip_fused`` (0: the table is made once); then the
+    config #3 entry points per call with the device's busy time and idle
+    share."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
     mfsk, _, msk, _ = chains
     _, cases = fsk_kernel_cases(mfsk, msk, device)
     times = {}
@@ -1498,11 +1750,29 @@ def phase_fsk_times(chains, device, card: str) -> dict:
         samples = CHANNELS * N_SYMBOLS * mfsk.sps
         print_times(name, samples, times[name], card, "no library call")
 
+    args = (REF_SR, 1.0, cases[0][3][6], device)
+    ms, plain_ms, dev_ms = kernel_times(fk.tone_table_kernel,
+                                        fk.tone_table_plain, args, device,
+                                        "fsk_tone_kernel")
+    times["fsk_tone_table"] = (ms, plain_ms, dev_ms, None,
+                               fsk_work("fsk_tone_table", args))
+    print_times("fsk_tone_table", REF_SR, times["fsk_tone_table"], card,
+                "no library call")
+
     g = torch.Generator(device=device).manual_seed(SEED + 13)
     bits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * 4), generator=g,
                          device=device, dtype=torch.int32)
     mbits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * 2), generator=g,
                           device=device, dtype=torch.int32)
+    mfsk.roundtrip_fused(bits)
+    before = fk.FSK_TONE_KERNEL.launches
+    for _ in range(10):
+        mfsk.roundtrip_fused(bits)
+    made = fk.FSK_TONE_KERNEL.launches - before
+    print(f"[times] fsk_tone_table: {made} launches over 10 calls of "
+          "FskChain.roundtrip_fused after the first", flush=True)
+    if made:
+        fail("FskChain.roundtrip_fused made its tone table again")
     wave, mwave = mfsk.tx_fused(bits), msk.tx_fused(mbits)
     samples = CHANNELS * N_SYMBOLS * mfsk.sps
     for name, fn, args in (
@@ -1592,7 +1862,9 @@ def rs_cases(chain, shape, device, seed: int):
 
 
 def msk_cases(msk, shape, cs: int, device, seed: int):
-    """K7's ``(name, args)`` without and with noise on random slot signs."""
+    """K7's ``(name, args)`` without and with noise on random slot signs;
+    at 256 channels also without noise past the core's cap (spb of
+    ``far_chains``' MSK, MSK_FAR_SLOTS slots), the long route."""
     from modem_tpu_torch.ops import fsk_kernel as fk
     from modem_tpu_torch.models.base import f32
 
@@ -1600,16 +1872,56 @@ def msk_cases(msk, shape, cs: int, device, seed: int):
     s0, s1 = (2 * torch.randint(0, 2, shape, generator=g, device=device,
                                 dtype=torch.int32) - 1 for _ in range(2))
     sigma = f32(fk.fsk_noise_sigma(1.0, MSK_SNR_DB))
-    return [("fused_msk_slots", (s0, s1, msk.spb, 1.0, 1, cs, None, seed)),
-            ("fused_msk_slots_noisy",
-             (s0, s1, msk.spb, 1.0, 1, cs, sigma, seed))]
+    cases = [("fused_msk_slots", (s0, s1, msk.spb, 1.0, 1, cs, None, seed)),
+             ("fused_msk_slots_noisy",
+              (s0, s1, msk.spb, 1.0, 1, cs, sigma, seed))]
+    if shape[0] == CHANNELS:
+        far = far_chains(device)[1]
+        f0, f1 = (v[:, :MSK_FAR_SLOTS].contiguous() for v in (s0, s1))
+        cases.append(("fused_msk_slots_long",
+                      (f0, f1, far.spb, 1.0, 1, cs, None, seed)))
+    return cases
+
+
+def phase_k7_routes(msk, device) -> None:
+    """Phase 15, K7's routes: the core against the long route (the first
+    version, ``_msk_launch(..., core=False)``) bit for bit at every odd
+    case, noiseless also against the plain version; then which kernel each
+    entry point runs, by the profiler: the core for MSK's
+    ``roundtrip_fused`` with and without noise, the long route past the
+    core's spb cap."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    n = hold_routes("K7", msk_odd_cases(device, SEED + 43),
+                    fk.msk_chain_kernel,
+                    lambda *a: fk._msk_launch(*a, core=False),
+                    fk.msk_chain_plain)
+    print(f"[rs kernels] K7 core == long route bit for bit at {n} odd cases",
+          flush=True)
+    g = torch.Generator(device=device).manual_seed(SEED + 44)
+    far = far_chains(device)[1]
+    for what, fn, slots, want in (
+            ("MSK roundtrip_fused", msk.roundtrip_fused, 2 * N_SYMBOLS, True),
+            ("MSK roundtrip_fused at 7 dB",
+             lambda b: msk.roundtrip_fused(b, snr_db=MSK_SNR_DB, seed=1),
+             2 * N_SYMBOLS, True),
+            (f"MSK at spb {far.spb} roundtrip_fused", far.roundtrip_fused,
+             MSK_FAR_SLOTS, False)):
+        bits = torch.randint(0, 2, (CHANNELS, slots), generator=g,
+                             device=device, dtype=torch.int32)
+        names = ("msk_chain_core", "msk_chain_kernel")
+        route_check(what, fn, (bits,), device, "msk_chain_",
+                    *(names if want else names[::-1]))
+        print(f"[rs kernels] {what} ran {names[0 if want else 1]} alone",
+              flush=True)
 
 
 def phase_rs_kernels(msk, device) -> dict:
-    """Phase 15: K7, K11 and K12 against their plain versions on the card,
-    K11 and K12 on every route (rs_route_chains) at the tile edges and at
-    full width; returns each report entry's (max |error|, agreement) at full
-    width."""
+    """Phase 15: K7 (and its long route past the core's cap), K11 and K12
+    against their plain versions on the card, K7's routes
+    (phase_k7_routes), K11 and K12 on every route (rs_route_chains) at the
+    tile edges and at full width; returns each report entry's (max |error|,
+    agreement) at full width."""
     from modem_tpu_torch.ops import fsk_kernel as fk
 
     errs = {}
@@ -1618,7 +1930,8 @@ def phase_rs_kernels(msk, device) -> dict:
         for name, args in msk_cases(msk, shape, cs, device, SEED + 20):
             errs[name] = compare_decisions(
                 name, fk.msk_chain_kernel(*args), fk.msk_chain_plain(*args),
-                shape, args[6] is not None)
+                tuple(args[0].shape), args[6] is not None)
+    phase_k7_routes(msk, device)
     for label, chain, suffix in rs_route_chains(device):
         for shape in (SMALL,) + RS_EDGES + ((CHANNELS, N_SYMBOLS),):
             cases = rs_cases(chain, shape, device, SEED + 21)
@@ -1723,6 +2036,14 @@ def phase_rs_main(msk, device) -> dict:
     launches["fused_msk_slots"] = read_launches(
         {"fused_msk_slots": fk.MSK_CHAIN_KERNEL},
         "MSK roundtrip_fused")["fused_msk_slots"]
+    far = far_chains(device)[1]
+    mbits = mbits[:, :MSK_FAR_SLOTS].contiguous()
+    reset_launches()
+    same(f"MSK at spb {far.spb} (the long route) roundtrip_fused(bits) == "
+         "bits", far.roundtrip_fused(mbits), mbits)
+    launches["fused_msk_slots_long"] = read_launches(
+        {"fused_msk_slots_long": fk.MSK_CHAIN_KERNEL},
+        f"MSK at spb {far.spb}")["fused_msk_slots_long"]
     return launches
 
 
@@ -1873,9 +2194,6 @@ def phase_rs_times(msk, device, card: str) -> dict:
         symbol = (RS_REPORT[name][0] if name.startswith("fused_msk")
                   else rs_symbol(name))
         ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device, symbol)
-        for _ in range(2):  # a profile that lost its kernel records, once
-            if dev_ms is None:
-                dev_ms = kernel_device_ms(kern, args, device, symbol)
         if dev_ms is None:
             fail(f"{name}: no {symbol} in three profiles (the kernel its "
                  f"route runs)")
@@ -1887,7 +2205,7 @@ def phase_rs_times(msk, device, card: str) -> dict:
             lib_ms = time_calls(fn, fargs, device)
             extra = f"conv1d {lib_ms:.4f} ms (max |err| vs K12 {lib_err:.2e})"
         times[name] = (ms, plain_ms, dev_ms, lib_ms, rs_work(name, args))
-        n = (CHANNELS * 2 * N_SYMBOLS * msk.spb if name.startswith("fused_msk")
+        n = (args[0].numel() * args[2] if name.startswith("fused_msk")
              else rs_samples(name, args))
         print_times(name, n, times[name], card, f"{extra}, {symbol}")
 
@@ -3339,22 +3657,9 @@ def tx_route_check(what: str, fn, args, device, short: bool = True,
     (profiled again, up to three times, only where a profile lost every
     record: a profile of one short call can end before its record
     arrives)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    ran = set()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn(*args)
-            torch.cuda.synchronize(device)
-        ran = {e.key.replace(" ", "") for e in prof.key_averages()
-               if "pulse_tx_" in e.key}
-        if ran:
-            break
-    want, other = (("pulse_tx_core", "pulse_tx_kernel") if short else
-                   ("pulse_tx_kernel", "pulse_tx_core"))
-    if not any(want in k for k in ran) or any(other in k for k in ran):
-        fail(f"K2 routes: {what} ran {sorted(ran)}, not {want} alone")
+    names = ("pulse_tx_core", "pulse_tx_kernel")
+    route_check(f"K2 {what}", fn, args, device, "pulse_tx_",
+                *(names if short else names[::-1]), calls)
 
 
 def phase_tx_routes(chain, device) -> None:
@@ -3597,7 +3902,7 @@ def main() -> int:
     phase_cli(device)
     times.update(phase_ref_times(chain, device, card))
     chains = fsk_chains(device)
-    fsk_errs = phase_fsk_kernels(chains[0], chains[2], device)
+    fsk_errs = phase_fsk_kernels(chains, device)
     launches.update(phase_fsk_main(chains, device))
     launches["fused_fsk_chain_noisy"] = phase_fsk_noise(chains[0], device)
     times.update(phase_fsk_times(chains, device, card))

@@ -11,7 +11,7 @@ loaded when the package is imported.
 A :class:`Kernel` is one entry point with its launch count: it counts a
 launch only where the C function ran and reported success.
 :func:`host_taps` keeps the host copy of the taps or tables that K1-K5,
-K11 and K12 take by value, in a kernel parameter.
+K11 and K12 (and K6 its candidates) take by value, in a kernel parameter.
 """
 
 from __future__ import annotations
@@ -41,18 +41,20 @@ _NCO = [_I, _I, _L, _F]
 #: argument types of each C entry point (pointers and the stream as
 #: c_void_p; the taps of ``modem_chain``, ``modem_tx``, ``modem_rx_hard``,
 #: ``modem_rx_soft`` and ``modem_fir``, and the tables of
-#: ``modem_resampled_tx`` and ``modem_resampled_rx``, a host pointer
-#: (:func:`host_taps`) or null, then the device pointers; ``modem_demod``'s
+#: ``modem_resampled_tx`` and ``modem_resampled_rx``, and the candidates
+#: of ``modem_fsk_chain``, a host pointer (:func:`host_taps`) or null, then
+#: the device pointers; ``modem_demod``'s
 #: a host pointer; ``modem_polar_sc``'s plan a host pointer to the code's
 #: ``ScPlan``, ``ops.sc_kernel.host_plan``)
 SIGNATURES = {
     "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
     "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _P, _P, _P],
     "modem_disc_means": [_P, _P, _L, _I, _I, _F, _P, _P],
-    "modem_fsk_chain": [_P, _P, _L, _L, _P, _I, _I, _I, _F, _F, _F, _I, _F,
-                        _I, _I, _F, _U, _P, _P],
-    "modem_msk_chain": [_P, _P, _L, _L, _I, _F, _F, _I, _I, _I, _F, _U, _P,
-                        _P],
+    "modem_fsk_tone_table": [_I, _F, _F, _F, _P, _P],
+    "modem_fsk_chain": [_P, _P, _L, _L, _P, _I, _P, _P, _I, _I, _F, _F, _F,
+                        _I, _F, _I, _I, _F, _U, _P, _P],
+    "modem_msk_chain": [_P, _P, _L, _L, _I, _F, _F, _I, _I, _I, _F, _U, _I,
+                        _P, _P],
     "modem_resampled_tx": [_P, _L, _L, _P, _I, _P, _P, _I, _I, _P, _I, _I,
                            _I, _I, _L, _P, _P, _P],
     "modem_resampled_rx": [_P, _P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _P,
@@ -180,9 +182,9 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
 def host_taps(*parts: torch.Tensor) -> int:
     """The address of a host copy of ``parts`` as the kernels take them by
     value, in a ``Taps`` kernel parameter: each tensor flattened, one after
-    another (K1-K5 pass their taps; K11 its RRC taps and then
-    its stage table; K12 its composite table), :data:`TAPS_PARAM` floats in
-    all at most. The copy is kept while the tensors live and are not
+    another (K1-K5 pass their taps; K11 its RRC taps and then its stage
+    table; K12 its composite table; K6's core its candidates),
+    :data:`TAPS_PARAM` floats in all at most. The copy is kept while the tensors live and are not
     modified in place (their version counters), so a filter's taps cross to
     the host once, not at every launch; an inference tensor, which has no
     version counter, is copied at every call."""

@@ -15,7 +15,13 @@ kernels K6, K7, K8, K9 and K10, in ``modem_tpu_torch/csrc/fsk.cu``.
   synthesis -> optional AWGN -> discriminator -> sign bit per slot.
 
 Each takes a CPU tensor to its plain version (``*_plain``) and a CUDA tensor
-to its kernel (``*_kernel``), never to the plain version. The fused
+to its kernel (``*_kernel``), never to the plain version. K6 and K7 have two
+routes on the card: the core (``fsk_chain_core``, ``msk_chain_core``), where
+their tables fit, and past that their first versions, the long route
+(:func:`fsk_route`, :func:`msk_route`). K6's core reads the tones from
+:func:`tone_table`, made once per ``(den, amp, qshift, device)`` by its own
+kernel (``modem_fsk_tone_table``) from the expressions of the samples, so
+both routes decide alike, bit for bit. The fused
 discriminator uses the JAX kernels' degree-9 polynomial :func:`atan2_poly`
 (error ~1e-5 rad) in both versions, so its means carry the same error as
 the JAX function's; the staged receivers use the exact ``torch.atan2``.
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from ..config import TWO_PI
-from ..cuda import Kernel, check_cuda
+from ..cuda import TAPS_PARAM, Kernel, check_cuda, host_taps
 from ..models.base import PhaseProgram, f32
 from ..models.fsk import BFSK, CPFSK, MFSK
 from ..tx import REF_TIME_OFFSET
@@ -45,10 +51,18 @@ from .chain_kernel import gauss_pair
 DEFAULT_CHUNK_SYM = 256
 #: channels per JAX tile, which the noise stream's keys and counters count
 LANE = 128
-#: candidate frequencies the K6 kernel takes (shared memory)
+#: candidate frequencies the K6 kernel takes (shared memory, or on its core
+#: a kernel parameter)
 MAX_CANDIDATES = 256
+#: den at most of K6's core, whose tone table (8 bytes an entry) a block
+#: stages in shared memory (``csrc/fsk.cu``'s ``kToneCap``)
+TONE_CAP = 12288
+#: spb at most of K7's core, whose 4*spb (cos, sin) pairs a block makes
+#: (``kMskCap``)
+MSK_CAP = 64
 
 FSK_CHAIN_KERNEL = Kernel("modem_fsk_chain")
+FSK_TONE_KERNEL = Kernel("modem_fsk_tone_table")
 FSK_TX_KERNEL = Kernel("modem_fsk_tx")
 DISC_MEANS_KERNEL = Kernel("modem_disc_means")
 MSK_TX_KERNEL = Kernel("modem_msk_tx")
@@ -334,20 +348,87 @@ def fsk_chain_plain(fnum, pnum, targets, den: int, sps: int, amp: float,
     return dec.to(torch.int32).reshape(fnum.shape)
 
 
+def fsk_route(den: int) -> str:
+    """K6's route for phase denominator ``den``: ``"core"`` where its tone
+    table fits (``den <= TONE_CAP``), else ``"long"`` (the first version);
+    ``ValueError`` for ``den < 1``, which neither takes."""
+    if den < 1:
+        raise ValueError(f"fused FSK needs den >= 1, got {den}")
+    return "core" if den <= TONE_CAP else "long"
+
+
+def tone_table_plain(den: int, amp: float, qshift: float,
+                     device="cpu") -> torch.Tensor:
+    """Plain twin of K6's tone table: ``[den, 2]`` float32, row ``u`` the
+    pair ``(amp*cos(theta), amp*cos(theta + qshift))`` of
+    ``theta = f32(u) * f32(2pi/den)``, as :func:`fsk_tx_plain` makes the
+    sample of phase ``u``."""
+    theta = (torch.arange(den, dtype=torch.int64, device=device)
+             .to(torch.float32) * f32(TWO_PI / den))
+    return torch.stack([amp * torch.cos(theta),
+                        amp * torch.cos(theta + qshift)], dim=-1)
+
+
+def tone_table_kernel(den: int, amp: float, qshift: float,
+                      device) -> torch.Tensor:
+    """Launch ``modem_fsk_tone_table`` on ``device``: the table of
+    :func:`tone_table_plain` by the card's ``cosf``, the first version's
+    samples bit for bit."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the tone table kernel runs on a CUDA device, got "
+                         f"{dev}")
+    if fsk_route(den) != "core":
+        raise ValueError(f"K6's core takes den <= {TONE_CAP}, got {den}")
+    tone = torch.empty((den, 2), dtype=torch.float32, device=dev)
+    FSK_TONE_KERNEL.launch(dev, den, amp, qshift, f32(TWO_PI / den),
+                           tone.data_ptr())
+    return tone
+
+
+@functools.lru_cache(maxsize=64)
+def tone_table(den: int, amp: float, qshift: float,
+               device: torch.device) -> torch.Tensor:
+    """K6's tone table for ``(den, amp, qshift)`` on ``device``, made once
+    (by its kernel on the card, its plain twin on the CPU) and kept, so that
+    a call of K6 launches no table kernel after the first."""
+    if device.type == "cuda":
+        return tone_table_kernel(den, amp, qshift, device)
+    return tone_table_plain(den, amp, qshift, device)
+
+
 def fsk_chain_kernel(fnum, pnum, targets, den: int, sps: int, amp: float,
                      qshift: float, guard: int, cs: int, sigma, seed: int):
-    """Launch K6 (``modem_fsk_chain``) on CUDA tensors."""
+    """Launch K6 (``modem_fsk_chain``) on CUDA tensors, on the route of
+    :func:`fsk_route`."""
+    tone = None
+    if fsk_route(den) == "core" and fnum.numel():
+        tone = tone_table(den, amp, qshift, fnum.device)
+    return _fsk_launch(fnum, pnum, targets, den, sps, amp, qshift, guard, cs,
+                       sigma, seed, tone=tone)
+
+
+def _fsk_launch(fnum, pnum, targets, den: int, sps: int, amp: float,
+                qshift: float, guard: int, cs: int, sigma, seed: int, *,
+                tone):
+    """K6 with ``tone``, the :func:`tone_table` of ``(den, amp, qshift)``:
+    the core; or None: the long route (the first version), at any den."""
     dev = fnum.device
     ff, fp = _flat_int32(fnum, pnum)
     for name, t, dt in (("fnum", ff, torch.int32), ("pnum", fp, torch.int32),
                         ("targets", targets, torch.float32)):
         check_cuda(name, t, dt, dev)
+    if tone is not None:
+        check_cuda("tone", tone, torch.float32, dev)
     c, k = ff.shape
     out = torch.empty_like(ff)
     if out.numel():
+        cand = (host_taps(targets) if tone is not None
+                and targets.numel() <= TAPS_PARAM else None)
         FSK_CHAIN_KERNEL.launch(
             dev, ff.data_ptr(), fp.data_ptr(), c, k, targets.data_ptr(),
-            targets.shape[0], den, sps, amp, qshift, f32(TWO_PI / den), guard,
+            targets.shape[0], cand, None if tone is None else tone.data_ptr(),
+            den, sps, amp, qshift, f32(TWO_PI / den), guard,
             f32(1.0 / (sps - guard)), cs, int(sigma is not None),
             0.0 if sigma is None else sigma, seed & 0xFFFFFFFF,
             out.data_ptr())
@@ -413,9 +494,27 @@ def msk_chain_plain(s0, s1, spb: int, amp: float, guard: int, cs: int, sigma,
     return (acc < 0).to(torch.int32).reshape(s0.shape)
 
 
+def msk_route(spb: int) -> str:
+    """K7's route for ``spb`` samples a slot: ``"core"`` up to
+    ``MSK_CAP``, else ``"long"`` (the first version); ``ValueError`` for
+    ``spb < 1``, which neither takes."""
+    if spb < 1:
+        raise ValueError(f"fused MSK needs spb >= 1, got {spb}")
+    return "core" if spb <= MSK_CAP else "long"
+
+
 def msk_chain_kernel(s0, s1, spb: int, amp: float, guard: int, cs: int, sigma,
                      seed: int) -> torch.Tensor:
-    """Launch K7 (``modem_msk_chain``) on CUDA tensors."""
+    """Launch K7 (``modem_msk_chain``) on CUDA tensors, on the route of
+    :func:`msk_route`."""
+    return _msk_launch(s0, s1, spb, amp, guard, cs, sigma, seed,
+                       core=msk_route(spb) == "core")
+
+
+def _msk_launch(s0, s1, spb: int, amp: float, guard: int, cs: int, sigma,
+                seed: int, *, core: bool) -> torch.Tensor:
+    """K7 on its core (``core``) or on the long route (the first version),
+    at any spb."""
     dev = s0.device
     f0, f1 = _flat_int32(s0, s1)
     for name, t in (("s0", f0), ("s1", f1)):
@@ -426,5 +525,6 @@ def msk_chain_kernel(s0, s1, spb: int, amp: float, guard: int, cs: int, sigma,
         MSK_CHAIN_KERNEL.launch(
             dev, f0.data_ptr(), f1.data_ptr(), c, k, spb, amp,
             f32(TWO_PI / (4 * spb)), guard, cs, int(sigma is not None),
-            0.0 if sigma is None else sigma, seed & 0xFFFFFFFF, out.data_ptr())
+            0.0 if sigma is None else sigma, seed & 0xFFFFFFFF, int(core),
+            out.data_ptr())
     return out.reshape(s0.shape)

@@ -1265,6 +1265,299 @@ def test_msk_roundtrip_fused_on_card(dev):
     assert fk.MSK_CHAIN_KERNEL.launches == before + 2
 
 
+# ---- K6 and K7 on the core (fsk.cu) ----
+
+FSK_ODD = [(130, 600), (7, 603)]  # two lane keys; rows off 16-byte bounds
+
+
+def _odd_k6(name, sps, shape, dev, seed):
+    """K6's arguments for scheme ``name`` at ``sps`` (den 10000): guard 1,
+    sps/2 and sps - 1, without noise and at 12 dB in tiles of 32 and 256."""
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    scheme = _fsk_schemes()[name]
+    rng = np.random.default_rng(seed)
+    syms = torch.as_tensor(rng.integers(0, 1 << scheme.bits_per_symbol, shape)
+                           .astype(np.int32), device=dev)
+    prog, _ = scheme.program(syms, scheme.init_state(shape[:-1], dev),
+                             Rates(10000 // sps, 10000), 0)
+    targets = fk._candidate_increments(fk.fsk_coef_table(scheme), prog.den,
+                                       dev)
+    sigma = f32(fk.fsk_noise_sigma(1.0, 12.0))
+    return [(prog.fnum, prog.pnum, targets, prog.den, sps, 1.0,
+             f32(prog.qshift), guard, cs, sig, seed)
+            for guard in sorted({1, sps // 2, sps - 1})
+            for cs, sig in ((256, None), (32, sigma), (256, sigma))]
+
+
+@pytest.mark.parametrize("sps", [2, 8, 16])
+@pytest.mark.parametrize("name", ["bfsk", "mfsk_increase", "mfsk_default"])
+def test_fsk_core_equals_long_route(name, sps, dev):
+    """The core's decisions are the first version's bit for bit, with and
+    without noise, at every guard's extremes, at odd shapes; one launch
+    each."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    for shape in FSK_ODD:
+        for args in _odd_k6(name, sps, shape, dev, sps + shape[1]):
+            got = _launches(fk.FSK_CHAIN_KERNEL, fk.fsk_chain_kernel, *args)
+            ref = _launches(fk.FSK_CHAIN_KERNEL, fk._fsk_launch, *args,
+                            tone=None)
+            assert torch.equal(got, ref), (shape, args[7], args[8:10])
+            if args[9] is None:
+                assert torch.equal(got, fk.fsk_chain_plain(*args))
+
+
+@pytest.mark.parametrize("sigma", [None, 1e-4])
+@pytest.mark.parametrize("guard", [1, 3])
+def test_fsk_core_reads_the_same_mean(guard, sigma, dev):
+    """One tone at random phases and 256 candidates spread over the range
+    of the means: each decision reads the mean to a few ulps, and the two
+    routes decide alike."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    shape, qshift = (64, 1024), float(np.float32(-np.pi / 2))
+    rng = np.random.default_rng(guard)
+    fnum = torch.full(shape, 10, dtype=torch.int32, device=dev)
+    pnum = torch.as_tensor(rng.integers(0, 10000, shape).astype(np.int32),
+                           device=dev)
+    wi, wq = fk.fsk_tx_plain(fnum, pnum, 10000, 8, 1.0, qshift)
+    if sigma is not None:
+        gi, gq = fk.fsk_noise(shape, 8, 256, 5, dev)
+        wi = wi + sigma * gi.reshape(wi.shape)
+        wq = wq + sigma * gq.reshape(wq.shape)
+    mean = fk.disc_means_plain(wi, wq, 8, guard)
+    ladder = torch.linspace(float(mean.min()), float(mean.max()), 256,
+                            device=dev)
+    args = (fnum, pnum, ladder, 10000, 8, 1.0, qshift, guard, 256, sigma, 5)
+    got = fk.fsk_chain_kernel(*args)
+    assert torch.equal(got, fk._fsk_launch(*args, tone=None))
+    assert len(torch.unique(got)) > 100
+
+
+@pytest.mark.parametrize("den", [10000, 9973, 12288])
+def test_fsk_tone_table_matches_its_twin(den, dev):
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    got = _launches(fk.FSK_TONE_KERNEL, fk.tone_table_kernel, den, 0.8,
+                    float(np.float32(-np.pi / 2)), dev)
+    want = fk.tone_table_plain(den, 0.8, float(np.float32(-np.pi / 2)), dev)
+    assert got.shape == (den, 2)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError):
+        fk.tone_table_kernel(fk.TONE_CAP + 1, 1.0, 0.0, dev)
+
+
+def test_fsk_tone_table_made_once(dev):
+    """The first call of a (den, amp, qshift) makes its table, later ones
+    launch K6 alone; a den past the cap makes none."""
+    from modem_tpu_torch.models import fsk
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    _, syms, _ = _fsk_program("mfsk_increase", (4, 64), dev, seed=9)
+    fk.tone_table.cache_clear()
+    counts = []
+    for sr in (10000, 10000, 20000):
+        scheme = fsk.MFSK(4, 50, sr, 1.0, "increase")
+        before = (fk.FSK_TONE_KERNEL.launches, fk.FSK_CHAIN_KERNEL.launches)
+        got = fk.fused_fsk_chain(syms, scheme, Rates(sr // 8, sr))
+        torch.cuda.synchronize()
+        assert torch.equal(got, syms)
+        counts.append((fk.FSK_TONE_KERNEL.launches - before[0],
+                       fk.FSK_CHAIN_KERNEL.launches - before[1]))
+    assert counts == [(1, 1), (0, 1), (0, 1)]
+
+
+def test_fsk_msk_cores_refuse_past_their_caps(dev):
+    """The C entries refuse a core past its cap before any launch."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    f = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    targets = torch.zeros(2, device=dev)
+    tone = torch.zeros((fk.TONE_CAP + 1, 2), device=dev)
+    before = (fk.FSK_CHAIN_KERNEL.launches, fk.MSK_CHAIN_KERNEL.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fk._fsk_launch(f, f, targets, fk.TONE_CAP + 1, 8, 1.0, 0.0, 1, 256,
+                       None, 0, tone=tone)
+    s = torch.ones((2, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fk._msk_launch(s, s, fk.MSK_CAP + 1, 1.0, 1, 256, None, 0, core=True)
+    assert (fk.FSK_CHAIN_KERNEL.launches,
+            fk.MSK_CHAIN_KERNEL.launches) == before
+
+
+@pytest.mark.parametrize("spb", [2, 4, 8])
+def test_msk_core_equals_long_route(spb, dev):
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    sigma = f32(fk.fsk_noise_sigma(0.9, 4.0))
+    for shape in FSK_ODD:
+        s0, s1 = _slot_signs(shape, dev, spb + shape[1])
+        for guard in sorted({1, spb - 1}):
+            for cs, sig in ((256, None), (32, sigma), (256, sigma)):
+                args = (s0, s1, spb, 0.9, guard, cs, sig, 7)
+                got = _launches(fk.MSK_CHAIN_KERNEL, fk.msk_chain_kernel,
+                                *args)
+                ref = _launches(fk.MSK_CHAIN_KERNEL, fk._msk_launch, *args,
+                                core=False)
+                assert torch.equal(got, ref), (shape, guard, cs, sig)
+                if sig is None:
+                    assert torch.equal(got, (s0 * s1 > 0).int())
+
+
+ARITHMETIC_CHECK = r"""
+// The core's arithmetic against the first versions', bit for bit: this file
+// includes csrc/fsk.cu and calls its functions.
+#include <cstdio>
+#include "fsk.cu"
+
+__device__ unsigned long long bad[5];
+
+__device__ __forceinline__ unsigned mix(unsigned x) {
+  return modem::hash_u32(x * 0x9E3779B9u + 0x7F4A7C15u);
+}
+
+__device__ __forceinline__ float any_float(unsigned h, int lo_exp,
+                                           int hi_exp) {
+  const int e = lo_exp + static_cast<int>(h % (hi_exp - lo_exp + 1));
+  const float v = ldexpf(1.f + (mix(h) >> 9) * 0x1p-23f, e);
+  return (mix(h + 1) & 1) ? -v : v;
+}
+
+// sincosf against sinf and cosf at every angle 2*pi*u2 the noise draws,
+// and the noise itself against common.cuh's gauss_pair
+__global__ void noise(unsigned salt) {
+  const unsigned b = blockIdx.x * blockDim.x + threadIdx.x;  // 2^24
+  volatile float vu = (static_cast<float>(b) + 0.5f) * 5.9604644775390625e-8f;
+  const float ang = 6.283185307179586f * vu;
+  float s, c;
+  sincosf(ang, &s, &c);
+  volatile float va = ang;
+  if (__float_as_uint(s) != __float_as_uint(sinf(va)) ||
+      __float_as_uint(c) != __float_as_uint(cosf(va)))
+    atomicAdd(&bad[0], 1ull);
+  float g1, g2, h1, h2;
+  gauss_pair_sincos(mix(b), mix(b ^ salt), g1, g2);
+  modem::gauss_pair(mix(b), mix(b ^ salt), h1, h2);
+  if (__float_as_uint(g1) != __float_as_uint(h1) ||
+      __float_as_uint(g2) != __float_as_uint(h2))
+    atomicAdd(&bad[1], 1ull);
+}
+
+// quotient_fast against IEEE division wherever quotient_in_range admits
+// the operands: every mantissa of lo at exponent offsets 0..100 below d
+__global__ void quotients(unsigned salt, int offset) {
+  const unsigned m = blockIdx.x * blockDim.x + threadIdx.x;  // 2^23
+  const float d = fabsf(any_float(mix(blockIdx.y * 7919u + salt), -100, 99));
+  float lo = ldexpf(1.f + m * 0x1p-23f, ilogbf(d) - offset);
+  lo = fminf(lo, d);
+  if (!quotient_in_range(lo, d)) return;
+  volatile float vd = d;
+  if (__float_as_uint(quotient_fast(lo, d)) != __float_as_uint(lo / vd))
+    atomicAdd(&bad[2], 1ull);
+}
+
+// increment_fma and increment_sum against increment and its running sum,
+// on samples of every size, zeros among them (the slow path)
+__global__ void increments(unsigned salt) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  float ci[8], cq[8];
+  for (int j = 0; j < 8; ++j) {
+    const unsigned h = mix(t * 16u + j + salt);
+    const int range = h % 4;  // the samples' sizes: one of four ranges
+    const int lo = range == 0 ? -149 : -40 * range, hi = range == 3 ? 60 : 2;
+    ci[j] = mix(h) % 61 == 0 ? 0.f : any_float(mix(h + 2), lo, hi);
+    cq[j] = mix(h) % 59 == 0 ? 0.f : any_float(mix(h + 3), lo, hi);
+  }
+  float acc = 0.f;
+  for (int j = 1; j < 8; ++j) {
+    const float a = increment(ci[j], cq[j], ci[j - 1], cq[j - 1]);
+    const float b = increment_fma(ci[j], cq[j], ci[j - 1], cq[j - 1]);
+    if (__float_as_uint(a) != __float_as_uint(b)) atomicAdd(&bad[3], 1ull);
+    acc += a;
+  }
+  if (__float_as_uint(acc) != __float_as_uint(increment_sum(ci, cq)))
+    atomicAdd(&bad[4], 1ull);
+}
+
+int main() {
+  noise<<<1 << 16, 256>>>(12345u);
+  for (int offset = 0; offset <= 100; offset += 5)
+    quotients<<<dim3(1 << 15, 32), 256>>>(offset * 31u + 7u, offset);
+  for (unsigned salt = 0; salt < 4; ++salt)
+    increments<<<1 << 14, 256>>>(salt << 28);
+  const cudaError_t err = cudaDeviceSynchronize();
+  unsigned long long b[5] = {};
+  cudaMemcpyFromSymbol(b, bad, sizeof(b));
+  printf("%s %llu %llu %llu %llu %llu\n", cudaGetErrorString(err), b[0], b[1],
+         b[2], b[3], b[4]);
+  return err != cudaSuccess || b[0] || b[1] || b[2] || b[3] || b[4];
+}
+"""
+
+
+def test_fsk_core_arithmetic_is_the_first_versions(dev, tmp_path):
+    """What makes the core's decisions the first versions': sincosf is
+    cosf and sinf at all 2^24 angles the noise draws, so gauss_pair_sincos
+    is gauss_pair; quotient_fast is IEEE division in its range (every
+    mantissa of the dividend, 21 exponent offsets, 32 divisors each);
+    increment_fma is increment, and increment_sum their running sum, on
+    samples of every size (built with the library's nvcc flags)."""
+    import subprocess
+
+    from modem_tpu_torch import cuda
+
+    src = tmp_path / "check.cu"
+    src.write_text(ARITHMETIC_CHECK)
+    exe = tmp_path / "check"
+    flags = [f for f in cuda.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([cuda._nvcc(), *flags, "-I", str(cuda.CSRC), "-o",
+                    str(exe), str(src)], check=True, capture_output=True,
+                   timeout=600)
+    out = subprocess.run([str(exe)], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0 and out.stdout.split() == [
+        "no", "error", "0", "0", "0", "0", "0"], out.stdout + out.stderr
+
+
+def _kernel_names(fn, *args):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn(*args)
+        torch.cuda.synchronize()
+    return {e.key.replace(" ", "") for e in prof.key_averages()
+            if "_chain_" in e.key}
+
+
+def test_fsk_msk_routes_by_the_profiler(dev):
+    """The core's kernels run up to the caps, the first versions past
+    them."""
+    from modem_tpu_torch import FskChain, MskChain, make_scheme
+
+    for rates, core in ((Rates(1250, 10000), True),
+                        (Rates(2500, 20000), False)):
+        chain = FskChain(make_scheme("mfsk", rates), rates, 2 * np.arange(16),
+                         2 * np.pi * 50 / rates.sample_rate, device=dev)
+        bits = torch.randint(0, 2, (8, 4 * 256), device=dev,
+                             dtype=torch.int32)
+        ran = _kernel_names(chain.roundtrip_fused, bits)
+        want, other = (("fsk_chain_core", "fsk_chain_kernel") if core else
+                       ("fsk_chain_kernel", "fsk_chain_core"))
+        assert any(want in k for k in ran) and not any(other in k for k in ran)
+    for rates, core in ((Rates(1250, 10000), True), (Rates(50, 10000), False)):
+        msk = MskChain(rates, device=dev)
+        bits = torch.randint(0, 2, (8, 512), device=dev, dtype=torch.int32)
+        ran = _kernel_names(msk.roundtrip_fused, bits)
+        want, other = (("msk_chain_core", "msk_chain_kernel") if core else
+                       ("msk_chain_kernel", "msk_chain_core"))
+        assert any(want in k for k in ran) and not any(other in k for k in ran)
+
+
 # ---- K11 and K12 (resampled.cu) ----
 
 # (up, down, bits per symbol, symbol shape): P = 1 (3/2, 5/4, 2/1, 1/2) and
