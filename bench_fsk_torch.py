@@ -1,7 +1,7 @@
-"""Times the PyTorch port's FSK/MSK kernels (K6 and K7, the loopbacks; K8,
-K9, K10) and the loopbacks' entry points on one CUDA card, alternating
-between source trees in one run, and checks that every tree gives the same
-decisions.
+"""Times the PyTorch port's FSK/MSK kernels (K6 and K7, the loopbacks; K8
+and K10, the TX; K9) and the loopbacks' and TX's entry points on one CUDA
+card, alternating between source trees in one run, and checks that every
+tree gives the same decisions and waveforms.
 
     python3 bench_fsk_torch.py [--trees DIR ...] [--rounds N] [--reps N]
 
@@ -28,24 +28,33 @@ the profiler's device time per launch, on ``chip_smoke.py``'s inputs
   the long route at the same inputs (``*_long_route_device_ms``, whose
   decisions must equal the core's), and K6's tone table kernel once
   (``tone_table_device_ms``);
-- K8, K9 (groups 8 and 4) and K10;
+- K8 and K10 (either route: the kernels named ``fsk_tx_...`` and
+  ``msk_tx_...``), and past their cores' caps (``fused_fsk_tx_long``: den
+  20000; ``fused_msk_tx_long``: spb 100, 256 x 2048 slots); in a tree whose
+  ``ops.fsk_kernel`` has ``_fsk_tx_launch``, the core's cases also on the
+  long route (``*_long_route_device_ms``, whose waveforms must equal the
+  core's); beside each, one ``fill_`` of its two output planes
+  (``*_fill_device_ms``), the write stream's ceiling; K9 (groups 8 and 4);
 - wall time (CUDA events, 10 calls a rep) and, from one profile of 10
   calls, the device's busy time per call split into K6's or K7's and every
   other kernel's and copy's, of ``FskChain.roundtrip_fused`` (16-MFSK,
-  without noise and at 21 dB) and ``MskChain.roundtrip_fused`` (without
-  noise and at 7 dB); in a tree with the tone table, its launches over 10
-  calls after the first (``tone_launches_per_10_calls``: 0, the table is
-  made once).
+  without noise and at 21 dB), ``MskChain.roundtrip_fused`` (without
+  noise and at 7 dB), and ``FskChain.tx_fused`` and ``MskChain.tx_fused``
+  (the busy time split into K8's or K10's and the rest's); in a tree with
+  the tone table, its launches over 10 calls after the first
+  (``tone_launches_per_10_calls``: 0, the table is made once).
 
-Every decision is hashed (``*_sha``), also at ``chip_smoke.py``'s odd
-cases (``fsk_odd_cases``, ``msk_odd_cases``): 16-MFSK with the ``increase``
-and ``default`` maps and BFSK at sps 2, 8 and 16 with guard 1, sps/2 and
-sps - 1, MSK at spb 2, 4 and 8 with guard 1 and spb - 1, without noise and
-with noise in tiles of 32 and 256, at 130 x 600 (two 128-lane keys of the
-noise stream) and at 7 x 603 (rows not a whole number of runs, most off a
-16-byte boundary). The run fails unless every process of every tree gives
-the same hashes, so a change that claims the parent's bits is held to
-them.
+Every decision and waveform is hashed (``*_sha``), also at
+``chip_smoke.py``'s odd cases: ``fsk_odd_cases`` and ``msk_odd_cases``,
+16-MFSK with the ``increase`` and ``default`` maps and BFSK at sps 2, 8 and
+16 with guard 1, sps/2 and sps - 1, MSK at spb 2, 4 and 8 with guard 1 and
+spb - 1, without noise and with noise in tiles of 32 and 256, at 130 x 600
+(two 128-lane keys of the noise stream) and at 7 x 603 (rows not a whole
+number of runs, most off a 16-byte boundary); ``tx_odd_cases``, K8 (16-MFSK
+with both maps, BFSK, CPFSK) and K10 (spb 2, 3, 4 and 8) at rows of 1, 3
+and 603, 7 and 130 of them, and 256 x 4096. The run fails unless every
+process of every tree gives the same hashes, so a change that claims the
+parent's bits is held to them.
 
 Each process prints one JSON line of its reps; the run ends with each
 metric's summary over the processes of each tree, then the card's name and
@@ -69,8 +78,8 @@ from bench_turbo_torch import alternate, busy_ms, event_ms, smoke
 CHANNELS, SYMBOLS = 256, 4096
 SR = 10000
 #: csrc/fsk.cu's kernels, whose SASS is counted
-SASS = ("fsk_chain_core", "msk_chain_core", "fsk_tone_kernel",
-        "fsk_chain_kernel", "msk_chain_kernel", "fsk_tx_kernel",
+SASS = ("fsk_chain_core", "msk_chain_core", "fsk_tone_kernel", "fsk_tx_core",
+        "msk_tx_core", "fsk_chain_kernel", "msk_chain_kernel", "fsk_tx_kernel",
         "msk_tx_kernel", "disc_means_kernel")
 #: the opcodes counted in each
 OPCODES = ("FFMA", "FMUL", "FADD", "MUFU", "LDS", "LDG", "STG", "LDC", "IMAD",
@@ -144,11 +153,18 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
         return [sm.kernel_device_ms(fn, args, device, symbol)
                 for _ in range(reps)]
 
-    def long_fsk(*a):
-        return fk._fsk_launch(*a, tone=None)
-
-    def long_msk(*a):
-        return fk._msk_launch(*a, core=False)
+    # each kernel's long route, where the tree has a core beside it
+    long_routes = {}
+    if has_core:
+        long_routes["fused_fsk_chain"] = lambda *a: fk._fsk_launch(*a,
+                                                                   tone=None)
+        long_routes["fused_msk_slots"] = lambda *a: fk._msk_launch(*a,
+                                                                   core=False)
+    if hasattr(fk, "_fsk_tx_launch"):
+        long_routes["fused_fsk_tx"] = lambda *a: fk._fsk_tx_launch(*a,
+                                                                   tone=None)
+        long_routes["fused_msk_tx"] = lambda *a: fk._msk_tx_launch(*a,
+                                                                   core=False)
 
     mfsk, _, msk, _ = sm.fsk_chains(device)
     _, cases = sm.fsk_kernel_cases(mfsk, msk, device)
@@ -157,16 +173,20 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
             msk, (CHANNELS, 2 * SYMBOLS), 256, device, SEED)]
     symbols = {"fused_fsk_chain": "fsk_chain_",
                "fused_msk_slots": "msk_chain_",
-               "fused_fsk_tx": "fsk_tx_kernel",
+               "fused_fsk_tx": "fsk_tx_",
                "fused_discriminator_means": "disc_means_kernel",
-               "fused_msk_tx": "msk_tx_kernel"}
+               "fused_msk_tx": "msk_tx_"}
     for name, kern, args in cases:
         symbol = next(v for k, v in symbols.items() if name.startswith(k))
         res[f"{name}_sha"] = sha(kern(*args))
         res[f"{name}_device_ms"] = dev_ms(kern, args, symbol)
-        if (has_core and symbol.endswith("chain_")
-                and not name.endswith("_long")):
-            long = long_fsk if name.startswith("fused_fsk") else long_msk
+        if name in ("fused_fsk_tx", "fused_msk_tx"):
+            planes = torch.empty((2, sm.tx_samples(args)), device=device)
+            res[f"{name}_fill_device_ms"] = dev_ms(
+                lambda: planes.fill_(1.0), (), "FillFunctor")
+        long = next((v for k, v in long_routes.items()
+                     if name.startswith(k)), None)
+        if long is not None and not name.endswith("_long"):
             if sha(long(*args)) != res[f"{name}_sha"]:
                 raise SystemExit(f"bench_fsk_torch: {name}: the routes "
                                  "differ")
@@ -181,6 +201,9 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
         res[f"odd {label}_sha"] = sha(fk.fsk_chain_kernel(*args))
     for label, args in sm.msk_odd_cases(device, SEED):
         res[f"odd {label}_sha"] = sha(fk.msk_chain_kernel(*args))
+    tx = {"K8": fk.fused_fsk_tx, "K10": fk.fused_msk_tx}
+    for kind, label, args in sm.tx_odd_cases(device, SEED):
+        res[f"odd {label}_sha"] = sha(tx[kind](*args))
 
     g = torch.Generator(device=device).manual_seed(SEED + 2)
     bits = torch.randint(0, 2, (CHANNELS, SYMBOLS * 4), generator=g,
@@ -195,7 +218,9 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
             ("msk_roundtrip", msk.roundtrip_fused, (mbits,), "msk_chain_"),
             ("msk_roundtrip_7db",
              lambda b: msk.roundtrip_fused(b, snr_db=7.0, seed=SEED),
-             (mbits,), "msk_chain_")):
+             (mbits,), "msk_chain_"),
+            ("fsk_tx_fused", mfsk.tx_fused, (bits,), "fsk_tx_"),
+            ("msk_tx_fused", msk.tx_fused, (mbits,), "msk_tx_")):
         res[f"{tag}_sha"] = sha(fn(*args))
         res[f"{tag}_ms"] = event_ms(fn, args, 10, reps)
         res[f"{tag}_kernel_ms"], res[f"{tag}_other_ms"] = busy_ms(

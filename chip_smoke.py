@@ -69,26 +69,35 @@ block (256 channels x 4096 symbols, ``Rates(1250, 10000)``: 16-MFSK at
     lane and tile keys, and at 256 x 4096), K8 (FSK waveform), K9 (the
     discriminator means, groups of 8 and 4) and K10 (MSK waveform) against
     their plain versions: decisions equal (with noise, on >= 99.99%),
-    waveforms and means within 1e-5; K6's long route (den 20000, past its
-    core's cap) likewise; K6's core against its long route bit for bit at
-    the odd cases (``fsk_odd_cases``) and the probes that read the mean to
-    a few ulps, its tone table against the plain twin within 1e-6, and
-    which kernel 16-MFSK's ``roundtrip_fused`` with and without noise,
-    BFSK's and the den-20000 chain's run, by the profiler;
+    waveforms and means within 1e-5; K6's and K8's long route (den 20000,
+    past their cores' cap) and K10's (spb 100) likewise; K6's core against
+    its long route bit for bit at the odd cases (``fsk_odd_cases``) and the
+    probes that read the mean to a few ulps, its tone table against the
+    plain twin within 1e-6, and which kernel 16-MFSK's ``roundtrip_fused``
+    with and without noise, BFSK's and the den-20000 chain's run, by the
+    profiler; K8's and K10's TX core against their long route bit for bit
+    and both against the plain versions at ``tx_odd_cases`` (rows of 1, 3
+    and 603, 7 and 130 of them, and 256 x 4096; K8 for 16-MFSK with both
+    maps, BFSK and CPFSK, K10 at spb 2, 3, 4 and 8), and which kernel
+    ``tx_fused`` runs at den 10000 and 20000, spb 4 and 100;
 12. main path: 16-MFSK and BFSK ``FskChain`` (``roundtrip_fused``,
     ``rx_fused(tx_fused)``, the hard bits of ``rx_soft_fused``), MSK
     ``rx_fused(tx_fused)``, GMSK ``roundtrip`` and the DQPSK
     ``DifferentialChain`` (``rx_fused(tx_fused)``, ``roundtrip_fused``)
     give the bits back exactly, and 16-MFSK at den 20000 (K6's long
-    route) through ``roundtrip_fused``, each path with every launch count
-    set to 0 just before and read just after (the tone table's cache
-    cleared before the FSK paths, which make it);
+    route) through ``roundtrip_fused`` and ``rx_fused(tx_fused)``, MSK at
+    spb 100 (K10's long route) ``rx_fused(tx_fused)``, each path with every
+    launch count set to 0 just before and read just after (the tone table's
+    cache cleared before the FSK paths, which make one table for K6 and K8
+    together; the den-20000 chain makes none);
 13. noise: 16-MFSK ``roundtrip_fused(snr_db=21, seed)`` over 1,048,576
     symbols, SER within 10% of the staged path's (``tx``, seeded Gaussian
     noise of the same sigma, ``rx``);
-14. times: K6 (without and with noise, and its long route), K8, K9 and
-    K10 per call beside their plain versions, the profiler's device time
-    and the bound; K6's tone table kernel, and 0 launches of it over 10
+14. times: K6 (without and with noise, and its long route), K8 and K10
+    (and their long routes past the caps, and at the core's inputs beside
+    one ``fill_`` of the two planes, the write stream's ceiling), K9 per
+    call beside their plain versions, the profiler's device time and the
+    bound; K6's tone table kernel, and 0 launches of it over 10
     ``roundtrip_fused`` after the first; and
     ``FskChain.roundtrip_fused``/``tx_fused``/``rx_fused`` and
     ``MskChain.tx_fused``/``rx_fused`` per call with the device's busy time
@@ -349,11 +358,18 @@ FSK_REPORT = {
     "fused_fsk_chain_noisy": ("63", "fsk_chain_core"),
     "fused_fsk_chain_long": ("63", "fsk_chain_kernel"),
     "fsk_tone_table": ("63", "fsk_tone_kernel"),
-    "fused_fsk_tx": ("460", "fsk_tx_kernel"),
+    "fused_fsk_tx": ("460", "fsk_tx_core"),
+    "fused_fsk_tx_long": ("460", "fsk_tx_kernel"),
     "fused_discriminator_means": ("545", "disc_means_kernel"),
     "fused_discriminator_means_msk": ("545", "disc_means_kernel"),
-    "fused_msk_tx": ("621", "msk_tx_kernel"),
+    "fused_msk_tx": ("621", "msk_tx_core"),
+    "fused_msk_tx_long": ("621", "msk_tx_kernel"),
 }
+#: K8's and K10's odd shapes in phase 11 (channels, symbols or slots):
+#: rows of 1, 3 and 603 (at spb 2 and 3 most off a 16-byte boundary), 7
+#: and 130 of them; and the spb K10's core is held at
+FSK_TX_ODD = ((7, 1), (7, 3), (7, 603), (130, 1), (130, 3), (130, 603))
+FSK_TX_SPB = (2, 3, 4, 8)
 # config #4 at bench_rows.py:65's row, and the MSK loopback
 RS_UP, RS_DOWN = 3, 2
 RS_SIDE = (64, 1024)             # 64-QAM and 2/3 in phase 16
@@ -1297,10 +1313,12 @@ def far_chains(device):
 def fsk_kernel_cases(mfsk, msk, device):
     """``(16-MFSK program, cases)``, a case ``(name, kernel fn, plain fn,
     args at the full shape, decisions?)`` for each of K6 (noiseless and
-    noisy; and at the den of ``far_chains``, the long route), K8, K9 (the
-    FSK symbol and the MSK slot) and K10, with the inputs the main path
-    gives them: 16-MFSK phase programs, their waveform with noise for K9
-    (means off the tones), MSK slot signs."""
+    noisy; and at the den of ``far_chains``, the long route), K8 (and at
+    that den, the long route), K9 (the FSK symbol and the MSK slot) and K10
+    (and at the spb of ``far_chains``, the long route, 256 x MSK_FAR_SLOTS
+    slots), with the inputs the main path gives them: 16-MFSK phase
+    programs, their waveform with noise for K9 (means off the tones), MSK
+    slot signs."""
     from modem_tpu_torch.models.base import f32
     from modem_tpu_torch.ops import fsk_kernel as fk
 
@@ -1326,7 +1344,7 @@ def fsk_kernel_cases(mfsk, msk, device):
     mi, mq = fk.msk_tx_plain(s0, s1, msk.spb, 1.0)
     mi = mi + sigma * torch.randn(mi.shape, generator=g, device=device)
     mq = mq + sigma * torch.randn(mq.shape, generator=g, device=device)
-    far = far_chains(device)[0]
+    far, far_msk = far_chains(device)
     fp = far._phase_program(bits)
     far_args = (fp.fnum, fp.pnum,
                 fk._candidate_increments(fk.fsk_coef_table(far.scheme),
@@ -1340,12 +1358,17 @@ def fsk_kernel_cases(mfsk, msk, device):
         ("fused_fsk_chain_long", fk.fsk_chain_kernel, fk.fsk_chain_plain,
          far_args, True),
         ("fused_fsk_tx", fk.fsk_tx_kernel, fk.fsk_tx_plain, tx_args, False),
+        ("fused_fsk_tx_long", fk.fsk_tx_kernel, fk.fsk_tx_plain,
+         (fp.fnum, fp.pnum, fp.den, far.sps, 1.0, f32(fp.qshift)), False),
         ("fused_discriminator_means", fk.disc_means_kernel,
          fk.disc_means_plain, (wi, wq, mfsk.sps, 1), False),
         ("fused_discriminator_means_msk", fk.disc_means_kernel,
          fk.disc_means_plain, (mi, mq, msk.spb, 1), False),
         ("fused_msk_tx", fk.msk_tx_kernel, fk.msk_tx_plain,
          (s0, s1, msk.spb, 1.0), False),
+        ("fused_msk_tx_long", fk.msk_tx_kernel, fk.msk_tx_plain,
+         (s0[:, :MSK_FAR_SLOTS].contiguous(),
+          s1[:, :MSK_FAR_SLOTS].contiguous(), far_msk.spb, 1.0), False),
     ]
 
 
@@ -1542,13 +1565,98 @@ def phase_k6_routes(chains, device) -> float:
     return err
 
 
+def tx_odd_cases(device, seed: int):
+    """K8's and K10's arguments ``(kernel, label, args)`` at the odd shapes
+    FSK_TX_ODD and at 256 x 4096: K8 for 16-MFSK (both maps), BFSK and
+    CPFSK at ``Rates(1250, 10000)``, K10 at each spb of FSK_TX_SPB."""
+    from modem_tpu_torch import Rates
+    from modem_tpu_torch.models import fsk
+    from modem_tpu_torch.models.base import f32
+
+    r = Rates(FSK_BAUD, REF_SR)
+    schemes = {"16-MFSK increase": fsk.MFSK(4, 50, REF_SR, 1.0, "increase"),
+               "16-MFSK default": fsk.MFSK(4, 50, REF_SR, 1.0, "default"),
+               "BFSK": fsk.BFSK(200, REF_SR, 1.0),
+               "CPFSK": fsk.CPFSK(2, r, 1.0, 1)}
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = FSK_TX_ODD + ((CHANNELS, N_SYMBOLS),)
+    for tag, scheme in schemes.items():
+        for shape in shapes:
+            syms = torch.randint(0, 1 << scheme.bits_per_symbol, shape,
+                                 generator=g, device=device, dtype=torch.int32)
+            p, _ = scheme.program(syms, scheme.init_state(shape[:-1], device),
+                                  r, 0)
+            yield ("K8", f"{tag} {shape[0]}x{shape[1]}",
+                   (p.fnum, p.pnum, p.den, 8, 1.0, f32(p.qshift)))
+    for spb in FSK_TX_SPB:
+        for shape in shapes:
+            s0, s1 = (2 * torch.randint(0, 2, shape, generator=g,
+                                        device=device, dtype=torch.int32) - 1
+                      for _ in range(2))
+            yield "K10", f"MSK spb {spb} {shape[0]}x{shape[1]}", (s0, s1, spb,
+                                                                  0.7)
+
+
+def phase_fsk_tx_routes(chains, device) -> None:
+    """Phase 11, K8's and K10's routes: the TX core against the long route
+    (the first versions, ``_fsk_tx_launch(..., tone=None)`` and
+    ``_msk_tx_launch(..., core=False)``) bit for bit at every case of
+    ``tx_odd_cases``, both within ATOL of the plain versions; then which
+    kernel each ``tx_fused`` runs, by the profiler: the core for 16-MFSK at
+    den 10000 and MSK at spb 4, the first versions at den 20000 and spb
+    100."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    routes = {"K8": (fk.fsk_tx_kernel,
+                     lambda *a: fk._fsk_tx_launch(*a, tone=None),
+                     fk.fsk_tx_plain),
+              "K10": (fk.msk_tx_kernel,
+                      lambda *a: fk._msk_tx_launch(*a, core=False),
+                      fk.msk_tx_plain)}
+    n, err = 0, 0.0
+    for kind, label, args in tx_odd_cases(device, SEED + 45):
+        core, long, plain = routes[kind]
+        got, ref, want = core(*args), long(*args), plain(*args)
+        torch.cuda.synchronize(device)
+        for g, r, w in zip(got, ref, want):
+            if not torch.equal(g, r):
+                fail(f"{kind} routes: {label}: the core differs from the long "
+                     f"route on {int((g != r).sum())} of {g.numel()} samples")
+            err = max(err, max_err(g, w))
+        if err > ATOL:
+            fail(f"{kind} routes: {label}: kernel vs plain max |err| {err}")
+        n += 1
+    print(f"[fsk kernels] K8 and K10 core == long route bit for bit at {n} "
+          f"cases; both vs plain max |err| {err:.3e} (tol {ATOL})", flush=True)
+    mfsk, msk = chains[0], chains[2]
+    far, far_msk = far_chains(device)
+    g = torch.Generator(device=device).manual_seed(SEED + 46)
+    for what, chain, bps, family, want in (
+            ("16-MFSK tx_fused", mfsk, 4, "fsk_tx_", True),
+            (f"16-MFSK at den {FSK_FAR_SR} tx_fused", far, 4, "fsk_tx_",
+             False),
+            ("MSK tx_fused", msk, 2, "msk_tx_", True),
+            (f"MSK at spb {far_msk.spb} tx_fused", far_msk, 2, "msk_tx_",
+             False)):
+        bits = torch.randint(0, 2, (CHANNELS, N_SYMBOLS * bps), generator=g,
+                             device=device, dtype=torch.int32)
+        if not want:
+            bits = bits[:, :MSK_FAR_SLOTS].contiguous()
+        names = (family + "core", family + "kernel")
+        route_check(what, chain.tx_fused, (bits,), device, family,
+                    *(names if want else names[::-1]))
+        print(f"[fsk kernels] {what} ran {names[0 if want else 1]} alone",
+              flush=True)
+
+
 def phase_fsk_kernels(chains, device) -> dict:
     """Phase 11: K6 (noiseless and noisy, at 130 x 600 in tiles of 32
     symbols, which crosses the 128-lane and tile keys of the noise stream,
     and at 256 x 4096; and the long route at a den past the core's cap),
-    K8, K9 (groups 8 and 4) and K10 against their plain versions on the
-    card; then K6's routes (phase_k6_routes). Returns each report entry's
-    (max |error|, agreement)."""
+    K8 (and past its cap), K9 (groups 8 and 4) and K10 (and past its cap)
+    against their plain versions on the card; then K6's routes
+    (phase_k6_routes), K8's and K10's (phase_fsk_tx_routes). Returns each
+    report entry's (max |error|, agreement)."""
     mfsk, msk = chains[0], chains[2]
     _, cases = fsk_kernel_cases(mfsk, msk, device)
     errs = {}
@@ -1571,6 +1679,7 @@ def phase_fsk_kernels(chains, device) -> dict:
         print(f"[fsk kernels] {name:30s} {tuple(args[0].shape)} in: max "
               f"|kernel - plain| = {err:.3e} (tol {ATOL})", flush=True)
     errs["fsk_tone_table"] = (phase_k6_routes(chains, device), None)
+    phase_fsk_tx_routes(chains, device)
     return errs
 
 
@@ -1628,17 +1737,24 @@ def phase_fsk_main(chains, device) -> dict:
         same(f"{label} hard bits of rx_soft_fused == bits",
              llr_hard_bits(llr), bits)
         counts = read_launches(fsk_kernels, label)
+        if counts["fsk_tone_table"] != 1:  # K6 and K8 share one table
+            fail(f"{label}: {counts['fsk_tone_table']} tone tables made")
         if label == "16-MFSK":
             launches.update(counts)
 
-    far = far_chains(device)[0]
+    far, far_msk = far_chains(device)
     bits = bits_for(4)
     reset_launches()
     same(f"16-MFSK at den {FSK_FAR_SR} (the long route) roundtrip_fused(bits)"
          " == bits", far.roundtrip_fused(bits), bits)
-    launches["fused_fsk_chain_long"] = read_launches(
-        {"fused_fsk_chain_long": fk.FSK_CHAIN_KERNEL},
-        f"16-MFSK at den {FSK_FAR_SR}")["fused_fsk_chain_long"]
+    same(f"16-MFSK at den {FSK_FAR_SR} rx_fused(tx_fused(bits)) == bits",
+         far.rx_fused(*far.tx_fused(bits)), bits)
+    counts = read_launches({"fused_fsk_chain_long": fk.FSK_CHAIN_KERNEL,
+                            "fused_fsk_tx_long": fk.FSK_TX_KERNEL},
+                           f"16-MFSK at den {FSK_FAR_SR}")
+    if fk.FSK_TONE_KERNEL.launches:
+        fail(f"16-MFSK at den {FSK_FAR_SR} made a tone table")
+    launches.update(counts)
 
     bits = bits_for(2)
     reset_launches()
@@ -1648,6 +1764,12 @@ def phase_fsk_main(chains, device) -> dict:
                             "fused_discriminator_means_msk":
                                 fk.DISC_MEANS_KERNEL}, "MSK")
     launches.update(counts)
+    bits = bits_for(2)[:, :MSK_FAR_SLOTS].contiguous()
+    reset_launches()
+    same(f"MSK at spb {far_msk.spb} (the long route) rx_fused(tx_fused(bits))"
+         " == bits", far_msk.rx_fused(*far_msk.tx_fused(bits)), bits)
+    launches.update(read_launches({"fused_msk_tx_long": fk.MSK_TX_KERNEL},
+                                  f"MSK at spb {far_msk.spb}"))
 
     bits = bits_for(1, FSK_SIDE_CHANNELS)
     reset_launches()
@@ -1721,10 +1843,10 @@ def fsk_work(name: str, args) -> tuple[float, float]:
         if args[9] is not None:
             ops += k * n_s * 16
         return 3 * 4 * k + 4 * targets.numel(), ops
-    if name == "fused_fsk_tx":
+    if name.startswith("fused_fsk_tx"):
         k = args[0].numel()
         return 2 * 4 * k + 2 * 4 * k * args[3], 6 * k * args[3]
-    if name == "fused_msk_tx":
+    if name.startswith("fused_msk_tx"):
         k = args[0].numel()
         return 2 * 4 * k + 2 * 4 * k * args[2], 6 * k * args[2]
     wi, group, guard = args[0], args[2], args[3]
@@ -1732,23 +1854,58 @@ def fsk_work(name: str, args) -> tuple[float, float]:
     return 2 * 4 * wi.numel() + 4 * k, k * ((group - guard) * 27 + 1)
 
 
+def tx_samples(args) -> int:
+    """Samples a plane of K8 (args ``fnum, pnum, den, sps, ...``) or K10
+    (``s0, s1, spb, amp``)."""
+    return args[0].numel() * args[2 if len(args) == 4 else 3]
+
+
+def fill_yardstick_ms(args, device):
+    """The write stream's ceiling for K8 and K10 at ``args``: the profiler's
+    device time of one ``fill_`` of their two output planes (one tensor of
+    the same 8 bytes a sample), timed beside them; no part of the port."""
+    planes = torch.empty((2, tx_samples(args)), dtype=torch.float32,
+                         device=device)
+    return kernel_device_ms(lambda: planes.fill_(1.0), (), device,
+                            "FillFunctor")
+
+
 def phase_fsk_times(chains, device, card: str) -> dict:
     """Phase 14: each kernel and its plain version per call, the profiler's
-    device time, the bound; K6's tone table kernel, and its launches over
-    10 calls of ``roundtrip_fused`` (0: the table is made once); then the
-    config #3 entry points per call with the device's busy time and idle
-    share."""
+    device time, the bound (K8 and K10 on both routes: the core's inputs
+    also on the long route, by ``_fsk_tx_launch(..., tone=None)`` and
+    ``_msk_tx_launch(..., core=False)``, beside the write stream's ceiling,
+    one ``fill_`` of the two planes); K6's tone table kernel, and its
+    launches over 10 calls of ``roundtrip_fused`` (0: the table is made
+    once); then the config #3 entry points per call with the device's busy
+    time and idle share."""
     from modem_tpu_torch.ops import fsk_kernel as fk
 
     mfsk, _, msk, _ = chains
     _, cases = fsk_kernel_cases(mfsk, msk, device)
+    long_routes = {"fused_fsk_tx": lambda *a: fk._fsk_tx_launch(*a, tone=None),
+                   "fused_msk_tx": lambda *a: fk._msk_tx_launch(*a,
+                                                                core=False)}
     times = {}
     for name, kern, plain, args, _ in cases:
         ms, plain_ms, dev_ms = kernel_times(kern, plain, args, device,
                                             FSK_REPORT[name][1])
         times[name] = (ms, plain_ms, dev_ms, None, fsk_work(name, args))
         samples = CHANNELS * N_SYMBOLS * mfsk.sps
+        if name.startswith(("fused_fsk_tx", "fused_msk_tx")):
+            samples = tx_samples(args)
         print_times(name, samples, times[name], card, "no library call")
+        if name in long_routes:
+            long_ms = kernel_device_ms(long_routes[name], args, device,
+                                       FSK_REPORT[name + "_long"][1])
+            fill_ms = fill_yardstick_ms(args, device)
+            if None in (long_ms, fill_ms, dev_ms):
+                fail(f"{name}: a profile lost the long route or fill_")
+            print(f"[times] {name:26s} long route at the same inputs "
+                  f"{long_ms:.4f} ms; fill_ of the two planes (the write "
+                  f"ceiling) {fill_ms:.4f} ms, the core at "
+                  f"{fill_ms / dev_ms:.1%} of its rate; on {card}",
+                  flush=True)
 
     args = (REF_SR, 1.0, cases[0][3][6], device)
     ms, plain_ms, dev_ms = kernel_times(fk.tone_table_kernel,

@@ -47,8 +47,8 @@ _NCO = [_I, _I, _L, _F]
 #: a host pointer; ``modem_polar_sc``'s plan a host pointer to the code's
 #: ``ScPlan``, ``ops.sc_kernel.host_plan``)
 SIGNATURES = {
-    "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P],
-    "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _P, _P, _P],
+    "modem_fsk_tx": [_P, _P, _L, _L, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+    "modem_msk_tx": [_P, _P, _L, _L, _I, _F, _F, _I, _P, _P, _P],
     "modem_disc_means": [_P, _P, _L, _I, _I, _F, _P, _P],
     "modem_fsk_tone_table": [_I, _F, _F, _F, _P, _P],
     "modem_fsk_chain": [_P, _P, _L, _L, _P, _I, _P, _P, _I, _I, _F, _F, _F,

@@ -15,16 +15,18 @@ kernels K6, K7, K8, K9 and K10, in ``modem_tpu_torch/csrc/fsk.cu``.
   synthesis -> optional AWGN -> discriminator -> sign bit per slot.
 
 Each takes a CPU tensor to its plain version (``*_plain``) and a CUDA tensor
-to its kernel (``*_kernel``), never to the plain version. K6 and K7 have two
-routes on the card: the core (``fsk_chain_core``, ``msk_chain_core``), where
-their tables fit, and past that their first versions, the long route
-(:func:`fsk_route`, :func:`msk_route`). K6's core reads the tones from
-:func:`tone_table`, made once per ``(den, amp, qshift, device)`` by its own
-kernel (``modem_fsk_tone_table``) from the expressions of the samples, so
-both routes decide alike, bit for bit. The fused
-discriminator uses the JAX kernels' degree-9 polynomial :func:`atan2_poly`
-(error ~1e-5 rad) in both versions, so its means carry the same error as
-the JAX function's; the staged receivers use the exact ``torch.atan2``.
+to its kernel (``*_kernel``), never to the plain version. K6, K7, K8 and K10
+have two routes on the card: the cores (``fsk_chain_core``,
+``msk_chain_core``; the TX core's ``fsk_tx_core``, ``msk_tx_core``), where
+their tables fit (and K8 at ``TX_SPS``), and past that their first versions,
+the long route (:func:`fsk_route`, :func:`msk_route`, :func:`fsk_tx_route`).
+K6's and K8's cores read the tones from :func:`tone_table`, made once per
+``(den, amp, qshift, device)`` by its own kernel (``modem_fsk_tone_table``)
+from the expressions of the samples, so both routes give the same bits. The
+fused discriminator uses the JAX kernels' degree-9 polynomial
+:func:`atan2_poly` (error ~1e-5 rad) in both versions, so its means carry the
+same error as the JAX function's; the staged receivers use the exact
+``torch.atan2``.
 
 K6's and K7's noise is the JAX kernels' interpret-mode stream
 (:func:`~modem_tpu_torch.ops.chain_kernel.gauss_pair`) with the same tile
@@ -54,12 +56,14 @@ LANE = 128
 #: candidate frequencies the K6 kernel takes (shared memory, or on its core
 #: a kernel parameter)
 MAX_CANDIDATES = 256
-#: den at most of K6's core, whose tone table (8 bytes an entry) a block
-#: stages in shared memory (``csrc/fsk.cu``'s ``kToneCap``)
+#: den at most of K6's and K8's cores, whose tone table (8 bytes an entry)
+#: a block stages in shared memory (``csrc/fsk.cu``'s ``kToneCap``)
 TONE_CAP = 12288
-#: spb at most of K7's core, whose 4*spb (cos, sin) pairs a block makes
-#: (``kMskCap``)
+#: spb at most of K7's and K10's cores, whose 4*spb (cos, sin) pairs a
+#: block makes (``kMskCap``)
 MSK_CAP = 64
+#: the samples a symbol of K8's core (``kTxSps``): config #3's chains
+TX_SPS = 8
 
 FSK_CHAIN_KERNEL = Kernel("modem_fsk_chain")
 FSK_TONE_KERNEL = Kernel("modem_fsk_tone_table")
@@ -165,19 +169,46 @@ def fsk_tx_plain(fnum, pnum, den: int, sps: int, amp: float, qshift: float):
     return amp * torch.cos(theta), amp * torch.cos(theta + qshift)
 
 
+def fsk_tx_route(den: int, sps: int) -> str:
+    """K8's route for phase denominator ``den`` and ``sps`` samples a
+    symbol: ``"core"`` at ``sps == TX_SPS`` where K6's tone table fits
+    (``den <= TONE_CAP``), else ``"long"`` (the first version);
+    ``ValueError`` for ``den < 1`` or ``sps < 1``, which neither takes."""
+    if sps < 1:
+        raise ValueError(f"fused FSK TX needs sps >= 1, got {sps}")
+    if fsk_route(den) == "core" and sps == TX_SPS:
+        return "core"
+    return "long"
+
+
 def fsk_tx_kernel(fnum, pnum, den: int, sps: int, amp: float, qshift: float):
-    """Launch K8 (``modem_fsk_tx``) on CUDA tensors."""
+    """Launch K8 (``modem_fsk_tx``) on CUDA tensors, on the route of
+    :func:`fsk_tx_route`: the core reads K6's :func:`tone_table`, the same
+    cached tensor, so a chain that runs both makes one table."""
+    tone = None
+    if fsk_tx_route(den, sps) == "core" and fnum.numel():
+        tone = tone_table(den, amp, qshift, fnum.device)
+    return _fsk_tx_launch(fnum, pnum, den, sps, amp, qshift, tone=tone)
+
+
+def _fsk_tx_launch(fnum, pnum, den: int, sps: int, amp: float, qshift: float,
+                   *, tone):
+    """K8 with ``tone``, the :func:`tone_table` of ``(den, amp, qshift)``:
+    the core; or None: the long route (the first version), at any shape."""
     dev = fnum.device
     ff, fp = _flat_int32(fnum, pnum)
     for name, t in (("fnum", ff), ("pnum", fp)):
         check_cuda(name, t, torch.int32, dev)
+    if tone is not None:
+        check_cuda("tone", tone, torch.float32, dev)
     c, k = ff.shape
     wi = torch.empty((c, k * sps), dtype=torch.float32, device=dev)
     wq = torch.empty_like(wi)
     if wi.numel():
         FSK_TX_KERNEL.launch(dev, ff.data_ptr(), fp.data_ptr(), c, k, sps, den,
-                             amp, qshift, f32(TWO_PI / den), wi.data_ptr(),
-                             wq.data_ptr())
+                             amp, qshift, f32(TWO_PI / den),
+                             None if tone is None else tone.data_ptr(),
+                             wi.data_ptr(), wq.data_ptr())
     shape = fnum.shape[:-1] + (k * sps,)
     return wi.reshape(shape), wq.reshape(shape)
 
@@ -206,7 +237,14 @@ def msk_tx_plain(s0, s1, spb: int, amp: float):
 
 
 def msk_tx_kernel(s0, s1, spb: int, amp: float):
-    """Launch K10 (``modem_msk_tx``) on CUDA tensors."""
+    """Launch K10 (``modem_msk_tx``) on CUDA tensors, on the route of
+    :func:`msk_route` (its 4*spb (cos, sin) pairs are K7's core's table)."""
+    return _msk_tx_launch(s0, s1, spb, amp, core=msk_route(spb) == "core")
+
+
+def _msk_tx_launch(s0, s1, spb: int, amp: float, *, core: bool):
+    """K10 on its core (``core``) or on the long route (the first version),
+    at any spb."""
     dev = s0.device
     f0, f1 = _flat_int32(s0, s1)
     for name, t in (("s0", f0), ("s1", f1)):
@@ -216,7 +254,7 @@ def msk_tx_kernel(s0, s1, spb: int, amp: float):
     wq = torch.empty_like(wi)
     if wi.numel():
         MSK_TX_KERNEL.launch(dev, f0.data_ptr(), f1.data_ptr(), c, k, spb, amp,
-                             f32(TWO_PI / (4 * spb)), wi.data_ptr(),
+                             f32(TWO_PI / (4 * spb)), int(core), wi.data_ptr(),
                              wq.data_ptr())
     shape = s0.shape[:-1] + (k * spb,)
     return wi.reshape(shape), wq.reshape(shape)
@@ -495,7 +533,7 @@ def msk_chain_plain(s0, s1, spb: int, amp: float, guard: int, cs: int, sigma,
 
 
 def msk_route(spb: int) -> str:
-    """K7's route for ``spb`` samples a slot: ``"core"`` up to
+    """K7's and K10's route for ``spb`` samples a slot: ``"core"`` up to
     ``MSK_CAP``, else ``"long"`` (the first version); ``ValueError`` for
     ``spb < 1``, which neither takes."""
     if spb < 1:

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1 loopback, K2 TX, K3 RX hard and soft, K4 FIR,
 K5 product detector, K6 FSK loopback, K7 MSK loopback, K8 FSK TX, K9
-discriminator means, K10 MSK TX, K11 resampled TX, K12 resampled RX hard and
-soft, K13 windowed Viterbi, K14 max-log BCJR, K15 polar SC, K16 polar
-CA-SCL-8) against their plain PyTorch versions on the card,
+discriminator means, K10 MSK TX (K6, K7, K8 and K10 on both routes), K11
+resampled TX, K12 resampled RX hard and soft, K13 windowed Viterbi, K14
+max-log BCJR, K15 polar SC, K16 polar CA-SCL-8) against their plain
+PyTorch versions on the card,
 and the coded link (CRC, scrambler, RS, ``FramedLink``, the ``link`` CLI)
 against the CPU. Marked
 ``cuda``: every test skips without a CUDA device. On the card
@@ -1407,6 +1408,124 @@ def test_msk_core_equals_long_route(spb, dev):
                     assert torch.equal(got, (s0 * s1 > 0).int())
 
 
+# ---- K8 and K10 on the TX core (fsk.cu) ----
+
+#: (channels, symbols or slots): rows of 1, 3 and 603 (most rows off a
+#: 16-byte boundary at spb 2 and 3), 7 and 130 of them, and full width
+TX_SHAPES = [(7, 1), (7, 3), (7, 603), (130, 1), (130, 3), (130, 603),
+             (256, 4096)]
+
+
+@pytest.mark.parametrize("shape", TX_SHAPES, ids=str)
+@pytest.mark.parametrize("name", FSK_NAMES)
+def test_fsk_tx_core_equals_long_route(name, shape, dev):
+    """K8's core (K6's tone table) writes the first version's samples bit
+    for bit; both within ATOL of the plain version; one launch each."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    _, _, prog = _fsk_program(name, shape, dev, seed=shape[1])
+    args = (prog.fnum, prog.pnum, prog.den, 8, 1.0, prog.qshift)
+    assert fk.fsk_tx_route(prog.den, 8) == "core"
+    got = _launches(fk.FSK_TX_KERNEL, fk.fused_fsk_tx, *args)
+    ref = _launches(fk.FSK_TX_KERNEL, fk._fsk_tx_launch, *args, tone=None)
+    want = fk.fsk_tx_plain(*args)
+    for g, r, w in zip(got, ref, want):
+        assert g.shape == shape[:-1] + (shape[-1] * 8,)
+        assert torch.equal(g, r)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", TX_SHAPES, ids=str)
+@pytest.mark.parametrize("spb", [2, 3, 4, 8])
+def test_msk_tx_core_equals_long_route(spb, shape, dev):
+    """K10's core writes the first version's samples bit for bit, rows off
+    16-byte boundaries and a last piece of fewer than 4 samples among them;
+    both within ATOL of the plain version."""
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    s0, s1 = _slot_signs(shape, dev, spb + shape[1])
+    assert fk.msk_route(spb) == "core"
+    got = _launches(fk.MSK_TX_KERNEL, fk.fused_msk_tx, s0, s1, spb, 0.7)
+    ref = _launches(fk.MSK_TX_KERNEL, fk._msk_tx_launch, s0, s1, spb, 0.7,
+                    core=False)
+    for g, r, w in zip(got, ref, fk.msk_tx_plain(s0, s1, spb, 0.7)):
+        assert g.shape == shape[:-1] + (shape[-1] * spb,)
+        assert torch.equal(g, r)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+def test_tx_cores_refuse_what_they_do_not_take(dev):
+    """The C entries refuse the TX core past its caps, at another sps
+    (K8) and on outputs off a 16-byte boundary, before any launch."""
+    from modem_tpu_torch import cuda
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    f = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    tone = fk.tone_table(10000, 1.0, 0.0, dev)
+    before = (fk.FSK_TX_KERNEL.launches, fk.MSK_TX_KERNEL.launches)
+    for den, sps in ((fk.TONE_CAP + 1, 8), (10000, 4)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fk._fsk_tx_launch(f, f, den, sps, 1.0, 0.0, tone=tone)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fk._msk_tx_launch(f, f, fk.MSK_CAP + 1, 1.0, core=True)
+    out = torch.empty(2 * 64 + 1, device=dev)
+    lib = cuda.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    off = out.data_ptr() + 4  # one float past a boundary
+    assert lib.modem_fsk_tx(f.data_ptr(), f.data_ptr(), 2, 8, 8, 10000, 1.0,
+                            0.0, f32(2 * math.pi / 10000), tone.data_ptr(),
+                            off, off, stream) != 0
+    assert lib.modem_msk_tx(f.data_ptr(), f.data_ptr(), 2, 8, 4, 1.0,
+                            f32(2 * math.pi / 16), 1, off, off, stream) != 0
+    assert (fk.FSK_TX_KERNEL.launches, fk.MSK_TX_KERNEL.launches) == before
+
+
+def test_chain_tx_and_loopback_make_one_tone_table(dev):
+    """``FskChain.tx_fused`` then ``roundtrip_fused`` launch one tone
+    table in all; K8 and K6 read the same one."""
+    from modem_tpu_torch import FskChain, make_scheme
+    from modem_tpu_torch.ops import fsk_kernel as fk
+
+    r = Rates(1250, 10000)
+    chain = FskChain(make_scheme("mfsk", r), r, 2 * np.arange(16),
+                     2 * np.pi * 50 / 10000, device=dev)
+    bits = torch.randint(0, 2, (8, 4 * 512), device=dev, dtype=torch.int32)
+    fk.tone_table.cache_clear()
+    before = fk.FSK_TONE_KERNEL.launches
+    wave = chain.tx_fused(bits)
+    assert torch.equal(chain.roundtrip_fused(bits), bits)
+    assert torch.equal(chain.rx_fused(*chain.tx_fused(bits)), bits)
+    torch.cuda.synchronize()
+    assert fk.FSK_TONE_KERNEL.launches == before + 1
+    assert torch.equal(chain.rx_fused(*wave), bits)
+
+
+def test_fsk_msk_tx_routes_by_the_profiler(dev):
+    """``tx_fused`` runs the TX core up to the caps, the first versions
+    past them: 16-MFSK at den 10000 and 20000, MSK at spb 4 and 100."""
+    from modem_tpu_torch import FskChain, MskChain, make_scheme
+
+    for rates, core in ((Rates(1250, 10000), True),
+                        (Rates(2500, 20000), False)):
+        chain = FskChain(make_scheme("mfsk", rates), rates, 2 * np.arange(16),
+                         2 * np.pi * 50 / rates.sample_rate, device=dev)
+        bits = torch.randint(0, 2, (8, 4 * 256), device=dev,
+                             dtype=torch.int32)
+        ran = _kernel_names(chain.tx_fused, bits, family="fsk_tx_")
+        want, other = (("fsk_tx_core", "fsk_tx_kernel") if core else
+                       ("fsk_tx_kernel", "fsk_tx_core"))
+        assert any(want in k for k in ran) and not any(other in k for k in ran)
+    for rates, core in ((Rates(1250, 10000), True), (Rates(50, 10000), False)):
+        msk = MskChain(rates, device=dev)
+        bits = torch.randint(0, 2, (8, 512), device=dev, dtype=torch.int32)
+        ran = _kernel_names(msk.tx_fused, bits, family="msk_tx_")
+        want, other = (("msk_tx_core", "msk_tx_kernel") if core else
+                       ("msk_tx_kernel", "msk_tx_core"))
+        assert any(want in k for k in ran) and not any(other in k for k in ran)
+
+
 ARITHMETIC_CHECK = r"""
 // The core's arithmetic against the first versions', bit for bit: this file
 // includes csrc/fsk.cu and calls its functions.
@@ -1523,7 +1642,7 @@ def test_fsk_core_arithmetic_is_the_first_versions(dev, tmp_path):
         "no", "error", "0", "0", "0", "0", "0"], out.stdout + out.stderr
 
 
-def _kernel_names(fn, *args):
+def _kernel_names(fn, *args, family="_chain_"):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1531,7 +1650,7 @@ def _kernel_names(fn, *args):
             fn(*args)
         torch.cuda.synchronize()
     return {e.key.replace(" ", "") for e in prof.key_averages()
-            if "_chain_" in e.key}
+            if family in e.key}
 
 
 def test_fsk_msk_routes_by_the_profiler(dev):
