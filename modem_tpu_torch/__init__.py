@@ -36,7 +36,12 @@ imports ``jax`` or ``modem_tpu``. Ported so far:
   (its max-log BCJR on kernel K14), :class:`~modem_tpu_torch.fec.PolarCode`
   and :class:`~modem_tpu_torch.fec.RateMatchedPolar` (SC on kernel K15,
   CA-SCL-8 on K16), in ``FramedLink`` and the ``lte_like_turbo`` and
-  ``nr_like_control`` presets.
+  ``nr_like_control`` presets;
+* the LDPC-coded OFDM link: :class:`QcLdpc` (min-sum in PyTorch ops),
+  :class:`OfdmModem` (reduced-DFT matmuls, blind acquisition with its
+  preamble correlation on kernel K4), :class:`OfdmChain`,
+  :class:`OfdmStreamReceiver`, the ``wifi_like_ofdm`` preset and
+  ``burst_ofdm_receiver``, and release gates 3 and 5.
 
 Every entry point builds on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
@@ -44,12 +49,14 @@ Every entry point builds on the card unless the caller asks for the CPU
 
 from . import presets
 from .config import Freq, Rates
+from .fec import QcLdpc
 from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
                     OqpskChain, PulseShapedChain, qpsk_reference_chain)
 from .gmsk import GmskChain
 from .link import FramedLink
 from .metrics import LinkStats
 from .models import SCHEME_NAMES, make_scheme
+from .ofdm import OfdmChain, OfdmModem, OfdmStreamReceiver
 from .resampled import ResampledChain, StreamingResampledChain
 from .rx import Demodulator, RxState
 from .streaming import StreamingFusedChain, StreamingFusedRx, StreamingFusedTx
@@ -58,7 +65,8 @@ from .tx import Modulator, TxState
 __all__ = [
     "DcqpskChain", "Demodulator", "DifferentialChain", "FramedLink",
     "Freq", "FskChain", "GmskChain", "LinkStats", "Modulator", "MskChain",
-    "OqpskChain", "PulseShapedChain",
+    "OfdmChain", "OfdmModem", "OfdmStreamReceiver", "OqpskChain",
+    "PulseShapedChain", "QcLdpc",
     "Rates", "presets", "ResampledChain", "RxState", "SCHEME_NAMES",
     "StreamingFusedChain", "StreamingFusedRx", "StreamingFusedTx",
     "StreamingResampledChain", "TxState", "make_scheme",

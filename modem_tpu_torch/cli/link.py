@@ -7,7 +7,9 @@ The same flags, IO conventions and exit codes as the JAX command: ASCII
 out, and back; frames processed in batches of ``--batch-frames``.
 ``--device`` picks where the link runs (the card by default), where the
 fused route (K2 TX, K3 soft RX, and the inner decode: K13 Viterbi, K14
-turbo, K15 or K16 polar) is the production path.
+turbo, K15 or K16 polar) is the production path; the ``wifi_like_ofdm``
+preset runs its OFDM chain staged (it has no fused forms) with the LDPC
+decode.
 
     python -m modem_tpu_torch.cli.link tx --preset reference < payload.bits > frames.f32
     python -m modem_tpu_torch.cli.link rx --preset reference --noise-var 0.05 < frames.f32 > out.bits
@@ -27,6 +29,7 @@ import torch
 
 from .. import io as mio
 from .. import presets
+from ..ofdm import OfdmChain
 
 #: preset name -> FramedLink constructor (takes ``device``)
 PRESETS = {
@@ -35,10 +38,8 @@ PRESETS = {
     "ccsds_deep_space": presets.ccsds_deep_space_link,
     "lte_like_turbo": presets.lte_like_turbo_link,
     "nr_like_control": presets.nr_like_control_link,
+    "wifi_like_ofdm": presets.wifi_like_ofdm_link,
 }
-#: the JAX command's other presets, refused until their chains are ported
-#: (ROADMAP.md queue 1, S6)
-NOT_PORTED = ("wifi_like_ofdm",)
 
 BATCH_FRAMES = 16
 
@@ -48,8 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="link",
         description="coded framed link (CRC + FEC + chain) over stdio")
     p.add_argument("mode", choices=("tx", "rx"))
-    p.add_argument("--preset", required=True,
-                   choices=sorted(PRESETS) + list(NOT_PORTED))
+    p.add_argument("--preset", required=True, choices=sorted(PRESETS))
     p.add_argument("--noise-var", type=float, default=1.0,
                    help="rx: decision-point noise variance for LLR "
                         "scaling (soft-FEC beliefs)")
@@ -61,21 +61,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _frame_samples(link) -> int:
-    """Waveform samples per frame and rail: the symbols and the chain's
-    ``span`` flush symbols, ``sps`` samples each."""
-    return (link.n_symbols + link.chain.span) * link.chain.sps
+    """Waveform samples per frame and rail: an OFDM frame's length, or the
+    symbols and the chain's ``span`` flush symbols, ``sps`` samples each."""
+    chain = link.chain
+    if isinstance(chain, OfdmChain):
+        return chain.modem.frame_len(link.n_symbols)
+    return (link.n_symbols + chain.span) * chain.sps
 
 
 def run(args, stdin, stdout, stderr=None) -> int:
     if isinstance(stdin, (bytes, bytearray)):
         stdin = _io.BytesIO(stdin)
     stderr = stderr if stderr is not None else sys.stderr
-    if args.preset not in PRESETS:
-        print(f"link: preset {args.preset!r} is not ported yet (ROADMAP.md "
-              f"queue 1); ported: {', '.join(sorted(PRESETS))}", file=stderr)
-        return 2
     link = PRESETS[args.preset](device=args.device)
-    dev = link.chain.rrc.device
+    dev = torch.device(args.device)
     pb = link.payload_bits
     batch = max(1, int(args.batch_frames))
     bad_total = 0

@@ -12,11 +12,11 @@ are counted on the device. Calibration is held to the closed forms below.
 * :func:`fused_ber_point` and :func:`ber_waterfall` through K1's noise
   mode, the symbols drawn by ``np.random.default_rng(seed)`` as the JAX
   package draws them;
-* :func:`chain_awgn_ber_point`: the staged chain with noise from a seeded
-  ``torch.Generator``;
-* :func:`release_gates`: the Monte-Carlo correctness gates. Gates 3 (OFDM
-  over Rayleigh) and 5 (LDPC) wait for the ports of ``ofdm.py`` and
-  ``fec/ldpc.py`` and are reported as not run, never as passed.
+* :func:`chain_awgn_ber_point`, :func:`ofdm_ber_point` and
+  :func:`ofdm_rayleigh_ber_point`: the staged chain and the OFDM payload
+  path with noise from a seeded ``torch.Generator``;
+* :func:`release_gates`: the five Monte-Carlo correctness gates of the JAX
+  package.
 """
 
 from __future__ import annotations
@@ -30,9 +30,11 @@ import torch
 from .chain import PulseShapedChain, qpsk_reference_chain
 from .config import Rates
 from .cuda import resolve_device
-from .fec import rs_dvb
+from .fec import QcLdpc, rs_dvb
 from .link import FramedLink
+from .models import make_scheme
 from .models.psk import MPSK
+from .ofdm import OfdmModem, _default_grid
 from .ops.chain_kernel import fused_pulse_chain, fused_pulse_chain_qam
 from .ops.channel import awgn
 from .presets import qam16_gray_chain
@@ -160,12 +162,86 @@ def chain_awgn_ber_point(chain: PulseShapedChain, es_n0_db: float,
     return BerPoint(es_n0_db, int(torch.sum(out != bits)), bits.numel())
 
 
-#: gates the port cannot run yet, with the slice each waits for
-NOT_RUN = {
-    "ofdm_qpsk_rayleigh_vs_theory": "ofdm.py (ROADMAP.md queue 1, S6)",
-    "ldpc_648_324_zero_errors_at_4p5db": "fec/ldpc.py (ROADMAP.md queue 1, "
-                                          "S5)",
-}
+def _pilotless_modem(scheme, device) -> OfdmModem:
+    """The default 64-FFT grid with every used bin carrying data."""
+    data, pilots = _default_grid(64)
+    return OfdmModem(scheme, data_bins=data + pilots, pilot_bins=(),
+                     device=device)
+
+
+def ofdm_ber_point(scheme, es_n0_db: float, n_symbols: int = 40,
+                   channels: int = 32, seed: int = 0,
+                   device: torch.device | str | None = None) -> BerPoint:
+    """One Monte-Carlo BER point through the OFDM payload path over AWGN:
+    the pilotless default grid with an ideal channel, so the point
+    measures the detector. With the unitary reduced DFT the per-bin Es/N0
+    is the per-sample ratio, so the single-carrier closed forms hold. Bits
+    from ``np.random.default_rng(seed)``, noise from a ``torch.Generator``
+    seeded ``seed + 1``."""
+    dev = resolve_device(device)
+    modem = _pilotless_modem(scheme, dev)
+    rng = np.random.default_rng(seed)
+    bits = torch.as_tensor(
+        rng.integers(0, 2, (channels, modem.bits_per_frame(n_symbols)))
+        .astype(np.int32), device=dev)
+    i, q = modem.tx_payload(bits)
+    es = float(np.mean(np.sum(modem.lut ** 2, axis=-1)))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    ni, nq = awgn(g, i, q, es_n0_db, signal_power=es)
+    out = modem.rx_payload(ni, nq, n_symbols)
+    return BerPoint(es_n0_db, int(torch.sum(out != bits)), bits.numel())
+
+
+def ofdm_rayleigh_ber_point(scheme, eb_n0_db: float, n_symbols: int = 8,
+                            channels: int = 256, n_taps: int = 8,
+                            seed: int = 0,
+                            device: torch.device | str | None = None
+                            ) -> BerPoint:
+    """OFDM over a random CP-contained multipath channel with ideal per-bin
+    CSI: each batch element draws ``n_taps`` iid CN(0, 1/L) taps (numpy,
+    ``default_rng(seed)`` after the bits), so every data bin sees a
+    marginally Rayleigh gain and the batch average must reproduce
+    :func:`rayleigh_ber_theory`. Noise from a ``torch.Generator`` seeded
+    ``seed + 1``."""
+    dev = resolve_device(device)
+    modem = _pilotless_modem(scheme, dev)
+    bps = modem.bits_per_symbol
+    rng = np.random.default_rng(seed)
+    bits = torch.as_tensor(
+        rng.integers(0, 2, (channels, modem.bits_per_frame(n_symbols)))
+        .astype(np.int32), device=dev)
+    xi, xq = modem.tx_payload(bits)
+
+    # per-batch complex taps, E[|H|^2] = 1
+    taps = rng.normal(size=(channels, n_taps, 2)) / math.sqrt(2 * n_taps)
+    hi_t = torch.as_tensor(taps[..., 0], dtype=torch.float32, device=dev)
+    hq_t = torch.as_tensor(taps[..., 1], dtype=torch.float32, device=dev)
+    yi, yq = torch.zeros_like(xi), torch.zeros_like(xq)
+    for l in range(n_taps):
+        sx = xi if l == 0 else torch.cat(
+            [xi.new_zeros(xi.shape[:-1] + (l,)), xi[..., :-l]], -1)
+        sy = xq if l == 0 else torch.cat(
+            [xq.new_zeros(xq.shape[:-1] + (l,)), xq[..., :-l]], -1)
+        a, b = hi_t[:, l][:, None], hq_t[:, l][:, None]
+        yi = yi + sx * a - sy * b
+        yq = yq + sx * b + sy * a
+
+    # the exact per-used-bin H of the taps (ideal CSI)
+    k_bins = np.asarray(modem.used_bins, np.float64)[:, None]
+    ll = np.arange(n_taps, dtype=np.float64)[None, :]
+    ang = -2.0 * np.pi * k_bins * ll / modem.n_fft  # [U, L]
+    cr = torch.as_tensor(np.cos(ang).astype(np.float32).T, device=dev)
+    ci = torch.as_tensor(np.sin(ang).astype(np.float32).T, device=dev)
+    h_i = hi_t @ cr - hq_t @ ci  # [B, U]
+    h_q = hi_t @ ci + hq_t @ cr
+
+    es = float(np.mean(np.sum(modem.lut ** 2, axis=-1)))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    # Es/N0 = Eb/N0 * bits a symbol
+    yi, yq = awgn(g, yi, yq, eb_n0_db + 10.0 * math.log10(bps),
+                  signal_power=es)
+    out = modem.rx_payload(yi, yq, n_symbols, h=(h_i, h_q))
+    return BerPoint(eb_n0_db, int(torch.sum(out != bits)), bits.numel())
 
 
 def release_gates(seed: int = 0, scale: int = 1,
@@ -174,9 +250,9 @@ def release_gates(seed: int = 0, scale: int = 1,
     caller asks for the CPU), one dict per gate in the JAX package's order:
     ``{gate, measured, expected, lo, hi, passed}``, a ratio gate passing
     iff ``lo <= measured/expected <= hi`` with at least 200 errors, the
-    link gate iff every payload bit and CRC comes back. ``scale``
-    multiplies the sample counts. The gates that wait for a later slice
-    read ``{"gate", "passed": None, "not_run": <the slice>}``."""
+    link gate iff every payload bit and CRC comes back, the LDPC gate iff
+    the decode is error-free while the raw channel makes more than 100 ·
+    ``scale`` errors. ``scale`` multiplies the sample counts."""
     dev = resolve_device(device)
     rates = Rates(baud_rate=1250, sample_rate=10000)
     gates: list[dict] = []
@@ -201,9 +277,12 @@ def release_gates(seed: int = 0, scale: int = 1,
     ratio_gate("qam16_gray_awgn_vs_theory", pt,
                mqam_ber_theory(14.0, 16, gray=True))
 
-    # 3) OFDM QPSK over Rayleigh multipath: not run
-    gates.append({"gate": "ofdm_qpsk_rayleigh_vs_theory", "passed": None,
-                  "not_run": NOT_RUN["ofdm_qpsk_rayleigh_vs_theory"]})
+    # 3) OFDM QPSK over Rayleigh multipath, ideal CSI, vs the closed form
+    pt = ofdm_rayleigh_ber_point(make_scheme("qpsk", rates), 12.0,
+                                 channels=256 * scale, seed=seed + 2,
+                                 device=dev)
+    ratio_gate("ofdm_qpsk_rayleigh_vs_theory", pt,
+               rayleigh_ber_theory(12.0), lo=0.85, hi=1.2)
 
     # 4) RS(204,188) over conv K=7, framed: error-free at 1 dB while the
     #    raw channel is plainly noisy
@@ -225,8 +304,25 @@ def release_gates(seed: int = 0, scale: int = 1,
         "payload_bits": payload.numel(),
         "passed": bool(errs == 0 and ok.all())})
 
-    # 5) LDPC(648,324) at 4.5 dB: not run
-    gates.append({"gate": "ldpc_648_324_zero_errors_at_4p5db",
-                  "passed": None,
-                  "not_run": NOT_RUN["ldpc_648_324_zero_errors_at_4p5db"]})
+    # 5) LDPC(648,324) layered: error-free at 4.5 dB Eb/N0 while the raw
+    #    channel makes hundreds of errors; the data continue gate 4's numpy
+    #    stream and the noise is numpy's, so the inputs are the JAX gate's
+    code = QcLdpc()
+    data = torch.as_tensor(rng.integers(0, 2, (64 * scale, code.k))
+                           .astype(np.int32), device=dev)
+    cw = code.encode(data)
+    x = 1.0 - 2.0 * cw.to(torch.float32)
+    sigma2 = 1.0 / (2.0 * 0.5 * 10.0 ** (4.5 / 10.0))
+    noise = torch.as_tensor(np.random.default_rng(seed + 5).normal(
+        0.0, math.sqrt(sigma2), tuple(x.shape)).astype(np.float32),
+        device=dev)
+    y = x + noise
+    raw = int(torch.sum((y < 0).to(torch.int32) != cw))
+    dec = code.decode(2.0 * y / sigma2, iters=20, schedule="layered")
+    errs = int(torch.sum(dec != data))
+    gates.append({
+        "gate": "ldpc_648_324_zero_errors_at_4p5db", "measured": errs,
+        "expected": 0, "raw_channel_errors": raw,
+        "data_bits": data.numel(),
+        "passed": bool(errs == 0 and raw > 100 * scale)})
     return gates

@@ -13,18 +13,18 @@ checked at construction.
 The fused route (:meth:`FramedLink.tx_fused`, :meth:`FramedLink.rx_fused`)
 runs the chain's fused kernels (K2, K3 soft) for CUDA tensors and the
 staged ``tx`` / ``rx_soft`` for CPU ones, as the JAX package does off the
-TPU, and for a chain without the fused forms on either device. The inner
-code is the convolutional code (its windowed decode on kernel K13 on the
-card), a turbo code (each BCJR half-iteration on K14) or a polar code, plain
-or rate-matched (SC on K15, CA-SCL-8 on K16). The LDPC inner code waits for
-its slice.
+TPU, and for a chain without the fused forms (the OFDM adapter) on either
+device. The inner code is the convolutional code (its windowed decode on
+kernel K13 on the card), a QC-LDPC code (layered min-sum in PyTorch ops), a
+turbo code (each BCJR half-iteration on K14) or a polar code, plain or
+rate-matched (SC on K15, CA-SCL-8 on K16).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .fec import (ConvCode, Crc, PolarCode, Puncturer, ReedSolomon,
+from .fec import (ConvCode, Crc, PolarCode, Puncturer, QcLdpc, ReedSolomon,
                   Scrambler, TurboCode, block_deinterleave, block_interleave,
                   ccsds_code, crc16_ccitt, dvb_scrambler)
 
@@ -37,7 +37,11 @@ class FramedLink:
     ``payload_bits`` is required without an RS outer code; with one it is
     implied (``rs.k*8 - crc.w``). ``interleave_rows=0`` disables
     interleaving; ``rs=None`` / ``puncturer=None`` drop those stages.
-    ``polar`` selects a polar inner code (:class:`PolarCode`, or a
+    ``ldpc`` selects a QC-LDPC inner code (:class:`QcLdpc`, ``coded_in %
+    ldpc.k == 0``), decoded layered with ``ldpc_iters`` iterations,
+    ``ldpc_early_exit`` and the messages stored as ``ldpc_msg_dtype`` (a
+    torch dtype, float32 if None). ``polar`` selects a polar inner code
+    (:class:`PolarCode`, or a
     :class:`~modem_tpu_torch.fec.RateMatchedPolar` whose E bits go on the
     wire; ``coded_in % polar.k == 0``), decoded by SC, or by metric-best
     SCL with ``polar_list`` paths (the frame CRC stays the outer verdict);
@@ -46,9 +50,7 @@ class FramedLink:
     default) and ``turbo_early_exit``. ``conv_window="auto"`` decodes the
     conv code in windows of 512 steps once the trellis has 1024 steps or
     more, else the full block; an int forces windows of that many steps,
-    None the full block. ``ldpc`` raises ``NotImplementedError``: that
-    inner code is not ported yet (its ``ldpc_*`` options are kept, as the
-    JAX package keeps them).
+    None the full block.
     """
 
     def __init__(self, chain, payload_bits: int | None = None,
@@ -58,7 +60,7 @@ class FramedLink:
                  interleave_rows: int = 8,
                  scrambler: Scrambler | None = None,
                  crc: Crc | None = None,
-                 ldpc=None,
+                 ldpc: QcLdpc | None = None,
                  ldpc_iters: int = 30,
                  ldpc_early_exit: bool = True,
                  ldpc_msg_dtype=None,
@@ -76,10 +78,6 @@ class FramedLink:
                                       or polar is not None
                                       or turbo is not None):
             raise ValueError("puncturing applies to the conv inner code")
-        if ldpc is not None:
-            raise NotImplementedError(
-                "FramedLink(ldpc=...) is not ported yet (ROADMAP.md queue "
-                "1, S5: the LDPC inner code)")
         self.chain = chain
         self.ldpc = ldpc
         self.ldpc_iters = int(ldpc_iters)
@@ -92,7 +90,8 @@ class FramedLink:
         self.turbo = turbo
         self.turbo_iters = turbo_iters
         self.turbo_early_exit = bool(turbo_early_exit)
-        self.conv = (None if polar is not None or turbo is not None
+        self.conv = (None if (ldpc is not None or polar is not None
+                              or turbo is not None)
                      else (ccsds_code() if conv is None else conv))
         self.rs = rs
         self.puncturer = puncturer
@@ -113,7 +112,14 @@ class FramedLink:
 
         framed = self.payload_bits + self.crc.w
         coded_in = rs.n * 8 if rs is not None else framed
-        if polar is not None:
+        if ldpc is not None:
+            if coded_in % ldpc.k:
+                raise ValueError(
+                    f"framed block of {coded_in} bits must divide by the "
+                    f"LDPC data size {ldpc.k}; adjust payload_bits")
+            self._steps = coded_in // ldpc.k  # LDPC codewords per frame
+            wire = self._steps * ldpc.n
+        elif polar is not None:
             if coded_in % polar.k:
                 raise ValueError(
                     f"framed block of {coded_in} bits must divide by the "
@@ -171,10 +177,11 @@ class FramedLink:
             x, self.scrambler.init_state(x.shape[:-1], x.device))
         if self.rs is not None:
             x = self.rs.encode_bits(x)
-        if self.polar is not None or self.turbo is not None:
-            code = self.polar if self.polar is not None else self.turbo
-            wire = (self._polar_wire if self.polar is not None
-                    else self.turbo.n)
+        if (self.ldpc is not None or self.polar is not None
+                or self.turbo is not None):
+            code = (self.ldpc if self.ldpc is not None else
+                    self.polar if self.polar is not None else self.turbo)
+            wire = (self._polar_wire if self.polar is not None else code.n)
             x = code.encode(x.reshape(x.shape[:-1] + (self._steps, code.k)))
             x = x.reshape(x.shape[:-2] + (self._steps * wire,))
         else:
@@ -213,7 +220,13 @@ class FramedLink:
         if self.rows:
             x = block_deinterleave(x, self.rows)
         m = self._steps
-        if self.polar is not None:
+        if self.ldpc is not None:
+            x = x.reshape(x.shape[:-1] + (m, self.ldpc.n))
+            x = self.ldpc.decode(x, iters=self.ldpc_iters,
+                                 early_exit=self.ldpc_early_exit,
+                                 msg_dtype=self.ldpc_msg_dtype)
+            x = x.reshape(x.shape[:-2] + (m * self.ldpc.k,))
+        elif self.polar is not None:
             x = x.reshape(x.shape[:-1] + (m, self._polar_wire))
             x = (self.polar.decode(x) if self.polar_list is None
                  else self.polar.decode_list(x, self.polar_list))

@@ -4,10 +4,11 @@ configurations (counterpart of :mod:`modem_tpu.presets`).
 A preset fixes the composition and the size coupling a deployment would
 otherwise re-derive. They are standard-shaped, not standard-conformant:
 DVB-style RS + interleaver + scrambler, CCSDS-style concatenated coding,
-GSM's GMSK at BT 0.3, Gray 16-QAM, an LTE-shaped turbo data link and an
-NR-shaped polar control link. Each takes ``device``, the card unless the
-caller asks for the CPU. Not ported yet: the OFDM and MIMO presets
-(ROADMAP.md lists each with the slice it waits for).
+GSM's GMSK at BT 0.3, Gray 16-QAM, an LTE-shaped turbo data link, an
+NR-shaped polar control link and an 802.11-shaped LDPC-coded OFDM link with
+its blind burst receiver. Each takes ``device``, the card unless the caller
+asks for the CPU. Not ported yet: the MIMO preset (ROADMAP.md lists it with
+the slice it waits for).
 """
 
 from __future__ import annotations
@@ -16,11 +17,13 @@ import torch
 
 from .chain import PulseShapedChain, qpsk_reference_chain
 from .config import Rates
-from .fec import (Puncturer, RateMatchedPolar, TurboCode, ccsds_code,
-                  rate34_pattern, rs_255_223, rs_dvb)
+from .fec import (Puncturer, QcLdpc, RateMatchedPolar, TurboCode,
+                  ccsds_code, rate34_pattern, rs_255_223, rs_dvb)
 from .gmsk import GmskChain
 from .link import FramedLink
+from .models import make_scheme
 from .models.qam import QAM
+from .ofdm import OfdmChain, OfdmModem, OfdmStreamReceiver
 
 #: The reference binaries' operating point (`modulate.rs` / `demodulate.rs`
 #: defaults): 10 kHz sample rate, 1250 baud.
@@ -36,6 +39,20 @@ def reference_link(payload_bits: int = 1002,
     symbols a frame, error-free from about -4 dB SNR per complex sample."""
     return FramedLink(qpsk_reference_chain(REFERENCE_RATES, device=device),
                       payload_bits=payload_bits)
+
+
+def wifi_like_ofdm_link(n_ldpc_blocks: int = 8, ldpc_iters: int = 20,
+                        device: Device = None) -> FramedLink:
+    """802.11-shaped OFDM link: 64-FFT, 52-used-bin grid, QPSK bins, pilot
+    CPE tracking, QC-LDPC(648,324) inner code, CRC-16 verdicts.
+    ``n_ldpc_blocks`` codewords a frame (8: 54 OFDM symbols, 5184 wire
+    bits). Decode frame-aligned waveforms with ``link.rx((i, q),
+    noise_var)``, or locate frames first (:func:`burst_ofdm_receiver`)."""
+    code = QcLdpc()
+    modem = OfdmModem(make_scheme("qpsk", REFERENCE_RATES), device=device)
+    return FramedLink(OfdmChain(modem),
+                      payload_bits=n_ldpc_blocks * code.k - 16,
+                      ldpc=code, ldpc_iters=ldpc_iters)
 
 
 def dvb_like_link(rate34: bool = True, device: Device = None) -> FramedLink:
@@ -103,3 +120,13 @@ def qam16_gray_chain(rates: Rates | None = None,
     the table path of K1-K3, the algebraic map being natural binary)."""
     return PulseShapedChain(QAM(4, 0.0, 6.0, gray=True),
                             rates or REFERENCE_RATES, device=device)
+
+
+def burst_ofdm_receiver(n_symbols: int = 54, threshold: float = 0.6,
+                        device: Device = None) -> OfdmStreamReceiver:
+    """Continuous blind burst receiver for :func:`wifi_like_ofdm_link`'s
+    frame geometry (54 payload symbols): push chunks of a sample stream,
+    get the located frames; feed each frame's payload to the link's
+    decoder."""
+    modem = OfdmModem(make_scheme("qpsk", REFERENCE_RATES), device=device)
+    return OfdmStreamReceiver(modem, n_symbols, threshold=threshold)

@@ -194,3 +194,30 @@ def test_clis_default_to_the_card(monkeypatch):
         _run(cli_mod, ["-m", "qpsk"], b"0101")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _run(cli_demod, [], _i16(100, seed=7))
+
+
+def test_link_cli_wifi_preset_as_a_command(tmp_path):
+    """``python -m modem_tpu_torch.cli.link tx|rx --preset wifi_like_ofdm
+    --device cpu`` as separate processes: one frame out and back, its
+    payload exact and its verdict OK (the in-process CLI against the JAX
+    command is in ``tests/test_torch_link.py``)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    text = _ascii_bits(2576, seed=9)
+    cmd = [sys.executable, "-m", "modem_tpu_torch.cli.link"]
+    opts = ["--preset", "wifi_like_ofdm", "--device", "cpu"]
+    tx = subprocess.run(cmd + ["tx"] + opts, input=text, cwd=root, env=env,
+                        capture_output=True, timeout=300)
+    assert tx.returncode == 0, tx.stderr
+    assert len(tx.stdout) == 4560 * 2 * 4
+    rx = subprocess.run(cmd + ["rx", "--noise-var", "0.05"] + opts,
+                        input=tx.stdout, cwd=root, env=env,
+                        capture_output=True, timeout=300)
+    assert rx.returncode == 0, rx.stderr
+    assert rx.stderr.decode().splitlines() == ["frame: OK"]
+    assert rx.stdout.split() == [text]

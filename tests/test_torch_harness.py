@@ -2,7 +2,8 @@
 PyTorch port vs the JAX package, on shared numpy inputs:
 ``modem_tpu_torch.harness`` (the closed forms, ``fused_ber_point`` on K1's
 noise against the JAX interpret stream, ``release_gates`` on the CPU),
-``metrics`` (``evm_rms``, ``snr_estimate_db``, ``LinkStats`` against the
+``ofdm_ber_point`` and ``ofdm_rayleigh_ber_point`` (near the closed forms
+beside the JAX points, which draw other noise), ``metrics`` (``evm_rms``, ``snr_estimate_db``, ``LinkStats`` against the
 JAX carry on the same updates), ``checkpoint`` (round trips, and a carry
 the JAX package saved resuming the port's streams) and
 ``ops.channel.awgn_real``.
@@ -27,11 +28,12 @@ from modem_tpu import streaming as jstreaming
 from modem_tpu.chain import PulseShapedChain as JChain
 from modem_tpu.chain import qpsk_reference_chain as j_qpsk_chain
 from modem_tpu.models.psk import QPSK as JQPSK
+from modem_tpu.models import make_scheme as jscheme
 from modem_tpu.models.qam import QAM as JQAM
 
 from modem_tpu_torch import (LinkStats, Rates, StreamingFusedChain,
                              StreamingFusedRx, StreamingFusedTx, checkpoint,
-                             harness, metrics, presets,
+                             harness, make_scheme, metrics, presets,
                              qpsk_reference_chain)
 from modem_tpu_torch.chain import PulseShapedChain
 from modem_tpu_torch.models.psk import MPSK, QPSK
@@ -111,21 +113,59 @@ def test_chain_awgn_ber_point_near_theory():
 
 
 def test_release_gates_on_the_cpu():
-    """Gates 1, 2 and 4 run and pass on the CPU; gates 3 (OFDM) and 5
-    (LDPC) are reported as not run, never as passed."""
+    """All five gates run and pass on the CPU at ``scale=1``, none left not
+    run; gate 5's raw channel errors equal the JAX gate's (the same numpy
+    inputs)."""
     gates = {g["gate"]: g for g in harness.release_gates(seed=0, device=CPU)}
     assert list(gates) == ["8psk_awgn_vs_theory", "qam16_gray_awgn_vs_theory",
                            "ofdm_qpsk_rayleigh_vs_theory",
                            "rs_conv_link_zero_errors_at_1db",
                            "ldpc_648_324_zero_errors_at_4p5db"]
+    for name, gate in gates.items():
+        assert gate["passed"] is True and "not_run" not in gate, gate
     for name in ("8psk_awgn_vs_theory", "qam16_gray_awgn_vs_theory",
-                 "rs_conv_link_zero_errors_at_1db"):
-        assert gates[name]["passed"] is True, gates[name]
-    for name in ("8psk_awgn_vs_theory", "qam16_gray_awgn_vs_theory"):
+                 "ofdm_qpsk_rayleigh_vs_theory"):
         assert gates[name]["errors"] > 1000
-    for name in ("ofdm_qpsk_rayleigh_vs_theory",
-                 "ldpc_648_324_zero_errors_at_4p5db"):
-        assert gates[name]["passed"] is None and gates[name]["not_run"]
+    ldpc = gates["ldpc_648_324_zero_errors_at_4p5db"]
+    assert ldpc["measured"] == 0 and ldpc["data_bits"] == 64 * 324
+    assert ldpc["raw_channel_errors"] == _jax_gate5_raw_errors(0)
+    assert not hasattr(harness, "NOT_RUN")
+
+
+def _jax_gate5_raw_errors(seed):
+    """The JAX gate 5's raw channel errors, from its numpy inputs: gate 4's
+    payload draw, then the data, the noise of ``default_rng(seed + 5)``."""
+    from modem_tpu.fec import QcLdpc as JLdpc
+
+    rng = np.random.default_rng(seed + 3)
+    rng.integers(0, 2, (4, 188 * 8 - 16))
+    code = JLdpc()
+    cw = np.asarray(code.encode(jnp.asarray(
+        rng.integers(0, 2, (64, code.k)), jnp.int32)))
+    x = jnp.asarray(1.0 - 2.0 * cw, jnp.float32)
+    sigma2 = 1.0 / (2.0 * 0.5 * 10.0 ** (4.5 / 10.0))
+    y = x + jnp.asarray(np.random.default_rng(seed + 5).normal(
+        0.0, np.sqrt(sigma2), x.shape), jnp.float32)
+    return int(np.sum((np.asarray(y) < 0) != cw))
+
+
+@pytest.mark.parametrize("fn,theory,snr", [
+    ("ofdm_ber_point", lambda s: harness.qpsk_ber_theory(s), 7.0),
+    ("ofdm_rayleigh_ber_point", lambda s: harness.rayleigh_ber_theory(s),
+     12.0)], ids=["awgn", "rayleigh"])
+def test_ofdm_ber_points_near_theory_and_jax(fn, theory, snr):
+    """The OFDM BER points over AWGN (Es/N0, the single-carrier closed
+    form) and over Rayleigh multipath with ideal CSI (Eb/N0): the same
+    bits count as the JAX point, and both within the statistical spread of
+    the closed form (the noise comes from each package's own generator)."""
+    pt = getattr(harness, fn)(make_scheme("qpsk", TR), snr, channels=64,
+                              seed=3, device=CPU)
+    jpt = getattr(jh, fn)(jscheme("qpsk", JR), snr, channels=64, seed=3)
+    assert pt.bits == jpt.bits and pt.bit_errors > 300
+    for p in (pt, jpt):
+        assert 0.8 < p.ber / theory(snr) < 1.25, (p, theory(snr))
+    assert pt == getattr(harness, fn)(make_scheme("qpsk", TR), snr,
+                                      channels=64, seed=3, device=CPU)
 
 
 def test_qam16_gray_chain_preset():

@@ -2646,3 +2646,142 @@ def test_turbo_polar_link_cli_on_card(preset, bits, dev):
          "2", "--device", str(dev)]), wave.getvalue(), dec, stderr=err) == 0
     got = np.array([int(c) for c in "".join(dec.getvalue().decode().split())])
     assert np.array_equal(got, data) and err.getvalue().count("OK") == 3
+
+
+# ---- the LDPC-coded OFDM link ----
+
+def test_fir_kernel_at_the_preamble_shape(dev):
+    """K4 at 240 taps (its generic route), the OFDM fine timing's shape:
+    the reversed preamble as taps, captures of max_lag + 239 samples."""
+    from modem_tpu_torch import OfdmModem, make_scheme
+    from modem_tpu_torch.ops import fir
+
+    m = OfdmModem(make_scheme("qpsk", Rates(1250, 10000)), device=dev)
+    taps = torch.as_tensor(m._preamble_i[::-1].copy(), device=dev)
+    assert taps.shape[0] == 240 and fir.fir_route(240) == "generic"
+    for shape in ((256, 128 + 239), (3, 64 + 239), (1, 5001)):
+        x = _unit(shape, 11).to(dev)
+        st = torch.zeros(shape[:-1] + (239,), device=dev)
+        got = _launches(fir.FIR_KERNEL, fir.fir_kernel, x, taps, st)
+        torch.testing.assert_close(got, fir.fir_plain(x, taps, st),
+                                   atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(iters=10), dict(iters=10, msg_dtype=torch.bfloat16),
+    dict(iters=10, early_exit=True), dict(iters=10, schedule="flooding")],
+    ids=["layered", "layered-bf16", "early-exit", "flooding"])
+def test_ldpc_decode_on_card_equals_cpu(kw, dev):
+    """``QcLdpc`` on CUDA tensors (PyTorch ops) against the CPU twin on the
+    same LLRs, with pinned ±inf bits: posteriors and decisions bit for
+    bit."""
+    from modem_tpu_torch.fec import QcLdpc
+
+    code = QcLdpc()
+    g = torch.Generator().manual_seed(46)
+    data = torch.randint(0, 2, (256, code.k), generator=g, dtype=torch.int32)
+    cw = code.encode(data)
+    assert torch.equal(code.encode(data.to(dev)).cpu(), cw)
+    sigma2 = 1.0 / (2.0 * 0.5 * 10.0 ** (2.0 / 10.0))
+    y = 1.0 - 2.0 * cw + math.sqrt(sigma2) * torch.randn(cw.shape,
+                                                          generator=g)
+    llr = 2.0 * y / sigma2
+    llr[3, :8] = torch.where(cw[3, :8] == 0, math.inf, -math.inf)
+    want = code.posteriors(llr, **kw)
+    got = code.posteriors(llr.to(dev), **kw)
+    assert not torch.isnan(got).any()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(code.decode(llr.to(dev), **kw).cpu(),
+                       code.decode(llr, **kw))
+    assert torch.equal(code.syndrome_ok(cw.to(dev)).cpu(),
+                       code.syndrome_ok(cw))
+
+
+def test_ofdm_acquire_on_card(dev):
+    """Blind ``OfdmModem.acquire`` on the card (K4 four times, the DFTs in
+    float32 under PyTorch's default of no TF32) against the CPU twin: the
+    located starts and bits equal, the LLRs to 1e-4 of their largest."""
+    from modem_tpu_torch import OfdmModem, make_scheme
+    from modem_tpu_torch.ops import fir
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    r = Rates(1250, 10000)
+    mc = OfdmModem(make_scheme("qpsk", r), device="cpu")
+    md = OfdmModem(make_scheme("qpsk", r), device=dev)
+    g = torch.Generator().manual_seed(47)
+    bits = torch.randint(0, 2, (64, mc.bits_per_frame(8)), generator=g,
+                         dtype=torch.int32)
+    wi, wq = mc.tx_frame(bits)
+    assert all(torch.allclose(a.cpu(), b, atol=ATOL, rtol=0)
+               for a, b in zip(md.tx_frame(bits.to(dev)), (wi, wq)))
+    off = torch.randint(0, 128, (64,), generator=g)
+    n = wi.shape[-1] + 128
+    ci = torch.zeros((64, n))
+    cq = torch.zeros((64, n))
+    rot = torch.polar(torch.ones(wi.shape[-1]),
+                      0.01 * torch.arange(wi.shape[-1]) + 0.5)
+    z = torch.complex(wi, wq) * rot
+    for c in range(64):
+        ci[c, off[c]:off[c] + z.shape[-1]] = z[c].real
+        cq[c, off[c]:off[c] + z.shape[-1]] = z[c].imag
+    ci = ci + 0.03 * torch.randn(ci.shape, generator=g)
+    cq = cq + 0.03 * torch.randn(cq.shape, generator=g)
+    before = fir.FIR_KERNEL.launches
+    got, rep = md.acquire(ci.to(dev), cq.to(dev), 8, 128)
+    torch.cuda.synchronize()
+    assert fir.FIR_KERNEL.launches == before + 4
+    want, wrep = mc.acquire(ci, cq, 8, 128)
+    assert torch.equal(rep["start"].cpu(), off.to(torch.int32))
+    assert torch.equal(rep["start"].cpu(), wrep["start"])
+    assert torch.equal(got.cpu(), want) and torch.equal(want, bits)
+    llr, _ = md.acquire_soft(ci.to(dev), cq.to(dev), 8, 128, noise_var=0.1)
+    wllr, _ = mc.acquire_soft(ci, cq, 8, 128, noise_var=0.1)
+    assert (llr.cpu() - wllr).abs().max() <= 1e-4 * wllr.abs().max()
+
+
+def test_wifi_link_and_burst_receiver_on_card(dev):
+    """``wifi_like_ofdm_link`` on the card at 8 dB: payloads back with every
+    CRC true through ``rx`` and ``rx_fused``, the decode equal to the CPU
+    twin's on the same LLRs; ``burst_ofdm_receiver`` on the card finds a
+    frame in a stream (K4 launched) and it decodes."""
+    from modem_tpu_torch import presets
+    from modem_tpu_torch.ops import fir
+
+    link = presets.wifi_like_ofdm_link(device=dev)
+    g = torch.Generator(device=dev).manual_seed(48)
+    pay = torch.randint(0, 2, (16, link.payload_bits), generator=g,
+                        device=dev, dtype=torch.int32)
+    i, q = link.tx_fused(pay)
+    p = float(torch.mean(i * i + q * q))
+    nv = p / (2.0 * 10.0 ** 0.8)
+    i = i + math.sqrt(nv) * torch.randn(i.shape, generator=g, device=dev)
+    q = q + math.sqrt(nv) * torch.randn(q.shape, generator=g, device=dev)
+    for fn in (link.rx, link.rx_fused):
+        out, ok = fn((i, q), nv)
+        assert torch.equal(out, pay) and bool(ok.all())
+    llr = link.chain.rx_soft((i, q), link.n_symbols, noise_var=nv)
+    cpu = presets.wifi_like_ofdm_link(device="cpu")
+    cout, cok = cpu.decode(llr.cpu())
+    assert torch.equal(cout, out.cpu()) and torch.equal(cok, ok.cpu())
+    rx = presets.burst_ofdm_receiver(device=dev)
+    gap = torch.zeros(500, device=dev)
+    before = fir.FIR_KERNEL.launches
+    frames = rx.push(torch.cat([gap, i[0], gap]), torch.cat([gap, q[0], gap]))
+    frames += rx.flush()
+    assert fir.FIR_KERNEL.launches >= before + 4
+    assert len(frames) == 1 and frames[0][1]["start"] == 500
+
+
+def test_sc_metric_is_zero_over_silence_on_card(dev):
+    """The S&C metric on the card over a capture of loud samples, then
+    quiet noise, then zeros (a flushed stream's padding): every window of
+    zeros scores exactly 0, so no false plateau follows a burst."""
+    from modem_tpu_torch.ops.sync_metric import periodic_similarity
+
+    g = torch.Generator(device=dev).manual_seed(49)
+    i, q = (torch.cat([30.0 * torch.randn(4000, generator=g, device=dev),
+                       0.01 * torch.randn(600, generator=g, device=dev),
+                       torch.zeros(5000, device=dev)]) for _ in range(2))
+    m, _, _ = periodic_similarity(i, q, 16, 64, 9000)
+    assert torch.equal(m[4600:], torch.zeros_like(m[4600:]))
+    assert float(m.max()) <= 1.0 + 1e-5

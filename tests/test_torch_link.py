@@ -1,8 +1,8 @@
 """The coded link in the port (``modem_tpu_torch.link.FramedLink``, the
-``reference``, ``dvb_like``, ``ccsds_deep_space``, ``lte_like_turbo`` and
-``nr_like_control`` presets, the turbo and polar (SC and SCL-8) inner-code
-routes, the ``link`` CLI) against the JAX package on the same numpy
-inputs.
+``reference``, ``dvb_like``, ``ccsds_deep_space``, ``lte_like_turbo``,
+``nr_like_control`` and ``wifi_like_ofdm`` presets, the LDPC, turbo and
+polar (SC and SCL-8) inner-code routes, the ``link`` CLI) against the JAX
+package on the same numpy inputs.
 
 Tolerances: wire bits, payloads, ``ok`` verdicts, the CLI's decoded bytes
 and verdict lines exactly; waveforms ``atol=1e-5`` (the two packages sum
@@ -23,13 +23,14 @@ from modem_tpu import presets as jpresets
 from modem_tpu.cli import link as jcli
 from modem_tpu.fec import PolarCode as JPolar
 from modem_tpu.fec import Puncturer as JPuncturer
+from modem_tpu.fec import QcLdpc as JLdpc
 from modem_tpu.fec import TurboCode as JTurbo
 from modem_tpu.fec import rs_dvb as jrs_dvb
 from modem_tpu.link import FramedLink as JFramedLink
 
 from modem_tpu_torch import presets
 from modem_tpu_torch.cli import link as cli
-from modem_tpu_torch.fec import (PolarCode, Puncturer, TurboCode,
+from modem_tpu_torch.fec import (PolarCode, Puncturer, QcLdpc, TurboCode,
                                  rate23_pattern, rate34_pattern, rs_dvb)
 from modem_tpu_torch.link import FramedLink
 
@@ -273,20 +274,33 @@ def test_payload_length_checked():
 
 @pytest.mark.parametrize("inner", ["ldpc", "polar_list"])
 def test_other_inner_codes_not_ported(inner):
-    """The LDPC inner code is not ported yet; ``polar_list`` without a
-    polar code is refused as the JAX constructor refuses it."""
+    """The LDPC inner code (ported) sizes the link as the JAX one does and
+    refuses a framed block that is not whole codewords with its message;
+    ``polar_list`` without a polar code is refused as the JAX constructor
+    refuses it."""
     chain = presets.qpsk_reference_chain(presets.REFERENCE_RATES, device=CPU)
+    jchain = jpresets.qpsk_reference_chain(jpresets.REFERENCE_RATES)
     if inner == "ldpc":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, S5"):
-            FramedLink(chain, payload_bits=1002, ldpc=8)
+        tl = FramedLink(chain, payload_bits=2 * 324 - 16, ldpc=QcLdpc(),
+                        ldpc_iters=7, ldpc_msg_dtype=torch.bfloat16)
+        jl = JFramedLink(jchain, payload_bits=2 * 324 - 16, ldpc=JLdpc(),
+                         ldpc_iters=7)
+        for attr in ("wire_bits", "n_symbols", "_steps", "conv",
+                     "conv_window", "ldpc_iters", "ldpc_early_exit"):
+            assert getattr(tl, attr) == getattr(jl, attr), attr
+        assert tl.ldpc_msg_dtype == torch.bfloat16
+        with pytest.raises(ValueError) as want:
+            JFramedLink(jchain, payload_bits=1002, ldpc=JLdpc())
+        with pytest.raises(ValueError) as got:
+            FramedLink(chain, payload_bits=1002, ldpc=QcLdpc())
+        assert str(got.value) == str(want.value)
+        assert "LDPC data size 324" in str(got.value)
         return
     msg = "polar_list needs a polar inner code"
     with pytest.raises(ValueError, match=msg):
         FramedLink(chain, payload_bits=1002, polar_list=8)
     with pytest.raises(ValueError, match=msg):
-        JFramedLink(jpresets.qpsk_reference_chain(jpresets.REFERENCE_RATES),
-                    payload_bits=1002, polar_list=8)
+        JFramedLink(jchain, payload_bits=1002, polar_list=8)
 
 
 # ---- the turbo and polar inner codes ----
@@ -426,6 +440,138 @@ def test_fec_constructor_errors_equal(case):
     assert str(got.value) == str(want.value)
 
 
+# ---- the LDPC-coded OFDM link ----
+
+#: SNR per complex sample -> noise seed: the preset's operating point and
+#: one where every frame fails
+WIFI_SNRS = {8.0: 40, -5.0: 41}
+
+
+def _wifi_link(jax_side, early_exit):
+    """``wifi_like_ofdm_link`` with its 20 iterations and the early exit set
+    explicitly (``ROADMAP.md`` queue 3's caveat on the defaults)."""
+    link = (jpresets.wifi_like_ofdm_link(ldpc_iters=20) if jax_side else
+            presets.wifi_like_ofdm_link(ldpc_iters=20, device=CPU))
+    link.ldpc_early_exit = early_exit
+    return link
+
+
+@pytest.fixture(scope="module")
+def wifi_runs():
+    """The JAX wifi link on 2 frames: wire bits, waveform, and at each SNR
+    the noisy waveform, its LLRs and the decode with and without early
+    exit."""
+    jl = _wifi_link(True, True)
+    payload = np.random.default_rng(42).integers(
+        0, 2, (FRAMES, jl.payload_bits)).astype(np.int32)
+    frame = np.asarray(jax.jit(jl.frame)(jnp.asarray(payload)))
+    i, q = (np.asarray(v) for v in jax.jit(jl.tx)(jnp.asarray(payload)))
+    out = dict(payload=payload, frame=frame, wave=(i, q))
+    for snr, seed in WIFI_SNRS.items():
+        ni, nq, nv = _noisy(i, q, snr, seed)
+        llr = np.asarray(jl.chain.rx_soft((jnp.asarray(ni), jnp.asarray(nq)),
+                                          jl.n_symbols, noise_var=nv))
+        dec = {}
+        for ee in (False, True):
+            jl.ldpc_early_exit = ee
+            o, ok = jax.jit(jl.decode)(jnp.asarray(llr))
+            dec[ee] = (np.asarray(o), np.asarray(ok))
+        out[snr] = dict(noisy=(ni, nq), nv=nv, llr=llr, dec=dec)
+    return out
+
+
+def test_wifi_geometry_equal():
+    jl, tl = _wifi_link(True, True), _wifi_link(False, True)
+    for attr in ("payload_bits", "wire_bits", "n_symbols", "_steps", "rows",
+                 "ldpc_iters", "conv_window"):
+        assert getattr(tl, attr) == getattr(jl, attr), attr
+    assert (tl.payload_bits, tl.n_symbols, tl.wire_bits) == (2576, 54, 5184)
+    tl.ldpc.check_tables(QcLdpc.tables_of(jl.ldpc))
+    assert presets.wifi_like_ofdm_link(device=CPU).ldpc_early_exit
+
+
+def test_wifi_frame_and_waveform_equal(wifi_runs):
+    run, tl = wifi_runs, _wifi_link(False, True)
+    _eq(tl.frame(_t(run["payload"])), run["frame"])
+    for fn in (tl.tx, tl.tx_fused):
+        for got, want in zip(fn(_t(run["payload"])), run["wave"]):
+            np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["fixed", "early_exit"])
+@pytest.mark.parametrize("snr", list(WIFI_SNRS))
+def test_wifi_payload_and_ok_equal(wifi_runs, snr, early_exit):
+    """One shared noisy waveform through both packages' RX (the port's
+    staged and fused routes: the OFDM chain has no fused forms), and the
+    JAX LLRs through the port's decode: payloads and verdicts equal; every
+    frame back with its CRC true at 8 dB, every CRC false at -5 dB."""
+    run, tl = wifi_runs[snr], _wifi_link(False, early_exit)
+    want_out, want_ok = run["dec"][early_exit]
+    wave = tuple(_t(r) for r in run["noisy"])
+    for fn in (tl.rx, tl.rx_fused):
+        out, ok = fn(wave, run["nv"])
+        _eq(out, want_out)
+        _eq(ok, want_ok)
+    out, ok = tl.decode(_t(run["llr"]))
+    _eq(out, want_out)
+    _eq(ok, want_ok)
+    if snr > 0:
+        assert ok.all() and np.array_equal(out.numpy(), wifi_runs["payload"])
+    else:
+        assert not ok.any()
+
+
+def test_wifi_cli_equal_jax(wifi_runs):
+    """``link tx`` and ``link rx --preset wifi_like_ofdm`` against the JAX
+    CLI: the waveform bytes to f32 tolerance, and on the same noisy
+    waveform the same decoded bytes and verdict lines."""
+    payload = wifi_runs["payload"]
+    text = "".join("01"[b] for b in payload.reshape(-1)).encode()
+    argv = ["tx", "--preset", "wifi_like_ofdm", "--batch-frames", "2"]
+    jrc, jout, jerr = _cli(jcli, argv, text)
+    rc, out, err = _cli(cli, argv, text)
+    assert rc == jrc == 0 and err == jerr
+    got, want = np.frombuffer(out, "<f4"), np.frombuffer(jout, "<f4")
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    run = wifi_runs[8.0]
+    noisy = np.stack(run["noisy"], -1).astype("<f4").tobytes()
+    argv = ["rx", "--preset", "wifi_like_ofdm", "--noise-var",
+            f"{run['nv']:.6f}", "--batch-frames", "2"]
+    jrc, jout, jerr = _cli(jcli, argv, noisy)
+    rc, out, err = _cli(cli, argv, noisy)
+    assert rc == jrc == 0 and out == jout and err == jerr
+    assert err.count("frame: OK") == FRAMES
+    got = np.array([int(c) for c in "".join(out.decode().split())])
+    assert np.array_equal(got, payload.reshape(-1))
+
+
+def test_burst_receiver_decodes_a_wifi_frame():
+    """A ``wifi_like_ofdm_link`` frame at an unknown offset in a noisy
+    stream: ``burst_ofdm_receiver`` finds it, and the link decodes its
+    payload with a true CRC."""
+    tl = presets.wifi_like_ofdm_link(device=CPU)
+    rx = presets.burst_ofdm_receiver(device=CPU)
+    rng = np.random.default_rng(43)
+    payload = _t(rng.integers(0, 2, (1, tl.payload_bits)).astype(np.int32))
+    i, q = (w[0].numpy() for w in tl.tx(payload))
+    gap = (0.02 * rng.standard_normal((2, 333))).astype(np.float32)
+    si = np.concatenate([gap[0], 0.8 * i, gap[1]])
+    sq = np.concatenate([gap[1], 0.8 * q, gap[0]])
+    si = si + (0.05 * rng.standard_normal(si.size)).astype(np.float32)
+    sq = sq + (0.05 * rng.standard_normal(sq.size)).astype(np.float32)
+    frames = rx.push(si[:1000], sq[:1000]) + rx.push(si[1000:], sq[1000:])
+    frames += rx.flush()
+    assert len(frames) == 1 and frames[0][1]["start"] == 333
+    m = tl.chain.modem
+    start = frames[0][1]["start"]
+    fi = _t(si[start:start + m.frame_len(tl.n_symbols)])[None]
+    fq = _t(sq[start:start + m.frame_len(tl.n_symbols)])[None]
+    out, ok = tl.rx((fi, fq), 0.05)
+    assert bool(ok.all()) and torch.equal(out, payload)
+
+
 # ---- presets ----
 
 def test_reference_rates_and_gmsk_preset_equal():
@@ -446,7 +592,8 @@ def test_presets_default_to_the_card():
         pytest.skip("a CUDA device is present")
     for make in (presets.reference_link, presets.dvb_like_link,
                  presets.ccsds_deep_space_link, presets.gsm_like_gmsk,
-                 presets.lte_like_turbo_link, presets.nr_like_control_link):
+                 presets.lte_like_turbo_link, presets.nr_like_control_link,
+                 presets.wifi_like_ofdm_link, presets.burst_ofdm_receiver):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert cli.build_parser().parse_args(
@@ -515,19 +662,22 @@ def test_cli_rx_flags_a_corrupted_frame(cli_runs):
     assert len(out.split()) == 3
 
 
-@pytest.mark.parametrize("preset", cli.NOT_PORTED)
+@pytest.mark.parametrize("preset", ["wifi_like_ofdm"])
 def test_cli_refuses_presets_not_ported(preset):
-    rc, out, err = _cli(cli, ["tx", "--preset", preset], b"0101")
-    assert rc == 2 and not out
-    assert "not ported yet" in err and preset in err
+    """Every preset of the JAX command is ported, the last refused one
+    included: it runs; a name the JAX command lacks is refused."""
+    rc, out, err = _cli(cli, ["tx", "--preset", preset], b"01" * 1288)
+    assert rc == 0 and len(out) == 4560 * 2 * 4 and not err
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["tx", "--preset", "mimo_ofdm"])
 
 
 def test_cli_presets_are_the_ported_ones():
     assert sorted(cli.PRESETS) == ["ccsds_deep_space", "dvb_like",
                                    "lte_like_turbo", "nr_like_control",
-                                   "reference"]
-    assert cli.NOT_PORTED == ("wifi_like_ofdm",)
-    assert set(cli.PRESETS) | set(cli.NOT_PORTED) == set(jcli.PRESETS)
+                                   "reference", "wifi_like_ofdm"]
+    assert not hasattr(cli, "NOT_PORTED")
+    assert set(cli.PRESETS) == set(jcli.PRESETS)
 
 
 @pytest.mark.parametrize("preset,snr", [("lte_like_turbo", -6.0),

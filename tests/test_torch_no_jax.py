@@ -57,9 +57,10 @@ def test_every_module_listed():
               "fec.rs", "fec.scramble", "ops.viterbi_kernel", "link",
               "presets", "cli.link", "utils.cache", "harness", "checkpoint",
               "metrics", "ops.channel", "fec.turbo", "fec.polar",
-              "ops.bcjr_kernel", "ops.sc_kernel", "ops.scl_kernel"):
+              "ops.bcjr_kernel", "ops.sc_kernel", "ops.scl_kernel",
+              "fec.ldpc", "ops.sync_metric", "ofdm"):
         assert f"modem_tpu_torch.{m}" in MODULES, m
-    assert len(MODULES) >= 58
+    assert len(MODULES) >= 61
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
