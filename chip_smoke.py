@@ -302,9 +302,51 @@ frames):
     codewords, 20 layered iterations), ``OfdmModem.acquire`` and one
     ``OfdmStreamReceiver.push``.
 
+Blind single-carrier burst acquisition (``AcquiringReceiver`` over the
+flagship chain at ``bench_sync.py``'s block: 64 channels x 512 payload
+symbols, the 32-symbol preamble, max_lag 160) and BCH at
+``bench_fec.py:358-376``'s 2048 codewords:
+
+41. K4 at the acquisition's tap counts, its generic route: the mild
+    multipath channel's 4 taps, the 3-ray channel's 13 and
+    ``apply_static_delay``'s 63, against the plain version at the
+    capture's shape (64 x 4416), at 3 x 5000 with carried state and on rows
+    of 1, 5 and 5001 samples, unit-scale inputs, max |error| <= 1e-5;
+    ragged pushes equal one shot exactly;
+42. ``tx_burst`` (K4 at 65 taps), bench_sync's impairment stack (a delay
+    of 0.37: K4 at 63 taps; 9 Hz with phase 1.3, gain 0.8, AWGN at 30 dB
+    from a ``torch.Generator``) and ``rx`` (K4 at 65 taps), each with the
+    launch counts set to 0 just before and read just after: every payload
+    bit right; ``acquire`` on the card against the CPU twin on the same
+    capture (lag equal, timing within 1e-3 samples circular, CFO within
+    1e-5 rad/symbol, phase within 1e-4, gain within 1e-4 relative, the
+    payload points within 1e-4); the mild multipath (K4 at 4 taps), the
+    3-ray channel at 35 dB with ``eq_taps=7, track_block=16`` (K4 at 13
+    taps) and ``track_block=16, track_order=2`` under a 6 Hz residual CFO:
+    every bit right;
+43. ``sfo_track(block_len=4096, max_delay=32)`` on a 300 ppm capture of a
+    4096-symbol payload (gain 0.8, phase 0.4, 30 dB) at 64 channels, then
+    ``rx``: every bit right where the one-shot receiver fails, the block
+    timings within 1e-3 of the CPU twin's; ``phase_track`` at 8e-4
+    rad/symbol; ``Agc.process`` in 4 ragged pushes equal to one shot;
+44. ``bch_255_191`` and ``bch_255_239``: ``encode``, then ``decode`` with
+    4 (2) errors a codeword, every message right and every ``ok`` true;
+    with t + 1 errors the card decodes as the CPU twin bit for bit;
+    BCH(255, 191) over the flagship chain at -2 dB: every codeword within t
+    raw errors decoded with ``ok``, all of it equal to the CPU twin;
+45. times: K4 at 4, 13 and 63 taps at the capture's shape (and at 65, the
+    matched filter's, at 64 x 4505) per call beside its plain version, the
+    profiler's device time, the bound and its ``conv1d`` yardstick (per
+    call and its device time); wall time, device busy time, idle share and CUDA
+    launches per call of ``AcquiringReceiver.rx`` at 64 and 256 channels,
+    ``acquire`` with ``eq_taps=7, track_block=16``, ``sfo_track`` on the
+    4096-symbol capture, and ``Bch.encode`` and ``decode`` (Mbit/s of info
+    bits) at 2048 codewords.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass, the chain's 65-tap RRC, each other count of
-phase 7 and the OFDM preamble's 240 taps, K5 with and without its carrier table; K6
+phase 7, the OFDM preamble's 240 taps and the acquisition's 4, 13 and 63,
+K5 with and without its carrier table; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11 and K12 hard on
@@ -543,6 +585,25 @@ BURST_CHUNK = 3000
 WIFI_FRAMES = 256
 WIFI_SNR_DB = 8.0
 WIFI_CLI_FRAMES = 4
+# blind single-carrier burst acquisition at bench_sync.py:42-50,63-68's block
+# (64 channels x 512 payload symbols, the 32-symbol preamble, max_lag 160,
+# a delay of 0.37, 9 Hz with phase 1.3, gain 0.8, 30 dB) and BCH at
+# bench_fec.py:358-376's 2048 codewords with 4 errors each
+ACQ_CHANNELS, ACQ_PAYLOAD, ACQ_WIDE = 64, 512, 256
+ACQ_PRE = (0, 1, 3, 2, 2, 0, 1, 1, 3, 0, 2, 3, 0, 0, 1, 2,
+           3, 3, 1, 0, 2, 1, 0, 2, 1, 3, 2, 2, 0, 3, 1, 0)
+ACQ_MAX_LAG = 160
+ACQ_MU, ACQ_CFO_HZ, ACQ_PHASE, ACQ_GAIN, ACQ_SNR_DB = 0.37, 9.0, 1.3, 0.8, 30.0
+#: the multipath channels of tests/test_sync.py:191-192 (4 taps) and
+#: :214-215 (13 taps): K4's generic route, with apply_static_delay's 63
+ACQ_MILD = ((1.0, 0.0, 0.0, 0.1), (0.0, 0.0, 0.0, 0.05))
+ACQ_3RAY = ((1, 0, 0, 0, 0.3, 0, 0, 0, 0, 0, 0, 0, 0.45),
+            (0, 0, 0, 0, -0.2, 0, 0, 0, 0, 0, 0, 0, 0.25))
+ACQ_FIR_TAPS = (4, 13, 63)
+ACQ_ATOL_POINTS = 1e-4           # the card's payload points against the CPU's
+SFO_PAYLOAD, SFO_PPM = 4096, 300.0
+BCH_CW, BCH_ERRS = 2048, 4
+BCH_CHAIN_SNR_DB = -2.0
 # the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -3989,9 +4050,9 @@ def ldpc_llrs(code, n_cw: int, eb_n0_db: float, device, seed: int):
 
 
 def cuda_launches(fn, args, device) -> int:
-    """CUDA kernels (and copies) one call of ``fn`` runs, by the profiler
-    (profiled again, up to three times, where a profile lost every
-    record)."""
+    """CUDA kernels (and copies) one call of ``fn`` runs, by the profiler:
+    the most of three profiles of one call each (a profile now and then
+    loses records)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4000,10 +4061,8 @@ def cuda_launches(fn, args, device) -> int:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn(*args)
             torch.cuda.synchronize(device)
-        n = sum(e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-        if n:
-            break
+        n = max(n, sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA))
     return n
 
 
@@ -4297,6 +4356,436 @@ def phase_wifi_times(device, card: str) -> dict:
     return times
 
 
+# ---- blind single-carrier burst acquisition and BCH ----
+
+def acq_taps(device) -> dict:
+    """K4's taps on the acquisition path by count: the mild multipath
+    channel's 4 (its real rail), the 3-ray channel's 13 and
+    ``apply_static_delay``'s windowed sinc of 63 at mu 0.37."""
+    from modem_tpu_torch.ops.impairments import sinc_delay_taps
+
+    return {4: torch.tensor(ACQ_MILD[0], device=device),
+            13: torch.tensor(ACQ_3RAY[0], dtype=torch.float32, device=device),
+            63: torch.as_tensor(sinc_delay_taps(ACQ_MU), device=device)}
+
+
+def burst_len(n_payload: int) -> int:
+    """Samples of a burst of ``n_payload`` symbols from ``tx_burst``: the
+    preamble, the payload and the chain's 8 flush symbols at sps 8."""
+    return (len(ACQ_PRE) + n_payload + 8) * 8
+
+
+def phase_acq_fir(device) -> dict:
+    """Phase 41: K4 at the acquisition's tap counts (4, 13 and 63: the
+    generic route, each ending in a partial chunk of 16 taps) against its
+    plain version, unit-scale inputs: at the capture's shape (64 channels x
+    the burst), at a small shape with carried state and on rows of 1, 5
+    and 5001 samples; ragged pushes equal one shot. Returns the max
+    |error| of each."""
+    from modem_tpu_torch.ops import fir
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 110)
+    errs = {}
+    for k, taps in acq_taps(device).items():
+        name = fir_name(k)
+        if fir.fir_route(k) != "generic":
+            fail(f"{name}: route {fir.fir_route(k)}, not the generic one")
+        for shape in ((ACQ_CHANNELS, burst_len(ACQ_PAYLOAD)), (3, 5000),
+                      *FIR_ROWS):
+            args = fir_case(taps, shape, gen, device)
+            got, want = fir.fir_kernel(*args), fir.fir_plain(*args)
+            torch.cuda.synchronize(device)
+            err = max_err(got, want)
+            print(f"[acq fir] {name} ({k} taps, generic) {shape[0]:3d} ch x "
+                  f"{shape[1]:5d} samples: max |kernel - plain| = "
+                  f"{err:.3e} (tol {ATOL})", flush=True)
+            if err > ATOL:
+                fail(f"{name} at {shape}: kernel vs plain max |err| {err}")
+            errs[name] = max(errs.get(name, 0.0), err)
+        x = unit((4, FIR_PUSHES[-1]), gen, device)
+        state, parts = None, []
+        for a, b in zip(FIR_PUSHES[:-1], FIR_PUSHES[1:]):
+            y, state = fir.fir_filter(x[:, a:b], taps, state)
+            parts.append(y)
+        torch.cuda.synchronize(device)
+        if not torch.equal(torch.cat(parts, -1), fir.fir_filter(x, taps)[0]):
+            fail(f"{name} in {len(parts)} pushes differs from one shot")
+        print(f"[acq fir] {name} in {len(parts)} ragged pushes == one shot "
+              "(exact)", flush=True)
+    return errs
+
+
+def acq_receiver(device, **kw):
+    from modem_tpu_torch import AcquiringReceiver, Rates, qpsk_reference_chain
+
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=device)
+    return AcquiringReceiver(chain, list(ACQ_PRE), max_lag=ACQ_MAX_LAG, **kw)
+
+
+def acq_bits(channels: int, n_payload: int, g, device) -> torch.Tensor:
+    return torch.randint(0, 2, (channels, 2 * n_payload), generator=g,
+                         device=device, dtype=torch.int32)
+
+
+def acq_capture(rxr, channels: int, n_payload: int, device, seed: int):
+    """``(bits, i, q)``: a burst through bench_sync's impairment stack (a
+    static delay of 0.37, 9 Hz with phase 1.3, gain 0.8, AWGN at 30 dB)."""
+    from modem_tpu_torch.ops import impairments as imp
+    from modem_tpu_torch.ops.channel import awgn
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    bits = acq_bits(channels, n_payload, g, device)
+    i, q = imp.apply_static_delay(*rxr.tx_burst(bits), ACQ_MU)
+    i, q = imp.apply_cfo(i, q, ACQ_CFO_HZ, 10000, phase0=ACQ_PHASE)
+    i, q = imp.apply_gain_phase(i, q, gain=ACQ_GAIN)
+    i, q = awgn(g, i, q, ACQ_SNR_DB)
+    return bits, i, q
+
+
+def bit_errors(got, want) -> int:
+    if got.shape != want.shape:
+        fail(f"bits of shape {tuple(got.shape)}, sent {tuple(want.shape)}")
+    return int((got != want).sum())
+
+
+def circ_max(a, b, period: float) -> float:
+    d = torch.remainder(a.double() - b.double(), period)
+    return float(torch.minimum(d, period - d).max())
+
+
+def phase_acquire(device) -> dict:
+    """Phase 42: ``AcquiringReceiver`` at bench_sync's block (64 channels x
+    512 payload symbols): ``tx_burst`` (K4 at 65 taps), the impairment stack
+    (K4 at 63), ``rx`` (K4 at 65): every payload bit right, each step's K4
+    launches counted from 0; ``acquire`` held against the CPU twin on the
+    same capture; the options through the channels of tests/test_sync.py
+    and test_agc_track.py. Returns the launches of K4's new counts."""
+    from modem_tpu_torch.ops import fir, impairments as imp
+    from modem_tpu_torch.ops.channel import awgn
+
+    rxr = acq_receiver(device)
+    g = torch.Generator(device=device).manual_seed(SEED + 111)
+    bits = acq_bits(ACQ_CHANNELS, ACQ_PAYLOAD, g, device)
+    counts = {}
+
+    def count(what, fn, *args):
+        reset_launches()
+        out = fn(*args)
+        counts.update(read_launches({what: fir.FIR_KERNEL}, what, "acq"))
+        return out
+
+    wave = count("tx_burst (65 taps)", rxr.tx_burst, bits)
+    i, q = count("fir_filter_63", imp.apply_static_delay, *wave, ACQ_MU)
+    i, q = imp.apply_cfo(i, q, ACQ_CFO_HZ, 10000, phase0=ACQ_PHASE)
+    i, q = imp.apply_gain_phase(i, q, gain=ACQ_GAIN)
+    i, q = awgn(g, i, q, ACQ_SNR_DB)
+    out = count("rx (65 taps)", rxr.rx, i, q, ACQ_PAYLOAD)
+    errs = bit_errors(out, bits)
+    print(f"[acq] rx at {ACQ_CHANNELS} ch x {ACQ_PAYLOAD} payload symbols "
+          f"through delay {ACQ_MU}, {ACQ_CFO_HZ} Hz, phase {ACQ_PHASE}, gain "
+          f"{ACQ_GAIN}, {ACQ_SNR_DB} dB: {errs} bit errors of {bits.numel()}",
+          flush=True)
+    if errs:
+        fail("AcquiringReceiver.rx: payload bits wrong")
+    if counts["tx_burst (65 taps)"] != 2 or counts["rx (65 taps)"] != 2:
+        fail(f"K4 at 65 taps: {counts}, not 2 and 2")
+
+    (pi_, pq_), rep = rxr.acquire(i, q, ACQ_PAYLOAD)
+    cpu = acq_receiver(torch.device("cpu"))
+    (wi, wq), want = cpu.acquire(i.cpu(), q.cpu(), ACQ_PAYLOAD)
+    diffs = {
+        "timing": circ_max(rep["timing"].cpu(), want["timing"], 8.0),
+        "cfo_rad_per_symbol": float((rep["cfo_rad_per_symbol"].cpu()
+                                     - want["cfo_rad_per_symbol"]).abs()
+                                    .max()),
+        "phase": float((rep["phase"].cpu() - want["phase"]).abs().max()),
+        "gain": float(((rep["gain"].cpu() - want["gain"]) / want["gain"])
+                      .abs().max()),
+        "points": max_err((pi_.cpu(), pq_.cpu()), (wi, wq))}
+    bars = {"timing": 1e-3, "cfo_rad_per_symbol": 1e-5, "phase": 1e-4,
+            "gain": 1e-4, "points": ACQ_ATOL_POINTS}
+    lag_ok = torch.equal(rep["lag"].cpu(), want["lag"])
+    print(f"[acq] acquire on the card vs the CPU twin: lag "
+          f"{'equal' if lag_ok else 'DIFFERENT'}; max differences "
+          f"{json.dumps(diffs)} (bars {json.dumps(bars)}); CFO mean "
+          f"{float(rep['cfo_rad_per_symbol'].mean()):.6f} rad/symbol (sent "
+          f"{2 * math.pi * ACQ_CFO_HZ * 8 / 10000:.6f}), gain mean "
+          f"{float(rep['gain'].mean()):.5f}", flush=True)
+    if not lag_ok or any(diffs[k] > bars[k] for k in bars):
+        fail("AcquiringReceiver.acquire: the card differs from the CPU")
+
+    launches = {"fir_filter_63": counts["fir_filter_63"]}
+    cases = (
+        ("mild multipath (4 taps)", "fir_filter_4", {}, ACQ_MILD, None, 256),
+        ("eq_taps=7, track_block=16, 3-ray (13 taps), 35 dB",
+         "fir_filter_13", {"eq_taps": 7, "track_block": 16}, ACQ_3RAY, 35.0,
+         256),
+        ("track_block=16, track_order=2, 6 Hz residual CFO", None,
+         {"track_block": 16, "track_order": 2}, None, None, 512))
+    for label, entry, kw, channel, snr, n_pay in cases:
+        r = acq_receiver(device, **kw)
+        b = acq_bits(ACQ_CHANNELS, n_pay, g, device)
+        i, q = r.tx_burst(b)
+        if channel is None:
+            i, q = imp.apply_cfo(i, q, 6.0, 10000, phase0=0.7)
+        else:
+            taps = [torch.tensor(t, dtype=torch.float32, device=device)
+                    for t in channel]
+            i, q = count(entry, imp.multipath_fir, i, q, *taps)
+            launches[entry] = counts[entry]
+        if snr is not None:
+            i, q = awgn(g, i, q, snr)
+        errs = bit_errors(r.rx(i, q, n_pay), b)
+        print(f"[acq] {label}: {ACQ_CHANNELS} ch x {n_pay} payload symbols, "
+              f"{errs} bit errors", flush=True)
+        if errs:
+            fail(f"AcquiringReceiver ({label}): payload bits wrong")
+    return launches
+
+
+def slow_clock(x: torch.Tensor, ppm: float) -> torch.Tensor:
+    """A slow receive clock: ``x(n / (1 + ppm*1e-6))`` by linear
+    interpolation, the last sample held (as ``np.interp``)."""
+    n = x.shape[-1]
+    t = torch.arange(n, dtype=torch.float64, device=x.device) / (
+        1.0 + ppm * 1e-6)
+    i0 = torch.clamp(t.floor().long(), max=n - 1)
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    f = (t - i0).to(x.dtype)
+    return x[..., i0] * (1.0 - f) + x[..., i1] * f
+
+
+def sfo_capture(device, seed: int):
+    """The 300 ppm capture of tests/test_sfo_track.py:84-100 at 64
+    channels: a 4096-symbol payload, gain 0.8, phase 0.4, AWGN at 30 dB.
+    Returns ``(receiver, bits, i, q)``."""
+    from modem_tpu_torch.ops import impairments as imp
+    from modem_tpu_torch.ops.channel import awgn
+
+    rxr = acq_receiver(device, track_block=32, track_order=2)
+    g = torch.Generator(device=device).manual_seed(seed)
+    bits = acq_bits(ACQ_CHANNELS, SFO_PAYLOAD, g, device)
+    i, q = (slow_clock(v, SFO_PPM) for v in rxr.tx_burst(bits))
+    i, q = imp.apply_gain_phase(i, q, gain=0.8, phase=0.4)
+    i, q = awgn(g, i, q, 30.0)
+    return rxr, bits, i, q
+
+
+def phase_long_streams(device) -> None:
+    """Phase 43: ``sfo_track(block_len=4096, max_delay=32)`` on the 300 ppm
+    capture then ``rx``: every bit right where the one-shot receiver fails;
+    ``phase_track`` on a residual CFO; ``Agc.process`` in ragged pushes
+    equal to one shot."""
+    from modem_tpu_torch import sync
+    from modem_tpu_torch.ops.agc import Agc
+
+    rxr, bits, i, q = sfo_capture(device, SEED + 112)
+    direct = bit_errors(rxr.rx(i, q, SFO_PAYLOAD), bits)
+    ci, cq, rep = sync.sfo_track(i, q, 8, SFO_PAYLOAD, max_delay=32)
+    errs = bit_errors(rxr.rx(ci, cq, SFO_PAYLOAD), bits)
+    ppm = rep["sfo_ppm"]
+    _, _, want = sync.sfo_track(i.cpu(), q.cpu(), 8, SFO_PAYLOAD,
+                                max_delay=32)
+    t0_diff = float((rep["t0_blocks"].cpu() - want["t0_blocks"]).abs().max())
+    print(f"[long] sfo_track at {SFO_PPM} ppm, {ACQ_CHANNELS} ch x "
+          f"{SFO_PAYLOAD} payload symbols: SFO estimate {float(ppm.min()):.2f}"
+          f"-{float(ppm.max()):.2f} ppm, clipped {int(rep['clipped'].sum())}; "
+          f"t0_blocks vs the CPU twin max |diff| {t0_diff:.2e} (bar 1e-3); "
+          f"one-shot rx {direct} bit errors, after sfo_track {errs}",
+          flush=True)
+    if errs or direct <= 100 or t0_diff > 1e-3 or bool(rep["clipped"].any()):
+        fail("sfo_track: the long stream is not rescued as it should be")
+
+    g = torch.Generator(device=device).manual_seed(SEED + 113)
+    n, slope = 8192, 8e-4
+    k = torch.randint(0, 4, (ACQ_CHANNELS, n), generator=g, device=device)
+    ang = (math.pi / 4 + k * (math.pi / 2) + 0.9
+           + slope * torch.arange(n, device=device))
+    di = torch.cos(ang) + 0.02 * torch.randn(ang.shape, generator=g,
+                                             device=device)
+    dq = torch.sin(ang) + 0.02 * torch.randn(ang.shape, generator=g,
+                                             device=device)
+    ci, cq, rep = sync.phase_track(di, dq, 4, 256)
+    _, _, want = sync.phase_track(di.cpu(), dq.cpu(), 4, 256)
+    est = rep["cfo_rad_per_sym"]
+    diff = float((est.cpu() - want["cfo_rad_per_sym"]).abs().max())
+    pb_diff = float((rep["phase_blocks"].cpu() - want["phase_blocks"]).abs()
+                    .max())
+    resid = torch.atan2(cq, ci) - (math.pi / 4 + k * (math.pi / 2))
+    spread = float(torch.remainder(resid - resid[:, :1] + math.pi / 4,
+                                   math.pi / 2).std(dim=-1).max())
+    print(f"[long] phase_track at {slope} rad/symbol, {ACQ_CHANNELS} ch x "
+          f"{n}: estimate {float(est.min()):.3e}-{float(est.max()):.3e}, vs "
+          f"the CPU twin max |diff| {diff:.2e} (bar 1e-5), phase_blocks "
+          f"{pb_diff:.2e} (bar 1e-4); residual spread {spread:.4f} rad",
+          flush=True)
+    if float((est - slope).abs().max()) > 5e-6 or diff > 1e-5 or \
+            pb_diff > 1e-4 or spread > 0.05:
+        fail("phase_track: residual CFO not removed")
+
+    agc = Agc(loop_gain=0.2, sub_block=64)
+    x = 0.1 * torch.randn((2, ACQ_CHANNELS, 64 * 60), generator=g,
+                          device=device)
+    (yi, yq), st = agc.process(x[0], x[1], agc.init_state((ACQ_CHANNELS,),
+                                                          device))
+    s2, parts = agc.init_state((ACQ_CHANNELS,), device), []
+    for a, b in ((0, 64), (64, 64 * 9), (64 * 9, 64 * 10), (64 * 10, 64 * 60)):
+        (pi_, pq_), s2 = agc.process(x[0][:, a:b], x[1][:, a:b], s2)
+        parts.append((pi_, pq_))
+    same = (torch.equal(torch.cat([p[0] for p in parts], -1), yi)
+            and torch.equal(torch.cat([p[1] for p in parts], -1), yq)
+            and torch.equal(s2, st))
+    rms = (yi[:, -1024:] ** 2 + yq[:, -1024:] ** 2).mean(-1).sqrt()
+    print(f"[long] Agc.process at {ACQ_CHANNELS} ch x {64 * 60}, 20 dB low: "
+          f"4 ragged pushes {'== one shot' if same else 'DIFFER'}; tail RMS "
+          f"{float(rms.min()):.4f}-{float(rms.max()):.4f}", flush=True)
+    if not same or float((rms - 1.0).abs().max()) > 0.05:
+        fail("Agc.process: pushes differ from one shot or no convergence")
+
+
+def bch_words(code, n_err: int, g, device):
+    """``(data, codewords, received)``: ``BCH_CW`` random messages encoded,
+    ``n_err`` distinct bits of each codeword flipped."""
+    data = torch.randint(0, 2, (BCH_CW, code.k), generator=g, device=device,
+                         dtype=torch.int32)
+    cw = code.encode(data)
+    pos = torch.argsort(torch.rand(cw.shape, generator=g, device=device),
+                        dim=-1)[:, :n_err]
+    flips = torch.zeros_like(cw).scatter_(1, pos, 1)
+    return data, cw, cw ^ flips
+
+
+def phase_bch(device) -> None:
+    """Phase 44: ``bch_255_191`` and ``bch_255_239`` at 2048 codewords:
+    up to t errors every message right and every ``ok`` true; t + 1 errors
+    decoded on the card exactly as the CPU twin decodes them; BCH(255, 191)
+    over the flagship chain at -2 dB: every codeword within t raw errors
+    decoded, the rest as the CPU twin decides them."""
+    from modem_tpu_torch import Rates, qpsk_reference_chain
+    from modem_tpu_torch.fec import bch_255_191, bch_255_239
+    from modem_tpu_torch.ops.channel import awgn
+
+    g = torch.Generator(device=device).manual_seed(SEED + 114)
+    for code, n_err in ((bch_255_191(), BCH_ERRS), (bch_255_239(), 2)):
+        for e in (n_err, code.t + 1):
+            data, cw, recv = bch_words(code, e, g, device)
+            msg, ok = code.decode(recv)
+            cmsg, cok = code.decode(recv.cpu())
+            twin = torch.equal(msg.cpu(), cmsg) and torch.equal(ok.cpu(), cok)
+            right = int((msg == data).all(dim=-1).sum())
+            print(f"[bch] BCH(255, {code.k}) t={code.t}, {BCH_CW} codewords "
+                  f"with {e} errors: {right} messages right, {int(ok.sum())} "
+                  f"ok; card {'==' if twin else '!='} CPU twin bit for bit",
+                  flush=True)
+            if not twin or (e <= code.t and (right, int(ok.sum()))
+                            != (BCH_CW, BCH_CW)):
+                fail(f"BCH(255, {code.k}) with {e} errors")
+
+    code = bch_255_191()
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=device)
+    data = torch.randint(0, 2, (BCH_CW, code.k), generator=g, device=device,
+                         dtype=torch.int32)
+    cw = code.encode(data)
+    i, q = chain.tx(torch.cat([cw, torch.zeros_like(cw[:, :1])], -1))
+    i, q = awgn(g, i, q, BCH_CHAIN_SNR_DB)
+    hard = chain.rx((i, q), 128)[:, :code.n]
+    raw = (hard != cw).sum(-1)
+    msg, ok = code.decode(hard)
+    cmsg, cok = code.decode(hard.cpu())
+    within = raw <= code.t
+    good = (msg == data).all(-1) & ok
+    print(f"[bch] BCH(255, 191) over the flagship chain at "
+          f"{BCH_CHAIN_SNR_DB} dB, {BCH_CW} codewords: {int(raw.sum())} raw "
+          f"bit errors (max {int(raw.max())} in a codeword; "
+          f"{int((~within).sum())} codewords past t); {int(good.sum())} "
+          f"decoded exactly with ok, {int(good[within].sum())} of the "
+          f"{int(within.sum())} within t; card == CPU twin: "
+          f"{torch.equal(msg.cpu(), cmsg) and torch.equal(ok.cpu(), cok)}",
+          flush=True)
+    if not bool(good[within].all()) or not (
+            torch.equal(msg.cpu(), cmsg) and torch.equal(ok.cpu(), cok)):
+        fail("BCH(255, 191) over the flagship chain")
+
+
+def phase_acq_times(device, card: str) -> dict:
+    """Phase 45: K4 at 4, 13 and 63 taps per call at the capture's shape
+    beside its plain version, the profiler's device time, the bound and
+    ``conv1d``; wall time, device busy time, idle share and CUDA launches
+    per call of ``AcquiringReceiver.rx`` (64 and 256 channels x 512 payload
+    symbols), ``acquire`` with ``eq_taps=7, track_block=16``, ``sfo_track``
+    on the 4096-symbol capture, and ``Bch.encode`` and ``decode`` at 2048
+    codewords."""
+    import torch.nn.functional as F
+    from modem_tpu_torch import sync
+    from modem_tpu_torch.fec import bch_255_191
+    from modem_tpu_torch.ops import fir
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 115)
+    times = {}
+    rxr = acq_receiver(device)
+    filters = acq_taps(device)
+    filters[65] = rxr.chain.rrc
+    for k, taps in filters.items():
+        # the matched filter's input is the capture padded to acquire's
+        # last candidate decision instant
+        n = burst_len(ACQ_PAYLOAD) if k != 65 else (
+            ACQ_MAX_LAG + (len(ACQ_PRE) + ACQ_PAYLOAD - 1) * 8 + 1)
+        name = fir_name(k)
+        args = fir_case(taps, (ACQ_CHANNELS, n), gen, device)
+        x, t, state = args
+        xp = torch.cat([state, x], dim=-1).unsqueeze(1)
+        w = t.flip(0).reshape(1, 1, k)
+        lib_err = max_err(F.conv1d(xp, w).squeeze(1), fir.fir_kernel(*args))
+        if lib_err > 1e-3:
+            fail(f"conv1d yardstick disagrees with K4 at {k} taps")
+        ms, plain_ms, dev_ms = kernel_times(fir.fir_kernel, fir.fir_plain,
+                                            args, device, fir_symbol(k))
+        if dev_ms is None:
+            fail(f"K4 at {k} taps: no {fir_symbol(k)} in the profile")
+        lib_ms = time_calls(F.conv1d, (xp, w), device)
+        lib_dev = device_busy_ms(F.conv1d, (xp, w), device)
+        work = (4 * (2 * ACQ_CHANNELS * n + ACQ_CHANNELS * (k - 1) + k),
+                2 * k * ACQ_CHANNELS * n)
+        t_k = (ms, plain_ms, dev_ms, lib_ms, work)
+        if k != 65:  # the 65-tap entry of the kernels line is phase 10's
+            times[name] = t_k
+        print_times(f"{name} ({k} taps, {fir.fir_route(k)})",
+                    ACQ_CHANNELS * n, t_k, card,
+                    f"conv1d {lib_ms:.4f} ms, its device busy {lib_dev:.4f} "
+                    f"ms (max |err| vs K4 {lib_err:.2e})")
+
+    _, i, q = acq_capture(rxr, ACQ_CHANNELS, ACQ_PAYLOAD, device, SEED + 116)
+    _, wi, wq = acq_capture(rxr, ACQ_WIDE, ACQ_PAYLOAD, device, SEED + 117)
+    eq = acq_receiver(device, eq_taps=7, track_block=16)
+    sfo_rx, _, si, sq = sfo_capture(device, SEED + 118)
+    code = bch_255_191()
+    data, _, recv = bch_words(code, BCH_ERRS, gen, device)
+    for name, fn, fargs, what in (
+            (f"AcquiringReceiver.rx, {ACQ_CHANNELS} ch", rxr.rx,
+             (i, q, ACQ_PAYLOAD), (i.numel(), "samples")),
+            (f"AcquiringReceiver.rx, {ACQ_WIDE} ch", rxr.rx,
+             (wi, wq, ACQ_PAYLOAD), (wi.numel(), "samples")),
+            ("acquire, eq_taps=7, track_block=16", eq.acquire,
+             (i, q, ACQ_PAYLOAD), (i.numel(), "samples")),
+            (f"sfo_track, {ACQ_CHANNELS} ch x {SFO_PAYLOAD} sym",
+             lambda a, b: sync.sfo_track(a, b, 8, SFO_PAYLOAD, max_delay=32),
+             (si, sq), (si.numel(), "samples")),
+            (f"Bch(t=8).encode, {BCH_CW} codewords", code.encode, (data,),
+             (data.numel(), "info bits")),
+            (f"Bch(t=8).decode, {BCH_CW} codewords", code.decode, (recv,),
+             (data.numel(), "info bits"))):
+        ms = time_calls(fn, fargs, device, calls=5, reps=3)
+        busy = device_busy_ms(fn, fargs, device, calls=5)
+        launches = cuda_launches(fn, fargs, device)
+        count, unit_ = what
+        rate = (f"{count / ms / 1e3:.2f} Mbit/s" if "bits" in unit_ else
+                f"{count / ms * 1e3:.4e} {unit_}/s")
+        print(f"[times] {name:40s} per call {ms:.4f} ms ({rate}), device "
+              f"busy {busy:.4f} ms (idle share {1 - busy / ms:.3f}), "
+              f"{launches} CUDA launches a call, on {card}", flush=True)
+    return times
+
+
 def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
     """Trellis steps the busier of K14's two lanes of a row walks: alpha
     over 0 .. keep_lo + keep_n, beta over tw - 1 .. keep_lo, meeting at
@@ -4475,12 +4964,17 @@ def main() -> int:
     launches.update(ofdm_launches)
     phase_wifi_link(device)
     times.update(phase_wifi_times(device, card))
+    errs.update(phase_acq_fir(device))
+    launches.update(phase_acquire(device))
+    phase_long_streams(device)
+    phase_bch(device)
+    times.update(phase_acq_times(device, card))
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
         (fir_name(k), "modem_tpu_torch/csrc/fir.cu",
          "modem_tpu/ops/pallas_fir.py:44")
-        for k in FIR_ROUTE_TAPS + (240,)] + [
+        for k in FIR_ROUTE_TAPS + (240,) + ACQ_FIR_TAPS] + [
         (name, "modem_tpu_torch/csrc/demod.cu",
          "modem_tpu/ops/pallas_demod.py:43")
         for name in DEMOD_NAMES.values()] + [

@@ -41,7 +41,14 @@ imports ``jax`` or ``modem_tpu``. Ported so far:
   :class:`OfdmModem` (reduced-DFT matmuls, blind acquisition with its
   preamble correlation on kernel K4), :class:`OfdmChain`,
   :class:`OfdmStreamReceiver`, the ``wifi_like_ofdm`` preset and
-  ``burst_ofdm_receiver``, and release gates 3 and 5.
+  ``burst_ofdm_receiver``, and release gates 3 and 5;
+* blind single-carrier burst acquisition: :class:`AcquiringReceiver`
+  (:mod:`~modem_tpu_torch.sync`: timing, frame, CFO, phase and gain of a
+  burst, with the optional LMMSE equalizer and decision-directed trackers;
+  its matched filter on kernel K4), the channel impairments
+  (:mod:`~modem_tpu_torch.ops.impairments`, their FIRs on K4), the AGC
+  (:mod:`~modem_tpu_torch.ops.agc`) and the binary BCH codes
+  (:class:`~modem_tpu_torch.fec.Bch`).
 
 Every entry point builds on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
@@ -59,11 +66,13 @@ from .models import SCHEME_NAMES, make_scheme
 from .ofdm import OfdmChain, OfdmModem, OfdmStreamReceiver
 from .resampled import ResampledChain, StreamingResampledChain
 from .rx import Demodulator, RxState
+from .sync import AcquiringReceiver
 from .streaming import StreamingFusedChain, StreamingFusedRx, StreamingFusedTx
 from .tx import Modulator, TxState
 
 __all__ = [
-    "DcqpskChain", "Demodulator", "DifferentialChain", "FramedLink",
+    "AcquiringReceiver", "DcqpskChain", "Demodulator", "DifferentialChain",
+    "FramedLink",
     "Freq", "FskChain", "GmskChain", "LinkStats", "Modulator", "MskChain",
     "OfdmChain", "OfdmModem", "OfdmStreamReceiver", "OqpskChain",
     "PulseShapedChain", "QcLdpc",

@@ -2785,3 +2785,110 @@ def test_sc_metric_is_zero_over_silence_on_card(dev):
     m, _, _ = periodic_similarity(i, q, 16, 64, 9000)
     assert torch.equal(m[4600:], torch.zeros_like(m[4600:]))
     assert float(m.max()) <= 1.0 + 1e-5
+
+
+@pytest.mark.parametrize("k", [4, 13, 63])
+@pytest.mark.parametrize("shape", [(64, 4800), (3, 1), (3, 5), (3, 5001)],
+                         ids=str)
+def test_fir_kernel_at_the_acquisition_tap_counts(k, shape, dev):
+    """K4's generic route at the blind burst acquisition's tap counts (the
+    multipath channels' 4 and 13, ``apply_static_delay``'s 63), each
+    ending in a partial chunk of 16 taps, with carried state; and ragged
+    pushes equal to one shot."""
+    from modem_tpu_torch.ops import fir
+
+    assert fir.fir_route(k) == "generic"
+    taps = _unit((k,), k).to(dev)
+    x = _unit(shape, 3 * k + shape[-1]).to(dev)
+    st = _unit(shape[:-1] + (k - 1,), 5 * k).to(dev)
+    got = _launches(fir.FIR_KERNEL, fir.fir_kernel, x, taps, st)
+    torch.testing.assert_close(got, fir.fir_plain(x, taps, st), atol=ATOL,
+                               rtol=0)
+    if shape[-1] > k:
+        one, _ = fir.fir_filter(x, taps)
+        state, parts = None, []
+        for a, b in ((0, 1), (1, k - 1), (k - 1, k + 7),
+                     (k + 7, shape[-1])):
+            y, state = fir.fir_filter(x[:, a:b], taps, state)
+            parts.append(y)
+        assert torch.equal(torch.cat(parts, -1), one)
+
+
+def _acq_capture(seed, channels=8, n_payload=256):
+    """A burst of ``qpsk_reference_chain`` through the full impairment stack
+    on the CPU: a static delay of 0.37, a CFO of 9 Hz with phase 1.3, a
+    gain of 0.8 and AWGN at 30 dB."""
+    from modem_tpu_torch import AcquiringReceiver
+    from modem_tpu_torch.ops import impairments as imp
+    from modem_tpu_torch.ops.channel import awgn
+
+    pre = np.array([0, 1, 3, 2, 2, 0, 1, 1, 3, 0, 2, 3, 0, 0, 1, 2,
+                    3, 3, 1, 0, 2, 1, 0, 2, 1, 3, 2, 2, 0, 3, 1, 0])
+    cpu = AcquiringReceiver(qpsk_reference_chain(Rates(1250, 10000),
+                                                 device="cpu"), pre, 160)
+    g = torch.Generator().manual_seed(seed)
+    bits = torch.randint(0, 2, (channels, 2 * n_payload), generator=g,
+                         dtype=torch.int32)
+    i, q = cpu.tx_burst(bits)
+    i, q = imp.apply_static_delay(i, q, 0.37)
+    i, q = imp.apply_cfo(i, q, 9.0, 10000, phase0=1.3)
+    i, q = imp.apply_gain_phase(i, q, gain=0.8)
+    i, q = awgn(g, i, q, 30.0)
+    return pre, bits, i, q
+
+
+@pytest.mark.parametrize("kw", [{}, {"eq_taps": 7, "track_block": 16},
+                                {"track_block": 16, "track_order": 2}],
+                         ids=["plain", "equalized", "second-order"])
+def test_acquire_on_card_equals_cpu(kw, dev):
+    """``AcquiringReceiver`` on the card (K4 at 65 taps twice) against the
+    CPU twin on the same capture: lag equal, timing within 1e-3 samples
+    (circular), CFO within 1e-5, phase within 1e-4, gain within 1e-4
+    relative, the payload points within 1e-4; every bit right."""
+    from modem_tpu_torch import AcquiringReceiver
+    from modem_tpu_torch.ops import fir
+
+    pre, bits, i, q = _acq_capture(50)
+    rc = AcquiringReceiver(qpsk_reference_chain(Rates(1250, 10000),
+                                                device="cpu"), pre, 160, **kw)
+    rd = AcquiringReceiver(qpsk_reference_chain(Rates(1250, 10000),
+                                                device=dev), pre, 160, **kw)
+    before = fir.FIR_KERNEL.launches
+    (pi_, pq_), rep = rd.acquire(i.to(dev), q.to(dev), 256)
+    torch.cuda.synchronize()
+    assert fir.FIR_KERNEL.launches == before + 2
+    (wi, wq), want = rc.acquire(i, q, 256)
+    assert torch.equal(rep["lag"].cpu(), want["lag"])
+    d = (rep["timing"].cpu() - want["timing"]).remainder(8.0)
+    assert float(torch.minimum(d, 8.0 - d).max()) < 1e-3
+    assert float((rep["cfo_rad_per_symbol"].cpu()
+                  - want["cfo_rad_per_symbol"]).abs().max()) < 1e-5
+    assert float((rep["phase"].cpu() - want["phase"]).abs().max()) < 1e-4
+    assert float(((rep["gain"].cpu() - want["gain"]) / want["gain"]).abs()
+                 .max()) < 1e-4
+    assert float((pi_.cpu() - wi).abs().max()) < 1e-4
+    assert float((pq_.cpu() - wq).abs().max()) < 1e-4
+    assert torch.equal(rd.rx(i.to(dev), q.to(dev), 256).cpu(), bits)
+
+
+@pytest.mark.parametrize("t,nerr", [(8, 4), (8, 9), (2, 2), (2, 3)])
+def test_bch_decode_on_card_equals_cpu(t, nerr, dev):
+    """``Bch`` on CUDA tensors (PyTorch ops, GF(256) by table) against the
+    CPU twin: codewords, messages and ``ok`` flags bit for bit, within and
+    beyond t errors."""
+    from modem_tpu_torch.fec import Bch
+
+    code = Bch(t=t)
+    g = torch.Generator().manual_seed(51 + nerr)
+    data = torch.randint(0, 2, (512, code.k), generator=g, dtype=torch.int32)
+    cw = code.encode(data)
+    assert torch.equal(code.encode(data.to(dev)).cpu(), cw)
+    err = torch.zeros_like(cw)
+    pos = torch.argsort(torch.rand(cw.shape, generator=g), -1)[:, :nerr]
+    err.scatter_(1, pos, 1)
+    recv = cw ^ err
+    msg, ok = code.decode(recv.to(dev))
+    wmsg, wok = code.decode(recv)
+    assert torch.equal(msg.cpu(), wmsg) and torch.equal(ok.cpu(), wok)
+    if nerr <= t:
+        assert bool(wok.all()) and torch.equal(wmsg, data)

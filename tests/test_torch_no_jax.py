@@ -58,9 +58,10 @@ def test_every_module_listed():
               "presets", "cli.link", "utils.cache", "harness", "checkpoint",
               "metrics", "ops.channel", "fec.turbo", "fec.polar",
               "ops.bcjr_kernel", "ops.sc_kernel", "ops.scl_kernel",
-              "fec.ldpc", "ops.sync_metric", "ofdm"):
+              "fec.ldpc", "ops.sync_metric", "ofdm", "fec.bch",
+              "ops.impairments", "ops.agc", "ops.equalizer", "sync"):
         assert f"modem_tpu_torch.{m}" in MODULES, m
-    assert len(MODULES) >= 61
+    assert len(MODULES) >= 66
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
