@@ -343,9 +343,56 @@ symbols, the 32-symbol preamble, max_lag 160) and BCH at
     4096-symbol capture, and ``Bch.encode`` and ``decode`` (Mbit/s of info
     bits) at 2048 codewords.
 
+SC-FDE, Alamouti STBC, MIMO and bit loading at ``bench_scfde.py``'s 256
+channels (phases 46-49 under PyTorch's default math settings, which keep
+TF32 off for matmuls):
+
+46. ``ScFdeModem(qpsk)`` (n 64, cp 16, 64 blocks a frame): ``tx_frame``,
+    tests/test_scfde.py's deep-null channel (K4 at 4 taps) and AWGN at 30
+    dB from a ``torch.Generator``, ``rx_frame`` and ``rx_soft_frame``: every
+    bit right, decision points and LLRs within 1e-4 of the CPU twin's;
+    blind ``acquire`` at max_lag 128 under per-channel offsets, a gain of
+    1.3, phases, a CFO of 0.3/sym_len cycles/sample and AWGN at 40 dB
+    (SC-FDE tracks no residual CFO over its 5280-sample frame): every start
+    and bit right, K4 at 160 taps (its generic route) launched 4 times
+    (counts set to 0 just before, read just after) and held against its
+    plain version on the capture (within 1e-6 of the output's largest
+    magnitude: the correlation peaks near 200); ``OfdmStreamReceiver`` over
+    4 SC-FDE frames with gaps of noise, in chunks of 3000 samples: every
+    frame found and decoded;
+47. the conv-coded ``FramedLink`` over ``ScFdeChain`` at 1002 payload bits
+    (1024 trellis steps, windows of 512 set explicitly), 256 frames
+    through the deep-null channel at 10 dB: every payload and CRC, K13's
+    warp route launched and bit for bit with its plain version on the
+    run's LLRs;
+48. ``AlamoutiOfdm(qpsk)`` at 256 x 32 pairs through test_stbc.py's two
+    dispersive channels at 30 dB, every bit right; its LDPC-framed link (26
+    codewords in 81 pairs) at 256 frames and 14 dB, every payload and CRC;
+    ``mimo_ofdm_link()`` at 256 frames through test_presets.py's
+    cross-coupled flat 2x2 channel at 16 dB, every payload and CRC, and at
+    its 12 dB (where the JAX preset loses frames too) the decode equal to
+    the CPU twin's; ``MimoOfdmN(nt=4)`` at 256 x 16 slots through
+    test_mimo_n.py's random 4x4 channels: ZF noiseless (QPSK) and MMSE at
+    45 dB (16-QAM) exact, each one's decision points within 1e-4 of the CPU
+    twin's, MMSE at 30 dB (QPSK) too; ``_cinv_h`` on the card at 256 x 52
+    4x4 matrices against float64 ``np.linalg.inv`` (rtol 2e-3, atol 2e-4);
+49. ``bit_loading`` from test_bitloading.py's selective channel at a 30 dB
+    floor (gap 12 dB, at most 6 bits); ``AdaptiveOfdm`` at 256 x 64 symbols
+    through that channel at 30 dB, every bit right; the conv-coded
+    ``FramedLink`` over it (at least 1024 trellis steps) at 256 frames and
+    20 dB: every payload and CRC, K13 launched and held to its plain
+    version;
+50. times: K4 at 160 taps per call beside its plain version, the
+    profiler's device time, the bound and its ``conv1d`` yardstick (TF32
+    off); wall time, device busy time, idle share and CUDA launches per
+    call of ``ScFdeModem.rx_frame`` and ``acquire``, ``AlamoutiOfdm.rx``,
+    ``MimoOfdm.rx_frame``, ``MimoOfdmN.rx_frame`` at 4x4,
+    ``AdaptiveOfdm.rx_frame`` and ``mimo_ofdm_link().rx``.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass, the chain's 65-tap RRC, each other count of
-phase 7, the OFDM preamble's 240 taps and the acquisition's 4, 13 and 63,
+phase 7, the OFDM preamble's 240 taps, the acquisition's 4, 13 and 63
+and SC-FDE's 160,
 K5 with and without its carrier table; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
@@ -604,6 +651,41 @@ ACQ_ATOL_POINTS = 1e-4           # the card's payload points against the CPU's
 SFO_PAYLOAD, SFO_PPM = 4096, 300.0
 BCH_CW, BCH_ERRS = 2048, 4
 BCH_CHAIN_SNR_DB = -2.0
+# SC-FDE, Alamouti STBC, MIMO and bit loading at bench_scfde.py's 256
+# channels (QPSK, n 64, cp 16, 64 blocks a frame; the deep-null channel of
+# tests/test_scfde.py, the channel pairs of test_stbc.py, test_mimo_n.py's
+# random 4x4 and test_bitloading.py's selective channel)
+SCFDE_BLOCKS, SCFDE_MAX_LAG, SCFDE_SNR_DB = 64, 128, 30.0
+# SC-FDE tracks no residual CFO: over a frame of 5280 samples the blind
+# estimate must hold to about 1e-5 rad/sample, so the acquisition runs at
+# 40 dB on a flat channel (at 30 dB through the deep-null channel the
+# estimate's bias and noise turn the last blocks by up to a radian)
+SCFDE_ACQ_SNR_DB = 40.0
+SCFDE_FIR = "fir_filter_160"     # K4 at the CP'd training blocks' 160 taps
+SCFDE_FIR_RTOL = 1e-6            # of the correlation's largest magnitude
+SCFDE_CH = ((1.0, 0.0, 0.0, -0.85), (0.0, 0.25, 0.0, 0.1))
+SCFDE_CFO = 0.3 / 80             # cycles/sample, inside +-0.5/sym_len
+SCFDE_STREAM_FRAMES, SCFDE_STREAM_CHUNK = 4, 3000
+CONV_LINK_PAYLOAD = 1002         # 1024 trellis steps: K13's windowed route
+SCFDE_LINK_FRAMES, SCFDE_LINK_SNR_DB = 256, 10.0
+STBC_PAIRS, STBC_SNR_DB, STBC_LINK_SNR_DB = 32, 30.0, 14.0
+STBC_CH_A = ((0.9, 0.0, 0.25, 0.0, -0.1), (0.1, -0.3, 0.0, 0.12, 0.05))
+STBC_CH_B = ((0.8, 0.3, 0.0, -0.15, 0.0), (0.0, 0.1, -0.25, 0.0, 0.1))
+# mimo_ofdm_link() at 256 frames: at test_presets.py's 12 dB the JAX preset
+# and the port both lose frames (7 of 16 in a CPU run, the same ones), so
+# there the card is held to the CPU twin; every frame decodes at 16 dB
+MIMO_FRAMES, MIMO_SNR_DB, MIMO_EXACT_SNR_DB = 256, 12.0, 16.0
+MIMO_FLAT = ((1.0, 0.3, 0.6, -1.2), (0.5, 2.0, 0.9, 0.8))
+MIMON_NT, MIMON_SYMBOLS, MIMON_SNR_DB = 4, 16, 30.0
+# 16-QAM through test_mimo_n.py's random 4x4 channel (seed 1) at its 45 dB
+# is exact; QPSK at 30 dB is not, for the JAX detector either (50 of 53248
+# bits wrong at 8 channels on the CPU: the worst bins' noise enhancement),
+# so there the card is held to the CPU twin's decision points
+MIMON_EXACT_SNR_DB = 45.0
+LOAD_SYMBOLS, LOAD_FLOOR_DB, LOAD_GAP_DB, LOAD_MAX_BITS = 64, 30.0, 12.0, 6
+LOAD_CH = ((0.75, 0.0, 0.0, 0.55, 0.0, 0.0, 0.3),
+           (0.0, 0.3, 0.0, 0.0, -0.35, 0.0, 0.0))
+LOAD_LINK_FRAMES, LOAD_LINK_SNR_DB = 256, 20.0
 # the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -4786,6 +4868,576 @@ def phase_acq_times(device, card: str) -> dict:
     return times
 
 
+# ---- SC-FDE, Alamouti STBC, MIMO and bit loading ----
+
+class pytorch_defaults:
+    """PyTorch's default math settings (TF32 off for matmuls, on for cuDNN)
+    for the ``with`` block, the script's own restored after it: the new
+    PHYs' DFTs and small-matrix products must be right as a user runs
+    them."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        print("[phy] PyTorch's default math settings for phases 46-49: "
+              f"matmul TF32 {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+              f"TF32 {torch.backends.cudnn.allow_tf32}", flush=True)
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def channel_taps(ch, device):
+    return [torch.tensor(t, dtype=torch.float32, device=device) for t in ch]
+
+
+def scfde_modem(device):
+    from modem_tpu_torch import Rates, ScFdeModem, make_scheme
+
+    return ScFdeModem(make_scheme("qpsk", Rates(1250, 10000)), device=device)
+
+
+def scfde_capture(modem, bits, device, seed: int):
+    """``tx_frame(bits)`` of each channel at its own offset in ``[0,
+    SCFDE_MAX_LAG)``, with a gain of 1.3, a phase per channel, a CFO of
+    0.3/sym_len cycles/sample and AWGN at 40 dB. Returns ``(ci, cq,
+    offsets, noise_var)``."""
+    from modem_tpu_torch.ops.channel import awgn
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    wi, wq = modem.tx_frame(bits)
+    c, n = wi.shape
+    off = torch.randint(0, SCFDE_MAX_LAG, (c,), generator=g, device=device)
+    cap = torch.zeros((c, n + SCFDE_MAX_LAG), dtype=torch.complex64,
+                      device=device)
+    idx = off[:, None] + torch.arange(n, device=device)
+    cap.scatter_(1, idx, torch.complex(wi, wq))
+    t = torch.arange(cap.shape[-1], device=device, dtype=torch.float32)
+    ph = 2.0 * math.pi * torch.rand((c, 1), generator=g, device=device)
+    z = 1.3 * cap * torch.polar(torch.ones_like(cap.real),
+                                2.0 * math.pi * SCFDE_CFO * t + ph)
+    p = 1.3 ** 2 * float(torch.mean(wi * wi + wq * wq))
+    ci, cq = awgn(g, z.real.contiguous(), z.imag.contiguous(),
+                  SCFDE_ACQ_SNR_DB, signal_power=p)
+    return ci, cq, off, p / 10.0 ** (SCFDE_ACQ_SNR_DB / 10.0)
+
+
+def phase_scfde(device) -> tuple[dict, dict]:
+    """Phase 46: SC-FDE at bench_scfde's block (QPSK, 256 channels x 64
+    blocks): ``tx_frame``, the deep-null channel (K4 at 4 taps) and AWGN at
+    30 dB, then ``rx_frame`` and ``rx_soft_frame``: every bit right, the
+    decision points and LLRs against the CPU twin's; blind ``acquire`` at
+    max_lag 128 under per-channel offsets, a gain, phases, a CFO and AWGN at
+    40 dB: every start and bit right, K4 at 160 taps launched (counts set
+    to 0 just before, read just after) and held against its plain version
+    on the capture; ``OfdmStreamReceiver`` over a stream of SC-FDE frames with
+    gaps of noise, in chunks: every frame found and decoded. Returns K4's
+    error and launches at 160 taps."""
+    from modem_tpu_torch import OfdmStreamReceiver
+    from modem_tpu_torch.ops import fir, impairments as imp
+    from modem_tpu_torch.ops.channel import awgn
+
+    modem, cpu = scfde_modem(device), scfde_modem("cpu")
+    g = torch.Generator(device=device).manual_seed(SEED + 120)
+    bits = torch.randint(0, 2, (CHANNELS, modem.bits_per_frame(SCFDE_BLOCKS)),
+                         generator=g, device=device, dtype=torch.int32)
+    wi, wq = modem.tx_frame(bits)
+    ci, cq = imp.multipath_fir(wi, wq, *channel_taps(SCFDE_CH, device))
+    p = float(torch.mean(wi * wi + wq * wq))
+    ci, cq = awgn(g, ci, cq, SCFDE_SNR_DB, signal_power=p)
+    nv = p / 10.0 ** (SCFDE_SNR_DB / 10.0)
+    hard = modem.rx_frame(ci, cq, SCFDE_BLOCKS, nv)
+    llr = modem.rx_soft_frame(ci, cq, SCFDE_BLOCKS, nv)
+    pre = modem.preamble_len
+    pts = modem._equalize(ci[:, pre:], cq[:, pre:], SCFDE_BLOCKS,
+                          modem.estimate_channel(ci[:, :pre], cq[:, :pre]),
+                          nv)[:2]
+    c_i, c_q = ci.cpu(), cq.cpu()
+    want_pts = cpu._equalize(c_i[:, pre:], c_q[:, pre:], SCFDE_BLOCKS,
+                             cpu.estimate_channel(c_i[:, :pre], c_q[:, :pre]),
+                             nv)[:2]
+    want_llr = cpu.rx_soft_frame(c_i, c_q, SCFDE_BLOCKS, nv)
+    errs = bit_errors(hard, bits) + bit_errors((llr < 0).to(torch.int32),
+                                               bits)
+    d_pts = max_err(tuple(x.cpu() for x in pts), want_pts)
+    d_llr = float((llr.cpu() - want_llr).abs().max()
+                  / want_llr.abs().max())
+    print(f"[scfde] rx_frame and rx_soft_frame at {CHANNELS} ch x "
+          f"{SCFDE_BLOCKS} blocks through the deep-null channel at "
+          f"{SCFDE_SNR_DB} dB: {errs} bit errors of {2 * bits.numel()}; vs "
+          f"the CPU twin: decision points max |d| {d_pts:.3e} (bar 1e-4), "
+          f"LLRs {d_llr:.3e} of their largest (bar 1e-4)", flush=True)
+    if errs or d_pts > 1e-4 or d_llr > 1e-4:
+        fail("ScFdeModem.rx_frame / rx_soft_frame")
+
+    ci, cq, off, nv = scfde_capture(modem, bits, device, SEED + 121)
+    reset_launches()
+    got, rep = modem.acquire(ci, cq, SCFDE_BLOCKS, SCFDE_MAX_LAG, nv)
+    launches = read_launches({SCFDE_FIR: fir.FIR_KERNEL},
+                             "ScFdeModem.acquire", "scfde")
+    starts_ok = torch.equal(rep["start"], off.to(torch.int32))
+    errs = bit_errors(got, bits)
+    print(f"[scfde] acquire at {CHANNELS} ch x {SCFDE_BLOCKS} blocks, "
+          f"offsets in [0, {SCFDE_MAX_LAG}), gain 1.3, CFO "
+          f"{SCFDE_CFO:.6f} cycles/sample, {SCFDE_ACQ_SNR_DB} dB: starts "
+          f"{'all right' if starts_ok else 'WRONG'}"
+          f", {errs} bit errors; CFO estimate mean "
+          f"{float(rep['cfo_rad_per_sample'].mean()):.6f} rad/sample (sent "
+          f"{2 * math.pi * SCFDE_CFO:.6f})", flush=True)
+    if not starts_ok or errs:
+        fail("ScFdeModem.acquire: a start or a bit is wrong")
+    if launches[SCFDE_FIR] != 4:
+        fail(f"K4 at 160 taps: {launches[SCFDE_FIR]} launches, not 4")
+    taps = torch.as_tensor(modem._preamble_i[::-1].copy(), device=device)
+    head = ci[:, :SCFDE_MAX_LAG + taps.shape[0] - 1].contiguous()
+    st = torch.zeros((CHANNELS, taps.shape[0] - 1), device=device)
+    want = fir.fir_plain(head, taps, st)
+    err = max_err(fir.fir_kernel(head, taps, st), want)
+    peak = float(want.abs().max())
+    print(f"[scfde] {SCFDE_FIR} (K4 {fir.fir_route(160)} route) on the "
+          f"capture head {tuple(head.shape)}: max |kernel - plain| "
+          f"{err:.3e}, {err / peak:.3e} of the output's largest magnitude "
+          f"{peak:.2f} (bar {SCFDE_FIR_RTOL}: the correlation of "
+          f"unit-amplitude samples with the unit-modulus preamble peaks near "
+          f"the tap count)", flush=True)
+    if err > SCFDE_FIR_RTOL * peak:
+        fail(f"{SCFDE_FIR}: kernel vs plain max |err| {err}")
+
+    sb = torch.randint(0, 2, (SCFDE_STREAM_FRAMES, bits.shape[-1]),
+                       generator=g, device=device, dtype=torch.int32)
+    fi, fq = modem.tx_frame(sb)
+    parts_i, parts_q, starts, pos = [], [], [], 0
+    for f in range(SCFDE_STREAM_FRAMES + 1):
+        gap = int(torch.randint(100, 900, (1,), generator=g, device=device))
+        parts_i.append(0.03 * torch.randn(gap, generator=g, device=device))
+        parts_q.append(0.03 * torch.randn(gap, generator=g, device=device))
+        pos += gap
+        if f == SCFDE_STREAM_FRAMES:
+            break
+        z = torch.complex(fi[f], fq[f]) * complex(math.cos(0.5 * f),
+                                                  math.sin(0.5 * f))
+        parts_i += [z.real]
+        parts_q += [z.imag]
+        starts.append(pos)
+        pos += z.shape[-1]
+    si, sq = torch.cat(parts_i), torch.cat(parts_q)
+    rx = OfdmStreamReceiver(modem, SCFDE_BLOCKS)
+    reset_launches()
+    frames = []
+    for a in range(0, si.shape[-1], SCFDE_STREAM_CHUNK):
+        frames += rx.push(si[a:a + SCFDE_STREAM_CHUNK],
+                          sq[a:a + SCFDE_STREAM_CHUNK])
+    frames += rx.flush()
+    read_launches({SCFDE_FIR: fir.FIR_KERNEL}, "OfdmStreamReceiver (SC-FDE)",
+                  "scfde")
+    found = [r["start"] for _, r in frames]
+    ok = len(frames) == SCFDE_STREAM_FRAMES and all(
+        torch.equal(b, w) for (b, _), w in zip(frames, sb)) and all(
+        abs(a - b) <= 4 for a, b in zip(found, starts))
+    print(f"[scfde] OfdmStreamReceiver over SC-FDE frames: {len(frames)} of "
+          f"{SCFDE_STREAM_FRAMES} found at {found} (sent at {starts}), in "
+          f"pushes of {SCFDE_STREAM_CHUNK} samples; bits "
+          f"{'all right' if ok else 'WRONG'}", flush=True)
+    if not ok:
+        fail("OfdmStreamReceiver over SC-FDE: a frame missed or wrong")
+    return {SCFDE_FIR: err}, launches
+
+
+def conv_link_run(link, frames: int, channel, snr_db: float, seed: int,
+                  device, tag: str, per_rail: bool = False) -> dict:
+    """``tx`` -> ``channel`` (a list of (taps_i, taps_q) or None) -> AWGN at
+    ``snr_db`` -> ``rx`` for ``frames`` payloads, every launch count set to
+    0 just before the receive: every payload back with its CRC true, K13
+    launched; then K13 bit for bit against its plain version on the run's
+    own deinterleaved LLRs. ``per_rail``: the noise variance the receiver
+    takes is the per-rail one (OFDM), not the per-complex-sample one."""
+    from modem_tpu_torch.fec import block_deinterleave
+    from modem_tpu_torch.ops import impairments as imp, viterbi_kernel as vk
+    from modem_tpu_torch.ops.channel import awgn
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    pay = torch.randint(0, 2, (frames, link.payload_bits), generator=g,
+                        device=device, dtype=torch.int32)
+    i, q = link.tx(pay)
+    p = float(torch.mean(i * i + q * q))
+    if channel is not None:
+        i, q = imp.multipath_fir(i, q, *channel_taps(channel, device))
+    i, q = awgn(g, i, q, snr_db, signal_power=p)
+    nv = p / 10.0 ** (snr_db / 10.0) / (2.0 if per_rail else 1.0)
+    reset_launches()
+    out, ok = link.rx((i, q), nv)
+    counts = read_launches({VIT_REPORT[0]: vk.VITERBI_KERNEL}, tag, "phy")
+    errors = int((out != pay).sum())
+    print(f"[phy] {tag}: {frames} frames x {link.payload_bits} payload bits "
+          f"({link._steps} trellis steps, window {link.conv_window}) at "
+          f"{snr_db} dB: {errors} payload bit errors, {int(ok.sum())}/"
+          f"{frames} CRCs true", flush=True)
+    if errors or not bool(ok.all()):
+        fail(f"{tag}: {errors} errors, {int(ok.sum())} CRCs")
+    llr = link.chain.rx_soft((i, q), link.n_symbols, noise_var=nv)
+    lam = block_deinterleave(llr, link.rows).reshape(frames, -1,
+                                                     link.conv.n)
+    stream = (link.conv, lam, link.conv_window, 10 * link.conv.k, 1e6)
+    err = max_err(vk.stream_kernel(*stream), vk.stream_plain(*stream))
+    print(f"[phy] {tag}: K13 on the run's own LLRs {tuple(lam.shape)}: max "
+          f"|kernel - plain| = {err:.3e} (exact)", flush=True)
+    if err:
+        fail(f"{tag}: K13 and its plain version differ")
+    return counts
+
+
+def phase_scfde_link(device) -> None:
+    """Phase 47: the conv-coded ``FramedLink`` over ``ScFdeChain`` at 1002
+    payload bits (1024 trellis steps: K13's windowed route, windows of 512
+    set explicitly; 16 SC-FDE blocks a frame), 256 frames through the
+    deep-null channel at 10 dB: every payload back, every CRC true, K13
+    launched and held bit for bit against its plain version."""
+    from modem_tpu_torch import FramedLink, ScFdeChain
+
+    link = FramedLink(ScFdeChain(scfde_modem(device)),
+                      payload_bits=CONV_LINK_PAYLOAD, interleave_rows=8,
+                      conv_window=512)
+    conv_link_run(link, SCFDE_LINK_FRAMES, SCFDE_CH, SCFDE_LINK_SNR_DB,
+                  SEED + 122, device, "FramedLink over ScFdeChain")
+
+
+def rand_channel(nr: int, nt: int, seed: int, taps: int = 5) -> dict:
+    """tests/test_mimo_n.py's well-conditioned random matrix channel."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ch = {}
+    for r in range(nr):
+        for a in range(nt):
+            hi = rng.normal(0, 0.08, taps).astype(np.float32)
+            hq = rng.normal(0, 0.08, taps).astype(np.float32)
+            hi[0] += 0.9 if r == a else 0.3
+            ch[(r, a)] = (tuple(hi.tolist()), tuple(hq.tolist()))
+    return ch
+
+
+def mix_antennas(waves, ch, nr: int, device):
+    """Receive antenna r: the sum over transmit antennas a of ``waves[a]``
+    through ``ch[(r, a)]`` (K4 at its tap count). Returns ``[(i, q)] *
+    nr``."""
+    from modem_tpu_torch.ops import impairments as imp
+
+    out = []
+    for r in range(nr):
+        parts = [imp.multipath_fir(*w, *channel_taps(ch[(r, a)], device))
+                 for a, w in enumerate(waves)]
+        out.append((sum(x[0] for x in parts), sum(x[1] for x in parts)))
+    return out
+
+
+def phase_stbc_mimo(device) -> None:
+    """Phase 48: ``AlamoutiOfdm(qpsk)`` at 256 channels x 32 pairs through
+    test_stbc.py's two dispersive channels at 30 dB, every bit right; its
+    LDPC-framed link (26 codewords in 81 pairs) at 256 frames and 14 dB,
+    every payload and CRC; ``mimo_ofdm_link()`` at 256 frames through the
+    cross-coupled flat 2x2 channel at 16 dB, every payload and CRC, and at
+    12 dB (where the JAX preset loses frames too), the decode equal to the
+    CPU twin's; ``MimoOfdmN(nt=4)`` at 256 channels x 16 slots through
+    test_mimo_n.py's random 4x4 channels: ZF noiseless (QPSK) and MMSE at
+    45 dB (16-QAM) exact, and with MMSE at 30 dB (QPSK) each one's decision
+    points within 1e-4 of the CPU twin's; ``_cinv_h`` on the card at the
+    detector's shape against float64 ``np.linalg.inv``."""
+    import numpy as np
+    from modem_tpu_torch import (AlamoutiOfdm, FramedLink, MimoOfdmN, Rates,
+                                 make_scheme, presets)
+    from modem_tpu_torch.fec import QcLdpc
+    from modem_tpu_torch.mimo import _cinv_h
+    from modem_tpu_torch.ops.channel import awgn
+
+    r = Rates(1250, 10000)
+    g = torch.Generator(device=device).manual_seed(SEED + 123)
+    st = AlamoutiOfdm(make_scheme("qpsk", r), device=device)
+    bits = torch.randint(0, 2, (CHANNELS, st.bits_per_frame(STBC_PAIRS)),
+                         generator=g, device=device, dtype=torch.int32)
+    wa, wb = st.tx(bits)
+    (ci, cq), = mix_antennas((wa, wb), {(0, 0): STBC_CH_A,
+                                        (0, 1): STBC_CH_B}, 1, device)
+    ci, cq = awgn(g, ci, cq, STBC_SNR_DB)
+    errs = bit_errors(st.rx(ci, cq, STBC_PAIRS), bits)
+    print(f"[stbc] AlamoutiOfdm(qpsk) {CHANNELS} ch x {STBC_PAIRS} pairs "
+          f"through two dispersive channels at {STBC_SNR_DB} dB: {errs} bit "
+          f"errors of {bits.numel()}", flush=True)
+    if errs:
+        fail("AlamoutiOfdm.rx: bits wrong")
+
+    link = FramedLink(st.as_link_chain(), payload_bits=26 * 324 - 16,
+                      ldpc=QcLdpc(), ldpc_iters=40, interleave_rows=16,
+                      ldpc_early_exit=True)
+    pay = torch.randint(0, 2, (MIMO_FRAMES, link.payload_bits), generator=g,
+                        device=device, dtype=torch.int32)
+    wa, wb = link.tx(pay)
+    p = float(torch.mean(wa[0] ** 2 + wa[1] ** 2))
+    (ci, cq), = mix_antennas((wa, wb), {(0, 0): STBC_CH_A,
+                                        (0, 1): STBC_CH_B}, 1, device)
+    ci, cq = awgn(g, ci, cq, STBC_LINK_SNR_DB, signal_power=2 * p)
+    out, ok = link.rx((ci, cq), 2 * p / 10.0 ** (STBC_LINK_SNR_DB / 10.0)
+                      / 2.0)
+    errs = int((out != pay).sum())
+    print(f"[stbc] LDPC-framed link over Alamouti: {MIMO_FRAMES} frames x "
+          f"{link.payload_bits} payload bits at {STBC_LINK_SNR_DB} dB: "
+          f"{errs} payload bit errors, {int(ok.sum())} CRCs true", flush=True)
+    if errs or not bool(ok.all()):
+        fail("LDPC link over AlamoutiOfdm")
+
+    link = presets.mimo_ofdm_link(device=device)
+    cpu_link = presets.mimo_ofdm_link(device="cpu")
+    pay = torch.randint(0, 2, (MIMO_FRAMES, link.payload_bits), generator=g,
+                        device=device, dtype=torch.int32)
+    (ia, qa), (ib, qb) = link.tx(pay)
+    za, zb = torch.complex(ia, qa), torch.complex(ib, qb)
+    for snr in (MIMO_EXACT_SNR_DB, MIMO_SNR_DB):
+        y = []
+        for ga, pa, gb, pb in MIMO_FLAT:
+            z = (ga * complex(math.cos(pa), math.sin(pa)) * za
+                 + gb * complex(math.cos(pb), math.sin(pb)) * zb)
+            y += awgn(g, z.real.contiguous(), z.imag.contiguous(), snr)
+        nv = float(torch.mean(y[0] ** 2 + y[1] ** 2)) / 10.0 ** (snr / 10.0)
+        out, ok = link.rx(tuple(y), nv)
+        llr = link.chain.rx_soft(tuple(y), link.n_symbols, noise_var=nv)
+        cout, cok = cpu_link.decode(llr.cpu())
+        errs = int((out != pay).sum())
+        twin = torch.equal(cout, out.cpu()) and torch.equal(cok, ok.cpu())
+        print(f"[mimo] mimo_ofdm_link(): {MIMO_FRAMES} frames x "
+              f"{link.payload_bits} payload bits (81 slots) through the "
+              f"cross-coupled 2x2 channel at {snr} dB: {errs} payload bit "
+              f"errors, {int(ok.sum())} CRCs true; the decode "
+              f"{'equals' if twin else 'DIFFERS FROM'} the CPU twin's",
+              flush=True)
+        if not twin or (snr == MIMO_EXACT_SNR_DB
+                        and (errs or not bool(ok.all()))):
+            fail(f"mimo_ofdm_link at {snr} dB")
+
+    results = {}
+    for label, scheme, seed, snr in (
+            ("ZF noiseless", "qpsk", 0, None),
+            (f"MMSE at {MIMON_EXACT_SNR_DB} dB", "qam16", 1,
+             MIMON_EXACT_SNR_DB),
+            (f"MMSE at {MIMON_SNR_DB} dB", "qpsk", 0, MIMON_SNR_DB)):
+        mm = MimoOfdmN(make_scheme(scheme, r), nt=MIMON_NT, device=device)
+        bits = torch.randint(0, 2, (CHANNELS,
+                                    mm.bits_per_frame(MIMON_SYMBOLS)),
+                             generator=g, device=device, dtype=torch.int32)
+        ti, tq = mm.tx(bits)
+        rx = mix_antennas([(ti[:, a], tq[:, a]) for a in range(MIMON_NT)],
+                          rand_channel(MIMON_NT, MIMON_NT, seed), MIMON_NT,
+                          device)
+        yi = torch.stack([x[0] for x in rx], -2)
+        yq = torch.stack([x[1] for x in rx], -2)
+        nv = 0.0
+        if snr is not None:
+            p = float(torch.mean(yi * yi + yq * yq))
+            yi, yq = awgn(g, yi, yq, snr, signal_power=p)
+            nv = p / 10.0 ** (snr / 10.0)
+        out = mm.rx_frame(yi, yq, MIMON_SYMBOLS, noise_var=nv)
+        cpu = MimoOfdmN(make_scheme(scheme, r), nt=MIMON_NT, device="cpu")
+        d = max_err(tuple(x.cpu() for x in mm.detect(yi, yq, MIMON_SYMBOLS,
+                                                    nv)[:2]),
+                    cpu.detect(yi.cpu(), yq.cpu(), MIMON_SYMBOLS, nv)[:2])
+        results[label] = (bit_errors(out, bits), bits.numel(), d)
+    print(f"[mimo] MimoOfdmN(nt={MIMON_NT}) {CHANNELS} ch x {MIMON_SYMBOLS} "
+          f"slots through test_mimo_n's random {MIMON_NT}x{MIMON_NT} "
+          f"channels, (bit errors, bits, max |decision points - the CPU "
+          f"twin's|, bar 1e-4): {json.dumps(results)}", flush=True)
+    if any(e for e, _, _ in list(results.values())[:2]) or any(
+            d > 1e-4 for _, _, d in results.values()):
+        fail("MimoOfdmN.rx_frame: bits wrong or the card differs from the "
+             "CPU twin")
+    rng = np.random.default_rng(SEED + 124)
+    n = MIMON_NT
+    b = (rng.normal(0, 1, (CHANNELS * 52, n, n))
+         + 1j * rng.normal(0, 1, (CHANNELS * 52, n, n)))
+    a = np.einsum("bij,bkj->bik", b, b.conj()) + np.eye(n)
+    got = _cinv_h(tuple(torch.as_tensor(x, dtype=torch.float32,
+                                        device=device)
+                        for x in (a.real, a.imag)), n)
+    want = np.linalg.inv(a)
+    bad = [not np.allclose(x.cpu().numpy(), w, rtol=2e-3, atol=2e-4)
+           for x, w in zip(got, (want.real, want.imag))]
+    d = max(float(np.abs(x.cpu().numpy() - w).max())
+            for x, w in zip(got, (want.real, want.imag)))
+    print(f"[mimo] _cinv_h on the card, {a.shape[0]} Hermitian PD {n}x{n}: "
+          f"max |d| against float64 np.linalg.inv {d:.3e} (rtol 2e-3, atol "
+          f"2e-4: {'within' if not any(bad) else 'OUTSIDE'})", flush=True)
+    if any(bad):
+        fail("_cinv_h on the card")
+
+
+def loading_snr_db(floor_db: float):
+    """Per-data-bin SNR (dB) of test_bitloading.py's selective channel at a
+    noise floor ``floor_db`` (per complex sample, unit power)."""
+    import numpy as np
+    from modem_tpu_torch.ofdm import _default_grid
+
+    hi, hq = (np.asarray(t) for t in LOAD_CH)
+    k = np.asarray(_default_grid(64)[0], np.float64)
+    h = np.sum((hi + 1j * hq) * np.exp(-2j * np.pi * np.arange(len(hi))
+                                       * k[:, None] / 64), axis=-1)
+    return floor_db + 20.0 * np.log10(np.abs(h))
+
+
+def loaded_modem(device):
+    from modem_tpu_torch import AdaptiveOfdm, bit_loading
+
+    return AdaptiveOfdm(bit_loading(loading_snr_db(LOAD_FLOOR_DB),
+                                    gap_db=LOAD_GAP_DB,
+                                    max_bits=LOAD_MAX_BITS), device=device)
+
+
+def loaded_link_payload(bps: int) -> int:
+    """The least payload of at least 1002 bits whose conv-coded wire (rate
+    1/2, CRC-16 and 6 flush bits) fills whole loaded symbols and the
+    interleaver's 8 rows."""
+    p = CONV_LINK_PAYLOAD
+    while (2 * (p + 22)) % math.lcm(bps, 8):
+        p += 1
+    return p
+
+
+def phase_loading(device) -> None:
+    """Phase 49: ``bit_loading`` from the per-bin SNR of test_bitloading.py's
+    selective channel at a 30 dB floor (gap 12 dB, at most 6 bits);
+    ``AdaptiveOfdm`` at 256 channels x 64 symbols through that channel at
+    30 dB: every bit right; the conv-coded ``FramedLink`` over it (at least
+    1024 trellis steps: K13's windowed route) at 256 frames and 20 dB: every
+    payload and CRC."""
+    from modem_tpu_torch import FramedLink
+    from modem_tpu_torch.ops import impairments as imp
+    from modem_tpu_torch.ops.channel import awgn
+
+    mm = loaded_modem(device)
+    hist = {b: mm.loading.count(b) for b in sorted(set(mm.loading))}
+    g = torch.Generator(device=device).manual_seed(SEED + 125)
+    bits = torch.randint(0, 2, (CHANNELS, mm.bits_per_frame(LOAD_SYMBOLS)),
+                         generator=g, device=device, dtype=torch.int32)
+    i, q = mm.tx_frame(bits)
+    i, q = imp.multipath_fir(i, q, *channel_taps(LOAD_CH, device))
+    i, q = awgn(g, i, q, LOAD_FLOOR_DB, signal_power=1.0)
+    errs = bit_errors(mm.rx_frame(i, q, LOAD_SYMBOLS), bits)
+    print(f"[load] bit_loading (gap {LOAD_GAP_DB} dB, at most "
+          f"{LOAD_MAX_BITS} bits) over the selective channel at "
+          f"{LOAD_FLOOR_DB} dB: bins by bits {json.dumps(hist)}, "
+          f"{mm.bits_per_sym} bits a symbol; AdaptiveOfdm {CHANNELS} ch x "
+          f"{LOAD_SYMBOLS} symbols: {errs} bit errors of {bits.numel()}",
+          flush=True)
+    if errs:
+        fail("AdaptiveOfdm.rx_frame: bits wrong")
+    link = FramedLink(mm.as_link_chain(),
+                      payload_bits=loaded_link_payload(mm.bits_per_sym),
+                      conv_window=512)
+    conv_link_run(link, LOAD_LINK_FRAMES, LOAD_CH, LOAD_LINK_SNR_DB,
+                  SEED + 126, device, "FramedLink over AdaptiveOfdm",
+                  per_rail=True)
+
+
+def phase_phy_times(device, card: str) -> dict:
+    """Phase 50: K4 at 160 taps per call beside its plain version, the
+    profiler's device time, the bound and its ``conv1d`` yardstick; wall
+    time, device busy time, idle share and CUDA launches per call of
+    ``ScFdeModem.rx_frame`` and ``acquire``, ``AlamoutiOfdm.rx``,
+    ``MimoOfdm.rx_frame``, ``MimoOfdmN.rx_frame`` at 4x4,
+    ``AdaptiveOfdm.rx_frame`` and ``mimo_ofdm_link().rx``."""
+    import torch.nn.functional as F
+    from modem_tpu_torch import AlamoutiOfdm, MimoOfdm, MimoOfdmN, Rates, \
+        make_scheme, presets
+    from modem_tpu_torch.ops import fir
+    from modem_tpu_torch.ops.channel import awgn
+
+    modem = scfde_modem(device)
+    g = torch.Generator(device=device).manual_seed(SEED + 127)
+    bits = torch.randint(0, 2, (CHANNELS, modem.bits_per_frame(SCFDE_BLOCKS)),
+                         generator=g, device=device, dtype=torch.int32)
+    ci, cq, _, nv = scfde_capture(modem, bits, device, SEED + 128)
+    k = modem.preamble_len
+    taps = torch.as_tensor(modem._preamble_i[::-1].copy(), device=device)
+    n = SCFDE_MAX_LAG + k - 1
+    args = (ci[:, :n].contiguous(), taps,
+            torch.zeros((CHANNELS, k - 1), device=device))
+    xp = torch.cat([args[2], args[0]], dim=-1).unsqueeze(1)
+    w = taps.flip(0).reshape(1, 1, k)
+    lib_err = max_err(F.conv1d(xp, w).squeeze(1), fir.fir_kernel(*args))
+    if lib_err > 1e-3:
+        fail(f"conv1d yardstick disagrees with K4 at {k} taps ({lib_err})")
+    ms, plain_ms, dev_ms = kernel_times(fir.fir_kernel, fir.fir_plain, args,
+                                        device, fir_symbol(k), plain_calls=2)
+    if dev_ms is None:
+        fail(f"K4 at {k} taps: no {fir_symbol(k)} in the profile")
+    lib_ms = time_calls(F.conv1d, (xp, w), device)
+    lib_dev = device_busy_ms(F.conv1d, (xp, w), device)
+    work = (4 * (2 * CHANNELS * n + CHANNELS * (k - 1) + k),
+            2 * k * CHANNELS * n)
+    times = {SCFDE_FIR: (ms, plain_ms, dev_ms, lib_ms, work)}
+    print_times(f"{SCFDE_FIR} ({k} taps, {fir.fir_route(k)})", CHANNELS * n,
+                times[SCFDE_FIR], card,
+                f"conv1d {lib_ms:.4f} ms, its device busy {lib_dev:.4f} ms "
+                f"(max |err| vs K4 {lib_err:.2e})")
+
+    r = Rates(1250, 10000)
+    aligned = modem.locate_frame(ci, cq, SCFDE_BLOCKS, SCFDE_MAX_LAG)[:2]
+    st = AlamoutiOfdm(make_scheme("qpsk", r), device=device)
+    sb = torch.randint(0, 2, (CHANNELS, st.bits_per_frame(STBC_PAIRS)),
+                       generator=g, device=device, dtype=torch.int32)
+    (ai, aq), (bi, bq) = st.tx(sb)
+    m2 = MimoOfdm(make_scheme("qpsk", r), device=device)
+    mb = torch.randint(0, 2, (CHANNELS, m2.bits_per_frame(2 * STBC_PAIRS)),
+                       generator=g, device=device, dtype=torch.int32)
+    (ma, mq), (na, nq) = m2.tx(mb)
+    m2y = (ma + 0.4 * na, mq + 0.4 * nq, 0.3 * ma + na, 0.3 * mq + nq)
+    mn = MimoOfdmN(make_scheme("qpsk", r), nt=MIMON_NT, device=device)
+    nb = torch.randint(0, 2, (CHANNELS, mn.bits_per_frame(MIMON_SYMBOLS)),
+                       generator=g, device=device, dtype=torch.int32)
+    ti, tq = mn.tx(nb)
+    mix = torch.eye(MIMON_NT, device=device) + 0.25
+    lm = loaded_modem(device)
+    lb = torch.randint(0, 2, (CHANNELS, lm.bits_per_frame(LOAD_SYMBOLS)),
+                       generator=g, device=device, dtype=torch.int32)
+    li, lq = lm.tx_frame(lb)
+    link = presets.mimo_ofdm_link(device=device)
+    pay = torch.randint(0, 2, (MIMO_FRAMES, link.payload_bits), generator=g,
+                        device=device, dtype=torch.int32)
+    (ia, qa), (ib, qb) = link.tx(pay)
+    ly = (*awgn(g, ia + 0.6 * ib, qa + 0.6 * qb, MIMO_EXACT_SNR_DB),
+          *awgn(g, 0.5 * ia + ib, 0.5 * qa + qb, MIMO_EXACT_SNR_DB))
+    lnv = float(torch.mean(ly[0] ** 2 + ly[1] ** 2)) / 10.0 ** (
+        MIMO_EXACT_SNR_DB / 10.0)
+    for name, fn, fargs, what in (
+            ("ScFdeModem.rx_frame", modem.rx_frame,
+             (*aligned, SCFDE_BLOCKS, nv), (aligned[0].numel(), "samples")),
+            ("ScFdeModem.acquire", modem.acquire,
+             (ci, cq, SCFDE_BLOCKS, SCFDE_MAX_LAG, nv),
+             (ci.numel(), "samples")),
+            ("AlamoutiOfdm.rx", st.rx, (ai + bi, aq + bq, STBC_PAIRS),
+             (ai.numel(), "samples")),
+            ("MimoOfdm.rx_frame", m2.rx_frame, (*m2y, 2 * STBC_PAIRS),
+             (2 * ma.numel(), "samples")),
+            (f"MimoOfdmN.rx_frame ({MIMON_NT}x{MIMON_NT})", mn.rx_frame,
+             (mix @ ti, mix @ tq, MIMON_SYMBOLS, 1e-3),
+             (ti.numel(), "samples")),
+            ("AdaptiveOfdm.rx_frame", lm.rx_frame, (li, lq, LOAD_SYMBOLS),
+             (li.numel(), "samples")),
+            ("mimo_ofdm_link().rx, 16 dB", link.rx, (ly, lnv),
+             (MIMO_FRAMES * link.payload_bits, "payload bits"))):
+        calls = 3 if "link" in name else 10
+        ms = time_calls(fn, fargs, device, calls=calls, reps=3)
+        busy = device_busy_ms(fn, fargs, device, calls=calls)
+        launches = cuda_launches(fn, fargs, device)
+        count, unit_ = what
+        rate = (f"{count / ms / 1e3:.2f} Mbit/s" if "bits" in unit_ else
+                f"{count / ms * 1e3:.4e} {unit_}/s")
+        print(f"[times] {name:34s} per call {ms:.4f} ms ({rate}), device "
+              f"busy {busy:.4f} ms (idle share {1 - busy / ms:.3f}), "
+              f"{launches} CUDA launches a call, {CHANNELS} ch, on {card}",
+              flush=True)
+    return times
+
+
 def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
     """Trellis steps the busier of K14's two lanes of a row walks: alpha
     over 0 .. keep_lo + keep_n, beta over tw - 1 .. keep_lo, meeting at
@@ -4969,12 +5621,20 @@ def main() -> int:
     phase_long_streams(device)
     phase_bch(device)
     times.update(phase_acq_times(device, card))
+    with pytorch_defaults():
+        phy_errs, phy_launches = phase_scfde(device)
+        phase_scfde_link(device)
+        phase_stbc_mimo(device)
+        phase_loading(device)
+    errs.update(phy_errs)
+    launches.update(phy_launches)
+    times.update(phase_phy_times(device, card))
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
         (fir_name(k), "modem_tpu_torch/csrc/fir.cu",
          "modem_tpu/ops/pallas_fir.py:44")
-        for k in FIR_ROUTE_TAPS + (240,) + ACQ_FIR_TAPS] + [
+        for k in FIR_ROUTE_TAPS + (240,) + ACQ_FIR_TAPS + (160,)] + [
         (name, "modem_tpu_torch/csrc/demod.cu",
          "modem_tpu/ops/pallas_demod.py:43")
         for name in DEMOD_NAMES.values()] + [

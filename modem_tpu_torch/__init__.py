@@ -48,13 +48,19 @@ imports ``jax`` or ``modem_tpu``. Ported so far:
   its matched filter on kernel K4), the channel impairments
   (:mod:`~modem_tpu_torch.ops.impairments`, their FIRs on K4), the AGC
   (:mod:`~modem_tpu_torch.ops.agc`) and the binary BCH codes
-  (:class:`~modem_tpu_torch.fec.Bch`).
+  (:class:`~modem_tpu_torch.fec.Bch`);
+* the other block PHYs on the OFDM machinery: SC-FDE (:class:`ScFdeModem`,
+  :class:`ScFdeChain`; its blind acquisition's preamble correlation on
+  kernel K4), Alamouti STBC (:class:`AlamoutiOfdm`), 2x2 and N x N MIMO
+  (:class:`MimoOfdm`, :class:`MimoOfdmN`, the ``mimo_ofdm_link`` preset)
+  and adaptive bit loading (:func:`bit_loading`, :class:`AdaptiveOfdm`).
 
 Every entry point builds on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
 """
 
 from . import presets
+from .bitloading import AdaptiveOfdm, bit_loading
 from .config import Freq, Rates
 from .fec import QcLdpc
 from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
@@ -62,22 +68,28 @@ from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
 from .gmsk import GmskChain
 from .link import FramedLink
 from .metrics import LinkStats
+from .mimo import MimoOfdm, MimoOfdmN
 from .models import SCHEME_NAMES, make_scheme
 from .ofdm import OfdmChain, OfdmModem, OfdmStreamReceiver
 from .resampled import ResampledChain, StreamingResampledChain
 from .rx import Demodulator, RxState
+from .scfde import ScFdeChain, ScFdeModem
+from .stbc import AlamoutiOfdm
 from .sync import AcquiringReceiver
 from .streaming import StreamingFusedChain, StreamingFusedRx, StreamingFusedTx
 from .tx import Modulator, TxState
 
 __all__ = [
-    "AcquiringReceiver", "DcqpskChain", "Demodulator", "DifferentialChain",
+    "AcquiringReceiver", "AdaptiveOfdm", "AlamoutiOfdm", "DcqpskChain",
+    "Demodulator", "DifferentialChain",
     "FramedLink",
-    "Freq", "FskChain", "GmskChain", "LinkStats", "Modulator", "MskChain",
+    "Freq", "FskChain", "GmskChain", "LinkStats", "MimoOfdm", "MimoOfdmN",
+    "Modulator", "MskChain",
     "OfdmChain", "OfdmModem", "OfdmStreamReceiver", "OqpskChain",
     "PulseShapedChain", "QcLdpc",
     "Rates", "presets", "ResampledChain", "RxState", "SCHEME_NAMES",
+    "ScFdeChain", "ScFdeModem",
     "StreamingFusedChain", "StreamingFusedRx", "StreamingFusedTx",
     "StreamingResampledChain", "TxState", "make_scheme",
-    "qpsk_reference_chain",
+    "bit_loading", "qpsk_reference_chain",
 ]

@@ -59,9 +59,10 @@ def test_every_module_listed():
               "metrics", "ops.channel", "fec.turbo", "fec.polar",
               "ops.bcjr_kernel", "ops.sc_kernel", "ops.scl_kernel",
               "fec.ldpc", "ops.sync_metric", "ofdm", "fec.bch",
-              "ops.impairments", "ops.agc", "ops.equalizer", "sync"):
+              "ops.impairments", "ops.agc", "ops.equalizer", "sync",
+              "scfde", "stbc", "mimo", "bitloading"):
         assert f"modem_tpu_torch.{m}" in MODULES, m
-    assert len(MODULES) >= 66
+    assert len(MODULES) >= 70
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
