@@ -387,7 +387,27 @@ TF32 off for matmuls):
     off); wall time, device busy time, idle share and CUDA launches per
     call of ``ScFdeModem.rx_frame`` and ``acquire``, ``AlamoutiOfdm.rx``,
     ``MimoOfdm.rx_frame``, ``MimoOfdmN.rx_frame`` at 4x4,
-    ``AdaptiveOfdm.rx_frame`` and ``mimo_ofdm_link().rx``.
+    ``AdaptiveOfdm.rx_frame`` and ``mimo_ofdm_link().rx``;
+51. the wideband front end under PyTorch's default math settings (as 46-49,
+    through 55): ``Channelizer`` at M 256, a batch of 4 x 4096
+    channel-rate samples: both banks against the CPU twin, in 4 pushes
+    equal to one shot bit for bit, the bf16 DFT (float32 outputs, its
+    floor against f32, every bit of 256 bursts through both bf16 banks),
+    5 tones each 40 dB above every other channel;
+52. ``DsssChain`` at 256 ch x 512 QPSK symbols, L 16: every bit right, K4's
+    launches counted (2 each way), 4 channels against the CPU twin; at -4
+    dB chip SNR and under a 10x CW jammer at L 32, every bit right;
+53. ``FhssModem``, 16 links over 64 channels, 64 dwells of 32 symbols on a
+    seeded permutation: every bit, K4's launches (2 each way); a 10x
+    jammer's dwell loses bits, the other 63 exact; hybrid DS/FH;
+54. ``WidebandModem`` at M 256 x 512 payload symbols: every bit, K4's
+    launches (2 each way); through tests/test_wideband.py's front end held
+    to the CPU twin (the preamble's CFO estimate drifts a few channels past
+    a boundary over 512 symbols, for the JAX receiver too), every bit with
+    ``track_block=16`` and at 96 symbols;
+55. times: wall, device busy, idle share and CUDA launches per call of each
+    new entry point, the DFT GEMMs' share of the busy time, and
+    ``profiling.measure``/``measure_marginal`` beside CUDA events.
 
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass, the chain's 65-tap RRC, each other count of
@@ -686,6 +706,22 @@ LOAD_SYMBOLS, LOAD_FLOOR_DB, LOAD_GAP_DB, LOAD_MAX_BITS = 64, 30.0, 12.0, 6
 LOAD_CH = ((0.75, 0.0, 0.0, 0.55, 0.0, 0.0, 0.3),
            (0.0, 0.3, 0.0, 0.0, -0.35, 0.0, 0.0))
 LOAD_LINK_FRAMES, LOAD_LINK_SNR_DB = 256, 20.0
+# the wideband front end: the channelizer at bench_channelizer.py's block
+# (M 256, 4096 channel-rate samples, a batch of 4: 1,048,576 wideband
+# samples a row), DSSS at 256 channels x 512 QPSK symbols (L 16; the CW
+# jammer of tests/test_dsss.py at L 32), FHSS at 16 links over 64 channels
+# (64 dwells on a seeded permutation, 32 QPSK symbols a dwell), and
+# WidebandModem at M 256 with tests/test_wideband.py's front end
+WB_M, WB_K, WB_BATCH, WB_PUSHES = 256, 4096, 4, 4
+WB_TONE_CH, WB_TONE_K = (0, 1, 100, 128, 255), 512
+WB_TWIN_RTOL = 1e-4              # of the largest output, card vs CPU twin
+WB_BF16_SNR_DB = 35.0            # bf16 DFT against f32: the floor it keeps
+DS_CHANNELS, DS_SYMBOLS, DS_L, DS_JAM_L, DS_SNR_DB = 256, 512, 16, 32, -4.0
+DS_TWIN = 4                      # channels held against the CPU twin
+FH_LINKS, FH_M, FH_DWELLS, FH_SYMBOLS, FH_JAM_CH = 16, 64, 64, 32, 5
+FH_DS_L, FH_DS_DWELLS, FH_DS_SYMBOLS = 8, 16, 16
+WB_PAYLOAD, WB_MAX_LAG = 512, 200
+WB_CFO_HZ, WB_PHASE, WB_GAIN, WB_SNR_DB = 3.0, 0.4, 0.9, 28.0
 # the H100 SXM's published peaks at 700 W: HBM bytes/s, f32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -4876,13 +4912,17 @@ class pytorch_defaults:
     PHYs' DFTs and small-matrix products must be right as a user runs
     them."""
 
+    def __init__(self, phases: str = "46-49"):
+        self.phases = phases
+
     def __enter__(self):
         self.saved = (torch.backends.cuda.matmul.allow_tf32,
                       torch.backends.cudnn.allow_tf32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True
-        print("[phy] PyTorch's default math settings for phases 46-49: "
-              f"matmul TF32 {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+        print("[phy] PyTorch's default math settings for phases "
+              f"{self.phases}: matmul TF32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
               f"TF32 {torch.backends.cudnn.allow_tf32}", flush=True)
 
     def __exit__(self, *exc):
@@ -5438,6 +5478,404 @@ def phase_phy_times(device, card: str) -> dict:
     return times
 
 
+# ---- the wideband front end: channelizer, DSSS, FHSS, WidebandModem ----
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want| (both moved to the CPU)."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.shape != want.shape:
+        fail(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail("non-finite output")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def count_k4(what: str, tag: str, fn, *args):
+    """``fn(*args)`` with every launch count set to 0 just before it;
+    returns ``(out, K4's launches)`` read just after."""
+    from modem_tpu_torch.ops import fir
+
+    reset_launches()
+    out = fn(*args)
+    return out, read_launches({what: fir.FIR_KERNEL}, what, tag)[what]
+
+
+def wb_pushes(bank, x, y, n_rows: int, analyze: bool):
+    """``bank`` over ``(x, y)`` in ``WB_PUSHES`` equal pushes of ``n_rows``
+    channel-rate rows (wideband samples for analysis)."""
+    step = n_rows // WB_PUSHES
+    if analyze:
+        st, width, fn = bank.init_analyze_state(x.shape[:-1]), bank.m, \
+            bank.analyze_stream
+    else:
+        st, width, fn = bank.init_synthesize_state(x.shape[:-2]), 1, \
+            bank.synthesize_stream
+    parts = []
+    for p in range(WB_PUSHES):
+        a, b = p * step * width, (p + 1) * step * width
+        oi, oq, st = fn(x[..., a:b], y[..., a:b], st)
+        parts.append((oi, oq))
+    return (torch.cat([o[0] for o in parts], -1),
+            torch.cat([o[1] for o in parts], -1))
+
+
+def wb_receiver(device, **kw):
+    from modem_tpu_torch import AcquiringReceiver, Rates, qpsk_reference_chain
+
+    return AcquiringReceiver(qpsk_reference_chain(Rates(1250, 10000),
+                                                  device=device),
+                             list(ACQ_PRE), max_lag=WB_MAX_LAG, **kw)
+
+
+def gemm_share(fn, args, device, calls=5) -> tuple[float, float, set]:
+    """``(GEMM ms, busy ms, GEMM kernel names)`` a call, by the profiler:
+    the device time of the cuBLAS kernels (names holding ``gemm``) beside
+    all the call's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize(device)
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    gemm = [e for e in evs if "gemm" in e.key.lower()]
+    return (sum(e.device_time_total for e in gemm) / calls / 1e3,
+            sum(e.device_time_total for e in evs) / calls / 1e3,
+            {e.key[:60] for e in gemm})
+
+
+def phase_channelizer(device) -> None:
+    """Phase 51: the channelizer at M 256, 4096 channel-rate samples, a
+    batch of 4: ``synthesize`` and ``analyze`` held against the CPU twin on
+    the same inputs (one row: a row's result does not depend on the
+    others); both banks in 4 pushes equal to one shot, bit for bit; the
+    bf16 DFT (float32 outputs, its floor against f32, exact decisions
+    through both bf16 banks and ``AcquiringReceiver`` at 256 bursts); tones
+    at 5 channels, each suppressed 40 dB in every other channel, as
+    tests/test_channelizer.py asks at M 8."""
+    from modem_tpu_torch import Channelizer
+
+    g = torch.Generator(device=device).manual_seed(SEED + 130)
+    bank = Channelizer(WB_M, device=device)
+    twin = Channelizer(WB_M, device="cpu")
+    ci = torch.randn((WB_BATCH, WB_M, WB_K), generator=g, device=device)
+    cq = torch.randn((WB_BATCH, WB_M, WB_K), generator=g, device=device)
+    wi, wq = bank.synthesize(ci, cq)
+    yi, yq = bank.analyze(wi, wq)
+    torch.cuda.synchronize(device)
+    twi, twq = twin.synthesize(ci[:1].cpu(), cq[:1].cpu())
+    tyi, tyq = twin.analyze(wi[:1].cpu(), wq[:1].cpu())
+    errs = {"synthesize": max(rel_err(wi[:1], twi), rel_err(wq[:1], twq)),
+            "analyze": max(rel_err(yi[:1], tyi), rel_err(yq[:1], tyq))}
+    pi_, pq_ = wb_pushes(bank, ci, cq, WB_K, analyze=False)
+    ai, aq = wb_pushes(bank, wi, wq, WB_K, analyze=True)
+    same = {"synthesize": torch.equal(pi_, wi) and torch.equal(pq_, wq),
+            "analyze": torch.equal(ai, yi) and torch.equal(aq, yq)}
+    print(f"[wideband] Channelizer({WB_M}) on {WB_BATCH} x {WB_M} x {WB_K} "
+          f"(wideband {WB_M * WB_K} samples a row): vs the CPU twin "
+          f"{json.dumps(errs)} of the largest (bar {WB_TWIN_RTOL}); "
+          f"{WB_PUSHES} pushes == one shot {json.dumps(same)}", flush=True)
+    if max(errs.values()) > WB_TWIN_RTOL or not all(same.values()):
+        fail("Channelizer: the card differs from the CPU twin, or pushes "
+             "differ from one shot")
+
+    b16 = Channelizer(WB_M, dft_dtype=torch.bfloat16, device=device)
+    t16 = Channelizer(WB_M, dft_dtype=torch.bfloat16, device="cpu")
+    hi, hq = b16.synthesize(ci, cq)
+    gi, gq = b16.analyze(wi, wq)
+    e16 = max(rel_err(hi[:1], t16.synthesize(ci[:1].cpu(), cq[:1].cpu())[0]),
+              rel_err(gi[:1], t16.analyze(wi[:1].cpu(), wq[:1].cpu())[0]))
+    floor = 10 * math.log10(float((wi ** 2 + wq ** 2).sum())
+                            / float(((hi - wi) ** 2 + (hq - wq) ** 2).sum()))
+    si, sq = wb_pushes(b16, wi, wq, WB_K, analyze=True)
+    same16 = torch.equal(si, gi) and torch.equal(sq, gq)
+    rxr = wb_receiver(device)
+    bits = acq_bits(WB_M, WB_PAYLOAD, g, device)
+    bi, bq = rxr.tx_burst(bits)
+    pad = bi.new_zeros((WB_M, 2 * b16.taps_per_phase + 64))
+    bi, bq = torch.cat([bi, pad], -1), torch.cat([bq, pad], -1)
+    out = rxr.rx(*b16.analyze(*b16.synthesize(bi, bq)), WB_PAYLOAD)
+    errs16 = bit_errors(out, bits)
+    print(f"[wideband] bf16 DFT: outputs {hi.dtype}/{gi.dtype}; vs the CPU "
+          f"twin {e16:.2e} of the largest (bar {WB_TWIN_RTOL}); synthesis "
+          f"{floor:.1f} dB above its difference from f32 (bar "
+          f"{WB_BF16_SNR_DB}); {WB_PUSHES} pushes == one shot {same16}; "
+          f"{WB_M} bursts of {WB_PAYLOAD} QPSK symbols through both bf16 "
+          f"banks and AcquiringReceiver: {errs16} bit errors", flush=True)
+    if (hi.dtype != torch.float32 or gi.dtype != torch.float32
+            or e16 > WB_TWIN_RTOL or floor < WB_BF16_SNR_DB or not same16
+            or errs16):
+        fail("Channelizer(dft_dtype=torch.bfloat16) is not right")
+
+    t = torch.arange(WB_M * WB_TONE_K, device=device, dtype=torch.float64)
+    f = torch.tensor(WB_TONE_CH, device=device, dtype=torch.float64)[:, None]
+    ang = 2.0 * math.pi * f / WB_M * t
+    ti, tq = bank.analyze(torch.cos(ang).float(), torch.sin(ang).float())
+    p = (ti[..., 64:] ** 2 + tq[..., 64:] ** 2).mean(-1)  # [tones, M]
+    worst = 0.0
+    for r, m0 in enumerate(WB_TONE_CH):
+        others = torch.cat([p[r, :m0], p[r, m0 + 1:]])
+        worst = max(worst, float(others.max() / p[r, m0]))
+        if float(p[r, m0]) <= 1.0:
+            fail(f"Channelizer: the tone at channel {m0} is missing")
+    print(f"[wideband] tones at channels {WB_TONE_CH}, M {WB_M}: the "
+          f"strongest other channel {10 * math.log10(worst):.1f} dB under "
+          "the tone's (bar -40 dB)", flush=True)
+    if worst >= 1e-4:
+        fail("Channelizer: a tone leaks into another channel")
+
+
+def phase_dsss(device) -> None:
+    """Phase 52: ``DsssChain`` at 256 channels x 512 QPSK symbols, L 16
+    (about 65,600 samples a channel): noiseless, every bit right, K4's
+    launches counted from 0 (2 a call each way); 4 channels held against
+    the CPU twin (waveforms within ATOL, decision points and bits); at -4
+    dB chip SNR every bit right; the 10x CW jammer at L 32, every bit
+    right."""
+    from modem_tpu_torch import DsssChain, Rates, make_scheme
+    from modem_tpu_torch.ops.channel import awgn
+
+    r = Rates(1250, 10000)
+    g = torch.Generator(device=device).manual_seed(SEED + 131)
+    ds = DsssChain(make_scheme("qpsk", r), r, DS_L, device=device)
+    bits = acq_bits(DS_CHANNELS, DS_SYMBOLS, g, device)
+    (i, q), n_tx = count_k4("DsssChain.tx", "dsss", ds.tx, bits)
+    out, n_rx = count_k4("DsssChain.rx", "dsss", ds.rx, (i, q), DS_SYMBOLS)
+    errs = bit_errors(out, bits)
+    twin = DsssChain(make_scheme("qpsk", r), r, DS_L, device="cpu")
+    tb = bits[:DS_TWIN].cpu()
+    ti, tq = twin.tx(tb)
+    w_err = max_err((i[:DS_TWIN].cpu(), q[:DS_TWIN].cpu()), (ti, tq))
+    di, dq = ds._despread(i[:DS_TWIN], q[:DS_TWIN], DS_SYMBOLS)
+    tdi, tdq = twin._despread(ti, tq, DS_SYMBOLS)
+    p_err = max(rel_err(di, tdi), rel_err(dq, tdq))
+    twin_bits = torch.equal(twin.rx((ti, tq), DS_SYMBOLS), tb)
+    print(f"[dsss] {DS_CHANNELS} ch x {DS_SYMBOLS} QPSK symbols, L {DS_L} "
+          f"({i.shape[-1]} samples a channel, "
+          f"{2 * i.numel() * 4 / 1e6:.1f} MB both planes): {errs} bit "
+          f"errors; K4 launches tx {n_tx}, rx {n_rx}; {DS_TWIN} channels vs "
+          f"the CPU twin: waveform {w_err:.2e} (tol {ATOL}), decision "
+          f"points {p_err:.2e} of the largest (bar {WB_TWIN_RTOL}), twin bits "
+          f"{'right' if twin_bits else 'WRONG'}", flush=True)
+    if errs or n_tx != 2 or n_rx != 2 or w_err > ATOL or \
+            p_err > WB_TWIN_RTOL or not twin_bits:
+        fail("DsssChain: bits, launches or the CPU twin wrong")
+
+    ni, nq = awgn(g, i, q, DS_SNR_DB)
+    errs = bit_errors(ds.rx((ni, nq), DS_SYMBOLS), bits)
+    jam = DsssChain(make_scheme("qpsk", r), r, DS_JAM_L, device=device)
+    ji, jq = jam.tx(bits)
+    amp = math.sqrt(10.0 * float((ji * ji + jq * jq).mean()))
+    th = (2.0 * math.pi * 0.013 * torch.arange(ji.shape[-1], device=device,
+                                               dtype=torch.float32) + 0.7)
+    jerrs = bit_errors(jam.rx((ji + amp * torch.cos(th),
+                               jq + amp * torch.sin(th)), DS_SYMBOLS), bits)
+    print(f"[dsss] at {DS_SNR_DB} dB chip SNR: {errs} bit errors; a CW tone "
+          f"10x the signal power at L {DS_JAM_L}: {jerrs} bit errors of "
+          f"{bits.numel()}", flush=True)
+    if errs or jerrs:
+        fail("DsssChain: bits wrong in noise or under the jammer")
+
+
+def fh_modem(chain, hop, symbols: int):
+    from modem_tpu_torch import FhssModem
+
+    return FhssModem(chain, m=FH_M, hop_seq=hop, dwell_symbols=symbols)
+
+
+def phase_fhss(device) -> None:
+    """Phase 53: ``FhssModem`` at 16 links over 64 channels, 64 dwells on a
+    seeded permutation, 32 QPSK symbols a dwell: every bit right, K4's
+    launches counted (2 a call each way, the wrapped staged chain); a 10x
+    CW jammer on channel 5: its dwell loses bits, every other dwell exact;
+    hybrid DS/FH over a ``DsssChain`` (L 8, 16 dwells of 16 symbols), every
+    bit right."""
+    from modem_tpu_torch import DsssChain, PulseShapedChain, Rates, \
+        make_scheme
+
+    r = Rates(1250, 10000)
+    g = torch.Generator(device=device).manual_seed(SEED + 132)
+    hop = torch.randperm(FH_M, generator=g, device=device)[:FH_DWELLS].cpu()
+    fm = fh_modem(PulseShapedChain(make_scheme("qpsk", r), r, device=device),
+                  hop.numpy(), FH_SYMBOLS)
+    bits = torch.randint(0, 2, (FH_LINKS, fm.bits_per_frame()), generator=g,
+                         device=device, dtype=torch.int32)
+    (wi, wq), n_tx = count_k4("FhssModem.tx", "fhss", fm.tx, bits)
+    out, n_rx = count_k4("FhssModem.rx", "fhss", fm.rx, wi, wq)
+    errs = bit_errors(out, bits)
+    print(f"[fhss] {FH_LINKS} links x {FH_DWELLS} dwells x {FH_SYMBOLS} QPSK "
+          f"symbols over {FH_M} channels ({wi.shape[-1]} wideband samples a "
+          f"link): {errs} bit errors; K4 launches tx {n_tx}, rx {n_rx}; bank "
+          f"delay and gain {fm._calibrate()}", flush=True)
+    if errs or n_tx != 2 or n_rx != 2:
+        fail("FhssModem: bits or launches wrong")
+
+    amp = math.sqrt(10.0 * float((wi * wi + wq * wq).mean()) * FH_M)
+    th = (2.0 * math.pi * FH_JAM_CH / FH_M
+          * torch.arange(wi.shape[-1], device=device, dtype=torch.float32)
+          + 1.1)
+    out = fm.rx(wi + amp * torch.cos(th), wq + amp * torch.sin(th))
+    per = (out != bits).reshape(FH_LINKS, FH_DWELLS, -1).sum(-1).cpu()
+    hit = int((hop == FH_JAM_CH).nonzero()[0, 0])
+    rest = torch.cat([per[:, :hit], per[:, hit + 1:]], dim=-1)
+    print(f"[fhss] 10x CW jammer on channel {FH_JAM_CH} (dwell {hit}): bit "
+          f"errors there {int(per[:, hit].min())}-{int(per[:, hit].max())} a "
+          f"link, in the other {FH_DWELLS - 1} dwells {int(rest.sum())}",
+          flush=True)
+    if int(per[:, hit].min()) <= 5 or int(rest.sum()):
+        fail("FhssModem: the jammer's selectivity is not right")
+
+    hy = fh_modem(DsssChain(make_scheme("qpsk", r), r, FH_DS_L,
+                            device=device), hop[:FH_DS_DWELLS].numpy(),
+                  FH_DS_SYMBOLS)
+    hb = torch.randint(0, 2, (FH_LINKS, hy.bits_per_frame()), generator=g,
+                       device=device, dtype=torch.int32)
+    herrs = bit_errors(hy.rx(*hy.tx(hb)), hb)
+    print(f"[fhss] hybrid DS/FH (L {FH_DS_L}, {FH_DS_DWELLS} dwells of "
+          f"{FH_DS_SYMBOLS} symbols, {FH_LINKS} links): {herrs} bit errors",
+          flush=True)
+    if herrs:
+        fail("FhssModem over DsssChain: bits wrong")
+
+
+def wb_front_end(wi, wq, g):
+    """tests/test_wideband.py's front end: the whole bank tilted together,
+    3 Hz of CFO at the wideband rate, gain 0.9, AWGN at 28 dB."""
+    from modem_tpu_torch.ops.channel import awgn
+    from modem_tpu_torch.ops.impairments import apply_cfo, apply_gain_phase
+
+    wi, wq = apply_cfo(wi, wq, WB_CFO_HZ, 10000 * WB_M, phase0=WB_PHASE)
+    wi, wq = apply_gain_phase(wi, wq, gain=WB_GAIN)
+    return awgn(g, wi, wq, WB_SNR_DB)
+
+
+def phase_wideband(device) -> None:
+    """Phase 54: ``WidebandModem`` at M 256, 512 payload symbols, max_lag
+    200: every payload bit right, K4's launches counted (2 in ``tx``, the
+    bursts' shaping; 2 in ``rx``, the matched filter). Through the front
+    end: the receiver's CFO estimate from the 32-symbol preamble lets a few
+    channels of 256 drift past a decision boundary over 512 symbols (the
+    JAX package's receiver loses the same channel on the same capture, a
+    CPU run), so there the card is held to the CPU twin (the same channels
+    wrong, every other bit right); with the receiver's block tracker
+    (``track_block=16``), and at tests/test_wideband.py's 96 symbols, every
+    bit right."""
+    from modem_tpu_torch import WidebandModem
+
+    g = torch.Generator(device=device).manual_seed(SEED + 133)
+    wm = WidebandModem(wb_receiver(device), WB_M, WB_PAYLOAD)
+    bits = acq_bits(WB_M, WB_PAYLOAD, g, device)
+    (wi, wq), n_tx = count_k4("WidebandModem.tx", "wideband", wm.tx, bits)
+    out, n_rx = count_k4("WidebandModem.rx", "wideband", wm.rx, wi, wq)
+    errs = bit_errors(out, bits)
+    print(f"[wideband] WidebandModem M {WB_M}, {WB_PAYLOAD} payload symbols, "
+          f"window {wm.window} ({wi.shape[-1]} wideband samples): {errs} bit "
+          f"errors; K4 launches tx {n_tx}, rx {n_rx}", flush=True)
+    if errs or n_tx != 2 or n_rx != 2:
+        fail("WidebandModem: bits or launches wrong")
+
+    fi, fq = wb_front_end(wi, wq, g)
+    bad = (wm.rx(fi, fq) != bits).sum(-1).cpu()
+    twin = WidebandModem(wb_receiver("cpu"), WB_M, WB_PAYLOAD)
+    tbad = (twin.rx(fi.cpu(), fq.cpu()) != bits.cpu()).sum(-1)
+    same = torch.equal(bad > 0, tbad > 0)
+    tracked = WidebandModem(wb_receiver(device, track_block=16), WB_M,
+                            WB_PAYLOAD)
+    terrs = bit_errors(tracked.rx(fi, fq), bits)
+    short = WidebandModem(wb_receiver(device), WB_M, 96)
+    sbits = acq_bits(WB_M, 96, g, device)
+    serrs = bit_errors(short.rx(*wb_front_end(*short.tx(sbits), g)), sbits)
+    print(f"[wideband] through {WB_CFO_HZ} Hz, gain {WB_GAIN}, {WB_SNR_DB} "
+          f"dB: {int(bad.sum())} bit errors in channels "
+          f"{bad.nonzero().flatten().tolist()}, the CPU twin "
+          f"{int(tbad.sum())} in {tbad.nonzero().flatten().tolist()}; with "
+          f"track_block=16 {terrs}; at 96 payload symbols {serrs}",
+          flush=True)
+    if not same or terrs or serrs:
+        fail("WidebandModem through the front end: bits wrong")
+
+
+def phase_wideband_times(device, card: str) -> None:
+    """Phase 55: wall time, device busy time, idle share and CUDA launches
+    per call of ``Channelizer.synthesize``/``analyze`` (phase 51's block),
+    ``DsssChain.tx``/``rx`` (phase 52's), ``FhssModem.tx``/``rx`` (phase
+    53's) and ``WidebandModem.tx``/``rx`` (phase 54's); then
+    ``profiling.measure`` and ``measure_marginal`` on ``analyze`` beside
+    the CUDA-event time of the same calls."""
+    from modem_tpu_torch import (Channelizer, DsssChain, PulseShapedChain,
+                                 Rates, WidebandModem, make_scheme, profiling)
+
+    r = Rates(1250, 10000)
+    g = torch.Generator(device=device).manual_seed(SEED + 134)
+    bank = Channelizer(WB_M, device=device)
+    ci = torch.randn((WB_BATCH, WB_M, WB_K), generator=g, device=device)
+    cq = torch.randn((WB_BATCH, WB_M, WB_K), generator=g, device=device)
+    wi, wq = bank.synthesize(ci, cq)
+    ds = DsssChain(make_scheme("qpsk", r), r, DS_L, device=device)
+    dbits = acq_bits(DS_CHANNELS, DS_SYMBOLS, g, device)
+    dwave = ds.tx(dbits)
+    hop = torch.randperm(FH_M, generator=g, device=device)[:FH_DWELLS].cpu()
+    fm = fh_modem(PulseShapedChain(make_scheme("qpsk", r), r, device=device),
+                  hop.numpy(), FH_SYMBOLS)
+    fbits = torch.randint(0, 2, (FH_LINKS, fm.bits_per_frame()), generator=g,
+                          device=device, dtype=torch.int32)
+    fwave = fm.tx(fbits)
+    wm = WidebandModem(wb_receiver(device), WB_M, WB_PAYLOAD)
+    wbits = acq_bits(WB_M, WB_PAYLOAD, g, device)
+    wwave = wm.tx(wbits)
+    for name, fn, fargs, what in (
+            (f"Channelizer.synthesize, {WB_BATCH} x {WB_M} x {WB_K}",
+             bank.synthesize, (ci, cq), (wi.numel(), "samples")),
+            (f"Channelizer.analyze, {WB_BATCH} x {WB_M * WB_K}",
+             bank.analyze, (wi, wq), (wi.numel(), "samples")),
+            (f"DsssChain.tx, {DS_CHANNELS} ch x {DS_SYMBOLS} sym, L {DS_L}",
+             ds.tx, (dbits,), (dwave[0].numel(), "samples")),
+            ("DsssChain.rx, same", ds.rx, (dwave, DS_SYMBOLS),
+             (dwave[0].numel(), "samples")),
+            (f"FhssModem.tx, {FH_LINKS} links x {FH_DWELLS} dwells",
+             fm.tx, (fbits,), (fwave[0].numel(), "samples")),
+            ("FhssModem.rx, same", fm.rx, fwave,
+             (fwave[0].numel(), "samples")),
+            (f"WidebandModem.tx, M {WB_M} x {WB_PAYLOAD} sym", wm.tx,
+             (wbits,), (wwave[0].numel(), "samples")),
+            ("WidebandModem.rx, same", wm.rx, wwave,
+             (wwave[0].numel(), "samples"))):
+        ms = time_calls(fn, fargs, device, calls=5, reps=3)
+        busy = device_busy_ms(fn, fargs, device, calls=5)
+        launches = cuda_launches(fn, fargs, device)
+        count, unit_ = what
+        print(f"[times] {name:44s} per call {ms:.4f} ms "
+              f"({count / ms * 1e3:.4e} {unit_}/s), device busy "
+              f"{busy:.4f} ms (idle share {1 - busy / ms:.3f}), {launches} "
+              f"CUDA launches a call, on {card}", flush=True)
+
+    for name, fn, fargs in (("Channelizer.synthesize", bank.synthesize,
+                             (ci, cq)),
+                            ("Channelizer.analyze", bank.analyze, (wi, wq)),
+                            ("FhssModem.rx", fm.rx, fwave)):
+        gemm, busy, kinds = gemm_share(fn, fargs, device)
+        print(f"[times] {name}: the DFT's GEMMs {gemm:.4f} ms of {busy:.4f} "
+              f"ms busy a call ({100 * gemm / max(busy, 1e-12):.1f}%), "
+              f"{len(kinds)} GEMM kernel(s): {sorted(kinds)}", flush=True)
+
+    reps = torch.stack([wi, wi.flip(-1), wq, wq.flip(-1)])
+    qreps = torch.stack([wq, wq.flip(-1), wi, wi.flip(-1)])
+    samples = wi.numel()
+    ev = time_calls(bank.analyze, (wi, wq), device, calls=4, reps=5)
+    m = profiling.measure(lambda a, b: bank.analyze(a, b)[0], (reps, qreps),
+                          samples)
+    mm = profiling.measure_marginal(lambda a, b: bank.analyze(a, b)[0],
+                                    (reps[:2], qreps[:2]), (reps, qreps),
+                                    samples)
+    print(f"[times] profiling.measure(Channelizer.analyze), 4 reps: "
+          f"{m.summary()} (median {m.median_seconds_per_call * 1e3:.4f} ms); "
+          f"measure_marginal 2 -> 4 reps: {mm.summary()}; CUDA events over "
+          f"the same calls {ev:.4f} ms a call, on {card}", flush=True)
+    if not (m.seconds_per_call > 0 and mm.marginal_samples_per_s > 0):
+        fail("profiling.measure: no time")
+
+
 def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
     """Trellis steps the busier of K14's two lanes of a row walks: alpha
     over 0 .. keep_lo + keep_n, beta over tw - 1 .. keep_lo, meeting at
@@ -5629,6 +6067,12 @@ def main() -> int:
     errs.update(phy_errs)
     launches.update(phy_launches)
     times.update(phase_phy_times(device, card))
+    with pytorch_defaults("51-55"):
+        phase_channelizer(device)
+        phase_dsss(device)
+        phase_fhss(device)
+        phase_wideband(device)
+        phase_wideband_times(device, card)
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [

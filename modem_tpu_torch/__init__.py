@@ -53,7 +53,14 @@ imports ``jax`` or ``modem_tpu``. Ported so far:
   :class:`ScFdeChain`; its blind acquisition's preamble correlation on
   kernel K4), Alamouti STBC (:class:`AlamoutiOfdm`), 2x2 and N x N MIMO
   (:class:`MimoOfdm`, :class:`MimoOfdmN`, the ``mimo_ofdm_link`` preset)
-  and adaptive bit loading (:func:`bit_loading`, :class:`AdaptiveOfdm`).
+  and adaptive bit loading (:func:`bit_loading`, :class:`AdaptiveOfdm`);
+* the wideband front end: the polyphase :class:`Channelizer` (M channels
+  <-> one wideband stream; its DFT ``torch.mm`` in fixed row tiles),
+  direct-sequence spread spectrum (:class:`DsssChain`, its chip shaping and
+  matched filter on kernel K4), frequency hopping behind the channelizer
+  (:class:`FhssModem`), the single-device :class:`WidebandModem` (M burst
+  modems behind one bank, on :class:`AcquiringReceiver`) and the timing
+  helpers of :mod:`~modem_tpu_torch.profiling`.
 
 Every entry point builds on the card unless the caller asks for the CPU
 (``device="cpu"``); kernels are built at first use (:mod:`.cuda`).
@@ -62,7 +69,9 @@ Every entry point builds on the card unless the caller asks for the CPU
 from . import presets
 from .bitloading import AdaptiveOfdm, bit_loading
 from .config import Freq, Rates
+from .dsss import DsssChain
 from .fec import QcLdpc
+from .fhss import FhssModem
 from .chain import (DcqpskChain, DifferentialChain, FskChain, MskChain,
                     OqpskChain, PulseShapedChain, qpsk_reference_chain)
 from .gmsk import GmskChain
@@ -71,6 +80,7 @@ from .metrics import LinkStats
 from .mimo import MimoOfdm, MimoOfdmN
 from .models import SCHEME_NAMES, make_scheme
 from .ofdm import OfdmChain, OfdmModem, OfdmStreamReceiver
+from .ops.channelizer import Channelizer
 from .resampled import ResampledChain, StreamingResampledChain
 from .rx import Demodulator, RxState
 from .scfde import ScFdeChain, ScFdeModem
@@ -78,11 +88,12 @@ from .stbc import AlamoutiOfdm
 from .sync import AcquiringReceiver
 from .streaming import StreamingFusedChain, StreamingFusedRx, StreamingFusedTx
 from .tx import Modulator, TxState
+from .wideband import WidebandModem
 
 __all__ = [
-    "AcquiringReceiver", "AdaptiveOfdm", "AlamoutiOfdm", "DcqpskChain",
-    "Demodulator", "DifferentialChain",
-    "FramedLink",
+    "AcquiringReceiver", "AdaptiveOfdm", "AlamoutiOfdm", "Channelizer",
+    "DcqpskChain", "Demodulator", "DifferentialChain", "DsssChain",
+    "FhssModem", "FramedLink",
     "Freq", "FskChain", "GmskChain", "LinkStats", "MimoOfdm", "MimoOfdmN",
     "Modulator", "MskChain",
     "OfdmChain", "OfdmModem", "OfdmStreamReceiver", "OqpskChain",
@@ -90,6 +101,6 @@ __all__ = [
     "Rates", "presets", "ResampledChain", "RxState", "SCHEME_NAMES",
     "ScFdeChain", "ScFdeModem",
     "StreamingFusedChain", "StreamingFusedRx", "StreamingFusedTx",
-    "StreamingResampledChain", "TxState", "make_scheme",
+    "StreamingResampledChain", "TxState", "WidebandModem", "make_scheme",
     "bit_loading", "qpsk_reference_chain",
 ]

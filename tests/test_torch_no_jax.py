@@ -60,7 +60,8 @@ def test_every_module_listed():
               "ops.bcjr_kernel", "ops.sc_kernel", "ops.scl_kernel",
               "fec.ldpc", "ops.sync_metric", "ofdm", "fec.bch",
               "ops.impairments", "ops.agc", "ops.equalizer", "sync",
-              "scfde", "stbc", "mimo", "bitloading"):
+              "scfde", "stbc", "mimo", "bitloading", "ops.channelizer",
+              "dsss", "fhss", "wideband", "profiling"):
         assert f"modem_tpu_torch.{m}" in MODULES, m
     assert len(MODULES) >= 70
 
