@@ -409,6 +409,36 @@ TF32 off for matmuls):
     new entry point, the DFT GEMMs' share of the busy time, and
     ``profiling.measure``/``measure_marginal`` beside CUDA events.
 
+The multi-device layer (``modem_tpu_torch.parallel``, ``debug``,
+``LinkStats.psum``, ``WidebandModem(mesh=)``), each sharded entry point at
+full width against the single-device port on the same global input: the
+flagship (256 ch x 4096 sym; staged, fused, one-way pair, noisy BER,
+passband, DQPSK), 16-MFSK (baseband and the K6 loopback), the FIR and
+demodulator on a 256 x 32768 stream, config #4 at 3/2, the slab Viterbi
+(64 ch x 1024 bits) and K13 over the channels (256 x 4096), acquisition
+(64 x 512), OFDM (256 x 64, max_lag 96), the channelizer and
+``WidebandModem`` at M 256 over a 1x4 mesh (the rest 2x2), ``LinkStats.psum``
+and ``halo_mismatch`` on a K4 overlap-save:
+
+56. a world of one over NCCL on the card (``initialize_multihost``, a 1x1
+    mesh; one NCCL ``all_reduce``): every sharded call equal to the
+    single-device call bit for bit, waveforms included, the noisy BER's
+    errors equal to K1's on the rank's layout; K1-K4, K6, K11-K13 each
+    launched by the sharded calls; then per-call wall, device busy, idle
+    share and CUDA launches of the sharded fused and staged roundtrips
+    against ``roundtrip_fused`` and ``roundtrip``;
+57. four ranks on the one card: four ``spawn`` processes over a gloo group
+    (NCCL refuses two ranks of one device; CUDA tensors staged through the
+    host), each making the global input from the seed, running the
+    single-device call on the card and its own sharded call, holding its
+    block (decisions bit for bit, waveforms within 1e-5 of the largest
+    value; mismatches summed and differences maxed over the ranks), each
+    rank's launches of K1-K4, K6, K11-K13 read (every rank, those with t >
+    0 among them, launching each); the sharded QPSK BER at 7 dB within 10%
+    of the closed form;
+58. times: the per-rank wall of the sharded fused roundtrip, four ranks
+    sharing one card (not a scaling number).
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass, the chain's 65-tap RRC, each other count of
 phase 7, the OFDM preamble's 240 taps, the acquisition's 4, 13 and 63
@@ -419,7 +449,9 @@ equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11 and K12 hard on
 each route (3/2, 2/3, long), K12 soft; K13; each mode of K1-K3, K1 with
 noise with ``agreement``; K13 at K = 3 and 15; K14, K15, K16; K1, K2, K3
-hard and K3 soft on each long-route chain), each with its launches on its path, error, per-call times (``ms`` from CUDA
+hard and K3 soft on each long-route chain), each with its launches on its path
+(K1-K4, K6, K11-K13 also ``sharded_launches``, those of phase 56's sharded
+calls), error, per-call times (``ms`` from CUDA
 events, ``device_ms`` from the profiler), the least time the card could
 take (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and
 its f32 operations at 67 TFLOP/s, the H100 SXM's published peaks at 700 W;
@@ -5876,6 +5908,485 @@ def phase_wideband_times(device, card: str) -> None:
         fail("profiling.measure: no time")
 
 
+# the multi-device layer (phases 56-58): the flagship and its kin at full
+# width over a 2x2 ("ch", "time") mesh, the channelizer and WidebandModem
+# over 1x4; a world of one over NCCL, then four ranks on the one card
+SH_WORLD = 4
+SH_VIT = (64, 1024)              # channels x data bits of the slab decode
+SH_WAVE_RTOL = 1e-5              # four ranks' waveforms, of the largest value
+SH_HALO = 16                     # halo_mismatch's overlap, in samples
+SH_CALLS = 20
+#: the report entry of each kernel the sharded paths run, and its K number
+#: (K4's count is every tap count's: 65, 64, 240)
+SHARDED_ENTRIES = {"fused_pulse_chain": "K1", "fused_tx": "K2",
+                   "fused_rx": "K3", "fir_filter_rrc": "K4",
+                   "fused_fsk_chain": "K6", "fused_resampled_tx": "K11",
+                   "fused_resampled_rx": "K12", VIT_REPORT[0]: "K13"}
+
+
+def sharded_kernels() -> dict:
+    """The kernels of the sharded paths, by their K number."""
+    from modem_tpu_torch.ops import (chain_kernel, fir, fsk_kernel as fk,
+                                     resampled_kernel as rk, txrx,
+                                     viterbi_kernel as vk)
+
+    return {"K1": chain_kernel.CHAIN_KERNEL, "K2": txrx.TX_KERNEL,
+            "K3": txrx.RX_HARD_KERNEL, "K4": fir.FIR_KERNEL,
+            "K6": fk.FSK_CHAIN_KERNEL, "K11": rk.RESAMPLED_TX_KERNEL,
+            "K12": rk.RESAMPLED_RX_KERNEL, "K13": vk.VITERBI_KERNEL}
+
+
+class ShardedRun:
+    """One rank's sharded calls, each held against the single-device port
+    on the same global inputs (made from the seed alike on every rank):
+    ``bits`` the mismatched elements of each decision check, ``waves`` the
+    largest difference of each waveform over the largest value, and the
+    launches of the sharded calls alone."""
+
+    def __init__(self, meshes: dict, device, world: int):
+        self.meshes, self.device, self.world = meshes, device, world
+        self.launches = dict.fromkeys(sharded_kernels(), 0)
+        self.bits, self.waves = {}, {}
+        self.ber = None
+
+    def call(self, fn, *args):
+        """A sharded call: every count set to 0 just before it, its
+        kernels' launches read just after and added up."""
+        reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize(self.device)
+        for k, kern in sharded_kernels().items():
+            self.launches[k] += kern.launches
+        return out
+
+    def same(self, label: str, got, want) -> None:
+        if got.shape != want.shape:
+            fail(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        self.bits[label] = int((got != want).sum())
+
+    def close(self, label: str, got, want) -> None:
+        self.waves[label] = rel_err(got, want)
+
+
+def sharded_checks(run: ShardedRun) -> None:
+    """Every sharded entry point on this rank's block at full width,
+    against the single-device port's call on the whole input."""
+    from modem_tpu_torch import (Channelizer, Demodulator, DifferentialChain,
+                                 LinkStats, Modulator, OfdmModem,
+                                 PulseShapedChain, Rates, WidebandModem,
+                                 make_scheme, qpsk_reference_chain)
+    from modem_tpu_torch import parallel as par
+    from modem_tpu_torch.debug import halo_mismatch
+    from modem_tpu_torch.fec import ccsds_code
+    from modem_tpu_torch.models.psk import QPSK
+    from modem_tpu_torch.ops.chain_kernel import fused_pulse_chain
+    from modem_tpu_torch.ops.fir import fir_filter
+    from modem_tpu_torch.ops.fsk_kernel import fused_fsk_chain
+    from modem_tpu_torch.ops.pll import LOCK_SAMPLES
+    from modem_tpu_torch.parallel.chain import device_seed
+    from modem_tpu_torch.parallel.collectives import axis_index
+    from modem_tpu_torch.parallel.mesh import shard_block
+    from modem_tpu_torch.utils.bits import pack_bits, unpack_symbols
+
+    dev, ct, tm = run.device, run.meshes["ct"], run.meshes["t"]
+    r = Rates(1250, 10000)
+    g = torch.Generator(device=dev).manual_seed(SEED + 200)
+
+    def rbits(c: int, n: int):
+        return torch.randint(0, 2, (c, n), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def blk(x, mesh=ct, dims=("ch", "time")):
+        return shard_block(x, mesh, dims)
+
+    t_ct = axis_index(ct.get_group("time"))
+    t_tm = axis_index(tm.get_group("time"))
+    d_ct = ct.size(1)
+
+    # the flagship, 256 ch x 4096 symbols: staged (K4) and fused (K1-K3)
+    chain = qpsk_reference_chain(r, device=dev)
+    bits = rbits(CHANNELS, 2 * N_SYMBOLS)
+    sc = par.ShardedPulseChain(chain, ct)
+    bl = sc.shard_bits(bits)
+    run.same("ShardedPulseChain.roundtrip_fn (K4)",
+             run.call(sc.roundtrip_fn(), bl, 0), blk(chain.roundtrip(bits)))
+    run.same("fused_roundtrip_fn (K1)", run.call(sc.fused_roundtrip_fn(),
+                                                 bl, 0),
+             blk(chain.roundtrip_fused(bits)))
+    full = chain.tx_fused(bits)
+    n = N_SYMBOLS * chain.sps
+    wave, ext = run.call(sc.fused_tx_fn(), bl)
+    for i, w in enumerate(wave):
+        run.close(f"fused_tx_fn rail {i} (K2)", w, blk(full[i][..., :n]))
+        # the flush tail is the stream's on the last rank only
+        run.waves[f"fused_tx_fn flush {i}"] = (
+            rel_err(ext[i], blk(full[i][..., n:], ct, ("ch", None)))
+            if t_ct == d_ct - 1 else 0.0)
+    run.same("fused_rx_fn (K3)", run.call(sc.fused_rx_fn(), wave, ext),
+             blk(chain.rx_fused(full, N_SYMBOLS)))
+    err, tot = run.call(sc.fused_ber_fn(ES_N0_DB), bl, SEED)
+    run.ber = (int(err), int(tot))
+    if run.world == 1:  # K1 alone on the rank's layout: the same draws
+        syms = pack_bits(bits, 2)
+        pad = torch.full((CHANNELS, chain.span), -1, dtype=torch.int32,
+                         device=dev)
+        ext_syms = torch.cat([pad, syms, pad[:, :1], pad], dim=-1)
+        dec = fused_pulse_chain(ext_syms, chain.lut, chain.rrc, chain.sps,
+                                chain.span, snr_db=ES_N0_DB,
+                                seed=device_seed(SEED, 0, 0),
+                                sym_offset=-chain.span)
+        dec = dec[..., chain.span:chain.span + N_SYMBOLS]
+        run.same("fused_ber_fn errors (K1 noisy)", err,
+                 (unpack_symbols(dec, 2) != bits).sum())
+    pb = PulseShapedChain(QPSK(0.0, 1.0), r, carrier_hz=2000, device=dev)
+    spb = par.ShardedPulseChain(pb, ct)
+    run.same("passband fused_roundtrip_fn (K1)",
+             run.call(spb.fused_roundtrip_fn(), bl, 0),
+             blk(pb.roundtrip_fused(bits)))
+    dch = DifferentialChain(make_scheme("dqpsk", r), r, device=dev)
+    sd = par.ShardedDifferentialChain(dch, ct)
+    run.same("ShardedDifferentialChain (K1)",
+             run.call(sd.fused_roundtrip_fn(), bl),
+             blk(dch.roundtrip_fused(bits)))
+
+    # the sharded FIR, modulator, demodulator and FSK loopback over 1x4
+    x = torch.randn((CHANNELS, n), generator=g, device=dev)
+    run.close("sharded_fir (K4, 65 taps)",
+              run.call(par.sharded_fir, blk(x, tm), chain.rrc, tm),
+              blk(fir_filter(x, chain.rrc)[0], tm))
+    mfsk = make_scheme("mfsk", r)
+    mod = Modulator(mfsk, r, device=dev)
+    mbits = rbits(CHANNELS, 4 * N_SYMBOLS)
+    si, sq = run.call(par.time_sharded_baseband, mod, blk(mbits, tm), tm)
+    (wi, wq), _ = mod.baseband(mbits, mod.init_state((CHANNELS,)))
+    run.close("time_sharded_baseband i (16-MFSK)", si, blk(wi, tm))
+    run.close("time_sharded_baseband q", sq, blk(wq, tm))
+    pmod = Modulator(make_scheme("qpsk", r), r, carrier_hz=2000, device=dev)
+    pw, _ = pmod.passband(bits, pmod.init_state((CHANNELS,)))
+    demod = Demodulator(2000, 10000, device=dev)
+    di, dq = run.call(par.sharded_demodulate, demod, blk(pw, tm), tm)
+    st = demod.lock_phase(pw[..., :LOCK_SAMPLES],
+                          demod.init_state((CHANNELS,)))
+    (ri, rq), _ = demod.demodulate(pw[..., LOCK_SAMPLES:], st)
+    z = torch.zeros((CHANNELS, LOCK_SAMPLES), device=dev)
+    run.close("sharded_demodulate i (K4, 64 taps)", di,
+              blk(torch.cat([z, ri], -1), tm))
+    run.close("sharded_demodulate q", dq, blk(torch.cat([z, rq], -1), tm))
+    fn = par.time_sharded_fsk_roundtrip_fn(mfsk, r, ct)
+    run.same("time_sharded_fsk_roundtrip_fn (K6)",
+             run.call(fn, blk(mbits), SEED),
+             blk(unpack_symbols(fused_fsk_chain(pack_bits(mbits, 4), mfsk,
+                                                r), 4)))
+
+    # config #4 at 3/2 (K11, K12)
+    rch = resampled_chain(dev)
+    rb = rbits(CHANNELS, 4 * N_SYMBOLS)
+    sr = par.ShardedResampledChain(rch, ct)
+    rbl = sr.shard_bits(rb)
+    rw, rd = run.call(sr.fused_tx_fn(), rbl)
+    ci, cq = rch.tx_fused(rb)
+    nr = N_SYMBOLS * rch.sps * rch.up // rch.down
+    run.close("ShardedResampledChain.fused_tx_fn i (K11)", rw[0],
+              blk(ci[..., :nr]))
+    run.close("ShardedResampledChain.fused_tx_fn q", rw[1], blk(cq[..., :nr]))
+    run.same("ShardedResampledChain.fused_rx_fn (K12)",
+             run.call(sr.fused_rx_fn(), rw, rd),
+             blk(rch.rx_fused((ci, cq), N_SYMBOLS)))
+    run.same("ShardedResampledChain.fused_roundtrip_fn (K11, K12)",
+             run.call(sr.fused_roundtrip_fn(), rbl),
+             blk(rch.roundtrip_fused(rb)))
+
+    # Viterbi: the time-sharded slab decode and K13 over channels
+    code = ccsds_code()
+
+    def llrs(data):
+        c = code.encode(data).to(torch.float32)
+        y = 1.0 - 2.0 * c + 0.8 * torch.randn(c.shape, generator=g,
+                                               device=dev)
+        return 2.0 * y / 0.64
+
+    vl = llrs(rbits(*SH_VIT))
+    dec = run.call(par.sharded_viterbi_fn(code, ct), blk(vl))
+    slab = vl.shape[-1] // code.n // d_ct
+    run.same("sharded_viterbi_fn (slab decode)", dec,
+             shard_block(code.decode_soft(vl), ct, ("ch",))[
+                 ..., t_ct * slab:t_ct * slab + dec.shape[-1]])
+    wl = llrs(rbits(VIT_CHANNELS, VIT_BITS))
+    win = par.channel_sharded(
+        lambda a: code.decode_soft_windowed(a, VIT_BLOCK, VIT_HALO), ct)
+    run.same("channel_sharded(decode_soft_windowed) (K13)",
+             run.call(win, shard_block(wl, ct, ("ch",))),
+             shard_block(code.decode_soft_windowed(wl, VIT_BLOCK, VIT_HALO),
+                         ct, ("ch",)))
+
+    # acquisition and OFDM over the channels (K4 at 65 and 240 taps)
+    rxr = acq_receiver(dev)
+    _, ai, aq = acq_capture(rxr, ACQ_CHANNELS, ACQ_PAYLOAD, dev, SEED + 201)
+    run.same("sharded_acquire_fn (K4, 65 taps)",
+             run.call(par.sharded_acquire_fn(rxr, ct, ACQ_PAYLOAD),
+                      shard_block(ai, ct, ("ch",)),
+                      shard_block(aq, ct, ("ch",))),
+             shard_block(rxr.rx(ai, aq, ACQ_PAYLOAD), ct, ("ch",)))
+    om = OfdmModem(make_scheme("qpsk", r), device=dev)
+    ob = rbits(CHANNELS, om.bits_per_frame(OFDM_SYMBOLS))
+    oi, oq = run.call(par.sharded_ofdm_tx_fn(om, ct),
+                      shard_block(ob, ct, ("ch",)))
+    ti, tq = om.tx_frame(ob)
+    run.close("sharded_ofdm_tx_fn i", oi, shard_block(ti, ct, ("ch",)))
+    run.close("sharded_ofdm_tx_fn q", oq, shard_block(tq, ct, ("ch",)))
+    ci, cq, _ = ofdm_capture(om, ob, dev, SEED + 202, OFDM_SNR_DB)
+    run.same("sharded_ofdm_rx_fn, max_lag (K4, 240 taps)",
+             run.call(par.sharded_ofdm_rx_fn(om, ct, OFDM_SYMBOLS,
+                                             max_lag=OFDM_MAX_LAG),
+                      shard_block(ci, ct, ("ch",)),
+                      shard_block(cq, ct, ("ch",))),
+             shard_block(om.acquire(ci, cq, OFDM_SYMBOLS, OFDM_MAX_LAG)[0],
+                         ct, ("ch",)))
+
+    # the channelizer at M 256 and WidebandModem(mesh=) over 1x4
+    bank = Channelizer(WB_M, device=dev)
+    ci = torch.randn((WB_M, WB_K), generator=g, device=dev)
+    cq = torch.randn((WB_M, WB_K), generator=g, device=dev)
+    wi, wq = bank.synthesize(ci, cq)
+    yi, yq = bank.analyze(wi, wq)
+    t1, t2 = ("time",), (None, "time")
+    ai_, aq_ = run.call(par.sharded_analyze_fn(bank, tm), blk(wi, tm, t1),
+                        blk(wq, tm, t1))
+    run.close("sharded_analyze_fn i", ai_, blk(yi, tm, t2))
+    run.close("sharded_analyze_fn q", aq_, blk(yq, tm, t2))
+    si, sq = run.call(par.sharded_synthesize_fn(bank, tm), blk(ci, tm, t2),
+                      blk(cq, tm, t2))
+    run.close("sharded_synthesize_fn i", si, blk(wi, tm, t1))
+    run.close("sharded_synthesize_fn q", sq, blk(wq, tm, t1))
+    xi, xq = run.call(par.wideband_tx_fn(bank, tm), blk(ci, tm, t1),
+                      blk(cq, tm, t1))
+    run.close("wideband_tx_fn i (all-to-all re-deal)", xi, blk(wi, tm, t1))
+    run.close("wideband_tx_fn q", xq, blk(wq, tm, t1))
+    zi, zq = run.call(par.wideband_rx_fn(bank, tm), xi, xq)
+    run.close("wideband_rx_fn i", zi, blk(yi, tm, t1))
+    run.close("wideband_rx_fn q", zq, blk(yq, tm, t1))
+    wrx = wb_receiver(dev)
+    wbits = acq_bits(WB_M, WB_PAYLOAD, g, dev)
+    wm = WidebandModem(wrx, WB_M, WB_PAYLOAD, mesh=tm)
+    lb = blk(wbits, tm, t1)
+    wwi, wwq = run.call(wm.tx, lb)
+    run.same("WidebandModem(mesh=) every bit (K4, 65 taps)",
+             run.call(wm.rx, wwi, wwq), lb)
+    if run.world == 1:
+        solo = WidebandModem(wrx, WB_M, WB_PAYLOAD)
+        swi, swq = solo.tx(wbits)
+        run.close("WidebandModem(mesh=) tx i", wwi, swi)
+        run.close("WidebandModem(mesh=) tx q", wwq, swq)
+
+    # LinkStats.psum and halo_mismatch
+    flips = (torch.rand(bits.shape, generator=g, device=dev) < 0.01).to(
+        torch.int32)
+    stats = LinkStats.zero(dev).update_bits(bl, blk(bits ^ flips))
+    stats = stats.psum(ct.get_group("time")).psum(ct.get_group("ch"))
+    run.same("LinkStats.psum bit errors", stats.bit_err,
+             flips.sum().to(torch.int64))
+    run.same("LinkStats.psum bits", stats.bit_tot,
+             torch.tensor(bits.numel(), device=dev))
+    k, h = chain.rrc.shape[0], SH_HALO
+    n_l = n // tm.size(1)
+    lo = t_tm * n_l - h
+    if t_tm == 0:  # coordinate 0 has no overlap to check
+        y = torch.cat([torch.zeros((CHANNELS, h), device=dev),
+                       fir_filter(x[..., :n_l], chain.rrc)[0]], -1)
+    else:  # the neighbour's last h outputs recomputed from its inputs
+        y = fir_filter(x[..., lo:lo + n_l + h], chain.rrc,
+                       x[..., lo - (k - 1):lo])[0]
+    run.waves["halo_mismatch, K4 overlap-save"] = float(
+        run.call(halo_mismatch, y, tm, h))
+
+
+def print_sharded(tag: str, bits: dict, waves: dict, launches,
+                  exact_waves: bool) -> None:
+    """Print every check; fail on any decision that differs, on a
+    waveform past its bar (0.0 in a world of one) or on an overlap-save
+    that disagrees."""
+    for label, nbad in bits.items():
+        print(f"[{tag}] {label}: {nbad} mismatched", flush=True)
+    for label, diff in waves.items():
+        print(f"[{tag}] {label}: largest difference {diff:.3e} of the "
+              f"largest value", flush=True)
+    print(f"[{tag}] sharded launches: {json.dumps(launches)}", flush=True)
+    bad = [lb for lb, nbad in bits.items() if nbad]
+    bar = 0.0 if exact_waves else SH_WAVE_RTOL
+    bad += [lb for lb, d in waves.items()
+            if d > bar or ("halo_mismatch" in lb and d != 0.0)]
+    if bad:
+        fail(f"{tag}: {bad}")
+
+
+def sharded_ber_line(tag: str, err: int, tot: int, card: str) -> None:
+    from modem_tpu_torch.harness import qpsk_ber_theory
+
+    ber, theory = err / tot, qpsk_ber_theory(ES_N0_DB)
+    print(f"[{tag}] fused_ber_fn QPSK {ES_N0_DB} dB: {err} / {tot} = "
+          f"{ber:.6e} (closed form {theory:.6e}, {ber / theory:.4f}), on "
+          f"{card}", flush=True)
+    if abs(ber / theory - 1) > BER_RTOL:
+        fail(f"{tag}: sharded BER {ber} not within 10% of {theory}")
+
+
+def phase_nccl_world_of_one(device, card: str) -> dict:
+    """Phase 56: a world of one over NCCL on the card (``initialize_
+    multihost``, a 1x1 mesh): every sharded entry point at full width
+    equals the single-device port's call bit for bit, waveforms included;
+    each of K1-K4, K6, K11-K13 launched by the sharded calls; one NCCL
+    ``all_reduce`` on the card. Phase 58's first half: per-call wall,
+    device busy, idle share and CUDA launches of the sharded fused
+    roundtrip against ``roundtrip_fused``. Returns the sharded calls'
+    launches by K number."""
+    import torch.distributed as dist
+    from modem_tpu_torch import Rates, qpsk_reference_chain
+    from modem_tpu_torch.parallel import ShardedPulseChain
+    from modem_tpu_torch.parallel.multihost import _free_port, \
+        initialize_multihost
+
+    mesh = initialize_multihost(
+        ch=1, time=1, coordinator_address=f"localhost:{_free_port()}",
+        num_processes=1, process_id=0, backend="nccl", device=device)
+    probe = torch.ones(4, device=device)
+    dist.all_reduce(probe)
+    backend = dist.get_backend(mesh.get_group("time"))
+    print(f"[nccl 1x1] world {dist.get_world_size()}, transport {backend}; "
+          f"all_reduce on the card: {probe.tolist()}", flush=True)
+    if backend != "nccl" or probe.tolist() != [1.0] * 4:
+        fail("the NCCL world of one")
+    run = ShardedRun({"ct": mesh, "t": mesh}, device, 1)
+    sharded_checks(run)
+    print_sharded("nccl 1x1", run.bits, run.waves, run.launches, True)
+    for k, n in run.launches.items():
+        if n == 0:
+            fail(f"the sharded calls never launched {k}")
+    sharded_ber_line("nccl 1x1", *run.ber, card)
+
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 203)
+    bits = torch.randint(0, 2, (CHANNELS, 2 * N_SYMBOLS), generator=g,
+                         device=device, dtype=torch.int32)
+    fused = ShardedPulseChain(chain, mesh).fused_roundtrip_fn()
+    staged = ShardedPulseChain(chain, mesh).roundtrip_fn()
+    for name, fn, args in (
+            ("roundtrip_fused (single device)", chain.roundtrip_fused,
+             (bits,)),
+            ("fused_roundtrip_fn (1x1 mesh)", fused, (bits, 0)),
+            ("roundtrip (single device, staged)", chain.roundtrip, (bits,)),
+            ("roundtrip_fn (1x1 mesh, staged)", staged, (bits, 0))):
+        ms = time_calls(fn, args, device, calls=SH_CALLS)
+        busy = device_busy_ms(fn, args, device, calls=SH_CALLS)
+        print(f"[times] {name:36s} per call {ms:.4f} ms, device busy "
+              f"{busy:.4f} ms (idle share {1 - busy / ms:.3f}), "
+              f"{cuda_launches(fn, args, device)} CUDA launches a call, "
+              f"{CHANNELS} ch x {N_SYMBOLS} sym, on {card}", flush=True)
+    dist.destroy_process_group()
+    return run.launches
+
+
+def sharded_rank(rank: int, world: int, port: int, queue) -> None:
+    """One of the four ranks of phase 57, a process of its own on the one
+    card over a gloo group (CUDA tensors staged through the host)."""
+    import torch.distributed as dist
+    from modem_tpu_torch import Rates, cuda, qpsk_reference_chain
+    from modem_tpu_torch.parallel import ShardedPulseChain, make_modem_mesh
+    from modem_tpu_torch.parallel.collectives import all_gather, pmax, psum
+    from modem_tpu_torch.parallel.multihost import initialize_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda.library()
+    ct = initialize_multihost(
+        ch=2, time=2, coordinator_address=f"localhost:{port}",
+        num_processes=world, process_id=rank, backend="gloo", device="cuda")
+    tm = make_modem_mesh(ch=1, time=world, device_type="cuda")
+    device = torch.device("cuda", torch.cuda.current_device())
+    run = ShardedRun({"ct": ct, "t": tm}, device, world)
+    sharded_checks(run)
+
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=device)
+    sc = ShardedPulseChain(chain, ct)
+    g = torch.Generator(device=device).manual_seed(SEED + 203)
+    bits = sc.shard_bits(torch.randint(0, 2, (CHANNELS, 2 * N_SYMBOLS),
+                                       generator=g, device=device,
+                                       dtype=torch.int32))
+    fn = sc.fused_roundtrip_fn()
+    for _ in range(2):
+        fn(bits, 0)
+    torch.cuda.synchronize(device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(SH_CALLS):
+        fn(bits, 0)
+    torch.cuda.synchronize(device)
+    wall = (time.perf_counter() - t0) / SH_CALLS * 1e3
+
+    world_g = dist.group.WORLD
+    nbad = psum(torch.tensor(list(run.bits.values()), device=device),
+                world_g)
+    diffs = pmax(torch.tensor(list(run.waves.values()), device=device),
+                 world_g)
+    counts = all_gather(torch.tensor(list(run.launches.values()),
+                                     device=device), world_g)
+    walls = all_gather(torch.tensor([wall], device=device), world_g)
+    if rank == 0:
+        queue.put({
+            "transport": dist.get_backend(ct.get_group("time")),
+            "staged": dist.get_backend(ct.get_group("time")) == "gloo",
+            "bits": dict(zip(run.bits, nbad.tolist())),
+            "waves": dict(zip(run.waves, diffs.tolist())),
+            "launches": {f"rank {r} (ch {r // 2}, t {r % 2}; 1x4 t {r})":
+                         dict(zip(run.launches, row))
+                         for r, row in enumerate(counts.tolist())},
+            "ber": run.ber, "walls": walls.flatten().tolist()})
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_four_ranks(card: str) -> None:
+    """Phase 57: four processes (``spawn``) on the one card, each a rank of
+    a gloo world (NCCL refuses two ranks on one device), meshes 2x2 and
+    1x4: every rank makes the global input from the seed, runs the
+    single-device entry point on the card and its own sharded call, and
+    holds its block (decisions bit for bit; waveforms within 1e-5 of the
+    largest value, K2's and K11's expected exact; mismatches summed, the
+    largest differences maxed over the ranks); each rank's launches of K1-K4,
+    K6, K11-K13 read, every rank (those with t > 0 among them) launching
+    each; the sharded QPSK BER at 7 dB within 10% of the closed form.
+    Phase 58's second half: the per-rank wall of the sharded fused
+    roundtrip, four ranks sharing one card (not a scaling number)."""
+    import torch.multiprocessing as mp
+    from modem_tpu_torch.parallel.multihost import _free_port
+
+    t0 = time.perf_counter()
+    queue = mp.get_context("spawn").SimpleQueue()
+    ranks = mp.spawn(sharded_rank, args=(SH_WORLD, _free_port(), queue),
+                     nprocs=SH_WORLD, join=False)
+    res = None
+    while not ranks.join(timeout=1):  # raises if a rank failed
+        if res is None and not queue.empty():  # drained before the join
+            res = queue.get()
+    if res is None:
+        res = queue.get()
+    print(f"[4 ranks] {SH_WORLD} processes on one card, transport "
+          f"{res['transport']}"
+          f"{' (CUDA tensors staged through the host)' if res['staged'] else ''}"
+          f", {time.perf_counter() - t0:.1f} s with their start", flush=True)
+    print_sharded("4 ranks", res["bits"], res["waves"], res["launches"],
+                  False)
+    for who, counts in res["launches"].items():
+        missing = [k for k, n in counts.items() if n == 0]
+        if missing:
+            fail(f"4 ranks: {who} never launched {missing}")
+    sharded_ber_line("4 ranks", *res["ber"], card)
+    walls = res["walls"]
+    print(f"[times] fused_roundtrip_fn, 2x2 mesh, 128 ch x 2048 sym a rank, "
+          f"four ranks sharing one card over gloo: per-rank wall "
+          f"{', '.join(f'{w:.4f}' for w in walls)} ms a call (ranks sharing "
+          f"one card, not a scaling number), on {card}", flush=True)
+
+
 def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
     """Trellis steps the busier of K14's two lanes of a row walks: alpha
     over 0 .. keep_lo + keep_n, beta over tw - 1 .. keep_lo, meeting at
@@ -6073,6 +6584,8 @@ def main() -> int:
         phase_fhss(device)
         phase_wideband(device)
         phase_wideband_times(device, card)
+    sharded = phase_nccl_world_of_one(device, card)
+    phase_four_ranks(card)
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [
@@ -6103,6 +6616,9 @@ def main() -> int:
             "share": None if dev_ms is None else bound_ms / dev_ms})
         if n in fsk_errs and fsk_errs[n][1] is not None:
             report["kernels"][-1]["agreement"] = fsk_errs[n][1]
+        if n in SHARDED_ENTRIES:
+            report["kernels"][-1]["sharded_launches"] = \
+                sharded[SHARDED_ENTRIES[n]]
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,8 @@ The counters are int64 tensors on the stats' device: the JAX package keeps
 two int32 limbs because its TPU defaults to 32-bit integers, a workaround
 the card does not need. The EVM/SNR power sums keep the JAX package's
 Kahan-compensated float32 accumulation, so a long stream does not lose the
-error-power sum to cancellation. Combining stats across devices waits for
-the port of ``modem_tpu.parallel``.
+error-power sum to cancellation. :meth:`LinkStats.psum` sums the stats of
+the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -121,6 +121,16 @@ class LinkStats:
         counts = [getattr(self, f) + getattr(other, f) for f in _COUNTERS]
         return LinkStats(*counts, self.evm_err + other.evm_err,
                          self.evm_ref + other.evm_ref)
+
+    def psum(self, group) -> "LinkStats":
+        """The stats of every rank of ``group`` summed, on each of them
+        (every rank must call it): one ``all_reduce`` a field. The counters
+        are int64, so no limbs are needed; the EVM pairs are summed
+        elementwise, as the JAX package's ``psum`` does."""
+        from .parallel.collectives import psum
+
+        return LinkStats(*(psum(getattr(self, f), group)
+                           for f in _COUNTERS + ("evm_err", "evm_ref")))
 
     # -- readout ---------------------------------------------------------
 

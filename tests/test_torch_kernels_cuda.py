@@ -3216,3 +3216,197 @@ def test_wideband_front_end_device_none_builds_on_the_card(dev):
     rxr = AcquiringReceiver(qpsk_reference_chain(r), WB_PRE, max_lag=200)
     wm = WidebandModem(rxr, 8, 64)
     assert wm.bank.device.type == "cuda"
+
+
+# --------------------------------------------------------------------------
+# the multi-device layer on a world of one over NCCL (``parallel``)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(dev):
+    """A 1x1 mesh over an NCCL world of one on the card; the process group
+    is taken down after the module."""
+    import torch.distributed as dist
+    from modem_tpu_torch.parallel.multihost import (_free_port,
+                                                    initialize_multihost)
+
+    mesh = initialize_multihost(
+        ch=1, time=1, coordinator_address=f"localhost:{_free_port()}",
+        num_processes=1, process_id=0, backend="nccl", device=dev)
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _sharded_call(counters, fn, *args):
+    """``fn(*args)`` and the launches of each named counter over it."""
+    before = {k: c.launches for k, c in counters.items()}
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: c.launches - before[k] for k, c in counters.items()}
+
+
+def _world_of_one_case(name, mesh, dev):
+    """``(sharded outputs, single-device outputs, {kernel: counter})`` of
+    one entry point on a 1x1 mesh."""
+    from modem_tpu_torch import (AcquiringReceiver, Channelizer, Demodulator,
+                                 DifferentialChain, Modulator, OfdmModem,
+                                 WidebandModem, make_scheme)
+    from modem_tpu_torch import parallel as par
+    from modem_tpu_torch.fec import ccsds_code
+    from modem_tpu_torch.models.qam import QAM
+    from modem_tpu_torch.ops import fir, fsk_kernel, resampled_kernel as rk
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+    from modem_tpu_torch.ops.fsk_kernel import fused_fsk_chain
+    from modem_tpu_torch.ops.pll import LOCK_SAMPLES
+    from modem_tpu_torch.resampled import ResampledChain
+    from modem_tpu_torch.utils.bits import pack_bits, unpack_symbols
+
+    r = Rates(1250, 10000)
+    g = torch.Generator(device=dev).manual_seed(sum(map(ord, name)))
+    bits = torch.randint(0, 2, (8, 2 * 512), generator=g, device=dev,
+                         dtype=torch.int32)
+    chain = qpsk_reference_chain(r, device=dev)
+    if name in ("fused_roundtrip", "staged_roundtrip", "fused_txrx"):
+        sc = par.ShardedPulseChain(chain, mesh)
+        if name == "fused_roundtrip":
+            return ((sc.fused_roundtrip_fn(), bits, 0),
+                    (chain.roundtrip_fused(bits),),
+                    {"K1": chain_kernel.CHAIN_KERNEL})
+        if name == "staged_roundtrip":
+            return ((sc.roundtrip_fn(), bits, 0), (chain.roundtrip(bits),),
+                    {"K4": fir.FIR_KERNEL})
+
+        def txrx_(b):
+            wave, ext = sc.fused_tx_fn()(b)
+            return (*wave, *ext, sc.fused_rx_fn()(wave, ext))
+        wi, wq = chain.tx_fused(bits)
+        n = 512 * chain.sps
+        return ((txrx_, bits), (wi[:, :n], wq[:, :n], wi[:, n:], wq[:, n:],
+                                chain.rx_fused((wi, wq), 512)),
+                {"K2": txrx.TX_KERNEL, "K3": txrx.RX_HARD_KERNEL})
+    if name == "differential":
+        dch = DifferentialChain(make_scheme("dqpsk", r), r, device=dev)
+        sd = par.ShardedDifferentialChain(dch, mesh)
+        return ((sd.fused_roundtrip_fn(), bits), (dch.roundtrip_fused(bits),),
+                {"K1": chain_kernel.CHAIN_KERNEL})
+    if name == "fsk":
+        mfsk = make_scheme("mfsk", r)
+        fn = par.time_sharded_fsk_roundtrip_fn(mfsk, r, mesh)
+        want = unpack_symbols(fused_fsk_chain(pack_bits(bits, 4), mfsk, r), 4)
+        return ((fn, bits, 0), (want,),
+                {"K6": fsk_kernel.FSK_CHAIN_KERNEL})
+    if name == "resampled":
+        rch = ResampledChain(QAM(4, 0.0, 1.0), r, 3, 2, device=dev)
+        sr = par.ShardedResampledChain(rch, mesh)
+        return ((sr.fused_roundtrip_fn(), bits), (rch.roundtrip_fused(bits),),
+                {"K11": rk.RESAMPLED_TX_KERNEL,
+                 "K12": rk.RESAMPLED_RX_KERNEL})
+    if name == "fir_demodulate":
+        mod = Modulator(make_scheme("qpsk", r), r, carrier_hz=2000,
+                        device=dev)
+        pw, _ = mod.passband(bits, mod.init_state((8,)))
+        demod = Demodulator(2000, 10000, device=dev)
+        st = demod.lock_phase(pw[:, :LOCK_SAMPLES], demod.init_state((8,)))
+        (ri, rq), _ = demod.demodulate(pw[:, LOCK_SAMPLES:], st)
+        z = torch.zeros((8, LOCK_SAMPLES), device=dev)
+
+        def both(x):
+            return (par.sharded_fir(x, chain.rrc, mesh),
+                    *par.sharded_demodulate(demod, x, mesh))
+        return ((both, pw), (fir.fir_filter(pw, chain.rrc)[0],
+                             torch.cat([z, ri], -1), torch.cat([z, rq], -1)),
+                {"K4": fir.FIR_KERNEL})
+    if name == "viterbi":
+        code = ccsds_code()
+        y = 1.0 - 2.0 * code.encode(bits[:, :256]).to(torch.float32)
+        llr = 2.0 * (y + 0.7 * torch.randn(y.shape, generator=g,
+                                           device=dev)) / 0.49
+        win = par.channel_sharded(
+            lambda a: code.decode_soft_windowed(a, 128), mesh)
+
+        def both(a):
+            return par.sharded_viterbi_fn(code, mesh)(a), win(a)
+        return ((both, llr), (code.decode_soft(llr),
+                              code.decode_soft_windowed(llr, 128)),
+                {"K13": vk.VITERBI_KERNEL})
+    if name == "acquire_ofdm":
+        rxr = AcquiringReceiver(chain, WB_PRE, max_lag=200)
+        ai, aq = rxr.tx_burst(bits[:, :128])
+        om = OfdmModem(make_scheme("qpsk", r), device=dev)
+        ob = bits[:, :om.bits_per_frame(4)]
+
+        def both(i, q, b):
+            oi, oq = par.sharded_ofdm_tx_fn(om, mesh)(b)
+            return (par.sharded_acquire_fn(rxr, mesh, 64)(i, q), oi, oq,
+                    par.sharded_ofdm_rx_fn(om, mesh, 4, max_lag=32)(oi, oq))
+        oi, oq = om.tx_frame(ob)
+        return ((both, ai, aq, ob), (rxr.rx(ai, aq, 64), oi, oq,
+                                     om.acquire(oi, oq, 4, 32)[0]),
+                {"K4": fir.FIR_KERNEL})
+    # the channelizer and WidebandModem(mesh=)
+    bank = Channelizer(16, device=dev)
+    ci = torch.randn((16, 256), generator=g, device=dev)
+    cq = torch.randn((16, 256), generator=g, device=dev)
+    wi, wq = bank.synthesize(ci, cq)
+    rxr = AcquiringReceiver(chain, WB_PRE, max_lag=200)
+    wm, solo = (WidebandModem(rxr, 16, 96, mesh=mesh),
+                WidebandModem(rxr, 16, 96))
+    wb = bits[:, :2 * 96].repeat(2, 1)
+
+    def all_(a, b, c, d, x):
+        return (*par.wideband_tx_fn(bank, mesh)(a, b),
+                *par.wideband_rx_fn(bank, mesh)(c, d),
+                *par.sharded_analyze_fn(bank, mesh)(c, d),
+                *wm.tx(x), wm.rx(*wm.tx(x)))
+    yi, yq = bank.analyze(wi, wq)
+    swi, swq = solo.tx(wb)
+    return ((all_, ci, cq, wi, wq, wb),
+            (wi, wq, yi, yq, yi, yq, swi, swq, solo.rx(swi, swq)),
+            {"K4": fir.FIR_KERNEL})
+
+
+@pytest.mark.parametrize("name", [
+    "fused_roundtrip", "staged_roundtrip", "fused_txrx", "differential",
+    "fsk", "resampled", "fir_demodulate", "viterbi", "acquire_ofdm",
+    "channelizer_wideband"])
+def test_sharded_world_of_one_equals_single_device(name, dev, nccl_mesh):
+    """Each sharded entry point on a 1x1 mesh over NCCL equals the
+    single-device port's call bit for bit, waveforms included, and
+    launches its kernels (the counters of its wrappers)."""
+    (fn, *args), want, counters = _world_of_one_case(name, nccl_mesh, dev)
+    got, launched = _sharded_call(counters, fn, *args)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g_, w in zip(got, want):
+        assert g_.is_cuda and g_.shape == w.shape and torch.equal(g_, w)
+    assert all(n > 0 for n in launched.values()), launched
+
+
+def test_nccl_world_of_one_collectives_and_stats(dev, nccl_mesh):
+    """NCCL on the card: the world's ``all_reduce``; the collectives of a
+    group of one (halos of zeros, the prefix 0, sums and the re-deal the
+    value itself); ``LinkStats.psum`` the stats; ``halo_mismatch`` 0."""
+    import torch.distributed as dist
+    from modem_tpu_torch import LinkStats
+    from modem_tpu_torch.debug import halo_mismatch
+    from modem_tpu_torch.parallel import (exclusive_prefix, left_halo,
+                                          right_halo)
+    from modem_tpu_torch.parallel.collectives import all_to_all, psum
+
+    t = torch.arange(4.0, device=dev)
+    dist.all_reduce(t)
+    assert t.tolist() == [0.0, 1.0, 2.0, 3.0]
+    group = nccl_mesh.get_group("time")
+    assert dist.get_backend(group) == "nccl"
+    x = torch.randn((3, 40), device=dev)
+    assert torch.equal(left_halo(x, 5, group), torch.zeros(3, 5, device=dev))
+    assert torch.equal(right_halo(x, 7, group), torch.zeros(3, 7, device=dev))
+    assert torch.equal(exclusive_prefix(x[:, 0], group),
+                       torch.zeros(3, device=dev))
+    assert torch.equal(psum(x, group), x)
+    assert torch.equal(all_to_all(x, group, 0, 1), x)
+    bits = torch.randint(0, 2, (4, 100), device=dev, dtype=torch.int32)
+    st = LinkStats.zero(dev).update_bits(bits, 1 - bits)
+    tot = st.psum(group)
+    assert tot.n_bit_errors == 400 and tot.n_bits == 400
+    assert float(halo_mismatch(x, nccl_mesh, 4)) == 0.0

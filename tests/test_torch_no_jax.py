@@ -61,9 +61,14 @@ def test_every_module_listed():
               "fec.ldpc", "ops.sync_metric", "ofdm", "fec.bch",
               "ops.impairments", "ops.agc", "ops.equalizer", "sync",
               "scfde", "stbc", "mimo", "bitloading", "ops.channelizer",
-              "dsss", "fhss", "wideband", "profiling"):
+              "dsss", "fhss", "wideband", "profiling", "debug", "parallel",
+              "parallel.mesh", "parallel.multihost", "parallel.collectives",
+              "parallel.generic", "parallel.fir", "parallel.chain",
+              "parallel.modulator", "parallel.rx", "parallel.fsk",
+              "parallel.resampled", "parallel.viterbi", "parallel.acquire",
+              "parallel.ofdm", "parallel.channelizer"):
         assert f"modem_tpu_torch.{m}" in MODULES, m
-    assert len(MODULES) >= 70
+    assert len(MODULES) >= 86
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),

@@ -1,8 +1,8 @@
 """The single-device WidebandModem in the port (``modem_tpu_torch.wideband``)
 against the JAX package on the same numpy inputs, on the CPU (where the
 chain's pulse shaping and the receiver's matched filter take K4's plain
-version). The cases mirror ``tests/test_wideband.py``'s solo modem; its
-meshed modem stays the JAX package's (the port raises for ``mesh=``). The
+version). The cases mirror ``tests/test_wideband.py``'s solo modem; the
+meshed modem is in ``tests/test_torch_parallel_channelizer.py``. The
 front end's impairments and noise are made once by JAX and passed to the
 port as numpy.
 
@@ -134,5 +134,5 @@ class TestWidebandModem:
         bad = torch.as_tensor(rng.integers(0, 2, (4, 128)), dtype=torch.int32)
         with pytest.raises(ValueError):
             solo.tx(bad)
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             WidebandModem(solo.rxr, 8, 64, mesh=object())
