@@ -6387,6 +6387,157 @@ def phase_four_ranks(card: str) -> None:
           f"one card, not a scaling number), on {card}", flush=True)
 
 
+# the FIR engine's other backends (phase 59): conv1d with the reversed taps,
+# the banded Toeplitz matmul and chunked overlap-save FFT, each held to K4
+# ("direct") at the reference path's and the flagship's widths
+FIR_BACKENDS = ("conv", "matmul", "fft")
+#: the outputs of ``fir_backend_outputs`` that are bits: held equal
+BACKEND_BITS = ("rx bits", "roundtrip_fn bits")
+
+
+def fir_backend_outputs(backend: str, device, x, bits, mesh) -> dict:
+    """One pass of every entry point that takes ``fir_backend=backend``:
+    ``Demodulator.lock_phase`` and ``demodulate`` on the reference path's
+    passband ``x``; the flagship's staged ``tx`` and ``rx`` on ``bits``;
+    ``sharded_fir`` over the TX's I rail and the staged
+    ``ShardedPulseChain.roundtrip_fn`` on ``mesh``. ``{label: (tensor,
+    scale)}``, the scale the largest |input| of each output (None: bits,
+    held equal)."""
+    from modem_tpu_torch import Demodulator, Rates, qpsk_reference_chain
+    from modem_tpu_torch import parallel as par
+    from modem_tpu_torch.ops.pll import LOCK_SAMPLES
+
+    dem = Demodulator(REF_CF, REF_SR, fir_backend=backend, device=device)
+    st = dem.lock_phase(x[:, :LOCK_SAMPLES], dem.init_state((x.shape[0],)))
+    (i, q), _ = dem.demodulate(x[:, LOCK_SAMPLES:], st)
+    chain = qpsk_reference_chain(Rates(1250, 10000), fir_backend=backend,
+                                 device=device)
+    wave = chain.tx(bits)
+    sc = par.ShardedPulseChain(chain, mesh)
+    px, pw = float(x.abs().max()), float(wave[0].abs().max())
+    return {"Demodulator phase": (st.phase_offset, math.pi),
+            "Demodulator i": (i, px), "Demodulator q": (q, px),
+            "tx i": (wave[0], pw), "tx q": (wave[1], pw),
+            "rx bits": (chain.rx(wave, N_SYMBOLS), None),
+            "sharded_fir": (par.sharded_fir(wave[0], chain.rrc, mesh,
+                                            backend=backend), pw),
+            "roundtrip_fn bits": (sc.roundtrip_fn()(sc.shard_bits(bits), 0),
+                                  None)}
+
+
+def backend_times(backend: str, device, x, bits, card: str) -> None:
+    """Per call (CUDA events), device busy (the profiler) and CUDA launches
+    of ``fir_filter(backend=...)`` at the demodulator's lowpass (64 taps,
+    256 x 32784) and the flagship's matched filter (65 taps, 256 x 32832),
+    ``Demodulator.demodulate`` on a locked block and the flagship's staged
+    ``tx`` and ``rx``."""
+    from modem_tpu_torch import Demodulator, Rates, qpsk_reference_chain
+    from modem_tpu_torch.ops.fir import fir_filter
+    from modem_tpu_torch.ops.pll import LOCK_SAMPLES
+
+    dem = Demodulator(REF_CF, REF_SR, fir_backend=backend, device=device)
+    locked = dem.lock_phase(x[:, :LOCK_SAMPLES],
+                            dem.init_state((x.shape[0],)))
+    chain = qpsk_reference_chain(Rates(1250, 10000), fir_backend=backend,
+                                 device=device)
+    wave = chain.tx(bits)
+    rest = x[:, LOCK_SAMPLES:].contiguous()
+    for name, fn, args, n in (
+            ("fir_filter, 64 taps", fir_filter,
+             (rest, dem.lowpass, None, backend), rest.numel()),
+            ("fir_filter, 65 taps", fir_filter,
+             (wave[0], chain.rrc, None, backend), wave[0].numel()),
+            ("Demodulator.demodulate", dem.demodulate, (rest, locked),
+             rest.numel()),
+            ("chain.tx (staged)", chain.tx, (bits,), wave[0].numel()),
+            ("chain.rx (staged)", chain.rx, (wave, N_SYMBOLS),
+             wave[0].numel())):
+        ms = time_calls(fn, args, device)
+        busy = device_busy_ms(fn, args, device)
+        print(f"[fir backends] times {backend:6s} {name:24s} per call "
+              f"{ms:.4f} ms ({n / ms * 1e3:.4e} samples/s), device busy "
+              f"{busy:.4f} ms, {cuda_launches(fn, args, device)} CUDA "
+              f"launches a call, {x.shape[0]} ch x {n // x.shape[0]} "
+              f"samples, on {card}", flush=True)
+
+
+def phase_fir_backends(device, card: str) -> None:
+    """Phase 59: ``fir_filter``'s ``conv``, ``matmul`` and ``fft`` backends
+    through every entry point that takes ``fir_backend=``, at full width in
+    an NCCL world of one: each output held to K4's (``direct``) within
+    ``ATOL`` of its input's largest value, bits equal (and to the sent
+    bits); no K4 launch on a backend's path, K4's on ``direct``'s; each
+    backend again under PyTorch's default math settings (cuDNN TF32 on),
+    within the same bound of its TF32-off run. Then each backend's and
+    K4's times, with ``conv1d``'s at the FIR shapes."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from modem_tpu_torch import Rates, qpsk_reference_chain
+    from modem_tpu_torch.ops import filters, fir
+    from modem_tpu_torch.parallel.multihost import _free_port, \
+        initialize_multihost
+
+    mesh = initialize_multihost(
+        ch=1, time=1, coordinator_address=f"localhost:{_free_port()}",
+        num_processes=1, process_id=0, backend="nccl", device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 300)
+    _, _, x, _, _, _ = reference_path(device, ref_bits(g, device))
+    bits = torch.randint(0, 2, (CHANNELS, 2 * N_SYMBOLS), generator=g,
+                         device=device, dtype=torch.int32)
+    reset_launches()
+    want = fir_backend_outputs("direct", device, x, bits, mesh)
+    torch.cuda.synchronize(device)
+    k4 = fir.FIR_KERNEL.launches
+    if k4 == 0:
+        fail("the direct backend's paths never launched K4")
+    for label in BACKEND_BITS:
+        if not torch.equal(want[label][0], bits):
+            fail(f"direct {label}: the bits did not come back")
+    print(f"[fir backends] direct (K4): {k4} K4 launches over the paths; "
+          f"x {tuple(x.shape)}, bits {tuple(bits.shape)}", flush=True)
+    for b in FIR_BACKENDS:
+        reset_launches()
+        got = fir_backend_outputs(b, device, x, bits, mesh)
+        torch.cuda.synchronize(device)
+        if fir.FIR_KERNEL.launches:
+            fail(f"{b}: launched K4 {fir.FIR_KERNEL.launches} times")
+        with pytorch_defaults("59"):
+            again = fir_backend_outputs(b, device, x, bits, mesh)
+            torch.cuda.synchronize(device)
+        for label, (y, scale) in got.items():
+            w, y2 = want[label][0], again[label][0]
+            if scale is None:
+                if not (torch.equal(y, w) and torch.equal(y2, w)):
+                    fail(f"{b} {label}: bits differ from K4's")
+                print(f"[fir backends] {b:6s} {label:20s} equal to K4's and "
+                      "to the sent bits, TF32 off and on", flush=True)
+                continue
+            err, tf = max_err(y, w), max_err(y2, y)
+            tol = ATOL * scale
+            print(f"[fir backends] {b:6s} {label:20s} max |{b} - K4| = "
+                  f"{err:.3e}, TF32 on vs off {tf:.3e} (tol {tol:.3e}: "
+                  f"{ATOL} x {scale:.4f})", flush=True)
+            if err > tol or tf > tol:
+                fail(f"{b} {label}: {err} / {tf} past {tol}")
+    dist.destroy_process_group()
+
+    for b in ("direct",) + FIR_BACKENDS:
+        backend_times(b, device, x, bits, card)
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=device)
+    lowpass = torch.as_tensor(filters.lowpass_taps(sample_rate=REF_SR),
+                              device=device)
+    for sig, taps in ((x[:, 64:], lowpass), (chain.tx(bits)[0], chain.rrc)):
+        k = taps.shape[0]
+        xp = F.pad(sig, (k - 1, 0)).unsqueeze(1)
+        w = taps.flip(0).reshape(1, 1, k)
+        ms = time_calls(F.conv1d, (xp, w), device)
+        busy = device_busy_ms(F.conv1d, (xp, w), device)
+        print(f"[fir backends] times conv1d (the library call, TF32 off) "
+              f"{k} taps per call {ms:.4f} ms, device busy {busy:.4f} ms, "
+              f"{sig.shape[0]} ch x {sig.shape[1]} samples, on {card}",
+              flush=True)
+
+
 def k14_lane_steps(tw: int, keep_lo: int, keep_n: int) -> int:
     """Trellis steps the busier of K14's two lanes of a row walks: alpha
     over 0 .. keep_lo + keep_n, beta over tw - 1 .. keep_lo, meeting at
@@ -6586,6 +6737,7 @@ def main() -> int:
         phase_wideband_times(device, card)
     sharded = phase_nccl_world_of_one(device, card)
     phase_four_ranks(card)
+    phase_fir_backends(device, card)
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [

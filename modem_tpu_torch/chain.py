@@ -14,7 +14,9 @@ Two forms, as in the JAX package:
 
 * staged (``tx``, ``rx``, ``rx_soft``, ``roundtrip``): the readable
   cross-check, tensor ops around the FIR
-  (:func:`~modem_tpu_torch.ops.fir.fir_filter`, kernel K4 on a CUDA device);
+  (:func:`~modem_tpu_torch.ops.fir.fir_filter` with the chain's
+  ``fir_backend``: ``"direct"``, kernel K4 on a CUDA device, or ``"conv"``,
+  ``"matmul"``, ``"fft"``);
 * fused (``tx_fused``, ``rx_fused``, ``rx_soft_fused``, ``roundtrip_fused``):
   the production path, one hand-written CUDA kernel per call on a CUDA
   device: K1-K3 (:mod:`~modem_tpu_torch.ops.txrx`,
@@ -42,7 +44,7 @@ from .models.psk import DCQPSK, DMPSK, OQPSK, QPSK
 from .models.qam import QAM
 from .ops.chain_kernel import fused_pulse_chain, fused_pulse_chain_qam
 from .ops.filters import rrc_taps
-from .ops.fir import fir_filter
+from .ops.fir import check_backend, fir_filter
 from .ops.fsk_kernel import (fused_discriminator_means, fused_fsk_chain,
                              fused_fsk_tx, fused_msk_slots, fused_msk_tx)
 from .ops.llr import dmpsk_llr, fsk_llr, lut_llr
@@ -73,21 +75,12 @@ def upsample_zero_stuff(x: torch.Tensor, factor: int) -> torch.Tensor:
     return u.reshape(x.shape[:-1] + (x.shape[-1] * factor,))
 
 
-def check_fir_backend(fir_backend: str) -> None:
-    """Raise ``NotImplementedError`` for a FIR backend other than
-    ``"direct"``: the JAX package's others are not ported."""
-    if fir_backend != "direct":
-        raise NotImplementedError(
-            f"fir_backend {fir_backend!r} is not ported yet (ROADMAP.md "
-            "queue 1: the conv, matmul and fft backends of fir_filter)")
-
-
 def shape_iq(iq: torch.Tensor, rrc, sps: int, span: int, polyphase: bool,
              fir_backend: str = "direct"):
     """Per-symbol I/Q ``[..., K, 2]`` -> RRC-shaped baseband ``(i, q)``
-    ``[..., (K+span)*sps]``, ``span`` flush symbols appended.
-    ``fir_backend`` takes ``"direct"`` only."""
-    check_fir_backend(fir_backend)
+    ``[..., (K+span)*sps]``, ``span`` flush symbols appended, filtered by
+    ``fir_backend`` (the polyphase form has its own arithmetic)."""
+    check_backend(fir_backend)
     flush = torch.zeros(iq.shape[:-2] + (span, 2), dtype=iq.dtype,
                         device=iq.device)
     iq = torch.cat([iq, flush], dim=-2)
@@ -95,15 +88,19 @@ def shape_iq(iq: torch.Tensor, rrc, sps: int, span: int, polyphase: bool,
         si, _ = polyphase_interp(iq[..., 0], rrc, sps)
         sq, _ = polyphase_interp(iq[..., 1], rrc, sps)
         return si, sq
-    si, _ = fir_filter(upsample_zero_stuff(iq[..., 0], sps), rrc)
-    sq, _ = fir_filter(upsample_zero_stuff(iq[..., 1], sps), rrc)
+    si, _ = fir_filter(upsample_zero_stuff(iq[..., 0], sps), rrc,
+                       backend=fir_backend)
+    sq, _ = fir_filter(upsample_zero_stuff(iq[..., 1], sps), rrc,
+                       backend=fir_backend)
     return si, sq
 
 
-def matched_filter_rails(yi, yq, rrc):
-    """The matched filter over every sample of both rails (``fir_filter``:
-    kernel K4 on CUDA), from a zero state."""
-    return fir_filter(yi, rrc)[0], fir_filter(yq, rrc)[0]
+def matched_filter_rails(yi, yq, rrc, fir_backend: str = "direct"):
+    """The matched filter over every sample of both rails (``fir_filter``
+    with ``fir_backend``; ``"direct"`` is kernel K4 on CUDA), from a zero
+    state."""
+    return (fir_filter(yi, rrc, backend=fir_backend)[0],
+            fir_filter(yq, rrc, backend=fir_backend)[0])
 
 
 def symbol_instants(yi, yq, sps: int, span: int, n_symbols: int,
@@ -120,15 +117,15 @@ def matched_decision_points(yi, yq, rrc, sps: int, span: int, n_symbols: int,
                             delay: int | None = None):
     """Matched filter + symbol-instant sampling -> ``(di, dq) [..., K]``,
     decision instants ``d + m*sps``: ``d = span*sps`` unless ``delay``
-    overrides it (a cascade that adds its own group delay).
-    ``fir_backend`` takes ``"direct"`` only."""
-    check_fir_backend(fir_backend)
+    overrides it (a cascade that adds its own group delay); the matched
+    filter by ``fir_backend``."""
+    check_backend(fir_backend)
     d = span * sps if delay is None else delay
     if polyphase:
         return (polyphase_decim(yi, rrc, sps, d, n_symbols),
                 polyphase_decim(yq, rrc, sps, d, n_symbols))
-    return symbol_instants(*matched_filter_rails(yi, yq, rrc), sps, span,
-                           n_symbols, d)
+    return symbol_instants(*matched_filter_rails(yi, yq, rrc, fir_backend),
+                           sps, span, n_symbols, d)
 
 
 class PulseShapedChain(torch.nn.Module):
@@ -142,8 +139,9 @@ class PulseShapedChain(torch.nn.Module):
     integer NCO up-mixes (`modulator.rs:37-48`) and the RX product-detects
     with 2x gain (`demodulator.rs:52-55`). The table and the RRC taps are
     buffers on ``device``, the card unless the caller asks for the CPU;
-    every tensor passed in must be there too. ``fir_backend`` takes
-    ``"direct"`` (the other backends of the JAX package are not ported).
+    every tensor passed in must be there too. ``fir_backend`` (one of
+    :data:`~modem_tpu_torch.ops.fir.BACKENDS`) filters the staged forms;
+    the fused forms run their own kernels whatever it is, as in JAX.
     ``rrc`` replaces the designed taps (``span_symbols*sps + 1`` of them).
     """
 
@@ -154,7 +152,7 @@ class PulseShapedChain(torch.nn.Module):
         super().__init__()
         if not hasattr(scheme, "lut"):
             raise TypeError("PulseShapedChain needs a constellation-LUT scheme")
-        check_fir_backend(fir_backend)
+        check_backend(fir_backend)
         self.scheme = scheme
         self.rates = rates
         self.span = span_symbols
@@ -210,7 +208,7 @@ class PulseShapedChain(torch.nn.Module):
         """symbols [..., K] -> RRC-shaped baseband I/Q [..., (K+span)*sps]."""
         mi, mq = lut_map(symbols, self.lut)
         return shape_iq(torch.stack([mi, mq], dim=-1), self.rrc, self.sps,
-                        self.span, self.polyphase)
+                        self.span, self.polyphase, self.fir_backend)
 
     def tx(self, bits: torch.Tensor):
         """bits -> baseband ``(i, q)``, or the real passband waveform with
@@ -225,8 +223,9 @@ class PulseShapedChain(torch.nn.Module):
 
     def matched_filter(self, i: torch.Tensor, q: torch.Tensor):
         """The RRC matched filter over every sample of ``(i, q)``
-        (``fir_filter``: kernel K4 on CUDA), from a zero state."""
-        return matched_filter_rails(i, q, self.rrc)
+        (``fir_filter`` with the chain's ``fir_backend``), from a zero
+        state."""
+        return matched_filter_rails(i, q, self.rrc, self.fir_backend)
 
     def decimate(self, yi: torch.Tensor, yq: torch.Tensor, n_symbols: int):
         """Sample at the symbol centers: delay ``span*sps``, stride
@@ -248,7 +247,8 @@ class PulseShapedChain(torch.nn.Module):
         else:
             yi, yq = self.downconvert(rx_wave)
         return matched_decision_points(yi, yq, self.rrc, self.sps, self.span,
-                                       n_symbols, self.polyphase)
+                                       n_symbols, self.polyphase,
+                                       self.fir_backend)
 
     def rx(self, rx_wave, n_symbols: int) -> torch.Tensor:
         """waveform -> decided bits [..., K*bps]."""

@@ -4,10 +4,10 @@
 //   y[c, n] = sum_{j < K} taps[j] * e[c, n + K-1 - j],  e = state ++ x,
 //
 // x [C, N] and y [C, N] time contiguous, state [C, K-1] the previous
-// block's last K-1 inputs (zeros at a stream's start), read in place: the
-// wrapper concatenates nothing. Every output is one fmaf chain with the taps
-// in the order j = 0, 1, ..., K-1 from 0, on every route, so pushes equal
-// one shot bit for bit.
+// block's last K-1 inputs, read in place (null at a stream's start: zeros,
+// made here): the wrapper concatenates and fills nothing. Every output is
+// one fmaf chain with the taps in the order j = 0, 1, ..., K-1 from 0, on
+// every route, so pushes equal one shot bit for bit.
 //
 // What bounds it on this card: at 64 taps it moves 8 B per output (4 in, 4
 // out) and does 64 FMAs = 128 FLOP, 16 FLOP/B against the H100's 20
@@ -94,9 +94,9 @@ __global__ void __launch_bounds__(kCoreThreads)
   // the tile before left it (cont), the history e[o0 .. o0+h-1], read in
   // place (4 bytes at a time: state's rows of K-1 floats are not aligned).
   // Samples before the stream (e < 0, only the outputs before the row's
-  // first read them) are zero.
+  // first read them), and the history when state is null, are zero.
   auto copy_e = [&](float* d, long long c, long long e) {
-    if (e < 0)
+    if (e < 0 || (state == nullptr && e < h))
       *d = 0.f;
     else
       modem::cp_async4(d, e < h ? state + c * h + e : x + c * n + e - h);
@@ -208,12 +208,11 @@ fir_long_kernel(const float* __restrict__ x, const float* __restrict__ state,
 
   // xs[i] = e[o0 + i]: history first, then x, zero past x's end
   const float* xr = x + c * n;
-  const float* sr = state + c * h;
   for (int i = threadIdx.x; i < kFirTile + h; i += blockDim.x) {
     const long long e = o0 + i;
     float v = 0.f;
     if (e < h) {
-      v = sr[e];
+      if (state != nullptr) v = state[c * h + e];
     } else if (e - h < n) {
       v = xr[e - h];
     }
@@ -253,7 +252,8 @@ int launch_long(const float* x, const float* state, long long n_ch,
 
 extern "C" {
 
-// x [n_ch, n], state [n_ch, n_taps-1] f32 -> y [n_ch, n]. The taps: taps a
+// x [n_ch, n], state [n_ch, n_taps-1] f32 (null: a zero history, the
+// stream's start) -> y [n_ch, n]. The taps: taps a
 // host pointer to them in a modem::Taps, passed to the kernel by value (the
 // short route: n_taps <= 256; 23, 32, 64 and 65 compiled, any other count
 // generic), or taps null and taps_dev the device array (the long route: any

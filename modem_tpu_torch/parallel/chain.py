@@ -31,8 +31,7 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..chain import (DifferentialChain, PulseShapedChain, check_fir_backend,
-                     upsample_zero_stuff)
+from ..chain import DifferentialChain, PulseShapedChain, upsample_zero_stuff
 from ..ops.chain_kernel import fused_pulse_chain
 from ..ops.fir import fir_filter
 from ..ops.nco import carrier_phase
@@ -72,7 +71,6 @@ class ShardedPulseChain:
     rank is closed-form in its coordinate (no collective)."""
 
     def __init__(self, chain: PulseShapedChain, mesh: DeviceMesh):
-        check_fir_backend(chain.fir_backend)
         self.chain = chain
         self.mesh = mesh
         self.t_dev = mesh.size(mesh.mesh_dim_names.index("time"))
@@ -116,8 +114,10 @@ class ShardedPulseChain:
         hi = left_halo(ui, k - 1, self._time)
         hq = left_halo(uq, k - 1, self._time)
         z = ui.new_zeros(ui.shape[:-1] + (d,))
-        si, _ = fir_filter(torch.cat([ui, z], dim=-1), ch.rrc, hi)
-        sq, _ = fir_filter(torch.cat([uq, z], dim=-1), ch.rrc, hq)
+        si, _ = fir_filter(torch.cat([ui, z], dim=-1), ch.rrc, hi,
+                           ch.fir_backend)
+        sq, _ = fir_filter(torch.cat([uq, z], dim=-1), ch.rrc, hq,
+                           ch.fir_backend)
         return (si[..., :n], sq[..., :n]), (si[..., n:], sq[..., n:])
 
     def _local_rx(self, wave, ext, n_sym_local: int):
@@ -130,8 +130,10 @@ class ShardedPulseChain:
         k = ch.rrc.shape[0]
         hi = left_halo(xi, k - 1, self._time)
         hq = left_halo(xq, k - 1, self._time)
-        yi, _ = fir_filter(torch.cat([xi, ei], dim=-1), ch.rrc, hi)
-        yq, _ = fir_filter(torch.cat([xq, eq], dim=-1), ch.rrc, hq)
+        yi, _ = fir_filter(torch.cat([xi, ei], dim=-1), ch.rrc, hi,
+                           ch.fir_backend)
+        yq, _ = fir_filter(torch.cat([xq, eq], dim=-1), ch.rrc, hq,
+                           ch.fir_backend)
         n = xi.shape[-1]
         ri = right_halo(yi[..., :n], d, self._time)
         rq = right_halo(yq[..., :n], d, self._time)
@@ -188,7 +190,8 @@ class ShardedPulseChain:
 
     def roundtrip_fn(self, snr_db: float | None = None):
         """``f(bits_l, seed=0) -> decided bits_l`` through the staged chain
-        (kernel K4 on the card). Noiseless decisions are exactly the
+        (the chain's ``fir_backend``; ``"direct"`` is kernel K4 on the
+        card). Noiseless decisions are exactly the
         single-device chain's; with ``snr_db`` each rank draws its noise
         from a generator seeded by ``seed`` and its coordinates."""
         def step(bits, seed=0):

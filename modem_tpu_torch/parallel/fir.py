@@ -5,15 +5,14 @@ A causal FIR over a stream split along a mesh dimension needs only the
 ``taps-1`` last samples of the left neighbour; the exchange is one hop and
 the result is the single-device filter's, because
 :func:`~modem_tpu_torch.ops.fir.fir_filter` takes the left history as an
-explicit ``state`` (kernel K4 on a CUDA tensor, its plain version on a CPU
-one).
+explicit ``state`` for every backend (``"direct"``: kernel K4 on a CUDA
+tensor, its plain version on a CPU one).
 """
 
 from __future__ import annotations
 
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..chain import check_fir_backend
 from ..ops.fir import as_taps, fir_filter
 from .collectives import left_halo
 
@@ -21,13 +20,12 @@ from .collectives import left_halo
 def fir_with_halo(x, taps, group, backend: str = "direct"):
     """This rank's block of a globally causal FIR over ``x [..., n_local]``,
     a stream sharded over the ranks of ``group``. Coordinate 0's history is
-    zeros (a fresh filter, `fir.rs:12-15`). ``backend`` takes ``"direct"``
-    only."""
-    check_fir_backend(backend)
+    zeros (a fresh filter, `fir.rs:12-15`). ``backend`` is one of
+    :data:`~modem_tpu_torch.ops.fir.BACKENDS`."""
     taps = as_taps(taps, x.device)
     k = taps.shape[0]
     state = left_halo(x, k - 1, group) if k > 1 else None
-    y, _ = fir_filter(x, taps, state)
+    y, _ = fir_filter(x, taps, state, backend)
     return y
 
 

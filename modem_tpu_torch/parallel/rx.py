@@ -13,8 +13,9 @@ detector over a ``("ch", "time")`` mesh with the reference's semantics
   mixer products, which makes its filter state at sample 64 a fresh
   filter's;
 * the lowpass FIRs stitch across ranks by a left halo
-  (:func:`~.fir.fir_with_halo`, kernel K4 on the card), so the outputs of
-  samples >= 64 are the single-device demodulator's.
+  (:func:`~.fir.fir_with_halo`, with the demodulator's ``fir_backend``;
+  ``"direct"`` is kernel K4 on the card), so the outputs of samples >= 64
+  are the single-device demodulator's.
 
 Outputs of samples < 64 (the lock preamble) are zeros; the CLI drops them.
 """

@@ -9,10 +9,12 @@ Mirrors `demodulator.rs:7-57` and the `demodulate` binary
     -> product detector: i = 2*LPF(x*cos(theta+phi)), q = 2*LPF(-x*sin(theta+phi))
 
 as block transforms with an explicit :class:`RxState` (carrier counter,
-acquired phase, FIR tails). On the card every FIR runs kernel K4
-(:func:`modem_tpu_torch.ops.fir.fir_filter`) and :meth:`Demodulator
+acquired phase, FIR tails). Every FIR goes through
+:func:`modem_tpu_torch.ops.fir.fir_filter` with the demodulator's
+``fir_backend`` (``"direct"``: kernel K4 on the card), and :meth:`Demodulator
 .demodulate_fused` runs the whole detector as kernel K5
-(:func:`modem_tpu_torch.ops.demod_kernel.fused_product_detect`).
+(:func:`modem_tpu_torch.ops.demod_kernel.fused_product_detect`) whatever
+the backend.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from .cuda import resolve_device
 from .ops import filters
 from .ops.demod_kernel import fused_product_detect
-from .ops.fir import fir_filter, fir_init_state
+from .ops.fir import check_backend, fir_filter, fir_init_state
 from .ops.nco import carrier_phase, mix_down
 from .ops.pll import LOCK_SAMPLES, pll_lock
 from .tx import tree_to_torch
@@ -57,16 +59,15 @@ class Demodulator(torch.nn.Module):
     designed to spec (`demodulate.rs:10,36,46-150`). ``lowpass`` and
     ``hilbert`` (e.g. the JAX object's arrays) replace the designs; both are
     buffers on ``device``, the card unless the caller asks for the CPU.
+    ``fir_backend`` (one of :data:`~modem_tpu_torch.ops.fir.BACKENDS`)
+    filters the Hilbert arm and the staged lowpass.
     """
 
     def __init__(self, carrier_hz: int, sample_rate: int, lowpass=None,
                  hilbert=None, fir_backend: str = "direct",
                  device: torch.device | str | None = None):
         super().__init__()
-        if fir_backend != "direct":
-            raise NotImplementedError(
-                f"fir_backend {fir_backend!r} is not ported yet (ROADMAP.md "
-                "queue 1: the conv, matmul and fft backends of fir_filter)")
+        check_backend(fir_backend)
         device = resolve_device(device)
         self.carrier_hz = carrier_hz
         self.sample_rate = sample_rate
@@ -99,7 +100,7 @@ class Demodulator(torch.nn.Module):
         """Analytic-signal planes ``(x, H(x))`` (`demodulate.rs:31-34`) as two
         real tensors; no group-delay compensation on the Hilbert arm, as in
         the reference."""
-        h, tail = fir_filter(x, self.hilbert, state.hilbert)
+        h, tail = fir_filter(x, self.hilbert, state.hilbert, self.fir_backend)
         return (x, h), tail
 
     def lock_phase(self, x: torch.Tensor, state: RxState) -> RxState:
@@ -118,12 +119,13 @@ class Demodulator(torch.nn.Module):
     def demodulate(self, x: torch.Tensor, state: RxState
                    ) -> tuple[tuple[torch.Tensor, torch.Tensor], RxState]:
         """Steady-state product detection (`demodulator.rs:44-56`), staged:
-        carrier phase, mix, then the two lowpass FIRs (kernel K4 on CUDA)."""
+        carrier phase, mix, then the two lowpass FIRs (``fir_backend``;
+        ``"direct"`` is kernel K4 on CUDA)."""
         n, sr = x.shape[-1], self.sample_rate
         theta = carrier_phase(self.carrier_hz, sr, n, state.s_mod_sr)
         mi, mq = mix_down(x, theta + state.phase_offset[..., None])
-        yi, lpi = fir_filter(mi, self.lowpass, state.lpi)
-        yq, lpq = fir_filter(mq, self.lowpass, state.lpq)
+        yi, lpi = fir_filter(mi, self.lowpass, state.lpi, self.fir_backend)
+        yq, lpq = fir_filter(mq, self.lowpass, state.lpq, self.fir_backend)
         new_state = RxState(
             s_mod_sr=(state.s_mod_sr + n % sr) % sr,
             phase_offset=state.phase_offset, hilbert=state.hilbert,

@@ -339,13 +339,25 @@ def test_delay_moves_the_decision_instants(chains):
 
 @pytest.mark.parametrize("fn", ["shape_iq", "matched_decision_points"])
 def test_other_fir_backends_not_ported(chains, fn):
-    """A ``fir_backend`` other than ``"direct"`` raises
-    ``NotImplementedError``, as ``PulseShapedChain`` does."""
+    """The backends beside ``"direct"`` are ported: ``fir_backend="fft"``
+    equals the JAX function with the same backend (within f32
+    reassociation), and a name outside ``BACKENDS`` raises ``ValueError``
+    (once ``NotImplementedError`` for every backend but ``"direct"``)."""
+    from modem_tpu import chain as jchain
     from modem_tpu_torch import chain as tchain
 
-    _, tc = chains
+    jc, tc = chains
     iq, wave = _helper_case(14)
-    args = ((torch.as_tensor(iq), tc.rrc, 8, 8, False) if fn == "shape_iq"
-            else (*_t(wave), tc.rrc, 8, 8, 10, True))
-    with pytest.raises(NotImplementedError, match="fir_backend"):
-        getattr(tchain, fn)(*args, fir_backend="fft")
+    if fn == "shape_iq":
+        args, jargs = ((torch.as_tensor(iq), tc.rrc, 8, 8, False),
+                       (jnp.asarray(iq), jc.rrc, 8, 8, False))
+    else:
+        args, jargs = ((*_t(wave), tc.rrc, 8, 8, 10, False),
+                       (*_j(wave), jc.rrc, 8, 8, 10, False))
+    got = getattr(tchain, fn)(*args, fir_backend="fft")
+    want = getattr(jchain, fn)(*jargs, fir_backend="fft")
+    for g, y in zip(got, want):
+        assert g.shape == y.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(y), atol=ATOL)
+    with pytest.raises(ValueError, match="unknown FIR backend"):
+        getattr(tchain, fn)(*args, fir_backend="overlap_add")

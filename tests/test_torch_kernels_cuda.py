@@ -934,6 +934,121 @@ def test_fir_kernel_refuses_too_many_taps(dev):
     assert fir.FIR_KERNEL.launches == before
 
 
+def _device_ops(fn, *args):
+    """CUDA kernels and copies one call runs, by the profiler: the most of
+    three profiles of one call each (a profile now and then loses
+    records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    most = 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        most = max(most, sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA))
+    return most
+
+
+@pytest.mark.parametrize("k", [23, 7, 257])
+def test_fir_kernel_takes_no_state(k, dev):
+    """``state=None`` is a zero history the kernel makes itself, bit for
+    bit with a zero state on every route; ``fir_filter`` then runs K4
+    alone (no zero fill, no copy of the new state, which is a view of x),
+    and numpy taps cross to the card once."""
+    from modem_tpu_torch.ops import fir
+
+    taps = (_unit(k, k + 5) / k ** 0.5).numpy()
+    x = _unit((5, 9001), 6).to(dev)
+    t = fir.as_taps(taps, dev)
+    want = fir.fir_kernel(x, t, torch.zeros(5, k - 1, device=dev))
+    assert torch.equal(fir.fir_kernel(x, t, None), want)
+    y, state = fir.fir_filter(x, taps)
+    assert torch.equal(y, want) and fir.as_taps(taps.copy(), dev) is t
+    assert state.data_ptr() == x[:, 9001 - (k - 1):].data_ptr()
+    assert _device_ops(fir.fir_filter, x, taps) == 1
+
+
+#: the FIR engine's backends beside K4
+FIR_BACKENDS = ["conv", "matmul", "fft"]
+
+
+@pytest.mark.parametrize("k", [23, 64, 65, 257])
+@pytest.mark.parametrize("backend", FIR_BACKENDS)
+def test_fir_backend_on_card_equals_cpu(backend, k, dev):
+    """Each backend on the card against its CPU run and float64
+    ``np.convolve`` (the JAX tests' 1e-4), with a carried state; with TF32
+    allowed in both of PyTorch's global flags (cuDNN's default) the result
+    is the same, since the backend pins float32 itself, and the flags come
+    back as they were."""
+    from modem_tpu_torch.ops.fir import fir_filter
+
+    taps = _unit(k, k + 7) / k ** 0.5
+    x, st = _unit((4, 9000), 8), _unit((4, k - 1), 9)
+    cpu, cpu_state = fir_filter(x, taps, st, backend)
+    xp = torch.cat([st, x], -1).double().numpy()
+    ref = np.stack([np.convolve(r, taps.double().numpy())[k - 1: k - 1 + 9000]
+                    for r in xp])
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        outs = []
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            y, state = fir_filter(x.to(dev), taps.to(dev), st.to(dev),
+                                  backend)
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) == (tf32, tf32)
+            assert y.is_cuda and y.dtype == torch.float32
+            assert torch.equal(state.cpu(), cpu_state)
+            np.testing.assert_allclose(y.cpu().numpy(), ref, atol=1e-4)
+            np.testing.assert_allclose(y.cpu().numpy(), cpu.numpy(),
+                                       atol=1e-4, rtol=0)
+            outs.append(y)
+        assert torch.equal(outs[0], outs[1])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("backend", FIR_BACKENDS)
+def test_fir_backend_entry_points_on_card(backend, dev):
+    """``Demodulator(fir_backend=b)``'s ``lock_phase`` and ``demodulate``,
+    and ``qpsk_reference_chain(fir_backend=b)``'s staged ``tx`` and ``rx``,
+    on the card against the CPU (within 1e-5 of the largest value) and
+    against K4's ``direct`` (the JAX test's 1e-4); the chain's bits back
+    exactly."""
+    from modem_tpu_torch import Demodulator, Modulator, make_scheme
+
+    r = Rates(1250, 10000)
+    mod = Modulator(make_scheme("qpsk", r), r, carrier_hz=2000, device="cpu")
+    g = torch.Generator().manual_seed(10)
+    bits = torch.randint(0, 2, (3, 2 * 600), generator=g, dtype=torch.int32)
+    wave, _ = mod.passband(bits, mod.init_state((3,)))
+    runs = {}
+    for name, device in (("cpu", "cpu"), (backend, dev), ("direct", dev)):
+        d = Demodulator(2000, 10000, device=device,
+                        fir_backend="direct" if name == "direct" else backend)
+        x = wave.to(device)
+        st = d.lock_phase(x[:, :64], d.init_state((3,)))
+        (i, q), _ = d.demodulate(x[:, 64:], st)
+        runs[name] = torch.stack([i, q]).cpu()
+    peak = float(runs["cpu"].abs().max())
+    assert float((runs[backend] - runs["cpu"]).abs().max()) <= 1e-5 * peak
+    assert float((runs[backend] - runs["direct"]).abs().max()) <= 1e-4
+    chain = qpsk_reference_chain(r, fir_backend=backend, device=dev)
+    cpu = qpsk_reference_chain(r, fir_backend=backend, device="cpu")
+    cb = bits.to(dev)
+    tx = chain.tx(cb)
+    for a, b in zip(tx, cpu.tx(bits)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert torch.equal(chain.rx(tx, 600), cb)
+    assert torch.equal(chain.roundtrip(cb), cb)
+
+
 #: K5's carriers: a table of 5 phases (the reference path's), of 100, and
 #: none (10007 phases: one sincosf a sample)
 DEMOD_CARRIERS = [(2000, 10000), (1700, 10000), (2001, 10007)]

@@ -167,8 +167,10 @@ def test_demodulator_buffers_and_defaults():
     dflt = Demodulator(2000, 10000, device=CPU)
     np.testing.assert_array_equal(dflt.lowpass.numpy(), np.asarray(jd.lowpass))
     np.testing.assert_array_equal(dflt.hilbert.numpy(), np.asarray(jd.hilbert))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Demodulator(2000, 10000, fir_backend="fft", device=CPU)
+    assert Demodulator(2000, 10000, fir_backend="fft",
+                       device=CPU).fir_backend == "fft"
+    with pytest.raises(ValueError, match="unknown FIR backend"):
+        Demodulator(2000, 10000, fir_backend="overlap_add", device=CPU)
 
 
 def test_lock_phase_matches_jax(locked):

@@ -242,14 +242,19 @@ def test_passband_chain_fused(passband):
 
 def test_chain_arguments_in_jax_order():
     """``carrier_hz`` and ``fir_backend`` stand where the JAX constructor has
-    them; ``fir_backend`` takes only ``"direct"``."""
+    them; ``fir_backend`` takes the four names of ``BACKENDS`` (once only
+    ``"direct"``) and raises ``ValueError`` for any other."""
     tc = PulseShapedChain(QPSK(0.0, 1.0), Rates(1250, SR), 8, 0.35, 2000,
                           "direct", False, "cpu")
     assert (tc.carrier_hz, tc.fir_backend, tc.polyphase) == (2000, "direct",
                                                               False)
-    with pytest.raises(NotImplementedError, match="fir_backend"):
-        PulseShapedChain(QPSK(0.0, 1.0), Rates(1250, SR), fir_backend="fft",
-                         device="cpu")
+    for backend in ("conv", "matmul", "fft"):
+        assert PulseShapedChain(QPSK(0.0, 1.0), Rates(1250, SR), 8, 0.35,
+                                2000, backend, False,
+                                "cpu").fir_backend == backend
+    with pytest.raises(ValueError, match="unknown FIR backend"):
+        PulseShapedChain(QPSK(0.0, 1.0), Rates(1250, SR),
+                         fir_backend="overlap_add", device="cpu")
 
 
 def test_qam256_chain_takes_the_algebraic_mode():
