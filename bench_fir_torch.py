@@ -21,9 +21,11 @@ and from a carried one) gets:
 - ``*_launches``: the CUDA kernels and copies one call runs, by the
   profiler (the most of three profiles);
 
-and so do ``apply_static_delay`` (numpy taps), ``multipath_fir`` (device
-taps) and ``AcquiringReceiver.rx`` at 64 x 512 payload symbols. Each case
-also hashes its output bytes (``*_sha``): the run fails unless every
+and so do ``fir_filter(x, taps, backend="conv")`` at each shape
+(``conv_*``: one ``conv1d`` by cuDNN, device taps, no state; the library's
+yardstick, in the same process), ``apply_static_delay`` (numpy taps),
+``multipath_fir`` (device taps) and ``AcquiringReceiver.rx`` at 64 x 512
+payload symbols. Each case also hashes its output bytes (``*_sha``): the run fails unless every
 process of every tree gives the same hashes, so the wrapper is held to the
 parent's bits.
 
@@ -89,7 +91,8 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
 
     def measure(tag, fn, args):
         out = fn(*args)  # fir_filter's (y, new_state): y is hashed
-        res[f"{tag}_sha"] = sha(out[0] if tag.startswith("k4") else out)
+        res[f"{tag}_sha"] = sha(out[0] if tag.startswith(("k4", "conv"))
+                                else out)
         res[f"{tag}_host_us"] = host_us(fn, args, reps)
         res[f"{tag}_ms"] = event_ms(fn, args, 20, reps)
         res[f"{tag}_launches"] = launches(fn, args)
@@ -107,6 +110,7 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
         for form, args in (("tensor", (x, t)), ("numpy", (x, host)),
                            ("state", (x, t, state))):
             measure(f"k4_{k}_{form}", fir.fir_filter, args)
+        measure(f"conv_{k}_tensor", fir.fir_filter, (x, t, None, "conv"))
 
     _, i, q = sm.acq_capture(rxr, sm.ACQ_CHANNELS, sm.ACQ_PAYLOAD, device,
                              SEED + 1)

@@ -439,6 +439,17 @@ and ``halo_mismatch`` on a K4 overlap-save:
 58. times: the per-rank wall of the sharded fused roundtrip, four ranks
     sharing one card (not a scaling number).
 
+Then ``fir_filter``'s backends and the launch path every kernel shares:
+
+59. the ``conv``, ``matmul`` and ``fft`` backends through every entry point
+    that takes ``fir_backend=``, held to K4 with TF32 off and on, and their
+    times;
+60. each C entry through its wrapper at 4 x 64 and at 256 x 4096 symbols
+    makes no runtime query after its first launch (``cuda.host_queries``:
+    over 100 launches of K4, 20 of each other), with its host microseconds
+    and CUDA-event milliseconds a call; K4 beside ``fir_filter(...,
+    backend="conv")`` at the acquisition's and the OFDM timing's shapes.
+
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass, the chain's 65-tap RRC, each other count of
 phase 7, the OFDM preamble's 240 taps, the acquisition's 4, 13 and 63
@@ -6640,6 +6651,180 @@ def print_times(name: str, samples: int, t, card: str, extra: str) -> None:
           flush=True)
 
 
+# ---- phase 60: the launch path every kernel shares ----
+
+#: (channels, symbols) where a launch's host work outweighs the kernel's
+LAUNCH_SMALL = (4, 64)
+LAUNCH_AFTER_WARM = 20           # launches of an entry that ask the runtime nothing
+K4_LAUNCHES = 100
+#: K4's shapes beside fir_filter(conv): the acquisition's capture at 4, 13
+#: and 63 taps, its matched filter at 65, the OFDM fine timing at 240
+K4_SHAPES = {4: (64, 4416), 13: (64, 4416), 63: (64, 4416), 65: (64, 4505),
+             240: (256, 335)}
+
+
+def launch_cases(chain, device, shape) -> dict:
+    """For each C entry of the kernel library, ``(label, its wrapper, args)``
+    at ``shape`` = (channels, symbols): the chains' symbols, 8 samples a
+    symbol for K4 and K5 (the demodulator's 64-tap lowpass), 4 bits a
+    symbol for K6-K10, a bit a symbol for K13 (the CCSDS code; its block
+    route at K = 15). At the full shape, ``(CHANNELS, N_SYMBOLS)``, each
+    takes §6's inputs: K13's block route 16 x 1024 bits, K14 the rows of
+    ``TurboCode(1024)`` x 512 codewords, K15 and K16 ``PolarCode(256,
+    128)`` x 4096; at a small one a codeword a channel (K14 at
+    ``TurboCode(40)``)."""
+    from modem_tpu_torch.fec import PolarCode, TurboCode, crc16_ccitt
+    from modem_tpu_torch.models.base import f32
+    from modem_tpu_torch.ops import (bcjr_kernel as bk, chain_kernel as ck,
+                                     demod_kernel as dk, fir, filters,
+                                     fsk_kernel as fk, sc_kernel as sk,
+                                     scl_kernel as lk, txrx,
+                                     viterbi_kernel as vk)
+
+    c, k = shape
+    full = shape == (CHANNELS, N_SYMBOLS)
+    gen = torch.Generator(device=device).manual_seed(SEED + 160)
+    syms = random_symbols(shape, device, False)
+    lut, rrc, sps, span = chain.lut, chain.rrc, chain.sps, chain.span
+    wi, wq = txrx.tx_plain(syms, lut, rrc, sps, span)
+    lowpass = torch.as_tensor(filters.lowpass_taps(sample_rate=REF_SR),
+                              device=device)
+    mfsk, _, msk, _ = fsk_chains(device)
+    bits = torch.randint(0, 2, (c, 4 * k), generator=gen, device=device,
+                         dtype=torch.int32)
+    prog = mfsk._phase_program(bits)
+    qs = f32(prog.qshift)
+    targets = fk._candidate_increments(fk.fsk_coef_table(mfsk.scheme),
+                                       prog.den, device)
+    fi, fq = fk.fsk_tx_plain(prog.fnum, prog.pnum, prog.den, mfsk.sps, 1.0,
+                             qs)
+    s0, s1 = msk._slot_signs(bits[:, :2 * k])
+    rs = {n: (fn, a) for n, fn, _, a, _ in
+          rs_cases(resampled_chain(device), shape, device, SEED + 161)}
+    code, _, lam = vit_case(7, (0o171, 0o133), shape, 0.8, SEED + 162,
+                            device)
+    k15_shape = WIDE_VIT_SHAPE if full else (2, k)
+    k15, _, lam15 = vit_case(*WIDE_VIT["viterbi_k15"], k15_shape, 0.8,
+                             SEED + 163, device)
+    block = min(VIT_BLOCK, k)
+    turbo = TurboCode(TURBO_K if full else 40)
+    _, tllr = turbo_llrs(turbo, TURBO_CW if full else c, TURBO_SNR_DB,
+                         SEED + 164, device)
+    rows, guard, window = turbo_rows(turbo, tllr)[0]
+    polar = PolarCode(POLAR_N, POLAR_K)
+    _, plam = polar_llrs(polar, crc16_ccitt(), POLAR_CW if full else c,
+                         POLAR_SIGMAS[0], SEED + 165, device)
+    x = unit((c, 8 * k), gen, device)
+    return {
+        "modem_chain": ("K1", ck.chain_kernel, (syms, lut, rrc, sps, span)),
+        "modem_tx": ("K2", txrx.tx_kernel, (syms, lut, rrc, sps, span)),
+        "modem_rx_hard": ("K3", txrx.rx_kernel,
+                          (wi, wq, k, lut, rrc, sps, span, False)),
+        "modem_rx_soft": ("K3 soft", txrx.rx_kernel,
+                          (wi, wq, k, lut, rrc, sps, span, True)),
+        "modem_fir": ("K4", fir.fir_kernel, (x, lowpass)),
+        "modem_demod": ("K5", dk.demod_kernel,
+                        demod_case(lowpass, (c, 8 * k), gen, device)),
+        "modem_fsk_chain": ("K6", fk.fsk_chain_kernel,
+                            (prog.fnum, prog.pnum, targets, prog.den,
+                             mfsk.sps, 1.0, qs, 1, 256, None, SEED + 166)),
+        "modem_fsk_tone_table": ("K6 table", fk.tone_table_kernel,
+                                 (prog.den, 1.0, qs, device)),
+        "modem_msk_chain": ("K7", fk.msk_chain_kernel,
+                            (s0, s1, msk.spb, 1.0, 1, 256, None, SEED + 167)),
+        "modem_fsk_tx": ("K8", fk.fsk_tx_kernel,
+                         (prog.fnum, prog.pnum, prog.den, mfsk.sps, 1.0, qs)),
+        "modem_disc_means": ("K9", fk.disc_means_kernel,
+                             (fi, fq, mfsk.sps, 1)),
+        "modem_msk_tx": ("K10", fk.msk_tx_kernel, (s0, s1, msk.spb, 1.0)),
+        "modem_resampled_tx": ("K11", *rs["fused_resampled_tx"]),
+        "modem_resampled_rx": ("K12", *rs["fused_resampled_rx"]),
+        "modem_viterbi": ("K13", vk.stream_kernel,
+                          (code, lam, block, VIT_HALO, 1e6)),
+        "modem_viterbi_block": ("K13 block", vk.stream_kernel,
+                                (k15, lam15, min(WIDE_VIT_BLOCK, k), 150,
+                                 1e6)),
+        "modem_bcjr": ("K14", bk.rows_kernel, (rows, guard, window)),
+        "modem_polar_sc": ("K15", sk.sc_kernel, (polar, plam)),
+        "modem_polar_scl": ("K16", lk.scl_kernel, (polar, plam)),
+    }
+
+
+def host_us_a_call(fn, args, device, calls=50, reps=3) -> float:
+    """Median over ``reps`` of the host time a call of ``calls`` calls back
+    to back, not waiting for the card, in microseconds."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize(device)
+    return statistics.median(out)
+
+
+def queries_still(what: str, fn, args, calls: int) -> None:
+    """Fails unless ``calls`` calls of ``fn`` make no runtime query (device
+    attributes, occupancy, shared-memory opt-ins) of the kernel library."""
+    from modem_tpu_torch import cuda
+
+    before = cuda.host_queries()
+    for _ in range(calls):
+        fn(*args)
+    torch.cuda.synchronize()
+    moved = cuda.host_queries() - before
+    if moved:
+        fail(f"{what}: {moved} runtime queries over {calls} launches after "
+             "the first")
+
+
+def phase_launch_path(chain, device, card: str) -> None:
+    """Phase 60: the launch path every kernel shares. Each C entry at a
+    small shape and at §6's, through its wrapper: after two warm-up calls
+    LAUNCH_AFTER_WARM more ask the runtime nothing (K4: K4_LAUNCHES), then
+    host microseconds and CUDA-event milliseconds a call; K4 beside
+    ``fir_filter(conv)`` at K4_SHAPES."""
+    from modem_tpu_torch import cuda
+    from modem_tpu_torch.ops import fir
+
+    print(f"[launch] runtime queries so far: {cuda.host_queries()}",
+          flush=True)
+    for shape in (LAUNCH_SMALL, (CHANNELS, N_SYMBOLS)):
+        for sym, (label, fn, args) in launch_cases(chain, device,
+                                                   shape).items():
+            for _ in range(2):
+                fn(*args)
+            queries_still(f"{sym} at {shape}", fn, args,
+                          K4_LAUNCHES if sym == "modem_fir"
+                          else LAUNCH_AFTER_WARM)
+            host = host_us_a_call(fn, args, device)
+            ms = time_calls(fn, args, device)
+            print(f"[launch] {sym:21s} ({label:9s}) {shape[0]:3d} x "
+                  f"{shape[1]:4d}: host {host:8.2f} us a call, CUDA events "
+                  f"{ms:.4f} ms a call, on {card}", flush=True)
+    taps = dict(acq_taps(device))
+    taps[65] = chain.rrc
+    gen = torch.Generator(device=device).manual_seed(SEED + 170)
+    taps[240] = unit((240,), gen, device) / 240 ** 0.5
+    for k, (c, n) in K4_SHAPES.items():
+        x = unit((c, n), gen, device)
+        row = []
+        for backend in ("direct", "conv"):
+            args = (x, taps[k], None, backend)
+            for _ in range(2):
+                fir.fir_filter(*args)
+            queries_still(f"fir_filter({backend}) at {k} taps",
+                          fir.fir_filter, args, LAUNCH_AFTER_WARM)
+            row.append((backend, host_us_a_call(fir.fir_filter, args, device),
+                        time_calls(fir.fir_filter, args, device)))
+        print(f"[launch] fir_filter {k:3d} taps, {c} x {n}: " + "; ".join(
+            f"{b} host {h:.2f} us, {ms:.4f} ms a call" for b, h, ms in row)
+            + f", on {card}", flush=True)
+    print(f"[launch] runtime queries in all: {cuda.host_queries()}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -6738,6 +6923,7 @@ def main() -> int:
     sharded = phase_nccl_world_of_one(device, card)
     phase_four_ranks(card)
     phase_fir_backends(device, card)
+    phase_launch_path(chain, device, card)
 
     entries = [(n, src, rep)
                for n, _, _, _, _, _, src, rep in kernel_cases(chain)] + [

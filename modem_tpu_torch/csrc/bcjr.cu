@@ -61,6 +61,8 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -461,8 +463,7 @@ int modem_bcjr(const float* x, long long n_rows, int tw, int keep_lo,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n_rows + kRowsPerWarp - 1) / kRowsPerWarp;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t set = cudaFuncSetAttribute(
-      bcjr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  const cudaError_t set = modem::allow_smem(bcjr_kernel, kSmemBytes);
   if (set != cudaSuccess) return static_cast<int>(set);
   bcjr_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmemBytes,
                 static_cast<cudaStream_t>(stream)>>>(x, n_rows, tw, keep_lo,

@@ -16,8 +16,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <set>
+#include <tuple>
 #include <type_traits>
+#include <utility>
 
 namespace modem {
 
@@ -632,30 +638,150 @@ inline int side_floats(const Constellation& m, const Nco& n) {
          (n.sr != 0 && n.table ? 2 * n.period : 0);
 }
 
-// Dynamic shared memory above the default 48 KB needs an opt-in.
+// ---- what a launch asks of the runtime, asked once ----
+//
+// The C entries launch on whatever host thread calls them (ctypes releases
+// the GIL), so what they keep between launches sits behind one lock: the SM
+// count of each device, the blocks an SM holds of each kernel at each
+// (threads, dynamic shared memory), and the dynamic shared memory each
+// kernel has been granted on each device. The runtime is asked only for
+// what is not kept yet: a launch at an unchanged shape makes no query.
+
+constexpr int kMaxDevices = 64;
+
+// The calls the library has made to cudaDeviceGetAttribute,
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor and cudaFuncSetAttribute
+// (modem_host_queries), so that a test can see them stop.
+inline std::atomic<long long> host_queries{0};
+
+struct LaunchCache {
+  std::mutex lock;
+  int sm_count[kMaxDevices] = {};
+  int smem_optin[kMaxDevices] = {};
+  // (kernel, device) -> the dynamic shared memory granted past the default
+  std::map<std::pair<const void*, int>, size_t> granted;
+  // (kernel, device) whose carveout preference has been set
+  std::set<std::pair<const void*, int>> carveout;
+  // (kernel, device, threads, dynamic shared memory) -> blocks an SM
+  std::map<std::tuple<const void*, int, int, size_t>, int> occupancy;
+};
+
+inline LaunchCache& launch_cache() {
+  static LaunchCache cache;
+  return cache;
+}
+
+// The calling thread's device, an index into the cache.
+inline cudaError_t current_device(int& dev) {
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev < 0 || dev >= kMaxDevices))
+    return cudaErrorInvalidDevice;
+  return err;
+}
+
+// The SM count and the opt-in shared memory a block may have on `dev`,
+// read at the first call for the device; the caller holds the lock.
+inline cudaError_t device_limits_locked(LaunchCache& c, int dev) {
+  if (c.sm_count[dev] != 0) return cudaSuccess;
+  int sms = 0, optin = 0;
+  host_queries += 2;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  c.smem_optin[dev] = optin;
+  c.sm_count[dev] = sms > 0 ? sms : 1;
+  return cudaSuccess;
+}
+
+inline cudaError_t device_limits(int dev, int& sms, int& smem_optin) {
+  LaunchCache& c = launch_cache();
+  std::lock_guard<std::mutex> hold(c.lock);
+  const cudaError_t err = device_limits_locked(c, dev);
+  sms = c.sm_count[dev];
+  smem_optin = c.smem_optin[dev];
+  return err;
+}
+
+// Dynamic shared memory above the default 48 KB needs an opt-in, asked of
+// the runtime only when `bytes` is more than this kernel was granted on
+// this device before.
+inline cudaError_t allow_smem_locked(LaunchCache& c, const void* kernel,
+                                     int dev, size_t bytes) {
+  if (bytes <= kDefaultSmem) return cudaSuccess;
+  size_t& granted = c.granted[{kernel, dev}];
+  if (bytes <= granted) return cudaSuccess;
+  ++host_queries;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) granted = bytes;
+  return err;
+}
+
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  int dev = 0;
+  const cudaError_t err = current_device(dev);
+  if (err != cudaSuccess) return err;
+  LaunchCache& c = launch_cache();
+  std::lock_guard<std::mutex> hold(c.lock);
+  return allow_smem_locked(c, reinterpret_cast<const void*>(kernel), dev,
+                           bytes);
+}
+
+// The largest shared-memory carveout for `kernel` (as many blocks an SM as
+// shared memory holds), set once per device.
+template <typename Kernel>
+inline cudaError_t prefer_shared(Kernel kernel) {
+  int dev = 0;
+  cudaError_t err = current_device(dev);
+  if (err != cudaSuccess) return err;
+  LaunchCache& c = launch_cache();
+  std::lock_guard<std::mutex> hold(c.lock);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  if (c.carveout.count({fn, dev})) return cudaSuccess;
+  ++host_queries;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) c.carveout.insert({fn, dev});
+  return err;
 }
 
 // The grid of a persistent kernel: as many blocks as fit the card, at most
-// `cap` an SM, and never more than the n_items items (asked at every
-// launch, a few microseconds).
+// `cap` an SM, and never more than the n_items items. Opts in to `smem`
+// first where it is past the default.
 template <typename Kernel>
 inline cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem,
                                    int cap, long long n_items,
                                    unsigned& grid) {
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
+  int dev = 0;
+  cudaError_t err = current_device(dev);
   if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int n_sm = 0, per_sm = 0;
+  {
+    LaunchCache& c = launch_cache();
+    std::lock_guard<std::mutex> hold(c.lock);
+    err = device_limits_locked(c, dev);
+    if (err == cudaSuccess) err = allow_smem_locked(c, fn, dev, smem);
+    if (err != cudaSuccess) return err;
+    n_sm = c.sm_count[dev];
+    const auto key = std::make_tuple(fn, dev, threads, smem);
+    const auto hit = c.occupancy.find(key);
+    if (hit != c.occupancy.end()) {
+      per_sm = hit->second;
+    } else {
+      ++host_queries;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                          threads, smem);
+      if (err != cudaSuccess) return err;
+      c.occupancy.emplace(key, per_sm);
+    }
+  }
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long slots = static_cast<long long>(per_sm < cap ? per_sm : cap) *
                           n_sm;

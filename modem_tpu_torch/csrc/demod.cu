@@ -272,11 +272,9 @@ int launch(const float* hist, int h, const float* x, long long n_ch,
   const long long n_tiles =
       modem::fir_tiles(n, modem::fir_shift(x, n), kTile);
   const long long n_items = n_ch * n_tiles;
-  cudaError_t err = modem::allow_smem(kernel, smem);
   unsigned grid = 0;
-  if (err == cudaSuccess)
-    err = modem::persistent_grid(kernel, kCoreThreads, smem,
-                                 modem::kCoreBlocks, n_items, grid);
+  const cudaError_t err = modem::persistent_grid(
+      kernel, kCoreThreads, smem, modem::kCoreBlocks, n_items, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kCoreThreads, smem, stream>>>(hist, h, x, n, n_tiles,
                                                n_items, n_taps, taps, wk, off,

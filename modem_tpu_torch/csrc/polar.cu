@@ -132,7 +132,6 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
 constexpr int kL = 8;
-constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr float kTwoBig = 2e30f;
 
 // sign(a)*sign(b)*min(|a|,|b|) (sign(0) = 0): the products are by +-1 or
@@ -777,12 +776,8 @@ int modem_polar_sc(const float* lam, long long n_cw, int n, int n_bits,
   const long long blocks = (warps + kScWarps - 1) / kScWarps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = kScWarps * sc_warp_bytes(n);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = modem::allow_smem(sc_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   sc_kernel<<<static_cast<unsigned>(blocks), kScWarps * kWarp, smem,
               static_cast<cudaStream_t>(stream)>>>(
       lam, n_cw, n, n_bits, *static_cast<const ScPlan*>(plan), u_out, x_out);
@@ -802,16 +797,9 @@ int modem_polar_scl(const float* lam, long long n_cw, int n, int n_bits,
   const long long blocks = (n_cw + kSclWarps - 1) / kSclWarps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = kSclWarps * scl_warp_bytes(n);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err = modem::allow_smem(scl_kernel, smem);
   // as many codewords an SM as shared memory holds
-  const cudaError_t err = cudaFuncSetAttribute(
-      scl_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = modem::prefer_shared(scl_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   scl_kernel<<<static_cast<unsigned>(blocks), kSclWarps * kWarp, smem,
                static_cast<cudaStream_t>(stream)>>>(lam, n_cw, n, n_bits,

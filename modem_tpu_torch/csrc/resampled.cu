@@ -385,11 +385,9 @@ int launch_tx_core(const int* syms, long long n_ch, long long k_sym,
                       sizeof(float);
   const long long n_tiles = ((n_out + UP - 1) / UP + groups - 1) / groups;
   const long long n_items = n_ch * n_tiles;
-  cudaError_t err = modem::allow_smem(kernel, smem);
   unsigned grid = 0;
-  if (err == cudaSuccess)
-    err = modem::persistent_grid(kernel, kTxThreads, smem, kTxBlocks, n_items,
-                                 grid);
+  const cudaError_t err = modem::persistent_grid(kernel, kTxThreads, smem,
+                                                 kTxBlocks, n_items, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kTxThreads, smem, stream>>>(
       syms, k_sym, n_tiles, n_items, lut, n_points, tabs, first, z_cap,
@@ -589,10 +587,9 @@ int launch_rx_core(const float* wi, const float* wq, long long n_ch,
       sizeof(float);
   const long long n_tiles = ((n_sym + P - 1) / P + groups - 1) / groups;
   const long long n_items = n_ch * n_tiles;
-  cudaError_t err = modem::allow_smem(kernel, smem);
   unsigned grid = 0;
-  if (err == cudaSuccess)
-    err = modem::persistent_grid(kernel, nt, smem, kRxBlocks, n_items, grid);
+  const cudaError_t err =
+      modem::persistent_grid(kernel, nt, smem, kRxBlocks, n_items, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, nt, smem, stream>>>(wi, wq, n_wave, n_sym, n_tiles, n_items,
                                      tab, first, groups, lut, n_points,

@@ -711,12 +711,10 @@ int launch_rx(const void* wi, const void* wq, long long n_ch,
       (kDirect ? 0 : 2 * kRails * sizeof(TRaw) * ((win + 7) & ~7)) +
       sizeof(float) * (modem::side_floats(map, nco) +
                        (kLong ? span * sps + 1 : 0));
-  cudaError_t err = modem::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   unsigned grid = 0;
-  err = modem::persistent_grid(kernel, nt, smem,
-                               kDirect ? kRxBlocksDirect : kRxBlocksStaged,
-                               n_items, grid);
+  const cudaError_t err = modem::persistent_grid(
+      kernel, nt, smem, kDirect ? kRxBlocksDirect : kRxBlocksStaged, n_items,
+      grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, nt, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TRaw*>(wi), static_cast<const TRaw*>(wq), n_wave,
@@ -844,5 +842,9 @@ int modem_rx_soft(const void* wi, const void* wq, int in_bf16, long long n_ch,
 const char* modem_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// The runtime queries every C entry has made since the library was loaded
+// (common.cuh's host_queries): they stop once each kernel's shape is kept.
+long long modem_host_queries() { return modem::host_queries.load(); }
 
 }  // extern "C"

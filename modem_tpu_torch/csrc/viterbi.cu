@@ -99,7 +99,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <mutex>
 
 #include "common.cuh"
 
@@ -107,11 +106,9 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kBlockWarps = 4;  // the warp route's warps a block: one a scheduler
-constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kRenorm = 8;
 constexpr float kBig = 1e9f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 struct Geometry {
   long long n_ch, t_stream, block, n_win, out_stride;
@@ -538,64 +535,35 @@ viterbi_kernel(const float* __restrict__ lam, const float* __restrict__ pin,
   }
 }
 
-// The opt-in shared memory a block may have and the SMs of each device,
-// read once.
-std::mutex smem_mutex;
-int smem_cap[kMaxDevices], sm_count[kMaxDevices];
-
 template <int S, int N>
 cudaError_t launch(const float* lam, const float* pin, const int* masks,
                    const Geometry& g, const WarpLayout& w, int* out,
                    cudaStream_t stream) {
-  // the dynamic shared memory this instantiation may take on each device,
-  // raised (cudaFuncSetAttribute) only when a launch needs more
-  static int granted[kMaxDevices];
   const size_t per_warp = static_cast<size_t>(w.warp_floats) * sizeof(float);
   const long long warps = (g.n_ch * g.n_win + w.rows - 1) / w.rows;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = modem::current_device(dev);
+  if (err == cudaSuccess) err = modem::device_limits(dev, sms, optin);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  size_t smem = 0;
+  const size_t cap = static_cast<size_t>(optin);
+  if (per_warp > cap) return cudaErrorInvalidValue;
+  // warps a block: 1, 2 or 4, the one that puts the fewest warps on the
+  // busiest SM (the SMs share the step's shuffles, votes and selects), the
+  // larger of equals
   int per_block = 1;
-  {
-    std::lock_guard<std::mutex> lock(smem_mutex);
-    if (smem_cap[dev] == 0) {
-      int cap = 0, sms = 0;
-      err = cudaDeviceGetAttribute(
-          &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-      if (err != cudaSuccess) return err;
-      smem_cap[dev] = cap;
-      sm_count[dev] = sms > 0 ? sms : 1;
-    }
-    const size_t cap = static_cast<size_t>(smem_cap[dev]);
-    if (per_warp > cap) return cudaErrorInvalidValue;
-    // warps a block: 1, 2 or 4, the one that puts the fewest warps on the
-    // busiest SM (the SMs share the step's shuffles, votes and selects),
-    // the larger of equals
-    long long best = -1;
-    for (int pb = 1; pb <= kBlockWarps; pb *= 2) {
-      if (pb * per_warp > cap) break;
-      const long long blocks = (warps + pb - 1) / pb;
-      const long long busiest =
-          (blocks + sm_count[dev] - 1) / sm_count[dev] * pb;
-      if (best < 0 || busiest <= best) {
-        best = busiest;
-        per_block = pb;
-      }
-    }
-    smem = per_block * per_warp;
-    if (smem > kDefaultSmem && smem > static_cast<size_t>(granted[dev])) {
-      err = cudaFuncSetAttribute(viterbi_kernel<S, N>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-      granted[dev] = static_cast<int>(smem);
+  long long best = -1;
+  for (int pb = 1; pb <= kBlockWarps; pb *= 2) {
+    if (pb * per_warp > cap) break;
+    const long long blocks = (warps + pb - 1) / pb;
+    const long long busiest = (blocks + sms - 1) / sms * pb;
+    if (best < 0 || busiest <= best) {
+      best = busiest;
+      per_block = pb;
     }
   }
+  const size_t smem = per_block * per_warp;
+  err = modem::allow_smem(viterbi_kernel<S, N>, smem);
+  if (err != cudaSuccess) return err;
   const long long blocks = (warps + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   viterbi_kernel<S, N><<<static_cast<unsigned>(blocks), kWarp * per_block,
@@ -869,12 +837,9 @@ int modem_viterbi_block(const float* lam, const float* pin, const int* polys,
   const Geometry g{n_ch, t_stream, block, n_win, out_stride, n, n_states,
                    km2, t_w, halo, out_lo, out_hi, guard, 0};
   const BlockPlan plan{threads, pm_smem, dec_smem, row0, n_rows};
-  if (static_cast<size_t>(smem_bytes) > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = modem::allow_smem(
+      viterbi_block_kernel, static_cast<size_t>(smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
   viterbi_block_kernel<<<static_cast<unsigned>(n_rows), threads, smem_bytes,
                          static_cast<cudaStream_t>(stream)>>>(
       lam, pin, polys, g, plan, pm_g, dec_g, out);

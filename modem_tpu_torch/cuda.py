@@ -78,6 +78,7 @@ SIGNATURES = {
     "modem_bcjr": [_P, _L, _I, _I, _I, _P, _P, _P],
     "modem_polar_sc": [_P, _L, _I, _I, _P, _P, _P, _P],
     "modem_polar_scl": [_P, _L, _I, _I, _P, _P, _P, _P],
+    "modem_host_queries": [],
 }
 
 #: floats of ``csrc/common.cuh``'s ``Taps``: the most taps a kernel takes
@@ -90,10 +91,11 @@ class _Taps(ctypes.Structure):
     _fields_ = [("v", ctypes.c_float * TAPS_PARAM)]
 
 
-#: ids of the tensors -> (weak references, versions, _Taps): one copy to
-#: the host per taps tensor or tuple of tables (a chain's ``rrc``, a
-#: demodulator's ``lowpass``, config #4's tables), not one per launch
-_HOST_TAPS: dict[int, tuple] = {}
+#: the id of a taps tensor, or the ids of a tuple of tables -> (weak
+#: references, versions, _Taps): one copy to the host per taps tensor or
+#: tuple of tables (a chain's ``rrc``, a demodulator's ``lowpass``, config
+#: #4's tables), not one per launch
+_HOST_TAPS: dict = {}
 
 _library: ctypes.CDLL | None = None
 #: the compilers' output of each library that failed to build in this
@@ -161,6 +163,7 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.modem_host_queries.restype = ctypes.c_longlong
         lib.modem_error_string.argtypes = [ctypes.c_int]
         lib.modem_error_string.restype = ctypes.c_char_p
         _library = lib
@@ -188,18 +191,26 @@ def host_taps(*parts: torch.Tensor) -> int:
     modified in place (their version counters), so a filter's taps cross to
     the host once, not at every launch; an inference tensor, which has no
     version counter, is copied at every call."""
+    if len(parts) == 1:  # a filter's taps: a few attribute reads on a hit
+        t = parts[0]
+        key = id(t)
+        hit = _HOST_TAPS.get(key)
+        if (hit is not None and hit[1] is not None and hit[0][0]() is t
+                and hit[1][0] == t._version):
+            return hit[3]
+    else:
+        key = tuple(id(t) for t in parts)
+        hit = _HOST_TAPS.get(key)
+        if (hit is not None and hit[1] is not None
+                and all(r() is t and v == t._version
+                        for r, v, t in zip(hit[0], hit[1], parts))):
+            return hit[3]
     n = sum(t.numel() for t in parts)
     if n > TAPS_PARAM:
         raise ValueError(f"a Taps parameter holds at most {TAPS_PARAM} taps, "
                          f"got {n}")
-    key = tuple(id(t) for t in parts)
     versions = (None if any(t.is_inference() for t in parts)
                 else tuple(t._version for t in parts))
-    hit = _HOST_TAPS.get(key)
-    if (versions is not None and hit is not None
-            and all(r() is t for r, t in zip(hit[0], parts))
-            and hit[1] == versions):
-        return ctypes.addressof(hit[2])
     if len(_HOST_TAPS) >= 64:
         for k in [k for k, v in _HOST_TAPS.items()
                   if any(r() is None for r in v[0])]:
@@ -208,20 +219,41 @@ def host_taps(*parts: torch.Tensor) -> int:
     values = [v for t in parts
               for v in t.detach().reshape(-1).cpu().numpy().tolist()]
     param.v[:n] = values
-    _HOST_TAPS[key] = (tuple(weakref.ref(t) for t in parts), versions, param)
-    return ctypes.addressof(param)
+    addr = ctypes.addressof(param)
+    _HOST_TAPS[key] = (tuple(weakref.ref(t) for t in parts), versions, param,
+                       addr)
+    return addr
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor on the CUDA
-    ``device``."""
-    if (device.type != "cuda" or t.device != device or t.dtype != dtype
-            or not t.is_contiguous()):
+    ``device`` (attribute reads, no dispatch)."""
+    if not (t.is_cuda and t.dtype is dtype and t.device == device
+            and t.is_contiguous()):
         raise ValueError(
             f"{name}: the kernel takes a contiguous {dtype} CUDA tensor on "
             f"{device}, got {t.dtype} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def _current_device() -> int:
+    """The calling thread's CUDA device (``torch.cuda.current_device``
+    without its checks)."""
+    return torch._C._cuda_getDevice()
+
+
+def _raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream, without building a
+    ``torch.cuda.Stream`` (as PyTorch's generated code gets it)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def host_queries() -> int:
+    """The runtime queries (device attributes, occupancy, shared-memory
+    opt-ins) the kernel library has made since it was loaded: each C entry
+    asks once per kernel, device and shape, not at every launch."""
+    return library().modem_host_queries()
 
 
 class Kernel:
@@ -230,14 +262,21 @@ class Kernel:
     def __init__(self, symbol: str):
         self.symbol = symbol
         self.launches = 0
+        self._lib = self._fn = None
 
     def launch(self, device: torch.device, *args) -> None:
         """Launch on ``device``'s current stream; the last argument the C
-        function takes, the stream, is added here."""
-        fn = getattr(library(), self.symbol)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*args, stream)
+        function takes, the stream, is added here. The C function is looked
+        up once; the device is made current only where it is not."""
+        lib = library()
+        if self._lib is not lib:
+            self._lib, self._fn = lib, getattr(lib, self.symbol)
+        index, current = device.index, _current_device()
+        if index is None or index == current:
+            rc = self._fn(*args, _raw_stream(current))
+        else:
+            with torch.cuda.device(index):
+                rc = self._fn(*args, _raw_stream(index))
         if rc != 0:
             msg = library().modem_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")

@@ -94,9 +94,11 @@ def _bounded(store: dict) -> None:
 def as_taps(taps, device) -> torch.Tensor:
     """1-D float32 filter taps on ``device``. Host taps (numpy, lists) made
     into a tensor off the CPU are kept by value, so the same taps give the
-    same tensor again without a copy to the device."""
+    same tensor again without a copy to the device. A float32 tensor
+    already on ``device`` is returned as it is, with no dispatch."""
     if isinstance(taps, torch.Tensor):
-        t = taps.to(device=device, dtype=torch.float32)
+        t = (taps if taps.dtype is torch.float32 and taps.device == device
+             else taps.to(device=device, dtype=torch.float32))
     else:
         a = np.asarray(taps, np.float32)
         dev = torch.device("cpu" if device is None else device)
@@ -182,33 +184,44 @@ def fir_plain(x: torch.Tensor, taps: torch.Tensor,
     return y
 
 
+def _f32_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the contiguous float32 rows K4 reads: ``t`` itself where it
+    already is, else a copy."""
+    if t.dtype is torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
 def fir_kernel(x: torch.Tensor, taps: torch.Tensor,
                state: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K4 (``modem_fir``) on CUDA tensors, by :func:`fir_route`'s
-    route; the history is read from ``state`` in place (made contiguous
-    first where it is not), and ``state=None`` is a zero history that the
-    kernel makes itself."""
+    route, over ``x``'s rows (every dimension but the last); the history is
+    read from ``state`` in place (made contiguous float32 first where it is
+    not), and ``state=None`` is a zero history that the kernel makes
+    itself. A float32 contiguous ``x`` is read in place too."""
     k = taps.shape[0]
     route = fir_route(k)
-    if state is not None and state.shape[:-1] != x.shape[:-1]:
-        raise ValueError("state and x differ in batch shape")
+    if state is not None and (state.shape[:-1] != x.shape[:-1]
+                              or state.shape[-1] != k - 1):
+        raise ValueError(f"state must be x's rows of {k - 1} samples, got "
+                         f"{tuple(state.shape)} for x {tuple(x.shape)}")
     dev = x.device
-    c, n = math.prod(x.shape[:-1]), x.shape[-1]
-    fx = x.to(torch.float32).reshape(c, n).contiguous()
-    checks = [("x", fx), ("taps", taps)]
+    fx = _f32_rows(x)
+    check_cuda("x", fx, torch.float32, dev)
+    check_cuda("taps", taps, torch.float32, dev)
     fs = None
     if state is not None:
-        fs = state.to(torch.float32).reshape(c, k - 1).contiguous()
-        checks.append(("state", fs))
-    for name, t in checks:
-        check_cuda(name, t, torch.float32, dev)
+        fs = _f32_rows(state)
+        check_cuda("state", fs, torch.float32, dev)
     y = torch.empty_like(fx)
     if y.numel():
+        n = x.shape[-1]
         host = None if route == "long" else host_taps(taps)
         FIR_KERNEL.launch(dev, fx.data_ptr(),
-                          None if fs is None else fs.data_ptr(), fx.shape[0],
-                          n, host, taps.data_ptr(), k, y.data_ptr())
-    return y.reshape(x.shape)
+                          None if fs is None else fs.data_ptr(),
+                          y.numel() // n, n, host, taps.data_ptr(), k,
+                          y.data_ptr())
+    return y
 
 
 # ---- the conv, matmul and fft backends ----

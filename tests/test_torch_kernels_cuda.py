@@ -3525,3 +3525,96 @@ def test_nccl_world_of_one_collectives_and_stats(dev, nccl_mesh):
     tot = st.psum(group)
     assert tot.n_bit_errors == 400 and tot.n_bits == 400
     assert float(halo_mismatch(x, nccl_mesh, 4)) == 0.0
+
+
+# ---- the launch path: what a launch asks of the runtime, asked once ----
+
+#: every C entry of the kernel library (``cuda.SIGNATURES`` but the count)
+LAUNCH_ENTRIES = ["modem_chain", "modem_tx", "modem_rx_hard", "modem_rx_soft",
+                  "modem_fir", "modem_demod", "modem_fsk_chain",
+                  "modem_fsk_tone_table", "modem_msk_chain", "modem_fsk_tx",
+                  "modem_disc_means", "modem_msk_tx", "modem_resampled_tx",
+                  "modem_resampled_rx", "modem_viterbi",
+                  "modem_viterbi_block", "modem_bcjr", "modem_polar_sc",
+                  "modem_polar_scl"]
+
+
+@pytest.fixture(scope="module")
+def launch_cases(dev):
+    """``chip_smoke.launch_cases`` at its small shape: each C entry's
+    wrapper and arguments."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    sm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sm)
+    chain = qpsk_reference_chain(Rates(1250, 10000), device=dev)
+    return sm.launch_cases(chain, dev, sm.LAUNCH_SMALL)
+
+
+def test_launch_entries_are_the_library_s():
+    from modem_tpu_torch import cuda
+
+    assert sorted(LAUNCH_ENTRIES) == sorted(
+        s for s in cuda.SIGNATURES if s != "modem_host_queries")
+
+
+@pytest.mark.parametrize("sym", LAUNCH_ENTRIES)
+def test_launches_after_the_first_ask_the_runtime_nothing(sym, dev,
+                                                          launch_cases):
+    """After its first launch at a shape, a C entry makes no runtime query
+    (device attributes, occupancy, shared-memory opt-ins): over 100 K4
+    launches, over 20 of each other entry."""
+    from modem_tpu_torch import cuda
+
+    _, fn, args = launch_cases[sym]
+    fn(*args)
+    torch.cuda.synchronize()
+    before = cuda.host_queries()
+    for _ in range(100 if sym == "modem_fir" else 20):
+        fn(*args)
+    torch.cuda.synchronize()
+    assert cuda.host_queries() == before
+
+
+def test_fir_kernel_in_turn_at_tap_counts_of_other_shared_memory(dev):
+    """K4 at 4, 240, 4 and 1000 taps in turn (the generic route at two
+    shared-memory sizes, then the long route): each output equals the plain
+    version as test_fir_kernel requires, and the second round asks the
+    runtime nothing."""
+    from modem_tpu_torch import cuda
+    from modem_tpu_torch.ops import fir
+
+    x = _unit((7, 5001), 21).to(dev)
+    counts = (4, 240, 4, 1000)
+    for rnd in range(2):
+        before = cuda.host_queries()
+        for k in counts:
+            taps = _unit(k, k + 22).to(dev) / k ** 0.5
+            st = _unit((7, k - 1), k + 23).to(dev)
+            got = fir.fir_kernel(x, taps, st)
+            torch.testing.assert_close(got, fir.fir_plain(x, taps, st),
+                                       atol=ATOL, rtol=0)
+        if rnd:
+            assert cuda.host_queries() == before
+
+
+def test_viterbi_in_turn_at_two_window_lengths(dev):
+    """K13 at blocks of 256 and 1024 in turn (each its shared memory a
+    warp): bit for bit the plain version's, the second round asking the
+    runtime nothing."""
+    from modem_tpu_torch import cuda
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code, _, llr = _code_llrs(7, (0o171, 0o133), (64,), 4096, 1.2, 24, dev)
+    lam = llr.reshape(64, -1, 2)
+    for rnd in range(2):
+        before = cuda.host_queries()
+        for block in (256, 1024, 256):
+            got = vk.stream_kernel(code, lam, block, 70, 1e6)
+            assert torch.equal(got, vk.stream_plain(code, lam, block, 70,
+                                                    1e6))
+        if rnd:
+            assert cuda.host_queries() == before
