@@ -1,7 +1,7 @@
-"""Times the PyTorch port's windowed Viterbi (K13's warp route), a
-``StreamingViterbi`` push and the reference link's receive on one CUDA card,
-alternating between source trees in one run, and checks that every tree
-gives the same bits.
+"""Times the PyTorch port's windowed Viterbi (K13's warp route and its block
+route), a ``StreamingViterbi`` push and the reference link's receive on one
+CUDA card, alternating between source trees in one run, and checks that
+every tree gives the same bits.
 
     python3 bench_viterbi_torch.py [--trees DIR ...] [--rounds N] [--reps N]
 
@@ -23,6 +23,11 @@ LLRs (``chip_smoke.py``'s seeded ``vit_case``, sigma 0.8):
 - ``k7_r13``, ``k4``, ``k6``, ``k9``: the (64, 3), S = 8, 32 and 256 code
   shapes of ``tests/test_torch_kernels_cuda.py``'s ``CODES`` at 256 x 4096,
   windows of 512 with the default halo;
+- ``k15``, ``k15_64``: ``chip_smoke.py``'s K = 15 code (S = 16384) at 16
+  and 64 channels x 1024 bits, windows of 256 with the default halo of 150
+  (80 and 320 rows of 556 steps): the block route, its kernel timed by the
+  name both of its versions share (``viterbi_block``: the first version's
+  ``viterbi_block_kernel``, the core's ``viterbi_block_core``);
 
 then one ``StreamingViterbi.push`` of 512 steps at 256 channels (device
 time of its launch and CUDA-event time per push), and
@@ -58,7 +63,11 @@ CASES = {
     "k4": (4, (0o15, 0o17), 256, 4096, 512, None),
     "k6": (6, (0o53, 0o75), 256, 4096, 512, None),
     "k9": (9, (0o561, 0o753), 256, 4096, 512, None),
+    "k15": (15, (0o74653, 0o61535), 16, 1024, 256, None),
+    "k15_64": (15, (0o74653, 0o61535), 64, 1024, 256, None),
 }
+#: the kernel name each case is timed by, where not ``viterbi_kernel``
+SYMBOLS = {"k15": "viterbi_block", "k15_64": "viterbi_block"}
 PUSH_CHANNELS, PUSH_STEPS, PUSHES = 256, 512, 4
 LINK_FRAMES, LINK_SNR_DB = 384, 2.0
 SEED = 70
@@ -90,7 +99,8 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
         res[f"{tag}_sha"] = sha(vk.stream_kernel(*args))
         res[f"{tag}_device_ms"] = [
             sm.kernel_device_ms(vk.stream_kernel, args, device,
-                                "viterbi_kernel") for _ in range(reps)]
+                                SYMBOLS.get(tag, "viterbi_kernel"))
+            for _ in range(reps)]
 
     code, _, lam = sm.vit_case(*CCSDS, (PUSH_CHANNELS, PUSHES * PUSH_STEPS - 6),
                                0.8, SEED + 10, device)

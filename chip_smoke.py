@@ -196,12 +196,19 @@ BER harness on them, and K13 on the code shapes its repair widened:
     within 10% of ``mqam_ber_theory``, a monotone ``ber_waterfall``,
     ``release_gates(scale=4)`` with all 5 gates passed (``gates_total``
     5); ``fused_ber_point`` per call in bits/s;
-26. (d) K13 at K = 3 (S = 4, the warp route) and K = 15 (the block route)
-    through ``decode_soft_windowed``, bit for bit against the plain
-    version;
+26. (d) K13 at K = 3 (S = 4, the warp route) and K = 15 (S = 16384, the
+    block core) through ``decode_soft_windowed``, and a K = 16 code (its
+    long route, the first version) at 2 x 100 bits, each with the launch
+    counts set to 0 just before and read just after, bit for bit against
+    the plain version; at K = 15 the long route forced on the same stream
+    (``stream_kernel(..., long_route=True)``) bit for bit against the core;
 27. (e) times: each mode's kernel and plain version per call, the
     profiler's device time and the bound; widened K13 per call, per
-    trellis step, its share of the bound and its serial floor.
+    trellis step, its share of the bound and its serial floor; at K = 15
+    the core and the long route forced in the same run, at 16 and 64
+    channels x 1024 bits, each with the bound and the per-row floor (a
+    row's f32 operations at one SM's share of the f32 peak: a block a row,
+    so no call is shorter).
 
 The turbo and polar inner codes, at ``bench_fec.py``'s widths
 (``TurboCode(1024)`` at 512 codewords, 6 iterations; ``PolarCode(256,
@@ -459,7 +466,9 @@ without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
 K10; K7 without and with noise, with ``agreement``; K11 and K12 hard on
 each route (3/2, 2/3, long), K12 soft; K13; each mode of K1-K3, K1 with
-noise with ``agreement``; K13 at K = 3 and 15; K14, K15, K16; K1, K2, K3
+noise with ``agreement``; K13 at K = 3 and 15 (the block core) and its long
+route (``viterbi_k15_long``: its times at K = 15 forced, its launches
+phase 26's K = 16 decode's); K14, K15, K16; K1, K2, K3
 hard and K3 soft on each long-route chain), each with its launches on its path
 (K1-K4, K6, K11-K13 also ``sharded_launches``, those of phase 56's sharded
 calls), error, per-call times (``ms`` from CUDA
@@ -477,6 +486,7 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -629,6 +639,10 @@ WIDE_VIT = {"viterbi_k3": (3, (0o7, 0o5)),
             "viterbi_k15": (15, (0o74653, 0o61535))}
 WIDE_VIT_SHAPE = (16, 1024)      # channels x data bits
 WIDE_VIT_BLOCK = 256
+#: K = 15 over the whole card (320 rows on 132 SMs), and the long route's
+#: own shape: a K = 16 code (S = 32768, metrics past shared memory)
+WIDE_VIT_FULL = (64, 1024)
+VIT_LONG = ((16, (0o172675, 0o137323)), (2, 100), 32)
 # the turbo and polar inner codes: bench_fec.py:405-408's turbo width,
 # :282-284 and :318-356's polar width, bench_link.py:115-120's frame count
 TURBO_K, TURBO_CW, TURBO_ITERS = 1024, 512, 6
@@ -878,7 +892,8 @@ def reset_launches() -> None:
               fk.DISC_MEANS_KERNEL, fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL,
               rk.RESAMPLED_TX_KERNEL,
               rk.RESAMPLED_RX_KERNEL, vk.VITERBI_KERNEL,
-              vk.VITERBI_BLOCK_KERNEL, bcjr_kernel.BCJR_KERNEL,
+              vk.VITERBI_BLOCK_KERNEL, vk.VITERBI_CORE_KERNEL,
+              bcjr_kernel.BCJR_KERNEL,
               sc_kernel.SC_KERNEL, scl_kernel.SCL_KERNEL):
         k.launches = 0
 
@@ -3300,35 +3315,51 @@ def phase_harness(chain, device, card: str) -> dict:
 
 def phase_viterbi_wide(device) -> tuple[dict, dict]:
     """Phase 26 (d): K13 on the shapes F1 widened: K = 3 (S = 4, the warp
-    route with idle lanes) and K = 15 (S = 16384, the block route, the
-    decisions in the global scratch) through ``decode_soft_windowed`` with
-    every launch count set to 0 just before and read just after, bit for
-    bit against the plain version. Returns (errors, launches)."""
+    route with idle lanes) and K = 15 (S = 16384, the block core) through
+    ``decode_soft_windowed``, then a K = 16 code through it (the long
+    route), each with every launch count set to 0 just before and read just
+    after, bit for bit against the plain version; at K = 15 the long route
+    forced on the same stream, bit for bit against the core. Returns
+    (errors, launches)."""
     from modem_tpu_torch.ops import viterbi_kernel as vk
 
+    kernels = {"warp": vk.VITERBI_KERNEL, "core": vk.VITERBI_CORE_KERNEL,
+               "long": vk.VITERBI_BLOCK_KERNEL}
+    cases = [(name, k, polys, WIDE_VIT_SHAPE, WIDE_VIT_BLOCK)
+             for name, (k, polys) in WIDE_VIT.items()]
+    cases.append(("viterbi_k15_long", *VIT_LONG[0], *VIT_LONG[1:]))
     errs, launches = {}, {}
-    for name, (k, polys) in WIDE_VIT.items():
-        code, bits, lam = vit_case(k, polys, WIDE_VIT_SHAPE, 0.8, SEED + 50,
-                                   device)
+    for name, k, polys, shape, block in cases:
+        code, bits, lam = vit_case(k, polys, shape, 0.8, SEED + 50, device)
         llr = lam.reshape(lam.shape[0], -1)
-        t_w = WIDE_VIT_BLOCK + 20 * k
-        kernel = (vk.VITERBI_KERNEL if vk.warp_route(code, t_w)
-                  else vk.VITERBI_BLOCK_KERNEL)
+        way = vk.route(code, block + 20 * k)
         reset_launches()
-        got = code.decode_soft_windowed(llr, WIDE_VIT_BLOCK)
-        launches.update(read_launches({name: kernel}, f"K={k} decode",
+        got = code.decode_soft_windowed(llr, block)
+        launches.update(read_launches({name: kernels[way]}, f"K={k} decode",
                                       "viterbi wide"))
-        want = vk.stream_plain(code, lam, WIDE_VIT_BLOCK, 10 * k, 1e6)
+        want = vk.stream_plain(code, lam, block, 10 * k, 1e6)
         torch.cuda.synchronize(device)
         errs[name] = max_err(got, want)
-        print(f"[viterbi wide] K={k} (S={code.n_states}, "
-              f"{'warp' if kernel is vk.VITERBI_KERNEL else 'block'} route) "
-              f"{WIDE_VIT_SHAPE[0]} ch x {WIDE_VIT_SHAPE[1]} bits, B="
-              f"{WIDE_VIT_BLOCK}: max |kernel - plain| = {errs[name]:.0f} "
-              f"(exact), BER vs sent "
+        print(f"[viterbi wide] K={k} (S={code.n_states}, the {way} route) "
+              f"{shape[0]} ch x {shape[1]} bits, B={block}: max |kernel - "
+              f"plain| = {errs[name]:.0f} (exact), BER vs sent "
               f"{float((got != bits).double().mean()):.3e}", flush=True)
         if errs[name] != 0:
             fail(f"K13 at K={k}: kernel and plain differ")
+        if name == "viterbi_k15":
+            if way != "core":
+                fail(f"K13 at K={k} took the {way} route, not the core")
+            long = vk.stream_kernel(code, lam, block, 10 * k, 1e6,
+                                    long_route=True)
+            torch.cuda.synchronize(device)
+            err = max_err(long, got)
+            print(f"[viterbi wide] K={k}: the long route forced on the same "
+                  f"stream against the core: max |long - core| = {err:.0f} "
+                  f"(exact)", flush=True)
+            if err != 0:
+                fail(f"K13 at K={k}: the long route and the core differ")
+        if name == "viterbi_k15_long" and way != "long":
+            fail(f"K13 at K={k} took the {way} route, not the long route")
     return errs, launches
 
 
@@ -3396,24 +3427,44 @@ def phase_mode_times(chain, device, card: str) -> dict:
         code, _, lam = vit_case(k, polys, WIDE_VIT_SHAPE, 0.8, SEED + 51,
                                 device)
         t_w = WIDE_VIT_BLOCK + 20 * k
-        sym = ("viterbi_kernel" if vk.warp_route(code, t_w)
-               else "viterbi_block_kernel")
+        sym = {"warp": "viterbi_kernel", "core": "viterbi_block_core",
+               "long": "viterbi_block_kernel"}[vk.route(code, t_w)]
         times[name] = viterbi_times(name, sym, code, lam, WIDE_VIT_SHAPE[0],
                                     WIDE_VIT_BLOCK, 10 * k, device, card,
                                     plain_calls=1)
+    # K = 15: the long route forced on the core's stream in the same run,
+    # then both over the whole card
+    code, _, lam = vit_case(*WIDE_VIT["viterbi_k15"], WIDE_VIT_SHAPE, 0.8,
+                            SEED + 51, device)
+    times["viterbi_k15_long"] = viterbi_times(
+        "viterbi_k15_long", "viterbi_block_kernel", code, lam,
+        WIDE_VIT_SHAPE[0], WIDE_VIT_BLOCK, 150, device, card, plain_calls=1,
+        long_route=True)
+    code, _, lam = vit_case(*WIDE_VIT["viterbi_k15"], WIDE_VIT_FULL, 0.8,
+                            SEED + 52, device)
+    for name, sym, long_route in (
+            ("viterbi_k15_64ch", "viterbi_block_core", False),
+            ("viterbi_k15_64ch_long", "viterbi_block_kernel", True)):
+        viterbi_times(name, sym, code, lam, WIDE_VIT_FULL[0], WIDE_VIT_BLOCK,
+                      150, device, card, plain_calls=1, long_route=long_route)
     return times
 
 
 def viterbi_times(name: str, sym: str, code, lam, channels: int, block: int,
-                  halo: int, device, card: str, plain_calls: int) -> tuple:
-    """K13's stream form and its plain version per call, the profiler's
-    device time of kernel symbol ``sym``, the bound and the time per trellis
-    step, printed; returns the report times."""
+                  halo: int, device, card: str, plain_calls: int,
+                  long_route: bool = False) -> tuple:
+    """K13's stream form (its long route where ``long_route``) and its plain
+    version per call, the profiler's device time of kernel symbol ``sym``,
+    the bound and the time per trellis step, printed (for the block route
+    also the per-row floor); returns the report times."""
     from modem_tpu_torch.ops import viterbi_kernel as vk
 
+    def kern(*args):
+        return vk.stream_kernel(*args, long_route=long_route)
+
     ms, plain_ms, dev_ms = kernel_times(
-        vk.stream_kernel, vk.stream_plain, (code, lam, block, halo, 1e6),
-        device, sym, plain_calls=plain_calls)
+        kern, vk.stream_plain, (code, lam, block, halo, 1e6), device, sym,
+        plain_calls=plain_calls)
     nbytes, flops, rows, t_w = viterbi_work(code, channels, lam.shape[1],
                                             block, halo)
     bound_ms, bound_by = bound(nbytes, flops)
@@ -3435,6 +3486,16 @@ def viterbi_times(name: str, sym: str, code, lam, channels: int, block: int,
           f"traceback step, x {K14_CHAIN_CYCLES} cycles), "
           f"{100 * (acs_ms + trace_ms) / step:.1f}% of it, on {card}",
           flush=True)
+    if vk.route(code, t_w) != "warp":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        row_ms = flops / rows / (F32_FLOP_PER_S / sms) * 1e3
+        waves = -(-rows // sms)
+        print(f"[times] {name}: per-row floor {row_ms:.6f} ms (a row's "
+              f"{flops / rows / 1e6:.3f} MFLOP at one SM's share of "
+              f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {sms} SMs; a block a "
+              f"row, {rows} rows in {waves} wave(s) of one block an SM: "
+              f"{waves * row_ms:.6f} ms), {100 * waves * row_ms / step:.2f}% "
+              f"of it, on {card}", flush=True)
     return ms, plain_ms, dev_ms, None, (nbytes, flops)
 
 
@@ -6668,8 +6729,9 @@ def launch_cases(chain, device, shape) -> dict:
     at ``shape`` = (channels, symbols): the chains' symbols, 8 samples a
     symbol for K4 and K5 (the demodulator's 64-tap lowpass), 4 bits a
     symbol for K6-K10, a bit a symbol for K13 (the CCSDS code; its block
-    route at K = 15). At the full shape, ``(CHANNELS, N_SYMBOLS)``, each
-    takes §6's inputs: K13's block route 16 x 1024 bits, K14 the rows of
+    core and, forced, its long route at K = 15). At the full shape,
+    ``(CHANNELS, N_SYMBOLS)``, each takes §6's inputs: K13's block route 16
+    x 1024 bits, K14 the rows of
     ``TurboCode(1024)`` x 512 codewords, K15 and K16 ``PolarCode(256,
     128)`` x 4096; at a small one a codeword a channel (K14 at
     ``TurboCode(40)``)."""
@@ -6741,9 +6803,13 @@ def launch_cases(chain, device, shape) -> dict:
         "modem_resampled_rx": ("K12", *rs["fused_resampled_rx"]),
         "modem_viterbi": ("K13", vk.stream_kernel,
                           (code, lam, block, VIT_HALO, 1e6)),
-        "modem_viterbi_block": ("K13 block", vk.stream_kernel,
+        "modem_viterbi_block": ("K13 long", functools.partial(
+            vk.stream_kernel, long_route=True),
                                 (k15, lam15, min(WIDE_VIT_BLOCK, k), 150,
                                  1e6)),
+        "modem_viterbi_block_core": ("K13 core", vk.stream_kernel,
+                                     (k15, lam15, min(WIDE_VIT_BLOCK, k),
+                                      150, 1e6)),
         "modem_bcjr": ("K14", bk.rows_kernel, (rows, guard, window)),
         "modem_polar_sc": ("K15", sk.sc_kernel, (polar, plam)),
         "modem_polar_scl": ("K16", lk.scl_kernel, (polar, plam)),
@@ -6939,7 +7005,8 @@ def main() -> int:
         (VIT_REPORT[0], VIT_REPORT[2], VIT_REPORT[3])] + [
         (n, f"modem_tpu_torch/csrc/{'chain' if kind == 'chain' else 'txrx'}"
             ".cu", rep) for n, kind, _, _, rep in mode_cases()] + [
-        (n, VIT_REPORT[2], VIT_REPORT[3]) for n in WIDE_VIT] + [
+        (n, VIT_REPORT[2], VIT_REPORT[3])
+        for n in (*WIDE_VIT, "viterbi_k15_long")] + [
         (n, src, rep) for n, (_, src, rep) in FEC_REPORT.items()] + \
         long_route_entries()
     report = {"kernels": []}

@@ -1,12 +1,16 @@
 // Windowed soft-decision Viterbi: replaces
 // modem_tpu/ops/pallas_viterbi.py::_viterbi_kernel (K13), for every code
-// shape ConvCode builds (K >= 2, any n) and any window length, in two
+// shape ConvCode builds (K >= 2, any n) and any window length, in three
 // routes that decide alike:
 //
 // * the warp route (viterbi_kernel): S <= 256, n <= 32, a warp's rows in
 //   shared memory (below);
-// * the block route (viterbi_block_kernel): everything else. One block
-//   decodes one row, its threads (min(S, 1024), at least a warp) own the
+// * the block core (viterbi_block_core): 512 <= S <= 16384 and n <= 8, a
+//   block a row, whole butterflies a thread (its notes are at the core);
+// * the long route (viterbi_block_kernel), the block route's first
+//   version: everything else (K >= 16, n > 8, and rows of S <= 256 past the
+//   warp route's shared memory). One block decodes one row, its threads
+//   (min(S, 1024), at least a warp) own the
 //   states s = tid + threads*k, one __syncthreads a step. A transition's
 //   code bits are computed, parity(r & g_j) for the register r = in_bit
 //   << (K-1) | predecessor and generator g_j, so no 2^n table limits n.
@@ -91,14 +95,18 @@
 // time: a step at (64, 2) is 24 warp instructions, most of them selects,
 // compares, votes and shuffles, and takes about 46 cycles of its
 // scheduler; with few rows (the link, K = 3) the chain of a step, about
-// 70 cycles, does. The block route is for the shapes the warp route
-// cannot hold; it spends a barrier a step and reads each step's costs
-// and, past shared memory, its metrics and decisions from device memory
-// (L2 at these sizes): a simple first version, not tuned.
+// 70 cycles, does. The block core holds a row of up to 16384 states in one
+// SM: each step reads and writes every metric in shared memory, so the SM's
+// shared-memory pipe (128 bytes a cycle) sets a step, not the f32 rate. The
+// long route spends a barrier a step, recomputes the branch sums for each
+// state and reads each step's costs and, past shared memory, its metrics
+// and decisions from device memory (L2 at these sizes): a simple first
+// version, not tuned.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -758,6 +766,464 @@ viterbi_block_kernel(const float* __restrict__ lam,
   }
 }
 
+// ---- the block core ----
+//
+// One block a row for S = 512 .. 16384 states and n <= 8 code bits, both
+// metric buffers in shared memory. Thread t of T = min(S/2, 512) owns KB
+// = S / (2T) whole butterflies, b = (warp*KB + k)*32 + lane: it reads the
+// predecessors 2b and 2b+1 as one 8-byte shared load (consecutive lanes,
+// consecutive pairs: no bank conflict) and writes the targets b and b +
+// S/2. Up to 2 butterflies a thread the targets' ballots over the warp are
+// decision words k and S/64 + k of the warp's run, in state order; with 4,
+// 8 and 16 (S >= 4096) each thread packs its 2*KB decisions into a byte, a
+// halfword or a word instead, which the traceback indexes (core_decision).
+// The metrics ping-pong between two buffers, one __syncthreads a step.
+//
+// Branch sums once a step: the 2^n sums T[m] (T[m] = +0 plus cost j for
+// each set bit j of m, in the order j = 0..n-1, as the first version adds
+// them) are formed for step p+1 by 2^n threads at the start of step p, into
+// one of two tables. A butterfly's four transitions emit the code-bit
+// patterns m = M(2b), m^X, m^Y and m^X^Y (M the generators' parity map, X
+// = M(1) the bits whose generator taps the newest register bit, Y = M(S)
+// those that tap the oldest), so table entry m holds (T[m], T[m^X],
+// T[m^Y], T[m^X^Y]) and a butterfly reads its four sums with one 16-byte
+// load (8 bytes where the code is symmetric, Y = X), at a word offset
+// computed once at the start.
+//
+// The renormalisation is folded into the recursion: the renormalising
+// step's warps put their minimum in a slot, and the next step subtracts
+// the block minimum from each metric it reads (the same __fsub_rn before
+// the same __fadd_rn as the first version); the end-state search
+// subtracts it too. A step's costs come from a chunk of 8 steps copied into
+// shared memory by cp.async 8 steps ahead. A step's decisions are staged in
+// shared memory (a warp's ballot words by its lane 0 in one store, or each
+// thread's packed bits), and every 8 steps the whole block writes the
+// group to the global scratch in 16-byte pieces, from the first step the
+// traceback reads (out_lo) on. After the end state is chosen the metric
+// buffers are free: the block pages the decisions back into them, 32 steps
+// a half, newest first, by 16-byte cp.asyncs, and the first warp walks one
+// half from shared memory while the next half loads.
+//
+// What bounds it: a step reads and writes every metric in shared memory
+// (128 KB at S = 16384) and reads a butterfly's sums, so the SM's
+// shared-memory pipe, not its f32 rate, sets the step; one block holds a
+// row, so a row's steps on one SM are the floor. Beside that, what a step
+// does outside the recursion sits on its critical path once a step: the
+// sums (hence made first, from two 16-byte loads), the decision words (hence
+// packed bits past 2 butterflies a thread, not 2*KB ballots and their
+// staged stores), the barrier; 512 threads leave each more registers to
+// keep a butterfly's loads in flight than 1024 would.
+
+constexpr int kCoreThreads = 512;   // a block's threads, at most
+constexpr int kCorePreload = 4;     // butterflies whose loads go together
+constexpr int kCoreGroup = 8;       // steps a cost chunk, a staged group
+constexpr int kCostStride = 8;      // floats a step of a cost chunk (n <= 8)
+constexpr int kCorePage = 32;       // traceback steps a half of the buffers
+constexpr int kCoreMaxBits = 8;
+
+// The core's shared memory, in words, for S states: the two metric
+// buffers from 0, two sum tables (256 entries of 2 or 4 floats), two cost
+// chunks, two groups of 8 steps' staged decisions (S/32 words a step), and
+// 3 x 32 slots.
+struct CoreSmem {
+  int q, qbuf, cost, stage, slots, bytes;
+};
+
+__host__ __device__ inline CoreSmem core_smem(int n_states, bool sym) {
+  CoreSmem m;
+  m.q = 2 * n_states;
+  m.qbuf = (1 << kCoreMaxBits) * (sym ? 2 : 4);
+  m.cost = m.q + 2 * m.qbuf;
+  m.stage = m.cost + 2 * kCoreGroup * kCostStride;
+  m.slots = m.stage + 2 * kCoreGroup * n_states / kWarp;
+  m.bytes = 4 * (m.slots + 3 * kWarp);
+  return m;
+}
+
+// The rows of one launch and the decision steps the scratch holds:
+// dec_g [n_rows, t_dec, S/32] words, steps d_lo .. d_lo + t_dec - 1.
+struct CorePlan {
+  long long row0;
+  int d_lo, t_dec;
+};
+
+// The minimum of the W warps' slots, in every lane (a REDUX on integers
+// that order as the floats do).
+__device__ __forceinline__ float slots_min(const float* slots, int w) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  int b = __float_as_int(lane < w ? slots[lane] : __int_as_float(0x7f800000));
+  b ^= (b >> 31) & 0x7fffffff;
+  b = __reduce_min_sync(kFull, b);
+  return __int_as_float(b ^ ((b >> 31) & 0x7fffffff));
+}
+
+// A warp's KB ballot words (KB <= 2) as one store.
+template <int KB>
+__device__ __forceinline__ void put_words(unsigned* dst,
+                                          const unsigned (&w)[KB]) {
+  if constexpr (KB == 2)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else
+    dst[0] = w[0];
+}
+
+// What a thread of the core keeps from step to step.
+struct CoreThread {
+  float* sm;        // shared memory
+  int n_states, half, b0, lane, warp, warps;
+  CoreSmem l;
+};
+
+// One step's add-compare-select on metric buffer P: the targets into
+// buffer P^1, the decision words into the staged row `st`; SUB: subtract
+// mn from each metric read; MIN: the warp's minimum of the new metrics
+// into its slot.
+template <int KB, bool SYM, int P, bool SUB, bool MIN>
+__device__ __forceinline__ void core_acs(const CoreThread& c,
+                                         const int (&qa)[KB], float mn,
+                                         unsigned* st) {
+  const float2* rd =
+      reinterpret_cast<const float2*>(c.sm + P * c.n_states) + c.b0;
+  float* wlo = c.sm + (P ^ 1) * c.n_states + c.b0;
+  float* whi = wlo + c.half;
+  const float* q = c.sm + P * c.l.qbuf;
+  constexpr bool kPack = KB >= 4;
+  unsigned wl[KB], wh[KB], bits = 0u;
+  float tmin = __int_as_float(0x7f800000);
+  // a group's loads all go before its stores, which the compiler cannot
+  // otherwise move them past (the buffers are one array to it)
+  constexpr int G = KB < kCorePreload ? KB : kCorePreload;
+  using Sums = typename std::conditional<SYM, float2, float4>::type;
+#pragma unroll
+  for (int k0 = 0; k0 < KB; k0 += G) {
+    float2 prs[G];
+    Sums sums[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      prs[i] = rd[kWarp * (k0 + i)];
+      sums[i] = *reinterpret_cast<const Sums*>(q + qa[k0 + i]);
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int k = k0 + i;
+      float a0 = prs[i].x, a1 = prs[i].y;
+      if constexpr (SUB) {
+        a0 = __fsub_rn(a0, mn);
+        a1 = __fsub_rn(a1, mn);
+      }
+      float s00, s01, s10, s11;
+      if constexpr (SYM) {
+        s00 = s11 = sums[i].x;
+        s01 = s10 = sums[i].y;
+      } else {
+        s00 = sums[i].x;
+        s01 = sums[i].y;
+        s10 = sums[i].z;
+        s11 = sums[i].w;
+      }
+      const float c0 = __fadd_rn(a0, s00), c1 = __fadd_rn(a1, s01);
+      const float e0 = __fadd_rn(a0, s10), e1 = __fadd_rn(a1, s11);
+      const bool dl = c1 < c0, dh = e1 < e0;
+      const float vl = dl ? c1 : c0, vh = dh ? e1 : e0;
+      wlo[kWarp * k] = vl;
+      whi[kWarp * k] = vh;
+      if constexpr (kPack) {
+        bits |= dl ? 1u << k : 0u;
+        bits |= dh ? 1u << (KB + k) : 0u;
+      } else {
+        wl[k] = __ballot_sync(kFull, dl);
+        wh[k] = __ballot_sync(kFull, dh);
+      }
+      if constexpr (MIN) tmin = fminf(tmin, fminf(vl, vh));
+    }
+  }
+  if constexpr (kPack) {
+    const int t = c.warp * kWarp + c.lane;
+    if constexpr (KB == 16)
+      st[t] = bits;
+    else if constexpr (KB == 8)
+      reinterpret_cast<unsigned short*>(st)[t] =
+          static_cast<unsigned short>(bits);
+    else
+      reinterpret_cast<unsigned char*>(st)[t] =
+          static_cast<unsigned char>(bits);
+  } else if (c.lane == 0) {
+    put_words<KB>(st + c.warp * KB, wl);
+    put_words<KB>(st + c.half / kWarp + c.warp * KB, wh);
+  }
+  if constexpr (MIN) {
+    int b = __float_as_int(tmin);
+    b ^= (b >> 31) & 0x7fffffff;
+    b = __reduce_min_sync(kFull, b);
+    if (c.lane == 0)
+      c.sm[c.l.slots + c.warp] = __int_as_float(b ^ ((b >> 31) & 0x7fffffff));
+  }
+}
+
+// The decision bit of `state` in a step's row of S/32 words. KB <= 2:
+// the ballots' words in state order. KB >= 4: thread t = warp*32 + lane
+// keeps the 2*KB bits of its butterflies (b = (warp*KB + k)*32 + lane: lo
+// target b at bit k, hi target b + S/2 at bit KB + k) in entry t of the row.
+template <int KB>
+__device__ __forceinline__ int core_decision(const unsigned* row, int state,
+                                             int km2) {
+  if constexpr (KB >= 4) {
+    constexpr int kShift = KB == 16 ? 9 : KB == 8 ? 8 : 7;  // 5 + log2(KB)
+    const int sh = state & ((1 << km2) - 1);
+    const int t = ((sh >> kShift) << 5) | (sh & 31);
+    const int bit = ((state >> km2) & 1) * KB + ((sh >> 5) & (KB - 1));
+    unsigned v;
+    if constexpr (KB == 16)
+      v = row[t];
+    else if constexpr (KB == 8)
+      v = reinterpret_cast<const unsigned short*>(row)[t];
+    else
+      v = reinterpret_cast<const unsigned char*>(row)[t];
+    return static_cast<int>((v >> bit) & 1u);
+  } else {
+    return static_cast<int>((row[state >> 5] >> (state & 31)) & 1u);
+  }
+}
+
+template <int KB, bool SYM>
+__global__ void __launch_bounds__(kCoreThreads, 1)
+viterbi_block_core(const float* __restrict__ lam,
+                   const float* __restrict__ pin,
+                   const int* __restrict__ polys, Geometry g, CorePlan cp,
+                   unsigned* __restrict__ dec_g, int* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  CoreThread c;
+  c.sm = reinterpret_cast<float*>(smem4);
+  c.n_states = g.n_states;
+  c.half = g.n_states / 2;
+  c.lane = threadIdx.x & (kWarp - 1);
+  c.warp = threadIdx.x / kWarp;
+  c.warps = blockDim.x / kWarp;
+  c.b0 = c.warp * KB * kWarp + c.lane;
+  c.l = core_smem(g.n_states, SYM);
+  const int S = g.n_states, n = g.n, t_w = g.t_w, nt = blockDim.x;
+  const int tid = threadIdx.x, words = S / kWarp;
+  const long long row = cp.row0 + blockIdx.x;
+  const long long ch = row % g.n_ch, wi = row / g.n_ch;
+  const float* src = lam + ch * g.t_stream * n;
+  const long long start = wi * g.block - g.halo;
+  float* const cbuf = c.sm + c.l.cost;
+  unsigned* const stage = reinterpret_cast<unsigned*>(c.sm + c.l.stage);
+  unsigned* const scratch =
+      dec_g + static_cast<long long>(blockIdx.x) * cp.t_dec * words;
+
+  // the generators' bits X (newest register bit) and Y (oldest), and this
+  // thread's table entries M(2b)
+  unsigned gen[kCoreMaxBits];
+  int xm = 0, ym = 0;
+#pragma unroll
+  for (int j = 0; j < kCoreMaxBits; ++j) {
+    gen[j] = j < n ? static_cast<unsigned>(polys[j]) : 0u;
+    xm |= static_cast<int>(gen[j] & 1u) << j;
+    ym |= static_cast<int>((gen[j] >> (g.km2 + 1)) & 1u) << j;
+  }
+  constexpr int kEntry = SYM ? 2 : 4;
+  int qa[KB];
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    const unsigned r = 2u * static_cast<unsigned>(c.b0 + kWarp * k);
+    int m = 0;
+#pragma unroll
+    for (int j = 0; j < kCoreMaxBits; ++j)
+      m |= (__popc(r & gen[j]) & 1) << j;
+    qa[k] = c.l.q + m * kEntry;
+  }
+
+  // chunk ci of costs (steps 8ci .. 8ci+7) into cost buffer ci & 1: thread
+  // tid < 64 copies cost tid & 7 of step tid >> 3, the guard outside the
+  // stream
+  auto load_chunk = [&](int ci) {
+    const int p = ci * kCoreGroup + (tid >> 3), j = tid & 7;
+    if (p < t_w && j < n) {
+      float* d = cbuf + (ci & 1) * kCoreGroup * kCostStride + (tid & 63);
+      const long long s = start + p;
+      if (s >= 0 && s < g.t_stream)
+        modem::cp_async4(d, src + s * n + j);
+      else
+        *d = g.guard;
+    }
+  };
+  // the sums of step p into table p & 1 by thread m < 2^n
+  auto make_sums = [&](int p) {
+    const int m = tid;
+    // a step's 8 cost slots in two 16-byte loads; a mask's bits past n
+    // are 0, so the slots past n (never written) are never added
+    const float4* cs = reinterpret_cast<const float4*>(
+        cbuf + ((p / kCoreGroup) & 1) * kCoreGroup * kCostStride +
+        (p % kCoreGroup) * kCostStride);
+    const float4 c0 = cs[0], c1 = cs[1];
+    const float cv[kCoreMaxBits] = {c0.x, c0.y, c0.z, c0.w,
+                                    c1.x, c1.y, c1.z, c1.w};
+    auto sum = [&](int mask) {
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < kCoreMaxBits; ++j)
+        if ((mask >> j) & 1) a = __fadd_rn(a, cv[j]);
+      return a;
+    };
+    float* e = c.sm + c.l.q + (p & 1) * c.l.qbuf + m * kEntry;
+    if constexpr (SYM) {
+      *reinterpret_cast<float2*>(e) = make_float2(sum(m), sum(m ^ xm));
+    } else {
+      *reinterpret_cast<float4*>(e) = make_float4(
+          sum(m), sum(m ^ xm), sum(m ^ ym), sum(m ^ xm ^ ym));
+    }
+  };
+  // staged group gi's steps from d_lo on, and below `p_end`, to the
+  // scratch in 16-byte pieces (S/128 a step)
+  const int pieces = S / 128, piece_shift = __ffs(pieces) - 1;
+  auto flush = [&](int gi, int p_end) {
+    const unsigned* sb = stage + (gi & 1) * kCoreGroup * words;
+    for (int q = tid; q < kCoreGroup * pieces; q += nt) {
+      const int i = q >> piece_shift, w4 = 4 * (q & (pieces - 1));
+      const int p = gi * kCoreGroup + i;
+      if (p >= cp.d_lo && p < p_end) {
+        const uint4 v = *reinterpret_cast<const uint4*>(sb + i * words + w4);
+        *reinterpret_cast<uint4*>(
+            scratch + static_cast<long long>(p - cp.d_lo) * words + w4) = v;
+      }
+    }
+  };
+
+  // free start, the first chunk of costs, the first step's sums
+  for (int s = tid; s < S; s += nt) c.sm[s] = 0.f;
+  if (tid < kCoreGroup * kCostStride) {
+    load_chunk(0);
+    modem::cp_async_commit();
+    modem::cp_async_wait<0>();
+  }
+  __syncthreads();
+  if (tid < (1 << n)) make_sums(0);
+  __syncthreads();
+
+  auto step = [&](auto parity, int p) {
+    constexpr int P = decltype(parity)::value;
+    const bool rn = ((t_w - 1 - p) & (kRenorm - 1)) == 0;
+    const bool sub = p > 0 && ((t_w - p) & (kRenorm - 1)) == 0;
+    const float mn = sub ? slots_min(c.sm + c.l.slots, c.warps) : 0.f;
+    if ((p & (kCoreGroup - 1)) == 0) {
+      if (p > 0) flush(p / kCoreGroup - 1, t_w);
+      if (tid < kCoreGroup * kCostStride) {
+        if (p + kCoreGroup < t_w) load_chunk(p / kCoreGroup + 1);
+        modem::cp_async_commit();
+      }
+    }
+    if ((p & (kCoreGroup - 1)) == kCoreGroup - 2 &&
+        tid < kCoreGroup * kCostStride)
+      modem::cp_async_wait<0>();
+    // the next step's sums first, off the step's tail: their table was
+    // last read a barrier ago
+    if (p + 1 < t_w && tid < (1 << n)) make_sums(p + 1);
+    unsigned* st = stage + ((p / kCoreGroup) & 1) * kCoreGroup * words +
+                   (p & (kCoreGroup - 1)) * words;
+    if (sub)
+      core_acs<KB, SYM, P, true, false>(c, qa, mn, st);
+    else if (rn)
+      core_acs<KB, SYM, P, false, true>(c, qa, mn, st);
+    else
+      core_acs<KB, SYM, P, false, false>(c, qa, mn, st);
+    __syncthreads();
+  };
+  for (int p = 0; p < t_w; p += 2) {
+    step(std::integral_constant<int, 0>(), p);
+    if (p + 1 < t_w) step(std::integral_constant<int, 1>(), p + 1);
+  }
+
+  // the last step renormalised: its minimum is in the slots. The last
+  // group to the scratch; the end state, the first minimum of the final
+  // metrics less that minimum, pinned
+  const float mn = slots_min(c.sm + c.l.slots, c.warps);
+  flush((t_w - 1) / kCoreGroup, t_w);
+  const float* fin = c.sm + (t_w & 1) * S;
+  const float pin_v = pin != nullptr ? pin[row]
+                                     : (wi == g.n_win - 1 ? 1.f : 0.f);
+  const float pb = __fmul_rn(pin_v, kBig);
+  float best = __int_as_float(0x7f800000);
+  int best_s = 0;  // state 0 where no metric is below +inf, as argmin
+  for (int s = tid; s < S; s += nt) {
+    const float val =
+        __fadd_rn(__fsub_rn(fin[s], mn), __fmul_rn(pb, s > 0 ? 1.f : 0.f));
+    if (val < best) {
+      best = val;
+      best_s = s;
+    }
+  }
+  float* const aslots = c.sm + c.l.slots + kWarp;
+  block_argmin(best, best_s, aslots,
+               reinterpret_cast<int*>(aslots + kWarp));
+
+  // traceback: outputs lo .. hi-1 need the decisions of steps lo+1 ..
+  // t_w-1, paged back newest first into the halves of the metric buffers
+  const int lo = g.out_lo > 0 ? g.out_lo : 0;
+  const int hi = g.out_hi < t_w ? g.out_hi : t_w;
+  if (lo >= hi) return;
+  const int top = t_w - 1;
+  const int n_pages = (top - lo + kCorePage - 1) / kCorePage;
+  auto load_page = [&](int j) {
+    const int p_hi = top + 1 - kCorePage * j;
+    const int cnt = min(kCorePage, p_hi - (lo + 1));
+    unsigned* dst = reinterpret_cast<unsigned*>(c.sm) + (j & 1) * S;
+    for (int q = tid; q < cnt * pieces; q += nt) {
+      const int i = q >> piece_shift, w4 = 4 * (q & (pieces - 1));
+      modem::cp_async16(dst + i * words + w4,
+                        scratch + static_cast<long long>(p_hi - cnt + i -
+                                                         cp.d_lo) * words + w4);
+    }
+    modem::cp_async_commit();
+  };
+  int state = best_s, my_bit = 0, p = top;
+  int* orow = out + ch * g.out_stride + wi * g.block;
+  auto keep = [&](bool last) {
+    const int bit = state >> g.km2;
+    if ((p & (kWarp - 1)) == c.lane) my_bit = bit;
+    if ((p & (kWarp - 1)) == 0 || last) {
+      const int qq = (p & ~(kWarp - 1)) + c.lane;
+      if (qq >= lo && qq <= top && qq >= g.out_lo && qq < g.out_hi)
+        orow[qq - g.out_lo] = my_bit;
+    }
+  };
+  // page j + 1 loads while the first warp walks page j; the barrier at the
+  // top of each round also keeps a load off the half still being walked
+  if (n_pages > 0) load_page(0);
+  for (int j = 0; j < n_pages; ++j) {
+    modem::cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < n_pages) load_page(j + 1);
+    if (c.warp == 0) {
+      const int p_hi = top + 1 - kCorePage * j;
+      const int cnt = min(kCorePage, p_hi - (lo + 1));
+      const unsigned* pg = reinterpret_cast<const unsigned*>(c.sm) + (j & 1) * S;
+      for (int i = cnt - 1; i >= 0; --i, --p) {
+        keep(false);
+        state = ((state << 1) & (S - 1)) |
+                core_decision<KB>(pg + i * words, state, g.km2);
+      }
+    }
+  }
+  if (c.warp == 0) keep(true);
+}
+
+template <int KB>
+cudaError_t launch_core(const float* lam, const float* pin, const int* polys,
+                        const Geometry& g, const CorePlan& cp, int sym,
+                        unsigned* dec_g, int* out, long long n_rows,
+                        cudaStream_t stream) {
+  const int threads = g.n_states / (2 * KB);
+  const size_t smem = static_cast<size_t>(core_smem(g.n_states, sym).bytes);
+  auto kernel = sym ? viterbi_block_core<KB, true>
+                    : viterbi_block_core<KB, false>;
+  const cudaError_t err = modem::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(n_rows), threads, smem, stream>>>(
+      lam, pin, polys, g, cp, dec_g, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -844,6 +1310,56 @@ int modem_viterbi_block(const float* lam, const float* pin, const int* polys,
                          static_cast<cudaStream_t>(stream)>>>(
       lam, pin, polys, g, plan, pm_g, dec_g, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K13's block core for rows row0 .. row0 + n_rows - 1 of one geometry
+// (512 <= S <= 16384, n <= 8): polys [n] int32 generators; sym 1 where
+// every generator taps the newest and the oldest register bit alike;
+// dec_g [n_rows, t_w - d_lo, S/32] words of scratch for the decisions of
+// steps d_lo .. t_w-1 (null where d_lo == t_w), d_lo at most max(out_lo,
+// 0); the rest as modem_viterbi_block. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a geometry it does not take.
+int modem_viterbi_block_core(const float* lam, const float* pin,
+                             const int* polys, long long n_ch,
+                             long long t_stream, int n, int n_states, int km2,
+                             int sym, int t_w, long long row0,
+                             long long n_rows, unsigned* dec_g, int d_lo,
+                             long long block, int halo, long long n_win,
+                             float guard, int out_lo, int out_hi,
+                             long long out_stride, int* out, void* stream) {
+  if (n_rows == 0) return static_cast<int>(cudaSuccess);
+  const int lo = out_lo > 0 ? (out_lo < t_w ? out_lo : t_w) : 0;
+  if (n_states < 512 || n_states > 16384 || (n_states & (n_states - 1)) ||
+      (1 << (km2 + 1)) != n_states || n < 1 || n > kCoreMaxBits ||
+      t_w < 1 || n_rows > 0x7fffffffLL || d_lo < 0 || d_lo > lo ||
+      (d_lo < t_w && dec_g == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g{n_ch, t_stream, block, n_win, out_stride, n, n_states,
+                   km2, t_w, halo, out_lo, out_hi, guard, sym != 0};
+  const CorePlan cp{row0, d_lo, t_w - d_lo};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  // KB butterflies a thread, kCoreThreads threads a block at most
+  switch (n_states / (2 * (n_states / 2 < kCoreThreads ? n_states / 2
+                                                        : kCoreThreads))) {
+    case 1:
+      err = launch_core<1>(lam, pin, polys, g, cp, sym, dec_g, out, n_rows, s);
+      break;
+    case 2:
+      err = launch_core<2>(lam, pin, polys, g, cp, sym, dec_g, out, n_rows, s);
+      break;
+    case 4:
+      err = launch_core<4>(lam, pin, polys, g, cp, sym, dec_g, out, n_rows, s);
+      break;
+    case 8:
+      err = launch_core<8>(lam, pin, polys, g, cp, sym, dec_g, out, n_rows, s);
+      break;
+    default:
+      err = launch_core<16>(lam, pin, polys, g, cp, sym, dec_g, out, n_rows,
+                            s);
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

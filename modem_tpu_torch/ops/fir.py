@@ -133,15 +133,18 @@ def fir_init_state(taps, batch_shape: tuple[int, ...] = (),
 
 def fir_filter(x: torch.Tensor, taps, state: torch.Tensor | None = None,
                backend: str = "direct") -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal FIR: returns ``(y, new_state)`` with ``y.shape == x.shape``.
+    """Causal FIR: returns ``(y, new_state)``, ``y`` of ``x``'s shape where
+    ``state`` is None or has ``K-1`` samples.
 
     ``state`` is the previous block's last ``K-1`` samples (zeros if None,
     matching the reference's fresh-filter behavior); ``new_state`` is the
-    last ``K-1`` samples of ``state ++ x``, a view of ``x`` where it holds
-    them (a caller that refills ``x`` in place clones it). ``backend`` is
-    one of :data:`BACKENDS`. A 1-tap ``direct`` filter is a scale with an
-    empty state. On CUDA K4 takes up to :data:`FIR_MAX_TAPS` taps and
-    raises ``ValueError`` beyond.
+    last ``K-1`` samples of ``xp = state ++ x``, a view of ``x`` where it
+    holds them (a caller that refills ``x`` in place clones it). A state of
+    another length is taken as the JAX package takes it, by every backend
+    on either device: ``y`` runs over ``xp``, ``n + len(state) - (K-1)``
+    samples. ``backend`` is one of :data:`BACKENDS`. A 1-tap ``direct``
+    filter is a scale with an empty state. On CUDA K4 takes up to
+    :data:`FIR_MAX_TAPS` taps and raises ``ValueError`` beyond.
     """
     check_backend(backend)
     taps = as_taps(taps, x.device)
@@ -155,15 +158,16 @@ def fir_filter(x: torch.Tensor, taps, state: torch.Tensor | None = None,
     elif state is None:
         new_state = F.pad(x, (k - 1 - n, 0))
     else:
-        new_state = torch.cat([state[..., n:], x], dim=-1)
+        new_state = torch.cat([state, x], dim=-1)
+        new_state = new_state[..., new_state.shape[-1] - (k - 1):]
     if backend == "direct":
         if k == 1:
             return taps[0] * x, new_state
         run = fir_kernel if x.is_cuda else fir_plain
         return run(x, taps, state), new_state
-    xp = (F.pad(x, (k - 1, 0)) if state is None
+    xp = (F.pad(x, (k - 1, 0)) if state is None or k == 1
           else torch.cat([state, x], dim=-1)).to(torch.float32)
-    if n == 0:
+    if xp.shape[-1] == k - 1:
         return xp[..., k - 1:], new_state
     run = {"conv": _fir_conv, "matmul": _fir_matmul, "fft": _fir_fft}[backend]
     return run(xp, taps), new_state
@@ -173,12 +177,12 @@ def fir_plain(x: torch.Tensor, taps: torch.Tensor,
               state: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K4: ``y[n] = sum_j taps[j] * xp[n + K-1 - j]`` over
     ``xp = state ++ x`` (zeros for ``state=None``), K shifted multiply-adds
-    in order of ``j``."""
+    in order of ``j``: ``len(xp) - (K-1)`` outputs."""
     k = taps.shape[0]
     xp = (F.pad(x, (k - 1, 0)) if state is None
           else torch.cat([state, x], dim=-1))
-    n = x.shape[-1]
-    y = torch.zeros(x.shape, dtype=xp.dtype, device=xp.device)
+    n = xp.shape[-1] - (k - 1)
+    y = torch.zeros(xp.shape[:-1] + (n,), dtype=xp.dtype, device=xp.device)
     for j in range(k):
         y = y + taps[j] * xp[..., k - 1 - j: k - 1 - j + n]
     return y
@@ -198,13 +202,17 @@ def fir_kernel(x: torch.Tensor, taps: torch.Tensor,
     route, over ``x``'s rows (every dimension but the last); the history is
     read from ``state`` in place (made contiguous float32 first where it is
     not), and ``state=None`` is a zero history that the kernel makes
-    itself. A float32 contiguous ``x`` is read in place too."""
+    itself. A float32 contiguous ``x`` is read in place too. A state of
+    another length than ``K-1`` is one launch over ``xp = state ++ x`` with
+    the zero history, its outputs from ``K-1`` on kept: ``len(xp) - (K-1)``
+    of them, as :func:`fir_plain`."""
     k = taps.shape[0]
     route = fir_route(k)
-    if state is not None and (state.shape[:-1] != x.shape[:-1]
-                              or state.shape[-1] != k - 1):
-        raise ValueError(f"state must be x's rows of {k - 1} samples, got "
+    if state is not None and state.shape[:-1] != x.shape[:-1]:
+        raise ValueError(f"state must have x's rows, got "
                          f"{tuple(state.shape)} for x {tuple(x.shape)}")
+    if state is not None and state.shape[-1] != k - 1:
+        return fir_kernel(torch.cat([state, x], dim=-1), taps)[..., k - 1:]
     dev = x.device
     fx = _f32_rows(x)
     check_cuda("x", fx, torch.float32, dev)

@@ -19,13 +19,18 @@ which a CPU tensor runs, and a kernel wrapper (:func:`windows_kernel`,
 :func:`stream_kernel`), which a CUDA tensor runs; a CUDA tensor never takes
 the plain version. The two decide bit for bit alike, for every code shape
 :class:`~modem_tpu_torch.fec.ConvCode` builds (K >= 2, any n) and any
-window length. The kernel has two routes (:func:`warp_route`): the warp
-route (``S <= 256``, ``n <= 32``, a row that fits), path metrics in
-registers passed between lanes by shuffles, ``64 / S`` rows a warp below
-64 states, each row's costs and decisions in shared memory
-(:func:`row_layout`), counted by :data:`VITERBI_KERNEL`; otherwise a block
-a row, metrics and decisions in a global scratch where shared memory is
-too small (:func:`block_plan`), counted by :data:`VITERBI_BLOCK_KERNEL`.
+window length. The kernel has three routes (:func:`route`): the warp
+route (``S <= 256``, ``n <= 32``, a row that fits, :func:`warp_route`),
+path metrics in registers passed between lanes by shuffles, ``64 / S``
+rows a warp below 64 states, each row's costs and decisions in shared
+memory (:func:`row_layout`), counted by :data:`VITERBI_KERNEL`; the block
+core (``512 <= S <= 16384``, ``n <= 8``), a block a row with whole
+butterflies a thread and both metric buffers in shared memory, the
+decisions in a global scratch (:func:`core_plan`), counted by
+:data:`VITERBI_CORE_KERNEL`; and the long route, every other shape, the
+first version's block a row, metrics and decisions in a global scratch
+where shared memory is too small (:func:`block_plan`), counted by
+:data:`VITERBI_BLOCK_KERNEL`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..utils.cache import on_device
 
 VITERBI_KERNEL = Kernel("modem_viterbi")
 VITERBI_BLOCK_KERNEL = Kernel("modem_viterbi_block")
+VITERBI_CORE_KERNEL = Kernel("modem_viterbi_block_core")
 
 #: the end-state pin: ``pm + pin * BIG`` on every state but 0
 BIG = np.float32(1e9)
@@ -52,6 +58,11 @@ MAX_SMEM_BYTES = 232448
 MAX_BLOCK_THREADS = 1024
 #: global scratch one block-route launch may take; more rows launch again
 MAX_SCRATCH_BYTES = 1 << 30
+#: the block core's limits: both metric buffers in one block's shared
+#: memory, a table of 2^n branch sums; its threads a block, at most
+CORE_MIN_STATES, CORE_MAX_STATES = 512, 16384
+CORE_MAX_CODE_BITS = 8
+CORE_THREADS = 512
 
 
 def _pin_bias(code, pin: torch.Tensor) -> torch.Tensor:
@@ -137,16 +148,20 @@ def stream_plain(code, lam, b: int, h: int, guard: float):
     return bits[..., : t - (code.k - 1)]
 
 
-def stream_kernel(code, lam, b: int, h: int, guard: float):
+def stream_kernel(code, lam, b: int, h: int, guard: float,
+                  long_route: bool = False):
     """Launch K13 on a CUDA stream: ``W`` windows per channel, rows
-    ``wi * C + c``, each writing its interior straight into ``[C, W*B]``."""
+    ``wi * C + c``, each writing its interior straight into ``[C, W*B]``.
+    ``long_route`` sends a block-core shape to the long route (the first
+    version), to hold the two against each other."""
     t, n = lam.shape[-2], lam.shape[-1]
     w, tw = _windows_geometry(t, b, h)
     flat = lam.reshape(-1, t, n).contiguous()
     c = flat.shape[0]
     out = torch.empty((c, w * b), dtype=torch.int32, device=lam.device)
     _launch(code, flat, None, n_ch=c, t_stream=t, t_w=tw, block=b, halo=h,
-            n_win=w, guard=float(guard), out_lo=h, out_hi=h + b, out=out)
+            n_win=w, guard=float(guard), out_lo=h, out_hi=h + b, out=out,
+            long_route=long_route)
     return out[:, : t - (code.k - 1)].reshape(lam.shape[:-2]
                                               + (t - (code.k - 1),))
 
@@ -214,6 +229,38 @@ def warp_route(code, t_w: int) -> bool:
             <= MAX_SMEM_BYTES)
 
 
+def route(code, t_w: int) -> str:
+    """The route a row of ``t_w`` steps takes: ``"warp"``
+    (:func:`warp_route`), ``"core"`` (the block core: ``512 <= S <=
+    16384`` and ``n <= 8``, at any window length) or ``"long"`` (the first
+    version: ``K >= 16``, ``n > 8``, and rows of ``S <= 256`` past the warp
+    route's shared memory)."""
+    if warp_route(code, t_w):
+        return "warp"
+    if (CORE_MIN_STATES <= code.n_states <= CORE_MAX_STATES
+            and code.n <= CORE_MAX_CODE_BITS):
+        return "core"
+    return "long"
+
+
+def core_plan(n_states: int, sym: bool, t_w: int,
+              out_lo: int) -> tuple[int, int, int, int]:
+    """The block core's ``(threads, smem_bytes, d_lo, t_dec)`` for a row
+    (``csrc/viterbi.cu``'s ``core_smem``): ``min(S/2, 512)`` threads, each
+    ``S / (2 threads)`` whole butterflies; shared memory holds the two
+    metric buffers, two tables of 256 branch-sum entries (2 floats each
+    for a symmetric code, else 4), two chunks of 8 steps' costs (8 floats
+    a step), two groups of 8 steps' staged decisions (``S/32`` words a
+    step), and 96 words of slots. The global scratch holds the
+    decisions of steps ``d_lo = max(out_lo, 0)`` to ``t_w - 1``, the ones
+    the traceback reads: ``t_dec`` steps of ``S/32`` words a row."""
+    threads = min(n_states // 2, CORE_THREADS)
+    words = (2 * n_states + 2 * 256 * (2 if sym else 4) + 2 * 8 * 8
+             + 2 * 8 * n_states // 32 + 3 * 32)
+    d_lo = min(max(out_lo, 0), t_w)
+    return threads, 4 * words, d_lo, t_w - d_lo
+
+
 def block_plan(n_states: int, n: int, t_w: int) -> tuple[int, int, int, int]:
     """The block route's ``(threads, pm_smem, dec_smem, smem_bytes)`` for
     one row: ``min(S, 1024)`` threads (at least a warp); shared memory
@@ -249,11 +296,13 @@ def _masks(code) -> np.ndarray:
 
 def _launch(code, lam, pin, *, n_ch: int, t_stream: int, t_w: int,
             block: int, halo: int, n_win: int, guard: float, out_lo: int,
-            out_hi: int, out: torch.Tensor) -> None:
+            out_hi: int, out: torch.Tensor, long_route: bool = False) -> None:
     """Rows ``wi * n_ch + c`` read steps ``wi*block - halo + p`` of
     channel ``c`` (``guard`` outside ``[0, t_stream)``) and write their
     decisions at ``out_lo <= p < out_hi`` to ``out[c, wi*block + p -
-    out_lo]``; ``pin`` None pins the last window of each channel."""
+    out_lo]``; ``pin`` None pins the last window of each channel. The
+    route is :func:`route`'s, or the long route for a block-core shape
+    where ``long_route``."""
     dev = lam.device
     check_cuda("lam", lam, torch.float32, dev)
     if pin is not None:
@@ -263,7 +312,8 @@ def _launch(code, lam, pin, *, n_ch: int, t_stream: int, t_w: int,
     pin_ptr = None if pin is None else pin.data_ptr()
     tail = (block, halo, n_win, guard, out_lo, out_hi, out.shape[-1],
             out.data_ptr())
-    if warp_route(code, t_w):
+    way = route(code, t_w)
+    if way == "warp":
         masks = on_device(code, "viterbi_masks", lambda: _masks(code),
                           torch.int32, dev)
         VITERBI_KERNEL.launch(
@@ -275,9 +325,24 @@ def _launch(code, lam, pin, *, n_ch: int, t_stream: int, t_w: int,
     polys = on_device(code, "viterbi_polys",
                       lambda: np.asarray(code.polys, np.int64), torch.int32,
                       dev)
+    rows = n_ch * n_win
+    if way == "core" and not long_route:
+        sym = symmetric(code)
+        _, _, d_lo, t_dec = core_plan(s, sym, t_w, out_lo)
+        per_row = 4 * t_dec * (s // 32)
+        batch = rows if per_row == 0 else max(1, min(rows, MAX_SCRATCH_BYTES
+                                                     // per_row))
+        dec_g = (torch.empty((batch, t_dec, s // 32), dtype=torch.int32,
+                             device=dev) if per_row else None)
+        for row0 in range(0, rows, batch):
+            VITERBI_CORE_KERNEL.launch(
+                dev, lam.data_ptr(), pin_ptr, polys.data_ptr(), n_ch,
+                t_stream, code.n, s, code.k - 2, int(sym), t_w, row0,
+                min(batch, rows - row0),
+                None if dec_g is None else dec_g.data_ptr(), d_lo, *tail)
+        return
     threads, pm_smem, dec_smem, smem = block_plan(s, code.n, t_w)
     words = max(1, s // 32)
-    rows = n_ch * n_win
     per_row = 8 * s * (1 - pm_smem) + 4 * t_w * words * (1 - dec_smem)
     batch = rows if per_row == 0 else max(1, min(rows, MAX_SCRATCH_BYTES
                                                  // per_row))

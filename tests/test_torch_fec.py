@@ -540,6 +540,108 @@ def test_kernel_limits_named():
     assert vk.block_plan(4, 2, 10)[0] == 32
 
 
+#: the block core's code shapes (no code of CODES has K >= 10): K = 10 rate
+#: 1/2 and K = 12 rate 1/3 (one generator even: the transitions do not
+#: mirror)
+CORE_CODES = [(10, (0o1731, 0o1373)), (12, (0o4335, 0o5723, 0o6746))]
+
+
+@pytest.mark.parametrize("k,polys", CORE_CODES, ids=["k10_r1_2", "k12_r1_3"])
+def test_core_codes_equal_xla(k, polys):
+    """Codes of the block core's route, 2 x 150 trellis steps in windows of
+    64: the port's ``decode_soft_windowed`` (K13's plain version, which the
+    core is held to on the card) bit for bit the JAX ``xla`` scan."""
+    jc, tc = jconv.ConvCode(k, polys), tconv.ConvCode(k, polys)
+    bits, llr = _noisy_llrs(jc, (2,), 150 - (k - 1), 1.6, 50 + k)
+    want = jax.jit(lambda x: jc.decode_soft_windowed(
+        x, 64, backend="xla"))(jnp.asarray(llr))
+    got = tc.decode_soft_windowed(_t(llr), 64)
+    _eq(got, want)
+    assert vk.route(tc, 64 + 20 * k) == "core"
+    assert vk.symmetric(tc) == (k == 10)
+    assert (got.numpy() != bits).any()  # the noise is felt
+
+
+def test_core_plan_and_routes():
+    """The block core takes 512 <= S <= 16384 and n <= 8 at any window
+    length; K >= 16, n > 8 and rows of S <= 256 past the warp route's
+    shared memory take the long route (the first version). The core's
+    shared memory (both metric buffers, the sum tables, the cost chunks,
+    the staged decision groups, the slots) fits one block at every S, and
+    its scratch holds the decisions from max(out_lo, 0) on."""
+    code = tconv.ConvCode
+    k9, k10 = code(9, (0o561, 0o753)), code(10, (0o1731, 0o1373))
+    assert [vk.route(k9, t) for t in (652, 8000)] == ["warp", "long"]
+    assert [vk.route(k10, t) for t in (10, 556, 100000)] == ["core"] * 3
+    assert vk.route(code(15, (0o74653, 0o61535)), 556) == "core"
+    assert vk.route(code(16, (0o172675, 0o137323)), 556) == "long"
+    gens = (0o1731, 0o1373, 0o1555, 0o1267, 0o1143, 0o1721, 0o1035, 0o1467,
+            0o1111)
+    assert vk.route(code(10, gens[:8]), 300) == "core"
+    assert vk.route(code(10, gens), 300) == "long"
+    assert vk.route(code(3, (0o7,) * 33), 10) == "long"
+    # K = 15, a symmetric code: 512 threads of 16 butterflies; 128 KB of
+    # metrics, 2 x 256 two-float sums, 2 x 64 costs, 2 x 8 staged rows of
+    # 512 words, 96 slots; chip_smoke's stream rows (halo 150) keep 406 of
+    # their 556 steps' decisions
+    assert vk.core_plan(16384, True, 556, 150) == (
+        512, 4 * (32768 + 1024 + 128 + 16 * 512 + 96), 150, 406)
+    # S = 512, four-float sums: 256 threads of one butterfly, rows of 16
+    # words
+    assert vk.core_plan(512, False, 100, 0) == (
+        256, 4 * (1024 + 2048 + 128 + 16 * 16 + 96), 0, 100)
+    assert vk.core_plan(1024, True, 80, 200)[2:] == (80, 0)
+    assert vk.core_plan(2048, True, 80, -5)[::2] == (512, 0)
+    for s in (512, 1024, 2048, 4096, 8192, 16384):
+        for sym in (False, True):
+            assert vk.core_plan(s, sym, 10, 0)[1] <= vk.MAX_SMEM_BYTES
+
+
+class _StubKernel:
+    """Stands in for a K13 C entry: records the arguments of each launch."""
+
+    def __init__(self):
+        self.seen = []
+
+    def launch(self, device, *args):
+        self.seen.append(args)
+
+
+def test_core_launch_arguments(monkeypatch):
+    """``stream_kernel`` at K = 15 with stand-in kernels: the block core's
+    launches carry ``cuda.SIGNATURES``' arguments (the stream added at the
+    launch), rows ``wi * C + c`` in batches that fit the scratch, whose rows
+    hold the decisions from out_lo on; ``long_route=True`` launches the
+    first version instead."""
+    from modem_tpu_torch import cuda
+
+    core, long = _StubKernel(), _StubKernel()
+    monkeypatch.setattr(vk, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(vk, "VITERBI_CORE_KERNEL", core)
+    monkeypatch.setattr(vk, "VITERBI_BLOCK_KERNEL", long)
+    code = tconv.ConvCode(15, (0o74653, 0o61535))
+    lam = torch.zeros(3, 100, 2)
+    vk.stream_kernel(code, lam, 32, 150, 1e6)
+    (args,) = core.seen
+    assert len(args) == len(cuda.SIGNATURES["modem_viterbi_block_core"]) - 1
+    # n_ch, t_stream, n, S, K-2, sym, t_w, row0, rows; d_lo; block, halo,
+    # windows, guard, out_lo, out_hi, out_stride
+    assert args[3:12] == (3, 100, 2, 16384, 13, 1, 332, 0, 12)
+    assert args[13:20] == (150, 32, 150, 4, 1e6, 150, 182)
+    assert args[20] == 128 and not long.seen
+    # a scratch of 182 steps x 2 KB a row: at most 2 rows a launch
+    monkeypatch.setattr(vk, "MAX_SCRATCH_BYTES", 2 * 182 * 2048 + 100)
+    core.seen.clear()
+    vk.stream_kernel(code, lam, 32, 150, 1e6)
+    assert [(a[10], a[11]) for a in core.seen] == [(r, 2)
+                                                   for r in range(0, 12, 2)]
+    monkeypatch.setattr(vk, "MAX_SCRATCH_BYTES", 1 << 30)
+    vk.stream_kernel(code, lam, 32, 150, 1e6, long_route=True)
+    (args,) = long.seen
+    assert len(args) == len(cuda.SIGNATURES["modem_viterbi_block"]) - 1
+    assert len(core.seen) == 6
+
+
 def _tie_llrs(shape, seed):
     """LLRs on which many compares tie: the first row all +0 and -0, the
     others -1, 1 or a signed zero."""

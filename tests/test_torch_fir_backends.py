@@ -138,6 +138,29 @@ def test_short_blocks_and_carried_state(backend):
                                                     ((0, 0), (5, 0))))
 
 
+@pytest.mark.parametrize("extra", [-2, 2], ids=["k_minus_3", "k_plus_1"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_state_of_another_length(backend, extra):
+    """A state of K-3 and of K+1 samples, as the JAX backend of the same
+    name takes it: ``y`` over ``state ++ x``, ``n + len(state) - (K-1)``
+    samples (the JAX tests' seam bar), and the new state, the last K-1
+    samples of ``state ++ x``, exactly."""
+    rng = np.random.default_rng(5)
+    taps = rng.standard_normal(9).astype(np.float32)
+    state = rng.standard_normal((2, 8 + extra)).astype(np.float32)
+    for n in ((3, 40) if extra < 0 else (0, 3, 40)):
+        x = rng.standard_normal((2, n)).astype(np.float32)
+        y, s = fir_filter(torch.as_tensor(x), taps, torch.as_tensor(state),
+                          backend)
+        jy, js = jfir.fir_filter(jnp.asarray(x), taps, jnp.asarray(state),
+                                 backend)
+        assert y.shape == (2, n + extra) == jy.shape
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=SEAM_ATOL,
+                                   rtol=0)
+        assert s.shape == js.shape
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
 def test_fft_long_block_is_chunked():
     """A block far longer than the FFT window: many stitched chunks, as
     tests/test_fir.py's ``test_long_block_matches_convolve``, and the JAX

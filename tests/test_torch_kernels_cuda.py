@@ -971,6 +971,31 @@ def test_fir_kernel_takes_no_state(k, dev):
     assert _device_ops(fir.fir_filter, x, taps) == 1
 
 
+@pytest.mark.parametrize("extra", [-2, 2], ids=["k_minus_3", "k_plus_1"])
+@pytest.mark.parametrize("k", [23, 65, 100, 257])
+def test_fir_kernel_state_of_another_length(k, extra, dev):
+    """A state of K-3 and of K+1 samples through K4 (one launch over
+    ``state ++ x`` with the zero history) and through ``fir_filter``,
+    against ``fir_plain`` on the same rows: ``n + len(state) - (K-1)``
+    outputs within 1e-5, the new state the last K-1 samples of ``state ++
+    x``."""
+    from modem_tpu_torch.ops import fir
+
+    taps = (_unit(k, k + 7) / k ** 0.5).to(dev)
+    st = _unit((3, k - 1 + extra), k + 8).to(dev)
+    for n in ((5, 3001) if extra < 0 else (0, 5, 3001)):
+        x = _unit((3, n), k + n).to(dev)
+        before = fir.FIR_KERNEL.launches
+        got = fir.fir_kernel(x, taps, st)
+        assert fir.FIR_KERNEL.launches == before + 1
+        want = fir.fir_plain(x, taps, st)
+        assert got.shape == want.shape == (3, n + extra)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+        y, s = fir.fir_filter(x, taps, st)
+        assert torch.equal(y, got)
+        assert torch.equal(s, torch.cat([st, x], -1)[:, -(k - 1):])
+
+
 #: the FIR engine's backends beside K4
 FIR_BACKENDS = ["conv", "matmul", "fft"]
 
@@ -2189,41 +2214,111 @@ def test_viterbi_kernel_packed_rows(case, kind, dev):
 
 #: (K, polynomials, channels, data bits, block steps): every code shape of
 #: F1's repair: S = 2 and 4 in the warp route with idle lanes; K = 10
-#: (S = 512) and 15 (metrics in shared memory, decisions past it) and a
-#: tiny K = 16 (metrics in the global scratch) in the block route; rate
-#: 1/40 (more code bits than a mask word)
+#: (S = 512) to 15 (S = 16384) in the block core, at 2, 3, 4, 6 and 8 code
+#: bits, codes whose transitions mirror and codes whose do not (a
+#: generator that skips the newest or the oldest register bit); a tiny
+#: K = 16 (metrics in the global scratch) and 9 code bits at K = 10 in the
+#: long route; rate 1/40 (more code bits than a mask word)
 WIDE_CODES = [
     ("k2", 2, (0o3, 0o1), (4,), 300, 64),
     ("k3", 3, (0o7, 0o5), (4,), 300, 64),
     ("k10", 10, (0o1731, 0o1373), (3,), 200, 64),
+    ("k11", 11, (0o2335, 0o3661), (3,), 150, 64),
+    ("k12_r1_3", 12, (0o4335, 0o5723, 0o6746), (2,), 150, 64),
+    ("k13", 13, (0o13535, 0o07463), (2,), 120, 48),
+    ("k14", 14, (0o32345, 0o26613), (2,), 120, 48),
     ("k15", 15, (0o74653, 0o61535), (2,), 120, 48),
+    ("k15_r1_4", 15, (0o46321, 0o51271, 0o63667, 0o70535), (2,), 120, 48),
+    ("k15_r1_6", 15, (0o74653, 0o61535, 0o52447, 0o43555, 0o71263,
+                      0o66421), (1,), 120, 48),
+    ("k10_r1_8", 10, (0o1731, 0o1373, 0o1555, 0o1267, 0o1143, 0o1721,
+                      0o1035, 0o1466), (2,), 100, 32),
+    ("k10_r1_9", 10, (0o1731, 0o1373, 0o1555, 0o1267, 0o1143, 0o1721,
+                      0o1035, 0o1467, 0o1111), (1,), 60, 32),
     ("k16_tiny", 16, (0o172675, 0o137323), (1,), 24, 16),
     ("k5_r1_40", 5, tuple(0o20 | (j % 15 + 1) for j in range(40)), (2,),
      100, 32),
 ]
 
 
+def _route_kernel(vk, code, t_w):
+    """The launch count of the route a row of ``t_w`` steps takes."""
+    return {"warp": vk.VITERBI_KERNEL, "core": vk.VITERBI_CORE_KERNEL,
+            "long": vk.VITERBI_BLOCK_KERNEL}[vk.route(code, t_w)]
+
+
 @pytest.mark.parametrize("case", WIDE_CODES, ids=[c[0] for c in WIDE_CODES])
 def test_viterbi_kernel_widened_shapes(case, dev):
     """decode_soft_windowed of every code shape on the card, bit for bit
-    the plain version's, with the route the shape calls for; and ready
-    windows with pinned and free ends."""
+    the plain version's, with the route the shape calls for (its launch
+    counted); and ready windows with pinned and free ends."""
     from modem_tpu_torch.ops import viterbi_kernel as vk
 
     _, k, polys, shape, t, b = case
     code, bits, llr = _code_llrs(k, polys, shape, t, 1.0, 21, dev)
     lam = llr.reshape(llr.shape[:-1] + (-1, code.n))
     h = 10 * code.k
-    warp = vk.warp_route(code, b + 2 * h)
-    kernel = vk.VITERBI_KERNEL if warp else vk.VITERBI_BLOCK_KERNEL
-    assert warp == (k <= 9 and code.n <= 32)
+    way = vk.route(code, b + 2 * h)
+    assert way == ("warp" if k <= 9 and code.n <= 32 else
+                   "core" if k <= 15 and code.n <= 8 else "long")
+    kernel = _route_kernel(vk, code, b + 2 * h)
     got = _launches(kernel, code.decode_soft_windowed, llr, b)
     assert torch.equal(got, vk.stream_plain(code, lam, b, h, 1e6))
     assert float((got != bits).double().mean()) < 0.05
     win = lam[..., :b + 2 * h, :]
     pin = (torch.arange(win.shape[0], device=dev) % 2).float()
-    assert torch.equal(vk.windows_kernel(code, win, pin),
+    assert torch.equal(_launches(kernel, vk.windows_kernel, code, win, pin),
                        vk.windows_plain(code, win, pin))
+
+
+#: the block core's hazards: (K, polynomials) at both ends of its state
+#: range
+CORE_HAZARD = [(10, (0o1731, 0o1373)), (15, (0o74653, 0o61535))]
+
+
+@pytest.mark.parametrize("kind", ["zero", "ties", "large"])
+@pytest.mark.parametrize("case", CORE_HAZARD,
+                         ids=[f"k{k}" for k, _ in CORE_HAZARD])
+def test_viterbi_core_hazards(case, kind, dev):
+    """The block core on all-zero and signed-zero LLRs (every compare
+    ties), -1/0/+1 ties and 1e4-large LLRs: windows of 1, 7, 203 and 1000
+    steps (a step, no whole cost chunk or decision group, and rows of many
+    32-step traceback pages), free and pinned ends mixed, and the stream
+    form: bit for bit the plain version's, one core launch each (the large
+    LLRs are a noisy codeword's, so their windows start at 16 steps)."""
+    from modem_tpu_torch.fec import ConvCode
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code = ConvCode(*case)
+    for t_w in ((16, 203, 1000) if kind == "large" else (1, 7, 203, 1000)):
+        llr = _hazard_llrs(kind, code, (3,), t_w, 40 + t_w, dev)
+        win = llr.reshape(3, t_w, code.n)
+        pin = torch.tensor([0.0, 1.0, 1.0], device=dev)
+        assert vk.route(code, t_w) == "core"
+        got = _launches(vk.VITERBI_CORE_KERNEL, vk.viterbi_decode_windows,
+                        code, win, pin)
+        assert torch.equal(got, vk.windows_plain(code, win, pin)), t_w
+    llr = _hazard_llrs(kind, code, (2,), 300, 39, dev)
+    got = _launches(vk.VITERBI_CORE_KERNEL, code.decode_soft_windowed, llr,
+                    37)
+    lam = llr.reshape(2, -1, code.n)
+    assert torch.equal(got, vk.stream_plain(code, lam, 37, 10 * code.k, 1e6))
+
+
+def test_viterbi_core_equals_long_route(dev):
+    """K = 15 at 4 channels x 300 bits, windows of 64: the core and the
+    long route forced on the same shape (``long_route=True``) decide bit
+    for bit alike, each counted on its own kernel."""
+    from modem_tpu_torch.ops import viterbi_kernel as vk
+
+    code, _, llr = _code_llrs(15, (0o74653, 0o61535), (4,), 300, 1.0, 23,
+                              dev)
+    lam = llr.reshape(4, -1, 2)
+    core = _launches(vk.VITERBI_CORE_KERNEL, vk.stream_kernel, code, lam, 64,
+                     150, 1e6)
+    long = _launches(vk.VITERBI_BLOCK_KERNEL, vk.stream_kernel, code, lam, 64,
+                     150, 1e6, long_route=True)
+    assert torch.equal(core, long)
 
 
 def test_viterbi_window_longer_than_shared_memory(dev):
@@ -3535,8 +3630,8 @@ LAUNCH_ENTRIES = ["modem_chain", "modem_tx", "modem_rx_hard", "modem_rx_soft",
                   "modem_fsk_tone_table", "modem_msk_chain", "modem_fsk_tx",
                   "modem_disc_means", "modem_msk_tx", "modem_resampled_tx",
                   "modem_resampled_rx", "modem_viterbi",
-                  "modem_viterbi_block", "modem_bcjr", "modem_polar_sc",
-                  "modem_polar_scl"]
+                  "modem_viterbi_block", "modem_viterbi_block_core",
+                  "modem_bcjr", "modem_polar_sc", "modem_polar_scl"]
 
 
 @pytest.fixture(scope="module")

@@ -180,12 +180,20 @@ def test_fir_kernel_hands_modem_fir_its_arguments(monkeypatch, form,
 
 
 def test_fir_kernel_refuses_a_state_of_the_wrong_length(monkeypatch):
+    """A state whose rows are not x's is refused; one of another length
+    than K-1 samples (as the JAX ``fir_filter`` takes it) is one launch over
+    ``state ++ x`` with the null history, the outputs from K-1 on kept."""
     monkeypatch.setattr(fir, "check_cuda", lambda *a: None)
-    monkeypatch.setattr(fir, "FIR_KERNEL", _Fir())
-    with pytest.raises(ValueError, match="rows of 12 samples"):
-        fir.fir_kernel(torch.zeros(2, 40), torch.ones(13), torch.zeros(2, 11))
-    with pytest.raises(ValueError, match="rows of 12 samples"):
+    stub = _Fir()
+    monkeypatch.setattr(fir, "FIR_KERNEL", stub)
+    with pytest.raises(ValueError, match="x's rows"):
         fir.fir_kernel(torch.zeros(2, 40), torch.ones(13), torch.zeros(3, 12))
+    assert not stub.seen
+    x, state = torch.arange(80.0).reshape(2, 40), -torch.ones(2, 11)
+    y = fir.fir_kernel(x, torch.ones(13), state)
+    (seen,) = stub.seen
+    assert (seen["c"], seen["n"], seen["state"]) == (2, 51, None)
+    assert torch.equal(y, torch.cat([state, x], -1)[:, 12:] + 1)
 
 
 @pytest.mark.parametrize("t,device", [
