@@ -34,11 +34,14 @@ the two CLIs) runs at the JAX package's demod-bank size (``bench_demod.py``:
 256 channels x 32768 samples, ``sample_rate`` 10000, carrier 2000 Hz):
 
 7. FIR and product-detector kernels: K4 on every route (23, 32, 64 and 65
-   taps compiled; 7 and 256 generic; 257 and 1000 the long route) and K5
+   taps compiled; 7 and 256 generic; 257, 1000 and 4096 the long route's
+   core, 15010 its first version, one past the core's last count) and K5
    with its carrier table (2000 Hz at 10000) and without (2001 Hz at 10007)
    against their plain versions, at a small shape with carried state, at
    256 x 32768 and on rows of 1, 5 and 5001 samples, unit-scale inputs, max
-   |error| <= 1e-5; each in ragged pushes equal to one shot exactly;
+   |error| <= 1e-5, the long route also against its first version forced
+   (``fir_kernel(..., first=True)``) bit for bit; each in ragged pushes
+   equal to one shot exactly;
 8. reference path: a 16-cycle preamble and 256 x 4096 QPSK symbols of
    passband from ``Modulator``, then ``Demodulator.lock_phase`` on 64
    samples (K4, 23 taps) and ``demodulate`` (K4) and ``demodulate_fused``
@@ -54,8 +57,13 @@ the two CLIs) runs at the JAX package's demod-bank size (``bench_demod.py``:
 10. times: K4 on each route of phase 7 (the staged chain's 65 taps at its
    waveform's length) and K5 with and without its table per call beside
    their plain versions, the profiler's device time (which also shows that
-   each count took the route ``ops.fir.fir_route`` names) and the bound,
-   K4's ``conv1d`` yardstick, and ``Modulator.passband``,
+   each count took the route ``ops.fir.fir_route`` and
+   ``fir_long_route`` name) and the bound, K4's ``conv1d`` yardstick; on
+   the long route the f32 rate as a share of the published 67 TFLOP/s and
+   of the card's attained ceiling (one ``torch.mm`` of two 8192 x 8192
+   float32 matrices, TF32 off, with the SM clock under it), and at 257 and
+   1000 taps the first version forced beside the core; and
+   ``Modulator.passband``,
    ``Demodulator.demodulate`` and ``demodulate_fused`` per call in
    samples/s, with the device's busy time per call from ``torch.profiler``
    and its idle share.
@@ -262,8 +270,9 @@ demodulator a user builds with other filters or another carrier:
 
 35. ``Demodulator(2000, 10000, hilbert=<7 taps>, lowpass=<256 taps>)``:
     ``lock_phase`` (K4 generic, 7 taps) and ``demodulate`` (K4 generic, 256
-    taps); ``lowpass`` of 257 and 1000 taps: ``demodulate`` (the long
-    route); ``Demodulator(2001, 10007)``: ``lock_phase`` and
+    taps); ``lowpass`` of 257, 1000 and 4096 taps: ``demodulate`` (the
+    long route's core), and of 15010 (its first version, past the core's
+    last count); ``Demodulator(2001, 10007)``: ``lock_phase`` and
     ``demodulate_fused`` (K5 without a table) against ``demodulate``; each at
     256 x 32768 with the launch counts set to 0 just before and read just
     after, and the card against the CPU on two channels.
@@ -460,7 +469,9 @@ Then ``fir_filter``'s backends and the launch path every kernel shares:
 Then a JSON line of the kernels (K1, K2, K3 hard and soft, K4 with the
 demodulator's 64-tap lowpass, the chain's 65-tap RRC, each other count of
 phase 7, the OFDM preamble's 240 taps, the acquisition's 4, 13 and 63
-and SC-FDE's 160,
+and SC-FDE's 160, and the long route's first version
+(``fir_filter_long_first``: its times forced at 1000 taps, its launches
+phase 35's demodulator at 15010 taps),
 K5 with and without its carrier table; K6
 without and with noise, with ``agreement``, the share of its decisions
 equal to the plain version's; K8; K9 on the FSK symbol and the MSK slot;
@@ -508,8 +519,18 @@ SEED = 0
 REF_SR, REF_CF, REF_BAUD = 10000, 2000, 1250
 #: K4's routes: the tap counts of the paths (23 the Hilbert filter, 32 the
 #: GMSK transient, 64 the lowpass, 65 the RRC: compiled), 7 and 256 (the
-#: generic instantiation), 257 and 1000 (the long route)
-FIR_ROUTE_TAPS = (23, 32, 64, 65, 7, 256, 257, 1000)
+#: generic instantiation), 257, 1000 and 4096 (the long route's core) and
+#: FIR_FIRST_TAPS, one past the core's last count (the long route's first
+#: version, ``ops.fir.FIR_CORE_MAX_TAPS + 1``: phase 7 checks it)
+FIR_FIRST_TAPS = 15010
+FIR_ROUTE_TAPS = (23, 32, 64, 65, 7, 256, 257, 1000, 4096, FIR_FIRST_TAPS)
+#: the report entry of the long route's first version: its times forced at
+#: FIR_FIRST_AT taps, its launches those of the path at FIR_FIRST_TAPS
+FIR_FIRST = "fir_filter_long_first"
+FIR_FIRST_AT = 1000
+#: the attained f32 ceiling: one torch.mm of two square float32 matrices of
+#: this size, TF32 off
+MM_CEILING_N = 8192
 FIR_ROWS = ((3, 1), (3, 5), (3, 5001))  # one sample, under K-1, odd
 FIR_PUSHES = (0, 5, 6, 9, 2100, 2150, 2151, 9000)
 #: K5's carriers and their report names: 2000 Hz at 10000 (a table of 5
@@ -887,7 +908,8 @@ def reset_launches() -> None:
                                      scl_kernel, txrx, viterbi_kernel as vk)
 
     for k in (chain_kernel.CHAIN_KERNEL, txrx.TX_KERNEL, txrx.RX_HARD_KERNEL,
-              txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, demod_kernel.DEMOD_KERNEL,
+              txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, fir.FIR_FIRST_KERNEL,
+              demod_kernel.DEMOD_KERNEL,
               fk.FSK_CHAIN_KERNEL, fk.FSK_TONE_KERNEL, fk.FSK_TX_KERNEL,
               fk.DISC_MEANS_KERNEL, fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL,
               rk.RESAMPLED_TX_KERNEL,
@@ -1224,8 +1246,12 @@ def fir_symbol(k: int) -> str:
     sends ``k`` taps to."""
     from modem_tpu_torch.ops import fir
 
-    return {"fixed": f"fir_core_kernel<{k}>", "generic": "fir_core_kernel<0>",
-            "long": "fir_long_kernel"}[fir.fir_route(k)]
+    route = fir.fir_route(k)
+    if route == "long":
+        return {"core": "fir_long_core",
+                "first": "fir_long_kernel"}[fir.fir_long_route(k)]
+    return {"fixed": f"fir_core_kernel<{k}>",
+            "generic": "fir_core_kernel<0>"}[route]
 
 
 def demod_symbol(k: int, hz: int, sr: int) -> str:
@@ -1284,12 +1310,27 @@ def phase_ref_kernels(chain, device) -> dict:
         print(f"[kernels] {what} in {len(parts)} ragged pushes == one shot "
               "(exact)", flush=True)
 
+    if FIR_FIRST_TAPS != fir.FIR_CORE_MAX_TAPS + 1 or \
+            fir.fir_long_route(FIR_FIRST_TAPS) != "first":
+        fail(f"FIR_FIRST_TAPS {FIR_FIRST_TAPS} is not one past the long "
+             f"core's last count {fir.FIR_CORE_MAX_TAPS}")
     for k in FIR_ROUTE_TAPS:
-        what = f"fir_filter {k} taps ({fir.fir_route(k)})"
+        what = f"fir_filter {k} taps ({fir_symbol(k)})"
         for shape in ((3, 5000), (CHANNELS, REF_SAMPLES), *FIR_ROWS):
             args = fir_case(taps[k], shape, gen, device)
-            check(fir_name(k), what, shape, fir.fir_kernel(*args),
-                  fir.fir_plain(*args))
+            got, want = fir.fir_kernel(*args), fir.fir_plain(*args)
+            check(fir_name(k), what, shape, got, want)
+            if fir.fir_route(k) == "long":
+                # the long route against its first version forced: bit for
+                # bit (one fmaf chain an output in the same order)
+                first = fir.fir_kernel(*args, first=True)
+                check(FIR_FIRST, f"fir first version {k} taps", shape, first,
+                      want)
+                if not torch.equal(got, first):
+                    fail(f"K4 at {k} taps on {shape}: the long route differs "
+                         "from its first version")
+                print(f"[kernels] fir_filter {k} taps == its first version "
+                      f"at {shape} (exact)", flush=True)
         x = unit((4, FIR_PUSHES[-1]), gen, device)
         state, parts = None, []
         for a, b in zip(FIR_PUSHES[:-1], FIR_PUSHES[1:]):
@@ -1493,6 +1534,7 @@ def phase_ref_times(chain, device, card: str) -> dict:
     taps = path_taps(chain, device)
     times = {}
     n_wave = (N_SYMBOLS + chain.span) * chain.sps
+    ceiling = f32_ceiling(device, card)
     for k in FIR_ROUTE_TAPS:
         name, n = fir_name(k), n_wave if k == 65 else REF_SAMPLES
         args = fir_case(taps[k], (CHANNELS, n), gen, device)
@@ -1506,17 +1548,38 @@ def phase_ref_times(chain, device, card: str) -> dict:
             fail(f"conv1d yardstick disagrees with K4 ({lib_err})")
         ms, plain_ms, dev_ms = kernel_times(
             fir.fir_kernel, fir.fir_plain, args, device, fir_symbol(k),
-            plain_calls=20 if k <= 65 else 2)
+            plain_calls=20 if k <= 65 else 2 if k <= 1000 else 1)
         if dev_ms is None:
             fail(f"K4 at {k} taps: no {fir_symbol(k)} in the profile (the "
                  f"route fir_route names)")
-        lib_ms = time_calls(F.conv1d, (xp, w), device)
+        lib_ms = time_calls(F.conv1d, (xp, w), device,
+                            calls=20 if k <= 1000 else 2)
         work = (4 * (2 * CHANNELS * n + CHANNELS * (k - 1) + k),
                 2 * k * CHANNELS * n)
         times[name] = (ms, plain_ms, dev_ms, lib_ms, work)
-        print_times(f"{name} ({k} taps, {fir.fir_route(k)})", CHANNELS * n,
+        print_times(f"{name} ({k} taps, {fir_symbol(k)})", CHANNELS * n,
                     times[name], card,
                     f"conv1d {lib_ms:.4f} ms (max |err| vs K4 {lib_err:.2e})")
+        if fir.fir_route(k) != "long":
+            continue
+        print_shares(name, work[1], dev_ms, ceiling, card)
+        if k in (257, FIR_FIRST_AT):
+            # the first version forced at the same inputs, beside the core
+            first = functools.partial(fir.fir_kernel, first=True)
+            f_ms = (time_calls(first, args, device) +
+                    time_calls(first, args, device)) / 2
+            f_dev = kernel_device_ms(first, args, device, "fir_long_kernel")
+            if f_dev is None:
+                fail(f"K4 forced to its first version at {k} taps: no "
+                     "fir_long_kernel in the profile")
+            if k == FIR_FIRST_AT:
+                times[FIR_FIRST] = (f_ms, plain_ms, f_dev, lib_ms, work)
+            print(f"[times] {name} first version (fir_long_kernel) per call "
+                  f"{f_ms:.4f} ms, alone in the profiler {f_dev:.4f} ms; the "
+                  f"core {dev_ms:.4f} ms ({f_dev / dev_ms:.2f}x); conv1d "
+                  f"{lib_ms:.4f} ms; on {card}", flush=True)
+            print_shares(f"{name} first version", work[1], f_dev, ceiling,
+                         card)
 
     lowpass = taps[64]
     k, n = lowpass.shape[0], REF_SAMPLES
@@ -4122,9 +4185,11 @@ def phase_fir_routes(device) -> dict:
 
     run("fir_filter_7", fir.FIR_KERNEL, dem(hilbert=filters.hilbert_taps(7)),
         lambda d, v, _: (locked(d, v).phase_offset,))
-    for k in (256, 257, 1000):
+    for k in (256, 257, 1000, 4096, FIR_FIRST_TAPS):
         run(fir_name(k), fir.FIR_KERNEL, dem(lowpass=windowed_lowpass(k)),
             lambda d, v, st: d.demodulate(v[:, 64:], st)[0], locked)
+    # past the core's last count the path runs the first version
+    launches[FIR_FIRST] = launches[fir_name(FIR_FIRST_TAPS)]
     name = DEMOD_NAMES[K5_UNTABLED]
     build = dem(carrier=K5_UNTABLED)
     fused = run(name, dk.DEMOD_KERNEL, build,
@@ -6700,6 +6765,48 @@ def print_fec_times(name: str, shape: str, t, card: str) -> None:
           f"{card}", flush=True)
 
 
+def f32_ceiling(device, card: str) -> float:
+    """The card's attained float32 rate in FLOP/s: one ``torch.mm`` of two
+    MM_CEILING_N x MM_CEILING_N float32 matrices with TF32 off, CUDA-event
+    median of 5 runs of 3 calls; printed with the SM clock ``nvidia-smi``
+    reads while a run of them is queued. A yardstick only: the port never
+    calls it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator(device=device).manual_seed(SEED + 171)
+        a, b = (torch.randn((MM_CEILING_N, MM_CEILING_N), generator=g,
+                            device=device) for _ in range(2))
+        ms = time_calls(torch.mm, (a, b), device, calls=3)
+        for _ in range(40):  # about a second of work queued
+            torch.mm(a, b)
+        clock = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        torch.cuda.synchronize(device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    rate = 2 * MM_CEILING_N ** 3 / (ms * 1e-3)
+    print(f"[times] f32 ceiling: torch.mm {MM_CEILING_N}^2 x "
+          f"{MM_CEILING_N}^2, TF32 off: {ms:.4f} ms, {rate / 1e12:.2f} "
+          f"TFLOP/s ({rate / F32_FLOP_PER_S:.3f} of the published "
+          f"{F32_FLOP_PER_S / 1e12:.0f}); SM clock and power under it: "
+          f"{clock}; on {card}", flush=True)
+    return rate
+
+
+def print_shares(name: str, flops: float, dev_ms: float, ceiling: float,
+                 card: str) -> None:
+    """The f32 rate a kernel attained in the profiler, as a share of the
+    published 67 TFLOP/s and of the measured ``torch.mm`` ceiling."""
+    rate = flops / (dev_ms * 1e-3)
+    print(f"[times] {name}: {rate / 1e12:.2f} TFLOP/s, "
+          f"{rate / F32_FLOP_PER_S:.3f} of {F32_FLOP_PER_S / 1e12:.0f} "
+          f"TFLOP/s, {rate / ceiling:.3f} of torch.mm's "
+          f"{ceiling / 1e12:.2f}; on {card}", flush=True)
+
+
 def print_times(name: str, samples: int, t, card: str, extra: str) -> None:
     ms, plain_ms, dev_ms, _, (nbytes, flops) = t
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
@@ -6785,6 +6892,8 @@ def launch_cases(chain, device, shape) -> dict:
         "modem_rx_soft": ("K3 soft", txrx.rx_kernel,
                           (wi, wq, k, lut, rrc, sps, span, True)),
         "modem_fir": ("K4", fir.fir_kernel, (x, lowpass)),
+        "modem_fir_long_first": ("K4 first", functools.partial(
+            fir.fir_kernel, first=True), (x, lowpass)),
         "modem_demod": ("K5", dk.demod_kernel,
                         demod_case(lowpass, (c, 8 * k), gen, device)),
         "modem_fsk_chain": ("K6", fk.fsk_chain_kernel,
@@ -6996,6 +7105,8 @@ def main() -> int:
         (fir_name(k), "modem_tpu_torch/csrc/fir.cu",
          "modem_tpu/ops/pallas_fir.py:44")
         for k in FIR_ROUTE_TAPS + (240,) + ACQ_FIR_TAPS + (160,)] + [
+        (FIR_FIRST, "modem_tpu_torch/csrc/fir.cu",
+         "modem_tpu/ops/pallas_fir.py:44")] + [
         (name, "modem_tpu_torch/csrc/demod.cu",
          "modem_tpu/ops/pallas_demod.py:43")
         for name in DEMOD_NAMES.values()] + [

@@ -9,7 +9,8 @@ takes one of :data:`BACKENDS`:
 
 * ``direct``: K4 on a CUDA tensor (:func:`fir_kernel`), its plain version
   :func:`fir_plain` on a CPU one, never the plain version on the card;
-  :func:`fir_route` says which of the kernel's routes a tap count takes;
+  :func:`fir_route` says which of the kernel's routes a tap count takes,
+  and :func:`fir_long_route` which kernel the long route runs;
 * ``conv``: one ``conv1d`` with the reversed taps (cuDNN on the card);
 * ``matmul``: the signal framed into overlapping windows times a banded
   Toeplitz bank, one ``torch.matmul``;
@@ -38,6 +39,9 @@ from ..cuda import TAPS_PARAM, Kernel, check_cuda, host_taps
 BACKENDS = ("direct", "conv", "matmul", "fft")
 
 FIR_KERNEL = Kernel("modem_fir")
+#: the long route's first version forced at any tap count
+#: (``fir_kernel(..., first=True)``), for comparisons
+FIR_FIRST_KERNEL = Kernel("modem_fir_long_first")
 
 #: outputs per block of the long route (``fir_tile.cuh``'s ``kFirTile``)
 _TILE = 2048
@@ -60,6 +64,31 @@ def fir_smem_bytes(k: int) -> int:
 #: the most taps whose tile fits a block's shared memory on the long route
 FIR_MAX_TAPS = 25176
 
+#: outputs a tile of the long core (``fir.cu``'s ``kLongTile``: 32 a thread,
+#: 128 threads)
+_CORE_TILE = 4096
+
+
+def _skew_len(n: int) -> int:
+    """Floats of a skewed buffer of ``n`` samples (``common.cuh``)."""
+    n32 = (n + 31) & ~31
+    return n32 + n32 // 8
+
+
+def fir_core_smem_bytes(k: int) -> int:
+    """Shared memory a block of the long core takes for ``k`` taps
+    (``fir.cu``'s ``long_core_smem``): the taps in whole chunks of 16 and
+    two buffers of a tile and its history after a lead that puts the tile's
+    first sample at a multiple of 32 (the outputs are staged in the buffer
+    just filtered)."""
+    lead = ((1 - k) & 31) + 32
+    return 4 * (-(-k // 16) * 16 + 2 * _skew_len(lead + k - 1 + _CORE_TILE))
+
+
+#: the most taps the long core takes (its block fits shared memory); the
+#: first version takes the counts past it, to :data:`FIR_MAX_TAPS`
+FIR_CORE_MAX_TAPS = 15009
+
 
 def fir_route(k: int) -> str:
     """The route of K4 for ``k`` taps: ``"fixed"`` (a compiled
@@ -73,6 +102,16 @@ def fir_route(k: int) -> str:
     if k in FIR_FIXED_TAPS:
         return "fixed"
     return "generic" if k <= TAPS_PARAM else "long"
+
+
+def fir_long_route(k: int) -> str:
+    """The kernel K4's long route (the taps read from the device) runs for
+    ``k`` taps: ``"core"`` (``fir_long_core``, up to
+    :data:`FIR_CORE_MAX_TAPS`) or ``"first"`` (the first version,
+    ``fir_long_kernel``, to :data:`FIR_MAX_TAPS`). Raises ``ValueError``
+    past that."""
+    fir_route(k)
+    return "core" if k <= FIR_CORE_MAX_TAPS else "first"
 
 
 #: numpy taps as device tensors, by their bytes and device (off the CPU,
@@ -197,7 +236,8 @@ def _f32_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def fir_kernel(x: torch.Tensor, taps: torch.Tensor,
-               state: torch.Tensor | None = None) -> torch.Tensor:
+               state: torch.Tensor | None = None,
+               first: bool = False) -> torch.Tensor:
     """Launch K4 (``modem_fir``) on CUDA tensors, by :func:`fir_route`'s
     route, over ``x``'s rows (every dimension but the last); the history is
     read from ``state`` in place (made contiguous float32 first where it is
@@ -205,14 +245,17 @@ def fir_kernel(x: torch.Tensor, taps: torch.Tensor,
     itself. A float32 contiguous ``x`` is read in place too. A state of
     another length than ``K-1`` is one launch over ``xp = state ++ x`` with
     the zero history, its outputs from ``K-1`` on kept: ``len(xp) - (K-1)``
-    of them, as :func:`fir_plain`."""
+    of them, as :func:`fir_plain`. ``first`` runs the long route's first
+    version (``modem_fir_long_first``) whatever the tap count, for
+    comparisons."""
     k = taps.shape[0]
     route = fir_route(k)
     if state is not None and state.shape[:-1] != x.shape[:-1]:
         raise ValueError(f"state must have x's rows, got "
                          f"{tuple(state.shape)} for x {tuple(x.shape)}")
     if state is not None and state.shape[-1] != k - 1:
-        return fir_kernel(torch.cat([state, x], dim=-1), taps)[..., k - 1:]
+        return fir_kernel(torch.cat([state, x], dim=-1), taps,
+                          first=first)[..., k - 1:]
     dev = x.device
     fx = _f32_rows(x)
     check_cuda("x", fx, torch.float32, dev)
@@ -224,11 +267,14 @@ def fir_kernel(x: torch.Tensor, taps: torch.Tensor,
     y = torch.empty_like(fx)
     if y.numel():
         n = x.shape[-1]
-        host = None if route == "long" else host_taps(taps)
-        FIR_KERNEL.launch(dev, fx.data_ptr(),
-                          None if fs is None else fs.data_ptr(),
-                          y.numel() // n, n, host, taps.data_ptr(), k,
-                          y.data_ptr())
+        st = None if fs is None else fs.data_ptr()
+        if first:
+            FIR_FIRST_KERNEL.launch(dev, fx.data_ptr(), st, y.numel() // n, n,
+                                    taps.data_ptr(), k, y.data_ptr())
+        else:
+            host = None if route == "long" else host_taps(taps)
+            FIR_KERNEL.launch(dev, fx.data_ptr(), st, y.numel() // n, n,
+                              host, taps.data_ptr(), k, y.data_ptr())
     return y
 
 

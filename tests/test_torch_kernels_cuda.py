@@ -27,7 +27,7 @@ import torch
 
 from modem_tpu_torch import Rates, qpsk_reference_chain
 from modem_tpu_torch.models.psk import BPSK
-from modem_tpu_torch.ops import chain_kernel, txrx
+from modem_tpu_torch.ops import chain_kernel, fir, txrx
 from modem_tpu_torch.ops.filters import rrc_taps
 
 pytestmark = pytest.mark.cuda
@@ -880,7 +880,8 @@ def test_fir_kernel_off_a_16_byte_boundary(k, skip, dev):
 
 
 def _fir_long(x, taps, st):
-    """K4's long route whatever the tap count (the taps from the device)."""
+    """K4's long route whatever the tap count (the taps from the device):
+    the long core up to ``FIR_CORE_MAX_TAPS``."""
     from modem_tpu_torch.ops import fir
 
     c, n, k = math.prod(x.shape[:-1]), x.shape[-1], taps.shape[0]
@@ -901,7 +902,7 @@ def test_fir_routes_agree_bit_for_bit(k, dev):
     assert torch.equal(fir.fir_kernel(x, taps, st), _fir_long(x, taps, st))
 
 
-@pytest.mark.parametrize("k", [23, 32, 64, 65, 7, 256, 257])
+@pytest.mark.parametrize("k", [23, 32, 64, 65, 7, 256, 257, 1000])
 def test_fir_kernel_pushes_equal_one_shot(k, dev):
     from modem_tpu_torch.ops.fir import fir_filter
 
@@ -932,6 +933,75 @@ def test_fir_kernel_refuses_too_many_taps(dev):
                               fir.host_taps(taps[:256]), taps.data_ptr(),
                               257, y.data_ptr())
     assert fir.FIR_KERNEL.launches == before
+
+
+#: the long core's tap counts, its last among them, and one past it (the
+#: first version)
+CORE_KS = [257, 300, 1000, 1025, 4096, fir.FIR_CORE_MAX_TAPS,
+           fir.FIR_CORE_MAX_TAPS + 1]
+
+
+@pytest.mark.parametrize("with_state", [True, False],
+                         ids=["state", "no_state"])
+@pytest.mark.parametrize("k", CORE_KS)
+def test_fir_long_core_equals_first_version(k, with_state, dev):
+    """The long route (the core up to its last count, the first version one
+    past it) against the first version forced, bit for bit: rows of 1, 5,
+    5001 and 40001 samples, rows 1-3 floats off a 16-byte boundary, a
+    carried and a null state, and more items than the card has blocks (64
+    rows of 40001: 640 tiles of the core)."""
+    taps = _unit(k, k + 5).to(dev) / k ** 0.5
+    for (c, n), skip in (((3, 1), 0), ((2, 5), 1), ((4, 5001), 0),
+                         ((3, 5001), 3), ((2, 40001), 2), ((64, 40001), 0)):
+        x = _unit((c * n + skip,), c + n).to(dev)[skip:].view(c, n)
+        st = _unit((c, k - 1), n).to(dev) if with_state else None
+        got = _launches(fir.FIR_KERNEL, fir.fir_kernel, x, taps, st)
+        want = _launches(fir.FIR_FIRST_KERNEL, fir.fir_kernel, x, taps, st,
+                         first=True)
+        assert torch.equal(got, want), (k, c, n, skip)
+    if with_state:  # and against the plain version on a short row
+        x, st = _unit((2, 3001), 7).to(dev), _unit((2, k - 1), 8).to(dev)
+        torch.testing.assert_close(fir.fir_kernel(x, taps, st),
+                                   fir.fir_plain(x, taps, st), atol=ATOL,
+                                   rtol=0)
+
+
+def test_fir_long_routes_by_the_profiler(dev):
+    """K4's device-taps path runs the long core to its last count (at 257
+    and 1000 taps, and at 23 and 256 when a caller hands the taps that way)
+    and the first version past it; ``first=True`` the first version at any
+    count."""
+    x = _unit((4, 9000), 11).to(dev)
+    top = fir.FIR_CORE_MAX_TAPS
+    for k, first, want in ((257, False, "fir_long_core"),
+                           (1000, False, "fir_long_core"),
+                           (top, False, "fir_long_core"),
+                           (top + 1, False, "fir_long_kernel"),
+                           (257, True, "fir_long_kernel"),
+                           (23, True, "fir_long_kernel")):
+        taps = _unit(k, 12).to(dev) / k ** 0.5
+        ran = _kernel_names(fir.fir_kernel, x, taps, None, first,
+                            family="fir_")
+        assert len(ran) == 1 and f"::{want}(" in ran.pop(), (k, first, ran)
+    for k in (23, 256):
+        taps = _unit(k, 13).to(dev)
+        st = torch.zeros(4, k - 1, device=dev)
+        ran = _kernel_names(_fir_long, x, taps, st, family="fir_")
+        assert len(ran) == 1 and "::fir_long_core(" in ran.pop(), (k, ran)
+
+
+def test_fir_long_core_holds_its_inputs_at_the_limit(dev):
+    """At its last count the core's shared memory is nearly all a block
+    may have; a carried history of 15,008 samples across ragged pushes
+    still equals one shot bit for bit."""
+    k = fir.FIR_CORE_MAX_TAPS
+    taps, x = _unit(k, 14).to(dev) / k ** 0.5, _unit((3, 30000), 15).to(dev)
+    one, _ = fir.fir_filter(x, taps)
+    state, outs = None, []
+    for a, b in ((0, 7), (7, 13000), (13000, 13001), (13001, 30000)):
+        y, state = fir.fir_filter(x[:, a:b], taps, state)
+        outs.append(y)
+    assert torch.equal(torch.cat(outs, -1), one)
 
 
 def _device_ops(fn, *args):
@@ -3626,7 +3696,8 @@ def test_nccl_world_of_one_collectives_and_stats(dev, nccl_mesh):
 
 #: every C entry of the kernel library (``cuda.SIGNATURES`` but the count)
 LAUNCH_ENTRIES = ["modem_chain", "modem_tx", "modem_rx_hard", "modem_rx_soft",
-                  "modem_fir", "modem_demod", "modem_fsk_chain",
+                  "modem_fir", "modem_fir_long_first", "modem_demod",
+                  "modem_fsk_chain",
                   "modem_fsk_tone_table", "modem_msk_chain", "modem_fsk_tx",
                   "modem_disc_means", "modem_msk_tx", "modem_resampled_tx",
                   "modem_resampled_rx", "modem_viterbi",

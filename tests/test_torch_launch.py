@@ -179,6 +179,49 @@ def test_fir_kernel_hands_modem_fir_its_arguments(monkeypatch, form,
     assert torch.equal(y, x.float() + 1)
 
 
+class _FirFirst(_Fir):
+    """Stands in for ``FIR_FIRST_KERNEL`` (``modem_fir_long_first``: no
+    host taps)."""
+
+    def launch(self, device, x, state, c, n, taps_dev, k, y):
+        super().launch(device, x, state, c, n, "none", taps_dev, k, y)
+
+
+@pytest.mark.parametrize("with_state", [False, True],
+                         ids=["no_state", "state"])
+@pytest.mark.parametrize("k", [13, 300, fir.FIR_CORE_MAX_TAPS + 1])
+def test_fir_kernel_first_hands_modem_fir_long_first_its_arguments(
+        monkeypatch, with_state, k):
+    """``first=True`` launches the first version of the long route at any
+    tap count, with ``modem_fir``'s arguments but the host taps, and never
+    ``modem_fir``; a state of another length goes over ``state ++ x``
+    there too."""
+    monkeypatch.setattr(fir, "check_cuda", lambda *a: None)
+    stub, first = _Fir(), _FirFirst()
+    monkeypatch.setattr(fir, "FIR_KERNEL", stub)
+    monkeypatch.setattr(fir, "FIR_FIRST_KERNEL", first)
+    x = _forms(k)["strided"]
+    taps = torch.as_tensor(np.hanning(k).astype(np.float32))
+    state = (torch.as_tensor(np.random.default_rng(k).normal(
+        size=(2, 3, k - 1)).astype(np.float32)) if with_state else None)
+    y = fir.fir_kernel(x, taps, state, first=True)
+    (seen,) = first.seen
+    assert not stub.seen
+    assert (seen["c"], seen["n"], seen["k"], seen["host"]) == (6, 40, k,
+                                                               "none")
+    np.testing.assert_array_equal(seen["x"], x.reshape(6, 40).numpy())
+    assert seen["taps_dev"] == taps.data_ptr()
+    if with_state:
+        np.testing.assert_array_equal(seen["state"],
+                                      state.reshape(6, k - 1).numpy())
+    else:
+        assert seen["state"] is None
+    assert torch.equal(y, x + 1)
+    short = fir.fir_kernel(x, taps, torch.zeros(2, 3, 5), first=True)
+    assert (first.seen[-1]["n"], first.seen[-1]["state"]) == (45, None)
+    assert short.shape[-1] == max(0, 46 - k) and not stub.seen
+
+
 def test_fir_kernel_refuses_a_state_of_the_wrong_length(monkeypatch):
     """A state whose rows are not x's is refused; one of another length
     than K-1 samples (as the JAX ``fir_filter`` takes it) is one launch over
