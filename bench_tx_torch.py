@@ -31,6 +31,18 @@ source need not share), then at the flagship's block
   ``StreamingFusedTx`` over one block in 5 pushes and its flush, and of
   ``reference_link().tx_fused`` at 384 frames.
 
+K1's and K3's long route (``LONG_K13``: sps 8 span 32, sps 20 span 16,
+sps 96 span 1 and the reference CLI's sps 45 span 8, on the long core
+where the tree has it) at 256 x 1024 and 256 x 4096 symbols: K1, K3 hard
+and K3 soft (on ``chip_smoke.py``'s symbols, K3 on their waveform with
+noise; at 4096 symbols also K3 at passband, on bf16 rails and both,
+``LONG_K13_MODES``), the profiler's device time of the kernel named ``pulse_chain_``
+or ``pulse_rx_`` (either route), and in a tree whose wrappers take
+``first``, the first version forced (``*_first_device_ms``; its outputs
+must equal the core's); ``roundtrip_fused`` and ``rx_fused`` of those
+chains, CUDA-event time (10 calls a rep) and busy time split into the
+kernel's and the rest's.
+
 Every output is hashed (``*_sha``), also at odd shapes (sps 2, 4 and 16; K
 = 1, 31 and 257; rows off a 16-byte boundary; at 1/5 of the rate and at
 1999 Hz with a far ``sym_offset``): the run fails unless every
@@ -45,7 +57,9 @@ shares). Needs a CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import hashlib
+import inspect
 import os
 import pathlib
 import re
@@ -59,6 +73,11 @@ from bench_turbo_torch import alternate, busy_ms, event_ms, smoke
 CHANNELS, SYMBOLS = 256, 4096
 #: the long route's shapes: (sps, span)
 LONG = ((8, 32), (65, 2))
+#: K1's and K3's long route: (sps, span), and the sizes (symbols a row)
+LONG_K13 = ((8, 32), (20, 16), (96, 1), (45, 8))
+LONG_K13_SIZES = (1024, 4096)
+#: K3's modes beside baseband f32 on the long route, at 256 x 4096
+LONG_K13_MODES = ("passband", "bf16", "passband_bf16")
 #: odd shapes: (sps, span, channels, symbols)
 ODD = ((2, 10, 3, 31), (4, 6, 3, 257), (16, 4, 3, 1), (2, 7, 5, 4),
        (8, 8, 3, 31), (8, 8, 2, 257))
@@ -66,7 +85,7 @@ PUSHES = 5
 LINK_FRAMES = 384
 #: the kernels whose SASS is counted, and those held to the same code
 SASS = ("pulse_tx_core", "pulse_tx_kernel", "pulse_rx_kernel",
-        "pulse_chain_kernel")
+        "pulse_chain_kernel", "pulse_rx_long_core", "pulse_chain_long_core")
 SASS_SAME = ("pulse_rx_kernel", "pulse_chain_kernel")
 #: the opcodes counted in each K2 instantiation
 OPCODES = ("FFMA", "FMUL", "FADD", "STG", "STS", "LDS", "LDG", "LDC", "BAR",
@@ -121,6 +140,30 @@ def sass_counts(so: pathlib.Path) -> dict:
         out[f"sass_{name}_code"] = hashlib.sha256(
             "\n".join(body.get(name, [])).encode()).hexdigest()[:16]
     out["sass_tx"] = tx
+    return out
+
+
+def k3_mode_cases(torch, txrx, chain, syms, g) -> list:
+    """K3 hard and soft cases (tag, fn, args, profiler family) in
+    LONG_K13_MODES on ``chain``'s noisy waveform of ``syms``: passband at a
+    fifth of a sample rate of 1000 Hz a sample a symbol, bf16 rails, or
+    both."""
+    sps, span, k = chain.sps, chain.span, syms.shape[-1]
+    sr = 1000 * sps
+    out = []
+    for mode in LONG_K13_MODES:
+        carrier = (sr // 5, sr) if mode.startswith("passband") else None
+        wave = txrx.tx_plain(syms, chain.lut, chain.rrc, sps, span, None,
+                             carrier)
+        dtype = torch.bfloat16 if mode.endswith("bf16") else torch.float32
+        rails = tuple((w + 0.3 * torch.randn(w.shape, generator=g,
+                                             device=w.device)).to(dtype)
+                      for w in ((wave,) if carrier else wave))
+        for soft in (False, True):
+            out.append((f"k3{'soft' if soft else ''}_{mode}", txrx.rx_kernel,
+                        (rails[0], None if carrier else rails[1], k,
+                         chain.lut, chain.rrc, sps, span, soft, None,
+                         carrier), "pulse_rx_"))
     return out
 
 
@@ -186,6 +229,58 @@ def run_one(tree: pathlib.Path, reps: int) -> dict:
         key = f"long_sps{sps}_span{span}"
         res[f"{key}_sha"] = sha(txrx.tx_kernel(*args))
         res[f"{key}_device_ms"] = dev_ms(txrx.tx_kernel, args)
+
+    from modem_tpu_torch.ops import chain_kernel as ck
+
+    has_first = "first" in inspect.signature(ck.chain_kernel).parameters
+    for sps, span in LONG_K13:
+        lc = PulseShapedChain(QPSK(0.0, 1.0), Rates(1, sps),
+                              span_symbols=span, device=device)
+        for k in LONG_K13_SIZES:
+            key = f"k13_sps{sps}_span{span}_{k}"
+            syms = sm.random_symbols((CHANNELS, k), device, True)
+            wi, wq = txrx.tx_plain(syms.clamp(0), lc.lut, lc.rrc, sps, span)
+            g = torch.Generator(device=device).manual_seed(SEED + sps + k)
+            wi = wi + 0.3 * torch.randn(wi.shape, generator=g, device=device)
+            wq = wq + 0.3 * torch.randn(wq.shape, generator=g, device=device)
+            cases = [("k1", ck.chain_kernel, (syms, lc.lut, lc.rrc, sps, span),
+                      "pulse_chain_"),
+                     ("k3", txrx.rx_kernel, (wi, wq, k, lc.lut, lc.rrc, sps,
+                                             span, False), "pulse_rx_"),
+                     ("k3soft", txrx.rx_kernel, (wi, wq, k, lc.lut, lc.rrc,
+                                                 sps, span, True), "pulse_rx_")]
+            if k == LONG_K13_SIZES[-1]:
+                cases += k3_mode_cases(torch, txrx, lc, syms.clamp(0), g)
+            for tag, fn, args, family in cases:
+                out = sha(fn(*args))
+                res[f"{key}_{tag}_sha"] = out
+                res[f"{key}_{tag}_device_ms"] = [
+                    sm.kernel_device_ms(fn, args, device, family)
+                    for _ in range(reps)]
+                if not has_first:
+                    continue
+                first = functools.partial(fn, first=True)
+                if sha(first(*args)) != out:
+                    raise SystemExit(f"bench_tx_torch: {key} {tag}: the core "
+                                     "and the first version differ")
+                res[f"{key}_{tag}_first_device_ms"] = [
+                    sm.kernel_device_ms(first, args, device, family)
+                    for _ in range(reps)]
+            bits = torch.randint(0, 2, (CHANNELS, 2 * k), generator=g,
+                                 device=device, dtype=torch.int32)
+            wave = lc.tx_fused(bits)
+            for tag, fn, fargs, family in (
+                    ("roundtrip_fused", lc.roundtrip_fused, (bits,),
+                     "pulse_chain_"),
+                    ("rx_fused", lc.rx_fused, (wave, k), "pulse_rx_")):
+                out = fn(*fargs)
+                if not torch.equal(out, bits):
+                    raise SystemExit(f"bench_tx_torch: {key} {tag}: bits "
+                                     "differ")
+                res[f"{key}_{tag}_sha"] = sha(out)
+                res[f"{key}_{tag}_ms"] = event_ms(fn, fargs, 10, reps)
+                res[f"{key}_{tag}_kernel_ms"], res[f"{key}_{tag}_other_ms"] = \
+                    busy_ms(fn, fargs, family)
 
     for sps, span, c, k in ODD:
         lc = PulseShapedChain(QPSK(0.0, 1.0), Rates(1, sps),

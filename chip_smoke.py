@@ -695,9 +695,17 @@ TX_ODD = ((8, 8, 1), (8, 8, 31), (8, 8, 257), (2, 10, 31), (2, 10, 1),
 #: phase 36's sym_offset on a carrier of more phases than the table holds
 TX_FAR_OFFSET = 987654321
 #: K1's and K3's long route: (Rates, span) past 256 taps or 64 samples a
-#: symbol (sps 8 span 32, sps 20 span 16, sps 96 span 1), 256 x 1024 symbols
-LONG_ROUTE = ((1250, 10000, 32), (500, 10000, 16), (100, 9600, 1))
+#: symbol (sps 8 span 32, sps 20 span 16, sps 96 span 1, and the reference
+#: CLI's rates, 220 baud at 10 kHz: sps 45, span 8), on the long core, at
+#: 256 x LONG_SYMBOLS and at the flagship's 256 x 4096 symbols
+LONG_ROUTE = ((1250, 10000, 32), (500, 10000, 16), (100, 9600, 1),
+              (220, 10000, 8))
 LONG_SYMBOLS = 1024
+LONG_SIZES = (LONG_SYMBOLS, 4096)
+#: a chain past the core's shared memory (sps 256, span 1), which the
+#: host's rule sends to the first version: entries of its own at 256 x
+#: LONG_SYMBOLS
+LONG_FIRST_ROUTE = (100, 25600, 1)
 FEC_LINK_FRAMES = 256
 FEC_LINK_SNR_DB = (1.0, 3.0, 5.0)  # turbo, polar SCL-8, polar SC
 TURBO_NAME, SC_NAME, SCL_NAME = "bcjr_half_iteration", "polar_sc", "polar_scl8"
@@ -907,8 +915,10 @@ def reset_launches() -> None:
                                      resampled_kernel as rk, sc_kernel,
                                      scl_kernel, txrx, viterbi_kernel as vk)
 
-    for k in (chain_kernel.CHAIN_KERNEL, txrx.TX_KERNEL, txrx.RX_HARD_KERNEL,
-              txrx.RX_SOFT_KERNEL, fir.FIR_KERNEL, fir.FIR_FIRST_KERNEL,
+    for k in (chain_kernel.CHAIN_KERNEL, chain_kernel.CHAIN_FIRST_KERNEL,
+              txrx.TX_KERNEL, txrx.RX_HARD_KERNEL, txrx.RX_SOFT_KERNEL,
+              txrx.RX_HARD_FIRST_KERNEL, txrx.RX_SOFT_FIRST_KERNEL,
+              fir.FIR_KERNEL, fir.FIR_FIRST_KERNEL,
               demod_kernel.DEMOD_KERNEL,
               fk.FSK_CHAIN_KERNEL, fk.FSK_TONE_KERNEL, fk.FSK_TX_KERNEL,
               fk.DISC_MEANS_KERNEL, fk.MSK_TX_KERNEL, fk.MSK_CHAIN_KERNEL,
@@ -1056,12 +1066,13 @@ def time_calls(fn, args, device, calls=20, reps=5) -> float:
 
 def kernel_device_ms(fn, args, device, symbol: str, calls=20):
     """Device time per launch of the CUDA kernel whose name, spaces dropped,
-    contains ``symbol``, from ``torch.profiler``; None if three profiles
+    contains ``symbol``, from ``torch.profiler``; None if five profiles
     hold none (profiled again only where one lost every record of it, as
-    a profile now and then does)."""
+    a profile now and then does; each begins on an idle device)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(5):
+        torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn(*args)
@@ -1823,13 +1834,15 @@ def route_check(what: str, fn, args, device, family: str, want: str,
                 other: str, calls: int = 20) -> None:
     """Fails unless ``calls`` calls of ``fn`` run a kernel named ``want``
     and none named ``other``, among the kernels whose names hold
-    ``family``, as the profiler sees them (profiled again, up to three
+    ``family``, as the profiler sees them (profiled again, up to five
     times, only where a profile lost every record: a profile of one short
-    call can end before its record arrives)."""
+    call can end before its record arrives; each begins on an idle
+    device)."""
     from torch.profiler import ProfilerActivity, profile
 
     ran = set()
-    for _ in range(3):
+    for _ in range(5):
+        torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn(*args)
@@ -4018,127 +4031,290 @@ def phase_fec_times(device, card: str) -> dict:
     return times
 
 
-def long_route_names(sps: int, span: int) -> dict:
-    """Report names of K1, K2, K3 hard and K3 soft on a long-route chain."""
-    tag = f"sps{sps}_span{span}"
-    return {"fused_pulse_chain": f"fused_pulse_chain_{tag}",
-            "fused_tx": f"fused_tx_{tag}",
-            "fused_rx": f"fused_rx_{tag}",
-            "fused_rx_soft": f"fused_rx_soft_{tag}"}
-
-
-#: the profiler's names of the long route's kernels where they differ from
-#: the short route's (DEVICE_NAMES)
-LONG_DEVICE_NAMES = {"fused_tx": "pulse_tx_kernel"}
-
-
-def long_route_entries() -> list:
-    """(name, source, replaced TPU kernel) of each long-route entry."""
-    out = []
-    for baud, sr, span in LONG_ROUTE:
-        names = long_route_names(sr // baud, span)
-        out += [(names["fused_pulse_chain"], "modem_tpu_torch/csrc/chain.cu",
-                 "modem_tpu/ops/pallas_chain.py:195"),
-                (names["fused_tx"], "modem_tpu_torch/csrc/txrx.cu",
-                 "modem_tpu/ops/pallas_txrx.py:61"),
-                (names["fused_rx"], "modem_tpu_torch/csrc/txrx.cu",
-                 "modem_tpu/ops/pallas_txrx.py:277"),
-                (names["fused_rx_soft"], "modem_tpu_torch/csrc/txrx.cu",
-                 "modem_tpu/ops/pallas_txrx.py:277")]
+def long_route_names(sps: int, span: int, k: int = LONG_SYMBOLS) -> dict:
+    """Report names of K1, K2, K3 hard and K3 soft on a long-route chain at
+    256 x ``k`` symbols (K2 at LONG_SYMBOLS alone)."""
+    tag = f"sps{sps}_span{span}{'' if k == LONG_SYMBOLS else f'_{k}'}"
+    out = {"fused_pulse_chain": f"fused_pulse_chain_{tag}",
+           "fused_rx": f"fused_rx_{tag}",
+           "fused_rx_soft": f"fused_rx_soft_{tag}"}
+    if k == LONG_SYMBOLS:
+        out["fused_tx"] = f"fused_tx_{tag}"
     return out
 
 
-def phase_long_route(device, card: str) -> tuple[dict, dict, dict]:
+def long_route_shapes() -> list:
+    """((baud, sample rate, span), sizes) of each chain phase 34 drives:
+    LONG_ROUTE's on the core at both sizes, LONG_FIRST_ROUTE's on the
+    first version at LONG_SYMBOLS."""
+    return ([(r, LONG_SIZES) for r in LONG_ROUTE]
+            + [(LONG_FIRST_ROUTE, (LONG_SYMBOLS,))])
+
+
+#: the profiler's names of the long route's kernels where they differ from
+#: the short route's (DEVICE_NAMES): K1's and K3's long core; K2's is the
+#: first version's template's
+LONG_DEVICE_NAMES = {"fused_pulse_chain": "pulse_chain_long_core",
+                     "fused_tx": "pulse_tx_kernel",
+                     "fused_rx": "pulse_rx_long_core<false,",
+                     "fused_rx_soft": "pulse_rx_long_core<true,"}
+#: the names of K1's and K3's first versions in a profile (the short
+#: route's template, DEVICE_NAMES), and K2's long route
+LONG_FIRST_NAMES = {**{n: DEVICE_NAMES[n]
+                       for n in ("fused_pulse_chain", "fused_rx",
+                                 "fused_rx_soft")},
+                    "fused_tx": LONG_DEVICE_NAMES["fused_tx"]}
+LONG_SOURCES = {"fused_pulse_chain": ("modem_tpu_torch/csrc/chain.cu",
+                                      "modem_tpu/ops/pallas_chain.py:195"),
+                "fused_tx": ("modem_tpu_torch/csrc/txrx.cu",
+                             "modem_tpu/ops/pallas_txrx.py:61"),
+                "fused_rx": ("modem_tpu_torch/csrc/txrx.cu",
+                             "modem_tpu/ops/pallas_txrx.py:277"),
+                "fused_rx_soft": ("modem_tpu_torch/csrc/txrx.cu",
+                                  "modem_tpu/ops/pallas_txrx.py:277")}
+#: K3's modes beside baseband f32 that phase 34 times on the core and on
+#: the first version at 256 x 4096: the reference CLI's carrier (1000 Hz)
+#: on the real waveform, bf16 rails, and both
+LONG_RX_MODES = ("passband", "bf16", "passband_bf16")
+LONG_CARRIER_HZ = 1000
+
+
+def long_route_entries() -> list:
+    """(name, source, replaced TPU kernel) of each long-route entry: each
+    chain of :func:`long_route_shapes` at each of its sizes."""
+    out = []
+    for (baud, sr, span), sizes in long_route_shapes():
+        for k in sizes:
+            out += [(n, *LONG_SOURCES[kind]) for kind, n in
+                    long_route_names(sr // baud, span, k).items()]
+    return out
+
+
+def equal_outputs(a, b) -> bool:
+    """Whether two kernel outputs (a tensor, or a tuple of them) are equal
+    bit for bit."""
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def long_rx_mode_args(chain, syms, soft: bool, mode: str) -> tuple:
+    """``rx_kernel``'s arguments for K3 in ``mode`` on ``chain``'s waveform
+    of ``syms``, for ``soft`` with noise (sigma 0.3) as kernel_cases's:
+    passband, the real waveform at LONG_CARRIER_HZ; bf16, the rails
+    rounded to bf16."""
+    from modem_tpu_torch.ops import txrx
+
+    carrier = ((LONG_CARRIER_HZ, chain.rates.sample_rate)
+               if mode.startswith("passband") else None)
+    k = syms.shape[-1]
+    wave = txrx.tx_plain(syms, chain.lut, chain.rrc, chain.sps, chain.span,
+                         None, carrier)
+    g = torch.Generator(device=syms.device).manual_seed(SEED + 2)
+    rails = tuple(w + 0.3 * soft * torch.randn(w.shape, generator=g,
+                                               device=w.device)
+                  for w in ((wave,) if carrier else wave))
+    if mode.endswith("bf16"):
+        rails = tuple(w.to(torch.bfloat16) for w in rails)
+    wq = None if carrier else rails[1]
+    return (rails[0], wq, k, chain.lut, chain.rrc, chain.sps, chain.span,
+            soft, None, carrier)
+
+
+def phase_long_route(device, card: str) -> tuple[dict, dict, dict, dict]:
     """Phase 34: the long route of K1, K2 and K3 (taps from a device array
-    in shared memory), for chains past 256 taps or 64 samples a symbol
-    (LONG_ROUTE) at 256 x 1024 symbols: ``roundtrip_fused``,
-    ``rx_fused(tx_fused)`` and ``rx_soft_fused`` give the bits back, with
-    every launch count set to 0 just before and read just after; then K1
-    and K3 hard bit for bit and K2 and K3 soft within ATOL against their
-    plain versions, and their times beside the plain versions', the
-    profiler's device time (of the long route's kernel), the bound and,
-    for K3 soft and K2, the ``conv1d`` and ``conv_transpose1d``
-    yardsticks. Returns (errors, launches, times)."""
+    in shared memory), for chains past 256 taps or 64 samples a symbol:
+    LONG_ROUTE's on K1's and K3's long core at 256 x 1024 and 256 x 4096
+    symbols, LONG_FIRST_ROUTE's (past the core's shared memory) on their
+    first version by the host's rule at 256 x 1024. For each:
+    ``roundtrip_fused``, ``rx_fused(tx_fused)`` and ``rx_soft_fused`` give
+    the bits back, with every launch count set to 0 just before and read
+    just after (the other route's counts 0); K1 and K3 hard bit for bit and
+    K2 and K3 soft within ATOL against their plain versions, and the times
+    beside the plain versions', the profiler's device time of the kernel
+    the route runs, the bound and, for K3 soft and K2, the ``conv1d`` and
+    ``conv_transpose1d`` yardsticks. On the core's chains the first version
+    is forced on the same inputs (K1, K3 hard and soft bit for bit with the
+    core) and timed, a comparison on the core's entry; at 256 x 4096 so is
+    K3 in LONG_RX_MODES. Returns (errors, launches, times, the entries'
+    comparisons)."""
+    import functools
+
     from modem_tpu_torch import Rates
     from modem_tpu_torch.chain import PulseShapedChain
     from modem_tpu_torch.models.psk import QPSK
     from modem_tpu_torch.ops import chain_kernel as ck, txrx
     from modem_tpu_torch.ops.llr import llr_hard_bits
 
-    errs, launches, times = {}, {}, {}
-    for baud, sr, span in LONG_ROUTE:
-        chain = PulseShapedChain(QPSK(0.0, 1.0), Rates(baud, sr),
-                                 span_symbols=span, device=device)
-        sps, k = chain.sps, LONG_SYMBOLS
-        names = long_route_names(sps, span)
-        if txrx.kernel_taps(chain.rrc, sps)[0] is not None:
-            fail(f"sps {sps}, span {span} did not take the long route")
-        g = torch.Generator(device=device).manual_seed(SEED + 80 + sps)
+    errs, launches, times, extras = {}, {}, {}, {}
+    first_kernels = {"fused_pulse_chain": ck.CHAIN_FIRST_KERNEL,
+                     "fused_rx": txrx.RX_HARD_FIRST_KERNEL,
+                     "fused_rx_soft": txrx.RX_SOFT_FIRST_KERNEL}
+    core_kernels = {"fused_pulse_chain": ck.CHAIN_KERNEL,
+                    "fused_tx": txrx.TX_KERNEL,
+                    "fused_rx": txrx.RX_HARD_KERNEL,
+                    "fused_rx_soft": txrx.RX_SOFT_KERNEL}
+
+    def main_path(chain, k, label, first):
+        """The three fused forms at 256 x k; their launches by kind."""
+        g = torch.Generator(device=device).manual_seed(SEED + 80 + chain.sps)
         bits = torch.randint(0, 2, (CHANNELS, 2 * k), generator=g,
                              device=device, dtype=torch.int32)
-        label = f"sps {sps}, span {span} ({chain.rrc.shape[0]} taps)"
+        ran = {**core_kernels, **first_kernels} if first else core_kernels
+        idle = [kn for n, kn in (core_kernels if first else
+                                 first_kernels).items() if n != "fused_tx"]
+        counts = {}
         reset_launches()
         ok = torch.equal(chain.roundtrip_fused(bits), bits)
-        launches.update(read_launches(
-            {names["fused_pulse_chain"]: ck.CHAIN_KERNEL},
+        counts.update(read_launches(
+            {"fused_pulse_chain": ran["fused_pulse_chain"]},
             f"{label} loopback", "long route"))
+        idle_runs = sum(kn.launches for kn in idle)
         reset_launches()
         wave = chain.tx_fused(bits)
         ok &= torch.equal(chain.rx_fused(wave, k), bits)
         ok &= torch.equal(llr_hard_bits(chain.rx_soft_fused(
             wave, k, noise_var=0.5)), bits)
-        launches.update(read_launches(
-            {names["fused_tx"]: txrx.TX_KERNEL,
-             names["fused_rx"]: txrx.RX_HARD_KERNEL,
-             names["fused_rx_soft"]: txrx.RX_SOFT_KERNEL},
+        counts.update(read_launches(
+            {n: ran[n] for n in ("fused_tx", "fused_rx", "fused_rx_soft")},
             f"{label} tx_fused -> rx_fused, rx_soft_fused", "long route"))
+        if idle_runs + sum(kn.launches for kn in idle):
+            fail(f"long route {label}: the other route's kernels launched")
         print(f"[long route] {label}: the bits back through every fused form"
-              f": {ok}", flush=True)
+              f" ({'first version' if first else 'core'}): {ok}", flush=True)
         if not ok:
             fail(f"long route {label}: bits differ")
-        syms = random_symbols((CHANNELS, k), device, sentinels=True)
-        for name, _, kern, plain, make_args, exact, _, _ in kernel_cases(
-                chain):
-            if name not in names:
-                continue
-            args = make_args(syms if name != "fused_rx" else syms.clamp(0))
-            got, want = kern(*args), plain(*args)
-            torch.cuda.synchronize()
-            if name == "fused_pulse_chain":  # -1: no symbol, no decision
-                real = syms >= 0
-                got, want = got[real], want[real]
+        return counts
+
+    def first_beside(name, entry, kern, args, dev_ms, work):
+        """The first version forced on the core's inputs: its outputs equal
+        the core's bit for bit; its times, the core's entry's comparison."""
+        fv = functools.partial(kern, first=True)
+        before = first_kernels[name].launches
+        out = fv(*args)
+        torch.cuda.synchronize()
+        if first_kernels[name].launches != before + 1:
+            fail(f"long route {entry}: the forced first version did not "
+                 "launch")
+        same = equal_outputs(out, kern(*args))
+        print(f"[long route] {entry}: the forced first version's outputs "
+              f"equal the core's bit for bit: {same}", flush=True)
+        if not same:
+            fail(f"long route {entry}: core and first version differ")
+        f_ms = (time_calls(fv, args, device) + time_calls(fv, args, device)) / 2
+        f_dev = kernel_device_ms(fv, args, device, LONG_FIRST_NAMES[name])
+        if f_dev is None:
+            fail(f"long route {entry}: the profile holds no launch of the "
+                 "first version")
+        bound_ms = bound(*work)[0]
+        print(f"[times] {entry} forced first version: per call {f_ms:.4f} ms, "
+              f"in the profiler {f_dev:.4f} ms ({bound_ms / f_dev:.3f} of "
+              f"the bound), the core {dev_ms:.4f} ms: the first version at "
+              f"{f_dev / dev_ms:.2f}x the core's device time; on {card}",
+              flush=True)
+        return {"ms": f_ms, "device_ms": f_dev, "share": bound_ms / f_dev,
+                "launches": 1}
+
+    def modes_beside(chain, name, entry, syms, k):
+        """K3 in LONG_RX_MODES on the core and on the forced first version:
+        bit for bit with each other and against the plain version (hard
+        exact, soft within ATOL); their device times."""
+        soft = name == "fused_rx_soft"
+        out = {}
+        for mode in LONG_RX_MODES:
+            args = long_rx_mode_args(chain, syms, soft, mode)
+            got, want = txrx.rx_kernel(*args), txrx.rx_plain(*args)
+            fv = functools.partial(txrx.rx_kernel, first=True)
+            same = equal_outputs(fv(*args), got)
             err = max_err(got, want)
-            print(f"[long route] {names[name]} vs plain at {CHANNELS} x {k}:"
-                  f" max |kernel - plain| = {err:.3e}"
-                  f"{' (exact)' if exact else ''}", flush=True)
-            if (exact and err != 0) or err > ATOL:
-                fail(f"long route {names[name]}: kernel and plain differ")
-            errs[names[name]] = err
-            ms, plain_ms, dev_ms = kernel_times(
-                kern, plain, args, device,
-                LONG_DEVICE_NAMES.get(name, DEVICE_NAMES[name]),
-                plain_calls=2)
-            if dev_ms is None and name in LONG_DEVICE_NAMES:
-                fail(f"long route {names[name]}: the profile holds no "
-                     "launch of the long route's kernel")
-            lib_ms, lib_txt = None, "no library call"
-            if name in ("fused_rx_soft", "fused_tx"):
-                soft = name == "fused_rx_soft"
-                what, lib = (("conv1d", "K3 soft") if soft else
-                             ("conv_transpose1d (shaping only)", "K2"))
-                fn, fargs, lib_err = (rx_conv1d_yardstick if soft else
-                                      tx_conv_yardstick)(args)
-                if lib_err > 1e-4:
-                    fail(f"long route {names[name]}: {what} yardstick "
-                         f"disagrees with {lib} ({lib_err})")
-                lib_ms = time_calls(fn, fargs, device)
-                lib_txt = (f"{what} {lib_ms:.4f} ms (max |err| vs {lib} "
-                           f"{lib_err:.2e})")
-            times[names[name]] = (ms, plain_ms, dev_ms, lib_ms,
-                                  chain_work(chain, name, CHANNELS, k))
-            print_times(names[name], CHANNELS * k * sps, times[names[name]],
-                        card, lib_txt)
-    return errs, launches, times
+            print(f"[long route] {entry} {mode}: core vs plain max |err| "
+                  f"{err:.3e}; the forced first version's outputs equal the "
+                  f"core's bit for bit: {same}", flush=True)
+            if not same or (not soft and err != 0) or err > ATOL:
+                fail(f"long route {entry} {mode}: core, first version and "
+                     "plain differ")
+            c_dev = kernel_device_ms(txrx.rx_kernel, args, device,
+                                     LONG_DEVICE_NAMES[name])
+            f_dev = kernel_device_ms(fv, args, device, LONG_FIRST_NAMES[name])
+            if c_dev is None or f_dev is None:
+                fail(f"long route {entry} {mode}: a profile holds no launch")
+            out[mode] = {"device_ms": c_dev, "first_device_ms": f_dev,
+                         "max_abs_err": err}
+            print(f"[times] {entry} {mode}: core {c_dev:.4f} ms, forced "
+                  f"first version {f_dev:.4f} ms in the profiler "
+                  f"({f_dev / c_dev:.2f}x); {CHANNELS} x {k} on {card}",
+                  flush=True)
+        return out
+
+    for (baud, sr, span), sizes in long_route_shapes():
+        chain = PulseShapedChain(QPSK(0.0, 1.0), Rates(baud, sr),
+                                 span_symbols=span, device=device)
+        sps = chain.sps
+        first = (baud, sr, span) == LONG_FIRST_ROUTE
+        if txrx.kernel_taps(chain.rrc, sps)[0] is not None:
+            fail(f"sps {sps}, span {span} did not take the long route")
+        if txrx.pulse_long_route(sps, span) != ("first" if first else "core"):
+            fail(f"sps {sps}, span {span}: the host's rule chose "
+                 f"{txrx.pulse_long_route(sps, span)}")
+        dev_names = LONG_FIRST_NAMES if first else LONG_DEVICE_NAMES
+        for k in sizes:
+            names = long_route_names(sps, span, k)
+            label = (f"sps {sps}, span {span} ({chain.rrc.shape[0]} taps), "
+                     f"{CHANNELS} x {k}")
+            counts = main_path(chain, k, label, first)
+            launches.update({names[n]: c for n, c in counts.items()
+                             if n in names})
+            syms = random_symbols((CHANNELS, k), device, sentinels=True)
+            for name, _, kern, plain, make_args, exact, _, _ in kernel_cases(
+                    chain):
+                if name not in names:
+                    continue
+                entry = names[name]
+                args = make_args(syms if name != "fused_rx"
+                                 else syms.clamp(0))
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                real = syms >= 0
+                if name == "fused_pulse_chain":  # -1: no decision
+                    got, want = got[real], want[real]
+                err = max_err(got, want)
+                print(f"[long route] {entry} vs plain at {CHANNELS} x "
+                      f"{k}: max |kernel - plain| = {err:.3e}"
+                      f"{' (exact)' if exact else ''}", flush=True)
+                if (exact and err != 0) or err > ATOL:
+                    fail(f"long route {entry}: kernel and plain differ")
+                errs[entry] = err
+                ms, plain_ms, dev_ms = kernel_times(
+                    kern, plain, args, device, dev_names[name],
+                    plain_calls=2)
+                if dev_ms is None:
+                    fail(f"long route {entry}: the profile holds no launch "
+                         "of the route's kernel")
+                lib_ms, lib_txt = None, "no library call"
+                if name in ("fused_rx_soft", "fused_tx"):
+                    soft = name == "fused_rx_soft"
+                    what, lib = (("conv1d", "K3 soft") if soft else
+                                 ("conv_transpose1d (shaping only)", "K2"))
+                    fn, fargs, lib_err = (rx_conv1d_yardstick if soft else
+                                          tx_conv_yardstick)(args)
+                    if lib_err > 1e-4:
+                        fail(f"long route {entry}: {what} yardstick "
+                             f"disagrees with {lib} ({lib_err})")
+                    lib_ms = time_calls(fn, fargs, device)
+                    lib_txt = (f"{what} {lib_ms:.4f} ms (max |err| vs {lib} "
+                               f"{lib_err:.2e})")
+                work = chain_work(chain, name, CHANNELS, k)
+                times[entry] = (ms, plain_ms, dev_ms, lib_ms, work)
+                print_times(entry, CHANNELS * k * sps, times[entry], card,
+                            f"{lib_txt}; route "
+                            f"{'first version' if first else 'core'}")
+                if first or name not in first_kernels:
+                    continue
+                extras[entry] = {"first_version": first_beside(
+                    name, entry, kern, args, dev_ms, work)}
+                if name != "fused_pulse_chain" and k == LONG_SIZES[-1]:
+                    extras[entry]["modes"] = modes_beside(
+                        chain, name, entry, syms.clamp(0), k)
+    return errs, launches, times, extras
 
 
 def phase_fir_routes(device) -> dict:
@@ -4338,13 +4514,14 @@ def ldpc_llrs(code, n_cw: int, eb_n0_db: float, device, seed: int):
 
 def cuda_launches(fn, args, device) -> int:
     """CUDA kernels (and copies) one call of ``fn`` runs, by the profiler:
-    the most of three profiles of one call each (a profile now and then
-    loses records)."""
+    the most of three profiles of one call each, each begun on an idle
+    device (a profile now and then loses records)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     n = 0
     for _ in range(3):
+        torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn(*args)
             torch.cuda.synchronize(device)
@@ -6891,6 +7068,14 @@ def launch_cases(chain, device, shape) -> dict:
                           (wi, wq, k, lut, rrc, sps, span, False)),
         "modem_rx_soft": ("K3 soft", txrx.rx_kernel,
                           (wi, wq, k, lut, rrc, sps, span, True)),
+        "modem_chain_first": ("K1 first", functools.partial(
+            ck.chain_kernel, first=True), (syms, lut, rrc, sps, span)),
+        "modem_rx_hard_first": ("K3 first", functools.partial(
+            txrx.rx_kernel, first=True),
+                                (wi, wq, k, lut, rrc, sps, span, False)),
+        "modem_rx_soft_first": ("K3s first", functools.partial(
+            txrx.rx_kernel, first=True),
+                                (wi, wq, k, lut, rrc, sps, span, True)),
         "modem_fir": ("K4", fir.fir_kernel, (x, lowpass)),
         "modem_fir_long_first": ("K4 first", functools.partial(
             fir.fir_kernel, first=True), (x, lowpass)),
@@ -7064,7 +7249,8 @@ def main() -> int:
     launches.update(phase_fec_links(device, errs))
     phase_fec_cli(device)
     times.update(phase_fec_times(device, card))
-    long_errs, long_launches, long_times = phase_long_route(device, card)
+    long_errs, long_launches, long_times, long_extras = phase_long_route(
+        device, card)
     errs.update(long_errs)
     launches.update(long_launches)
     times.update(long_times)
@@ -7135,6 +7321,7 @@ def main() -> int:
         if n in SHARDED_ENTRIES:
             report["kernels"][-1]["sharded_launches"] = \
                 sharded[SHARDED_ENTRIES[n]]
+        report["kernels"][-1].update(long_extras.get(n, {}))
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ namespace modem {
 constexpr int kThreads = 256;  // threads per block
 constexpr int kTile = 256;     // symbols per block (time tile)
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use
 constexpr int kNcoTable = 2048;  // carrier phases held in a table, at most
 constexpr int kLane = 128;     // channels per JAX tile (the noise keys)
 constexpr int kMaxTaps = 256;  // taps K1-K5 take (Taps, 1 KB)
@@ -295,6 +296,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
+// 8-byte asynchronous copy (four bf16 samples).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+
 // 4-byte asynchronous copy (an element of a row that is not 16-byte
 // aligned).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -469,6 +477,225 @@ __device__ __forceinline__ void matched_generic(const float* const (&y)[NR],
         }
       }
     }
+  }
+}
+
+// ---- the long core of K1 (chain.cu) and K3 (txrx.cu) ----
+//
+// A chain past the Taps parameter (more than kMaxTaps taps or kMaxSps
+// samples a symbol) has its L = span*sps + 1 taps in a device array. The
+// long core stages them in shared memory once a persistent block, as four
+// copies shifted by 0..3 floats (copy c holds t[i - c] at i, zero outside
+// [0, L)), so that any four consecutive taps t[a .. a+3] lie 16-byte
+// aligned in one copy and the whole warp reads them as one 16-byte
+// broadcast (long_tap4).
+//
+// The matched filter (matched_long) gives a thread kLongR consecutive
+// decisions, L a run-time value: it walks the (R-1)*sps + L samples of
+// their windows once, newest first, in 16-byte loads of each rail, and feeds
+// each group of four samples to every decision whose taps cover it, with one
+// broadcast of four taps a decision. Each output and rail is one fmaf chain
+// with the taps in the order j = 0, 1, ..., L-1 from 0, as the first version
+// and the plain version compute it, so decisions, soft outputs and streams
+// are bit for bit the same. The groups where every decision takes all four
+// taps run without a test; the ramps at either end test each decision, and
+// each tap of a group that a decision's window only partly covers.
+//
+// The waveform lies in shared memory "run-skewed": a thread's run of R*sps
+// samples, then 4 floats of padding (run_pos), so that the 8 threads of a
+// quarter warp, R*sps + 4 floats apart, read their 16-byte pieces from 8
+// different groups of 4 banks at every even sps (the 32-sample skew of the
+// short route conflicts wherever R*sps is an even multiple of 32).
+constexpr int kLongR = 4;  // decisions a thread
+
+// probe_long_core.py's timing probes, built apart with MODEM_LONG_PROBE
+// set (their outputs wrong, their times the question): 1, one broadcast of
+// four taps a group for every decision of a walk, the sample loads and
+// FMAs unchanged; 2, K1's core without its filter; 3, K1's core without its
+// synthesis. The library itself is built with 0.
+#ifndef MODEM_LONG_PROBE
+#define MODEM_LONG_PROBE 0
+#endif
+
+// Memory position of logical sample i of a run-skewed buffer.
+__host__ __device__ __forceinline__ int run_pos(int i, int run) {
+  return i + 4 * (i / run);
+}
+
+// Floats a run-skewed buffer of n logical samples takes (a multiple of 4).
+__host__ __device__ __forceinline__ int run_len(int n, int run) {
+  return ((n + 3) & ~3) + 4 * ((n + run - 1) / run);
+}
+
+// Floats of one shifted copy of L taps: the reads reach index L + 5.
+__host__ __device__ __forceinline__ int long_tap_stride(int L) {
+  return (L + 9) & ~3;
+}
+
+// The four shifted copies of the taps, all threads of the block.
+__device__ inline void stage_long_taps(float* dst,
+                                       const float* __restrict__ taps, int L) {
+  const int st = long_tap_stride(L);
+  for (int i = threadIdx.x; i < 4 * st; i += blockDim.x) {
+    const int c = i / st;
+    const int j = i - c * st - c;
+    dst[i] = j >= 0 && j < L ? taps[j] : 0.f;
+  }
+}
+
+// Offset of taps a .. a+3 (a >= -3) in the staged copies, 16-byte aligned.
+__host__ __device__ __forceinline__ int long_tap4(int a, int st) {
+  const int c = (-a) & 3;
+  return c * st + a + c;
+}
+
+// Walks logical positions p, p + stride, ... of a run-skewed buffer: the
+// memory position of each, with no division after the first.
+struct RunWalk {
+  int pos, rem, d_pos, d_rem, run;
+  __device__ __forceinline__ RunWalk(int p, int stride, int run_) : run(run_) {
+    const int u = p / run;
+    rem = p - u * run;
+    pos = p + 4 * u;
+    const int du = stride / run;
+    d_rem = stride - du * run;
+    d_pos = stride + 4 * du;
+  }
+  __device__ __forceinline__ void next() {
+    pos += d_pos;
+    rem += d_rem;
+    if (rem >= run) {
+      rem -= run;
+      pos += 4;
+    }
+  }
+};
+
+// Samples 4q .. 4q+3 of a run-skewed rail from their 16-byte slot p: f32,
+// one 16-byte load; kBf16, the bits of four bf16 samples in the slot's
+// first 8 bytes, one 8-byte load (exact in f32).
+template <bool kBf16>
+__device__ __forceinline__ void long_load4(const float* p, float (&v)[4]) {
+  if constexpr (kBf16) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(t.x << 16);
+    v[1] = __uint_as_float(t.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(t.y << 16);
+    v[3] = __uint_as_float(t.y & 0xFFFF0000u);
+  } else {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  }
+}
+
+// Decisions RB .. RE - 1 of the thread's R (r0 .. r0 + R - 1, r0 a
+// multiple of R; the buffer's runs are R*sps samples) of the NR rails y[]
+// (run-skewed), from the staged copies taps4 of the L = span*sps + 1 taps:
+//   z[k][r] = sum_{j < L} t[j] * y[k][(r0 + r)*sps + L - 1 - j].
+// Group q is samples 4q .. 4q+3 of the thread's window (from r0*sps, on
+// the 16-byte grid whatever sps is); decision r takes tap J - u of sample
+// 4q + u, J = (span + r)*sps - 4q, where 0 <= J - u < L. The groups where
+// every decision of the range takes all four taps run without a test; the
+// ramps at either end test each decision, and each tap of a group that a
+// decision's window only partly covers. (Loading each group's samples and
+// taps while the one before is filtered, a register double buffer, was
+// slower on the H100: nvcc already overlaps the unrolled loop's loads.)
+// kBf16: the rails hold bf16 as long_load4 reads them. acc[][] start at 0.
+template <int R, int RB, int RE, bool kBf16, int NR>
+__device__ __forceinline__ void long_walk(const float* const (&y)[NR], int r0,
+                                          int sps, int span,
+                                          const float* taps4,
+                                          float (&acc)[NR][R]) {
+  static_assert(R % 4 == 0, "runs of whole 16-byte pieces");
+  static_assert(0 <= RB && RB < RE && RE <= R, "a range of the decisions");
+  const int L = span * sps + 1;
+  const int st = long_tap_stride(L);
+  const int qr = (R / 4) * sps;  // groups a run
+  const int e0 = span * sps;     // J of decision 0 at q = 0
+  int tb[R];                     // decision r's taps at q: tb[r] - 4q
+#pragma unroll
+  for (int r = RB; r < RE; ++r) tb[r] = long_tap4(e0 + r * sps - 3, st);
+  int q = (e0 + (RE - 1) * sps) >> 2;  // the newest group
+  const int q_bot = (RB * sps) >> 2;   // the oldest
+  int cnt = q % qr;                    // q's group in its run
+  int addr = r0 * sps + 4 * (r0 / R) + 4 * q + 4 * (q / qr);
+  // every decision of the range takes all four taps of groups f_lo .. f_hi
+  const int f_lo = ((RE - 1) * sps + 3) >> 2;
+  const int f_hi_all = (e0 + RB * sps - 3) >> 2;
+  const int f_hi = f_hi_all >= f_lo ? f_hi_all : f_lo - 1;
+
+  auto group = [&](auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    float e[NR][4];
+#pragma unroll
+    for (int k = 0; k < NR; ++k) long_load4<kBf16>(y[k] + addr, e[k]);
+    const float* tq = taps4 - 4 * q;
+#if MODEM_LONG_PROBE == 1
+    const float4 t1 = *reinterpret_cast<const float4*>(tq + tb[RB]);
+#endif
+#pragma unroll
+    for (int r = RB; r < RE; ++r) {
+      const int J = e0 + r * sps - 4 * q;
+      if (kEdge && (J < 0 || J > L + 2)) continue;
+#if MODEM_LONG_PROBE == 1
+      const float4 t = t1;
+#else
+      const float4 t = *reinterpret_cast<const float4*>(tq + tb[r]);
+#endif
+      const float tv[4] = {t.x, t.y, t.z, t.w};
+      if (!kEdge || (J >= 3 && J < L)) {
+#pragma unroll
+        for (int u = 3; u >= 0; --u) {
+#pragma unroll
+          for (int k = 0; k < NR; ++k)
+            acc[k][r] = fmaf(tv[3 - u], e[k][u], acc[k][r]);
+        }
+      } else {
+#pragma unroll
+        for (int u = 3; u >= 0; --u) {
+          if (J - u >= 0 && J - u < L) {
+#pragma unroll
+            for (int k = 0; k < NR; ++k)
+              acc[k][r] = fmaf(tv[3 - u], e[k][u], acc[k][r]);
+          }
+        }
+      }
+    }
+    if (cnt == 0) {
+      cnt = qr - 1;
+      addr -= 8;
+    } else {
+      --cnt;
+      addr -= 4;
+    }
+  };
+  for (; q > f_hi; --q) group(std::true_type{});
+  for (; q >= f_lo; --q) group(std::false_type{});
+  for (; q >= q_bot; --q) group(std::true_type{});
+}
+
+// All R decisions of the thread (long_walk's arguments): one walk of their
+// union of samples where the span gives a run of groups that every decision
+// takes whole (span >= 2*(R-1): the walk's ends test each decision, and
+// are shorter than its middle), else one walk a decision, each testing
+// only its own ends (at span 1 a decision's window barely meets the next
+// one's, and the union's every group would test all R).
+template <int R, bool kBf16 = false, int NR>
+__device__ __forceinline__ void matched_long(const float* const (&y)[NR],
+                                             int r0, int sps, int span,
+                                             const float* taps4,
+                                             float (&acc)[NR][R]) {
+  static_assert(R == 4, "the walks one a decision are written out for 4");
+  if (span >= 2 * (R - 1)) {
+    long_walk<R, 0, R, kBf16>(y, r0, sps, span, taps4, acc);
+  } else {
+    long_walk<R, 0, 1, kBf16>(y, r0, sps, span, taps4, acc);
+    long_walk<R, 1, 2, kBf16>(y, r0, sps, span, taps4, acc);
+    long_walk<R, 2, 3, kBf16>(y, r0, sps, span, taps4, acc);
+    long_walk<R, 3, 4, kBf16>(y, r0, sps, span, taps4, acc);
   }
 }
 

@@ -21,7 +21,6 @@ namespace modem {
 constexpr int kFirThreads = 256;
 constexpr int kFirPer = 8;  // consecutive outputs per thread
 constexpr int kFirTile = kFirThreads * kFirPer;  // outputs per block
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use
 
 __device__ __forceinline__ int pad8(int i) { return i + (i >> 3); }
 

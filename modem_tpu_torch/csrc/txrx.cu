@@ -86,7 +86,15 @@
 //   __grid_constant__ parameter), instantiated for the flagship's sps 8,
 //   span 8 and once generically.
 // - the long route, for a chain past the parameter's 256 taps or 64 samples
-//   a symbol: the taps as a device array staged in shared memory, the
+//   a symbol, the long core (pulse_rx_long_core): the same persistent walk
+//   and buffers, the taps as a device array staged once a block as
+//   common.cuh's four shifted copies (16-byte broadcasts), the filter
+//   common.cuh's matched_long (4 decisions a thread, L a run-time value,
+//   the buffers run-skewed); blocks of 128 threads, with 128, 64 or 32 of
+//   them filtering, the most whose block fits 56 KB (four blocks an SM),
+//   else 32 up to a block's shared memory. Past that, by the host's rule
+//   (ops/txrx.py, pulse_long_route), the first version through its own C
+//   entries: the
 //   generic instantiation with one decision a thread (tiles of 32 to 128
 //   symbols), each tile loading its whole window where the lookahead is
 //   longer than the tile.
@@ -612,6 +620,294 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// ---- the long core (pulse_rx_long_core) ----
+//
+// The first version's persistent walk (a tile's tail kept as the next
+// one's lookahead), with one set of filter rails, run-skewed (common.cuh,
+// run_pos) for matched_long's kLongR decisions a thread, and the taps
+// staged once a block as its shifted copies. Every mode lands in the
+// rails by cp.async, the next tile's load issued once this one's filter is
+// done, in the slots of the samples it holds (f32 in place, four bf16
+// samples in the first 8 bytes of their 16-byte slot): baseband f32 and
+// bf16 as they are, the filter reading bf16 slots as f32 (long_load4); at
+// passband the real waveform, each slot then mixed down to both rails in
+// place by the thread that reads it. So no staging buffer takes shared
+// memory, every mode fits as many blocks (the warps that hide the
+// filter's loads) an SM, and only passband adds a pass over the window
+// (a pass converting bf16 left the core slower than the first version at
+// sps 45 and 96, where a block has 32 filter threads). A tile is kRxCoreR
+// decisions for each of its filter threads: the most of 128, 64 and 32
+// whose block fits kRxCoreBudget, else 32 up to a block's shared memory.
+// Every block has kRxCoreThreads threads, all of which load, mix down and
+// copy: where a thread's samples are many (sps 45, 96), so are those
+// passes.
+
+constexpr int kRxCoreR = modem::kLongR;
+constexpr int kRxCoreThreads = 128;          // a block's threads
+constexpr size_t kRxCoreBudget = 56 * 1024;  // four blocks an SM
+constexpr int kRxCoreBlocks = 8;             // persistent blocks an SM, at most
+
+// The core's shared memory for nt filter threads: the two run-skewed
+// filter rails of a tile of kRxCoreR * nt decisions and its lookahead, the
+// taps' copies and `side` floats of tables.
+inline size_t rx_core_smem(int nt, int sps, int span, int side) {
+  const int win = (kRxCoreR * nt + span) * sps;
+  return sizeof(float) *
+         (2 * static_cast<size_t>(modem::run_len(win + 4, kRxCoreR * sps)) +
+          4 * modem::long_tap_stride(span * sps + 1) + side);
+}
+
+// The core's filter threads for a shape, 0 where none fits.
+inline int rx_core_threads(int sps, int span, int side) {
+  for (int nt = 128; nt >= 32; nt /= 2)
+    if (rx_core_smem(nt, sps, span, side) <= kRxCoreBudget) return nt;
+  return rx_core_smem(32, sps, span, side) <= modem::kMaxSmem ? 32 : 0;
+}
+
+// Copy elements 0 .. n - 1 of src to logical positions pos0 .. pos0 + n - 1
+// of the run-skewed dst, all threads (load_span's copy for the core's
+// buffers; its 16-byte pieces never cross a run, whose length is a multiple
+// of 4).
+__device__ inline void load_run(float* dst, const float* __restrict__ src,
+                                int pos0, int n, int n_valid, int run) {
+  const int nt = blockDim.x;
+  int a = n, b = n;  // the pieces copy elements a .. b - 1
+  if (((reinterpret_cast<uintptr_t>(src) |
+        static_cast<uintptr_t>(pos0) * sizeof(float)) & 15) == 0) {
+    const int p1 = n_valid / 4;
+    if (p1 > 0) {
+      a = 0;
+      b = 4 * p1;
+    }
+    modem::RunWalk w(pos0 + 4 * threadIdx.x, 4 * nt, run);
+    for (int k = threadIdx.x; k < p1; k += nt, w.next())
+      modem::cp_async16(dst + w.pos, src + 4 * k);
+  }
+  auto one = [&](int first, int end) {
+    modem::RunWalk w(pos0 + first + threadIdx.x, nt, run);
+    for (int e = first + threadIdx.x; e < end; e += nt, w.next()) {
+      if (e < n_valid)
+        modem::cp_async4(dst + w.pos, src + e);
+      else
+        dst[w.pos] = 0.f;
+    }
+  };
+  one(0, a);
+  one(b, n);
+}
+
+// load_run for a bf16 rail (its bits): sample pos0 + e into the first 8
+// bytes of its group of four's 16-byte slot, at 2 bytes an index in the
+// group; four samples by one 8-byte cp.async where src is 8-byte aligned,
+// the rest (zero past n_valid) one at a time.
+__device__ inline void load_run(float* dst, const unsigned short* __restrict__ src,
+                                int pos0, int n, int n_valid, int run) {
+  const int nt = blockDim.x;
+  int a = n, b = n;  // the pieces copy elements a .. b - 1
+  if (((reinterpret_cast<uintptr_t>(src) |
+        static_cast<uintptr_t>(pos0) * sizeof(unsigned short)) & 7) == 0) {
+    const int p1 = n_valid / 4;
+    if (p1 > 0) {
+      a = 0;
+      b = 4 * p1;
+    }
+    modem::RunWalk w(pos0 + 4 * threadIdx.x, 4 * nt, run);
+    for (int k = threadIdx.x; k < p1; k += nt, w.next())
+      modem::cp_async8(dst + w.pos, src + 4 * k);
+  }
+  auto one = [&](int first, int end) {
+    for (int e = first + threadIdx.x; e < end; e += nt) {
+      const int p = pos0 + e;
+      reinterpret_cast<unsigned short*>(dst + modem::run_pos(p & ~3, run))
+          [p & 3] = e < n_valid ? src[e] : static_cast<unsigned short>(0);
+    }
+  };
+  one(0, a);
+  one(b, n);
+}
+
+// Logical positions 0 .. halo - 1 of the run-skewed rail `to` from the same
+// positions past `off` floats of `from` (the tile's tail: the positions
+// body .. body + halo - 1 lie off = body + 4*nt floats on, body a whole
+// number of runs), in 16-byte pieces and the last few alone, never
+// touching a position past halo.
+__device__ inline void copy_head(float* to, const float* from, int off,
+                                 int halo, int run) {
+  const int nt = blockDim.x;
+  const int whole = halo >> 2;
+  modem::RunWalk w(4 * threadIdx.x, 4 * nt, run);
+  for (int k = threadIdx.x; k < whole; k += nt, w.next())
+    *reinterpret_cast<float4*>(to + w.pos) =
+        *reinterpret_cast<const float4*>(from + off + w.pos);
+  for (int e = 4 * whole + threadIdx.x; e < halo; e += nt) {
+    const int p = modem::run_pos(e, run);
+    to[p] = from[off + p];
+  }
+}
+
+// Persistent: block b takes items [b*n/G, (b+1)*n/G) of the n = C * n_tiles
+// (channel, tile of `tile` decided symbols: kRxCoreR a filter thread) items
+// in channel-major order.
+template <bool kSoft, bool kPassband, typename TRaw>
+__global__ void __launch_bounds__(128)
+    pulse_rx_long_core(const TRaw* __restrict__ wi,
+                       const TRaw* __restrict__ wq, long long n_wave,
+                       long long n_sym, long long n_tiles, long long n_items,
+                       int tile, int sps, int span,
+                       const float* __restrict__ taps,
+                       modem::Constellation map, modem::Nco nco,
+                       int* __restrict__ out_sym, float* __restrict__ out_i,
+                       float* __restrict__ out_q) {
+  constexpr int R = kRxCoreR;
+  constexpr bool kDirect = !kPassband && sizeof(TRaw) == sizeof(float);
+  constexpr bool kBf16 = !kPassband && !kDirect;  // the filter reads bf16
+  constexpr int kRails = kPassband ? 1 : 2;  // rails read from device memory
+  const int n_taps = span * sps + 1;
+  const int run = R * sps;
+  const int halo = span * sps;  // lookahead samples of a tile
+  const int body = tile * sps;  // the tile's own samples, whole runs
+  const int win = body + halo;  // samples its filter reads
+  const int f_len = modem::run_len(win + 4, run);
+  const int nt = blockDim.x;
+  const int off = body + 4 * (tile / R);  // the tail's distance, in floats
+  // a bf16 or passband rail's lookahead is kept only where it ends on a
+  // slot (copy_head copies f32; a slot holds bf16 samples, or raw and
+  // mixed ones at once, nowhere)
+  const bool reuse = halo <= body && (kDirect || halo % 4 == 0);
+
+  // the filter rails [2][f_len] f32, run-skewed; the taps' copies; the
+  // table; the phase table
+  extern __shared__ __align__(16) float smem[];
+  float* yi = smem;
+  float* yq = smem + f_len;
+  float* taps4 = smem + 2 * f_len;
+  float* slut = taps4 + 4 * modem::long_tap_stride(n_taps);
+  float* tc = slut + (map.lut != nullptr ? 2 * map.n_points : 0);
+  float* ts = tc + nco.period;
+
+  long long lo, hi;
+  modem::block_items(n_items, lo, hi);
+  modem::stage_long_taps(taps4, taps, n_taps);
+  if (map.lut != nullptr) modem::stage(slut, map.lut, 2 * map.n_points);
+  if (kPassband && nco.table) modem::stage_nco(tc, ts, nco);
+
+  // Bring item `it`'s samples in: the whole window, or past the lookahead
+  // the tile before leaves (cont); passband's one rail into yq.
+  auto issue = [&](long long it, bool cont) {
+    const long long c = it / n_tiles;
+    const long long s0 = (it % n_tiles) * tile * sps;
+    const int pos0 = cont ? halo : 0;
+    const int n = win - pos0;
+    const long long avail = n_wave - (s0 + pos0);
+    const int n_valid =
+        avail <= 0 ? 0 : avail < n ? static_cast<int>(avail) : n;
+    for (int rail = 0; rail < kRails; ++rail) {
+      const TRaw* src = (rail ? wq : wi) + c * n_wave + s0 + pos0;
+      load_run(rail || kPassband ? yq : yi, src, pos0, n, n_valid, run);
+    }
+    modem::cp_async_commit();
+  };
+
+  if (lo < hi) issue(lo, false);
+  for (long long it = lo; it < hi; ++it) {
+    const bool cont = reuse && it != lo && it % n_tiles != 0;
+    const bool cont_next = reuse && it + 1 < hi && (it + 1) % n_tiles != 0;
+    modem::cp_async_wait<0>();
+    __syncthreads();
+
+    const long long c = it / n_tiles;
+    const long long m0 = (it % n_tiles) * tile;
+    if (kPassband) {
+      // each raw slot -> f32 by product detection, in place
+      const int q0 = (cont ? halo : 0) >> 2;
+      int ph = modem::nco_skip(nco, modem::nco_phase(nco, m0 * sps),
+                               4 * (q0 + static_cast<int>(threadIdx.x)));
+      const int ph_stride = modem::nco_skip(nco, 0, 4 * nt);
+      modem::RunWalk w(4 * (q0 + threadIdx.x), 4 * nt, run);
+      for (int q = q0 + threadIdx.x; 4 * q < win; q += nt, w.next()) {
+        float vi[4], vq[4];
+        raw4(reinterpret_cast<const TRaw*>(yq + w.pos), vi);
+        int k = ph;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float cs, sn;
+          modem::nco_cos_sin(nco, k, tc, ts, cs, sn);
+          k = modem::nco_add(nco, k, nco.step);
+          const float x2 = 2.f * vi[e];
+          vi[e] = __fmul_rn(x2, cs);
+          vq[e] = __fmul_rn(-x2, sn);
+        }
+        ph = modem::nco_add(nco, ph, ph_stride);
+        if (4 * q + 4 <= win) {
+          *reinterpret_cast<float4*>(yi + w.pos) =
+              make_float4(vi[0], vi[1], vi[2], vi[3]);
+          *reinterpret_cast<float4*>(yq + w.pos) =
+              make_float4(vq[0], vq[1], vq[2], vq[3]);
+        } else {
+          for (int e = 0; 4 * q + e < win; ++e) {
+            yi[w.pos + e] = vi[e];
+            yq[w.pos + e] = vq[e];
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // the matched filter: decisions m0 + r0 .. m0 + r0 + R - 1
+    const long long left = n_sym - m0;
+    const int n_out = left < tile ? static_cast<int>(left) : tile;
+    const int r0 = R * static_cast<int>(threadIdx.x);
+    if (r0 < n_out) {  // the tile's filter threads, R decisions each
+      float acc[2][R] = {};
+      const float* const rails[2] = {yi, yq};
+      modem::matched_long<R, kBf16>(rails, r0, sps, span, taps4, acc);
+      const long long o = c * n_sym + m0 + r0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r0 + r >= n_out) break;
+        if (kSoft) {
+          out_i[o + r] = acc[0][r];
+          out_q[o + r] = acc[1][r];
+        } else {
+          out_sym[o + r] = modem::decide(acc[0][r], acc[1][r], map, slut);
+        }
+      }
+    }
+    __syncthreads();  // every read of the rails is done
+    if (cont_next) {  // the next tile's lookahead: this tail
+      copy_head(yi, yi, off, halo, run);
+      copy_head(yq, yq, off, halo, run);
+      __syncthreads();
+    }
+    if (it + 1 < hi) issue(it + 1, cont_next);
+  }
+}
+
+template <bool kSoft, bool kPassband, typename TRaw>
+int launch_rx_core(const void* wi, const void* wq, long long n_ch,
+                   long long n_wave, long long n_sym, const float* taps,
+                   int sps, int span, const modem::Constellation& map,
+                   const modem::Nco& nco, int* out_sym, float* out_i,
+                   float* out_q, void* stream) {
+  auto kernel = pulse_rx_long_core<kSoft, kPassband, TRaw>;
+  const int side = modem::side_floats(map, nco);
+  const int nt = rx_core_threads(sps, span, side);
+  if (nt == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = rx_core_smem(nt, sps, span, side);
+  const int tile = kRxCoreR * nt;
+  const long long n_tiles = (n_sym + tile - 1) / tile;
+  const long long n_items = n_ch * n_tiles;
+  unsigned grid = 0;
+  const cudaError_t err = modem::persistent_grid(
+      kernel, kRxCoreThreads, smem, kRxCoreBlocks, n_items, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kRxCoreThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TRaw*>(wi), static_cast<const TRaw*>(wq), n_wave,
+      n_sym, n_tiles, n_items, tile, sps, span, taps, map, nco, out_sym, out_i,
+      out_q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The long route: the first version's kernel.
 template <bool kPassband, typename TOut>
 int launch_tx(const int* syms, long long n_ch, long long k_sym,
@@ -725,18 +1021,24 @@ int launch_rx(const void* wi, const void* wq, long long n_ch,
 
 // The RX instantiation for a route, a shape, a carrier mode and an input
 // type: taps is a host modem::Taps (the short route), or null for the long
-// route, which reads taps_dev.
+// route, which reads taps_dev: the long core, or with `first` the first
+// version.
 template <bool kSoft, bool kPassband, typename TRaw>
 int launch_rx_shape(const void* wi, const void* wq, long long n_ch,
                     long long n_wave, long long n_sym, const void* taps,
-                    const float* taps_dev, int n_taps, int sps, int span,
-                    const modem::Constellation& map, const modem::Nco& nco,
-                    int* out_sym, float* out_i, float* out_q, void* stream) {
+                    const float* taps_dev, bool first, int n_taps, int sps,
+                    int span, const modem::Constellation& map,
+                    const modem::Nco& nco, int* out_sym, float* out_i,
+                    float* out_q, void* stream) {
   // the matched filter's sample window is exactly the tile's halo
   if (n_taps != span * sps + 1 || sps < 1 || span < 0 ||
       (taps == nullptr ? taps_dev == nullptr
                        : n_taps > modem::kMaxTaps || sps > modem::kMaxSps))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (taps == nullptr && !first)
+    return launch_rx_core<kSoft, kPassband, TRaw>(
+        wi, wq, n_ch, n_wave, n_sym, taps_dev, sps, span, map, nco, out_sym,
+        out_i, out_q, stream);
   if (taps == nullptr)
     return launch_rx<kSoft, kPassband, TRaw, 0, 0, true>(
         wi, wq, n_ch, n_wave, n_sym, modem::TapsPtr{taps_dev}, sps, span, map,
@@ -759,6 +1061,39 @@ int launch_rx_mode(bool passband, int in_bf16, Args... args) {
                    : launch_rx_shape<kSoft, true, float>(args...);
   return in_bf16 ? launch_rx_shape<kSoft, false, Bf16>(args...)
                  : launch_rx_shape<kSoft, false, float>(args...);
+}
+
+// modem_rx_hard's and modem_rx_hard_first's body.
+int rx_hard_entry(const void* wi, const void* wq, int in_bf16, long long n_ch,
+                  long long n_wave, long long n_sym, const void* taps,
+                  const float* taps_dev, bool first, int n_taps, int sps,
+                  int span, const float* lut, int n_points, int cshift,
+                  float ms, float a, float c, float s, int hz, int sr,
+                  long long sym_offset, float scale, int* out_sym,
+                  void* stream) {
+  modem::Nco nco;
+  if (!modem::make_nco(hz, sr, sps, sym_offset, scale, nco))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rx_mode<false>(
+      sr != 0, in_bf16, wi, wq, n_ch, n_wave, n_sym, taps, taps_dev, first,
+      n_taps, sps, span, modem::make_map(lut, n_points, cshift, ms, a, c, s),
+      nco, out_sym, static_cast<float*>(nullptr),
+      static_cast<float*>(nullptr), stream);
+}
+
+// modem_rx_soft's and modem_rx_soft_first's body.
+int rx_soft_entry(const void* wi, const void* wq, int in_bf16, long long n_ch,
+                  long long n_wave, long long n_sym, const void* taps,
+                  const float* taps_dev, bool first, int n_taps, int sps,
+                  int span, int hz, int sr, long long sym_offset, float scale,
+                  float* out_i, float* out_q, void* stream) {
+  modem::Nco nco;
+  if (!modem::make_nco(hz, sr, sps, sym_offset, scale, nco))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rx_mode<true>(
+      sr != 0, in_bf16, wi, wq, n_ch, n_wave, n_sym, taps, taps_dev, first,
+      n_taps, sps, span, modem::make_map(nullptr, 0, 0, 0.f, 1.f, 1.f, 0.f),
+      nco, static_cast<int*>(nullptr), out_i, out_q, stream);
 }
 
 }  // namespace
@@ -805,7 +1140,9 @@ int modem_tx(const int* syms, long long n_ch, long long k_sym,
 // and carrier as modem_tx's; the span*sps+1 taps: taps a host pointer to
 // them in a modem::Taps, passed to the kernel by value (the short route:
 // n_taps <= 256, sps <= 64), or taps null and taps_dev the device array
-// (the long route: any chain whose tile fits shared memory).
+// (the long route's core, pulse_rx_long_core: any chain whose block of 32
+// threads fits shared memory; the host's rule, ops.txrx.pulse_long_route,
+// sends the others to modem_rx_hard_first).
 int modem_rx_hard(const void* wi, const void* wq, int in_bf16, long long n_ch,
                   long long n_wave, long long n_sym, const void* taps,
                   const float* taps_dev, int n_taps, int sps, int span,
@@ -813,14 +1150,9 @@ int modem_rx_hard(const void* wi, const void* wq, int in_bf16, long long n_ch,
                   float a, float c, float s, int hz, int sr,
                   long long sym_offset, float scale, int* out_sym,
                   void* stream) {
-  modem::Nco nco;
-  if (!modem::make_nco(hz, sr, sps, sym_offset, scale, nco))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_rx_mode<false>(
-      sr != 0, in_bf16, wi, wq, n_ch, n_wave, n_sym, taps, taps_dev, n_taps,
-      sps, span, modem::make_map(lut, n_points, cshift, ms, a, c, s), nco,
-      out_sym, static_cast<float*>(nullptr), static_cast<float*>(nullptr),
-      stream);
+  return rx_hard_entry(wi, wq, in_bf16, n_ch, n_wave, n_sym, taps, taps_dev,
+                       false, n_taps, sps, span, lut, n_points, cshift, ms, a,
+                       c, s, hz, sr, sym_offset, scale, out_sym, stream);
 }
 
 // As modem_rx_hard, to the decision-point I/Q out_i, out_q [n_ch, n_sym].
@@ -829,14 +1161,37 @@ int modem_rx_soft(const void* wi, const void* wq, int in_bf16, long long n_ch,
                   const float* taps_dev, int n_taps, int sps, int span,
                   int hz, int sr, long long sym_offset, float scale,
                   float* out_i, float* out_q, void* stream) {
-  modem::Nco nco;
-  if (!modem::make_nco(hz, sr, sps, sym_offset, scale, nco))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_rx_mode<true>(
-      sr != 0, in_bf16, wi, wq, n_ch, n_wave, n_sym, taps, taps_dev, n_taps,
-      sps, span,
-      modem::make_map(nullptr, 0, 0, 0.f, 1.f, 1.f, 0.f), nco,
-      static_cast<int*>(nullptr), out_i, out_q, stream);
+  return rx_soft_entry(wi, wq, in_bf16, n_ch, n_wave, n_sym, taps, taps_dev,
+                       false, n_taps, sps, span, hz, sr, sym_offset, scale,
+                       out_i, out_q, stream);
+}
+
+// The long route's first version (pulse_rx_kernel, one decision a thread)
+// at any shape whose tile fits, the taps from the device: the route for
+// the chains past the core's shared memory, and forced here so that the
+// two can be compared at any shape. Arguments as modem_rx_hard's and
+// modem_rx_soft's without the host taps.
+int modem_rx_hard_first(const void* wi, const void* wq, int in_bf16,
+                        long long n_ch, long long n_wave, long long n_sym,
+                        const float* taps_dev, int n_taps, int sps, int span,
+                        const float* lut, int n_points, int cshift, float ms,
+                        float a, float c, float s, int hz, int sr,
+                        long long sym_offset, float scale, int* out_sym,
+                        void* stream) {
+  return rx_hard_entry(wi, wq, in_bf16, n_ch, n_wave, n_sym, nullptr,
+                       taps_dev, true, n_taps, sps, span, lut, n_points,
+                       cshift, ms, a, c, s, hz, sr, sym_offset, scale,
+                       out_sym, stream);
+}
+
+int modem_rx_soft_first(const void* wi, const void* wq, int in_bf16,
+                        long long n_ch, long long n_wave, long long n_sym,
+                        const float* taps_dev, int n_taps, int sps, int span,
+                        int hz, int sr, long long sym_offset, float scale,
+                        float* out_i, float* out_q, void* stream) {
+  return rx_soft_entry(wi, wq, in_bf16, n_ch, n_wave, n_sym, nullptr,
+                       taps_dev, true, n_taps, sps, span, hz, sr, sym_offset,
+                       scale, out_i, out_q, stream);
 }
 
 const char* modem_error_string(int code) {

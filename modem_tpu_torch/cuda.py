@@ -67,6 +67,12 @@ SIGNATURES = {
                       _P, _P],
     "modem_chain": [_P, _L, _L, _I, *_MAP, _P, _P, _I, _I, _I, *_NCO, _I, _F,
                     _U, _P, _P],
+    "modem_rx_hard_first": [_P, _P, _I, _L, _L, _L, _P, _I, _I, _I, *_MAP,
+                            *_NCO, _P, _P],
+    "modem_rx_soft_first": [_P, _P, _I, _L, _L, _L, _P, _I, _I, _I, *_NCO,
+                            _P, _P, _P],
+    "modem_chain_first": [_P, _L, _L, _I, *_MAP, _P, _I, _I, _I, *_NCO, _I,
+                          _F, _U, _P, _P],
     "modem_fir": [_P, _P, _L, _L, _P, _P, _I, _P, _P],
     "modem_fir_long_first": [_P, _P, _L, _L, _P, _I, _P, _P],
     "modem_demod": [_P, _I, _P, _L, _L, _P, _I, _I, _I, _F, _I, _I, _I, _I,

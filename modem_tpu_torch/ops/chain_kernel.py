@@ -27,10 +27,14 @@ import torch
 from ..cuda import Kernel, check_cuda
 from .polyphase import polyphase_decim
 from .txrx import (_f32, _kernel_carrier, _kernel_map, carrier_of,
-                   check_lut_taps, kernel_taps, nco_theta, qam_mparams,
-                   rx_plain, slice_plain, tx_plain)
+                   check_lut_taps, kernel_taps, long_first, nco_theta,
+                   qam_mparams, rx_plain, slice_plain, tx_plain)
 
 CHAIN_KERNEL = Kernel("modem_chain")
+#: K1's long route on its first version, by the host's rule
+#: (:func:`~modem_tpu_torch.ops.txrx.pulse_long_route`) or forced
+#: (``chain_kernel(..., first=True)``)
+CHAIN_FIRST_KERNEL = Kernel("modem_chain_first")
 
 DEFAULT_CHUNK_SYM = 256
 #: channels per JAX tile, which the noise stream's keys and counters count
@@ -206,8 +210,12 @@ def chain_plain(symbols, lut, taps, sps: int, span: int, qam=None,
 
 def chain_kernel(symbols, lut, taps, sps: int, span: int, qam=None,
                  carrier=None, sym_offset: int = 0, sigma=None, seed: int = 0,
-                 cs: int = DEFAULT_CHUNK_SYM) -> torch.Tensor:
-    """Launch K1 (``modem_chain``) on CUDA tensors."""
+                 cs: int = DEFAULT_CHUNK_SYM,
+                 first: bool = False) -> torch.Tensor:
+    """Launch K1 on CUDA tensors: ``modem_chain`` (the short route, or the
+    long route's core), or ``modem_chain_first`` where
+    :func:`~modem_tpu_torch.ops.txrx.long_first` says (``first`` forces
+    the long route's first version at any shape, for comparisons)."""
     dev = symbols.device
     k = symbols.shape[-1]
     flat = symbols.reshape(-1, k).contiguous()
@@ -216,9 +224,10 @@ def chain_kernel(symbols, lut, taps, sps: int, span: int, qam=None,
     if lut is not None:
         check_cuda("lut", lut, torch.float32, dev)
     out = torch.empty_like(flat)
-    route_taps = kernel_taps(taps, sps)
+    fv = long_first(taps, sps, span, first)
+    route_taps = (taps.data_ptr(),) if fv else kernel_taps(taps, sps)
     if out.numel():
-        CHAIN_KERNEL.launch(
+        (CHAIN_FIRST_KERNEL if fv else CHAIN_KERNEL).launch(
             dev, flat.data_ptr(), flat.shape[0], k, cs, *_kernel_map(lut, qam),
             *route_taps, taps.shape[0], sps, span,
             *_kernel_carrier(carrier, sym_offset), int(sigma is not None),

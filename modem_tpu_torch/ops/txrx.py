@@ -25,6 +25,7 @@ plain version.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -48,6 +49,31 @@ MAX_KERNEL_SPS = 64
 TX_KERNEL = Kernel("modem_tx")
 RX_HARD_KERNEL = Kernel("modem_rx_hard")
 RX_SOFT_KERNEL = Kernel("modem_rx_soft")
+#: K3's long route on its first version, by the host's rule
+#: (:func:`pulse_long_route`) or forced (``rx_kernel(..., first=True)``)
+RX_HARD_FIRST_KERNEL = Kernel("modem_rx_hard_first")
+RX_SOFT_FIRST_KERNEL = Kernel("modem_rx_soft_first")
+
+#: decisions a thread of K1's and K3's long core (``csrc/common.cuh``,
+#: ``kLongR``)
+LONG_R = 4
+#: dynamic shared memory a block may use (``common.cuh``, ``kMaxSmem``)
+SMEM_MAX = 232448
+#: K3's core: the shared memory a block aims at (four blocks an SM), and
+#: the filter threads it tries, most first (``txrx.cu``)
+RX_CORE_BUDGET = 56 * 1024
+RX_CORE_THREADS = (128, 64, 32)
+#: K1's core: its threads, waveform rows a synthesis item, the most and
+#: least decisions a pass and the shared memory a block aims at
+#: (``chain.cu``)
+CHAIN_CORE_THREADS = 64
+CHAIN_CORE_ROWS = 4
+CHAIN_PASS_MAX, CHAIN_PASS_MIN = 256, 16
+CHAIN_PASS_BUDGET = 56 * 1024
+#: the most floats of tables a pulse-shaped kernel stages beside its
+#: buffers: a table of MAX_LUT_POINTS points and a carrier of 2048 phases
+#: (``common.cuh``, ``side_floats``)
+SIDE_FLOATS_MAX = 2 * 64 + 2 * 2048
 
 #: the C entries' storage kinds (``csrc/common.cuh``, ``WaveKind``)
 _WAVE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2}
@@ -177,12 +203,113 @@ def kernel_taps(taps: torch.Tensor, sps: int) -> tuple:
     :func:`~modem_tpu_torch.cuda.host_taps`); or ``(None, device)`` for a
     chain of more than ``MAX_KERNEL_TAPS`` taps or ``MAX_KERNEL_SPS``
     samples a symbol, which takes the long route (the taps read from
-    ``device``, the address of ``taps`` on the card). K2's short route is
-    compiled for sps 8, span 8 alone: its C entry sends every other shape
-    to the long route."""
+    ``device``, the address of ``taps`` on the card: K1's and K3's long
+    core, or past it their first version, :func:`pulse_long_route`). K2's
+    short route is compiled for sps 8, span 8 alone: its C entry sends
+    every other shape to the long route."""
     if taps.shape[0] > MAX_KERNEL_TAPS or sps > MAX_KERNEL_SPS:
         return None, taps.data_ptr()
     return host_taps(taps), taps.data_ptr()
+
+
+# --------------------------------------------------------------------------
+# the long route's two kernels: the core, and the first version past its
+# shared memory
+# --------------------------------------------------------------------------
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def run_len(n: int, run: int) -> int:
+    """Floats of a run-skewed buffer of ``n`` samples in runs of ``run``
+    (``common.cuh``, ``run_len``)."""
+    return _round_up(n, 4) + 4 * -(-n // run)
+
+
+def long_tap_stride(n_taps: int) -> int:
+    """Floats of one of the core's four shifted copies of the taps."""
+    return (n_taps + 9) & ~3
+
+
+def rx_core_smem(nt: int, sps: int, span: int, side: int = 0) -> int:
+    """Shared memory of a block of K3's core with ``nt`` filter threads
+    (``txrx.cu``, ``rx_core_smem``): the two run-skewed filter rails of a
+    tile of ``LONG_R * nt`` decisions and its lookahead (every mode lands
+    in them, raw rails converted in place), the taps' copies and ``side``
+    floats of tables. (Every block has 128 threads; all of them load and
+    convert.)"""
+    win = (LONG_R * nt + span) * sps
+    return 4 * (2 * run_len(win + 4, LONG_R * sps)
+                + 4 * long_tap_stride(span * sps + 1) + side)
+
+
+def rx_core_threads(sps: int, span: int, side: int = 0) -> int:
+    """The filter threads of a block of K3's core (its tile is
+    ``LONG_R`` decisions each): the most of :data:`RX_CORE_THREADS` within
+    :data:`RX_CORE_BUDGET`, else 32 where that fits :data:`SMEM_MAX`; 0
+    where none does."""
+    for nt in RX_CORE_THREADS:
+        if rx_core_smem(nt, sps, span, side) <= RX_CORE_BUDGET:
+            return nt
+    return 32 if rx_core_smem(32, sps, span, side) <= SMEM_MAX else 0
+
+
+def _core_rows(n_out: int, span: int) -> int:
+    return _round_up(_round_up(n_out, LONG_R) + span, CHAIN_CORE_ROWS)
+
+
+def chain_core_smem(nsub: int, sps: int, span: int, side: int = 0) -> int:
+    """Shared memory of a block of K1's core for passes of ``nsub``
+    decisions (``chain.cu``, ``core_smem``): the two run-skewed rails of
+    the rows a pass makes, their points, the taps' copies and ``side``
+    floats of tables."""
+    rows = _core_rows(nsub, span)
+    ext = max(rows * sps, (_round_up(nsub, LONG_R) + span) * sps + 4)
+    points = _round_up(2 * (rows + span), 4)
+    return 4 * (2 * run_len(ext, LONG_R * sps) + points
+                + 4 * long_tap_stride(span * sps + 1) + side)
+
+
+def chain_core_pass(cs: int, sps: int, span: int, side: int = 0) -> int:
+    """Decisions a pass of K1's core for tiles of ``cs`` symbols
+    (``chain.cu``, ``core_pass``): the tile, at most
+    :data:`CHAIN_PASS_MAX`, halved while the block is past
+    :data:`CHAIN_PASS_BUDGET` (not below :data:`CHAIN_PASS_MIN`); 0 where
+    even that does not fit :data:`SMEM_MAX`."""
+    nsub = _round_up(min(cs, CHAIN_PASS_MAX), LONG_R)
+    while (nsub > CHAIN_PASS_MIN
+           and chain_core_smem(nsub, sps, span, side) > CHAIN_PASS_BUDGET):
+        nsub = _round_up(nsub // 2, LONG_R)
+    return nsub if chain_core_smem(nsub, sps, span, side) <= SMEM_MAX else 0
+
+
+@functools.lru_cache(maxsize=256)
+def pulse_long_route(sps: int, span: int) -> str:
+    """The kernel K1's and K3's long route (a chain past
+    ``MAX_KERNEL_TAPS`` taps or ``MAX_KERNEL_SPS`` samples a symbol) runs:
+    ``"core"`` (``pulse_chain_long_core``, ``pulse_rx_long_core``) where
+    both cores' smallest blocks fit a block's shared memory with the
+    largest tables (:data:`SIDE_FLOATS_MAX`), else ``"first"``
+    (their first versions, one decision a thread). The plans it rests on
+    copy ``chain.cu``'s ``core_pass`` and ``txrx.cu``'s
+    ``rx_core_threads``; a test on the card launches each route at the
+    rule's edge (``test_long_route_rule_holds_at_its_edge``). Kept for the
+    last 256 shapes, so a launch pays a dictionary lookup."""
+    fits = (chain_core_pass(CHAIN_PASS_MIN, sps, span, SIDE_FLOATS_MAX) > 0
+            and rx_core_threads(sps, span, SIDE_FLOATS_MAX) > 0)
+    return "core" if fits else "first"
+
+
+def long_first(taps: torch.Tensor, sps: int, span: int,
+               first: bool = False) -> bool:
+    """Whether K1 or K3 runs the long route's first version: forced
+    (``first``), or a chain on the long route that the core does not take
+    (:func:`pulse_long_route`)."""
+    if first:
+        return True
+    long = taps.shape[0] > MAX_KERNEL_TAPS or sps > MAX_KERNEL_SPS
+    return long and pulse_long_route(sps, span) == "first"
 
 
 def _kernel_carrier(carrier, sym_offset) -> tuple:
@@ -335,9 +462,12 @@ def rx_plain(wi, wq, n_symbols: int, lut, taps, sps: int, span: int,
 
 
 def rx_kernel(wi, wq, n_symbols: int, lut, taps, sps: int, span: int,
-              soft: bool, qam=None, carrier=None, sym_offset: int = 0):
-    """Launch K3 (``modem_rx_soft`` or ``modem_rx_hard``) on CUDA
-    tensors."""
+              soft: bool, qam=None, carrier=None, sym_offset: int = 0,
+              first: bool = False):
+    """Launch K3 on CUDA tensors: ``modem_rx_soft`` or ``modem_rx_hard``
+    (the short route, or the long route's core), or their ``_first``
+    entries where :func:`long_first` says (``first`` forces the long
+    route's first version at any shape, for comparisons)."""
     dev = wi.device
     n = wi.shape[-1]
     rails = [w.reshape(-1, n).contiguous() for w in (wi, wq) if w is not None]
@@ -348,21 +478,23 @@ def rx_kernel(wi, wq, n_symbols: int, lut, taps, sps: int, span: int,
     c = rails[0].shape[0]
     shape = wi.shape[:-1] + (n_symbols,)
     bf16 = int(rails[0].dtype == torch.bfloat16)
+    fv = long_first(taps, sps, span, first)
+    route = (taps.data_ptr(),) if fv else kernel_taps(taps, sps)
     head = (rails[0].data_ptr(), rails[-1].data_ptr() if wq is not None
-            else None, bf16, c, n, n_symbols, *kernel_taps(taps, sps),
-            taps.shape[0], sps, span)
+            else None, bf16, c, n, n_symbols, *route, taps.shape[0], sps,
+            span)
     nco = _kernel_carrier(carrier, sym_offset)
     if soft:
         di = torch.empty((c, n_symbols), dtype=torch.float32, device=dev)
         dq = torch.empty_like(di)
         if di.numel():
-            RX_SOFT_KERNEL.launch(dev, *head, *nco, di.data_ptr(),
-                                  dq.data_ptr())
+            (RX_SOFT_FIRST_KERNEL if fv else RX_SOFT_KERNEL).launch(
+                dev, *head, *nco, di.data_ptr(), dq.data_ptr())
         return di.reshape(shape), dq.reshape(shape)
     if lut is not None:
         check_cuda("lut", lut, torch.float32, dev)
     dec = torch.empty((c, n_symbols), dtype=torch.int32, device=dev)
     if dec.numel():
-        RX_HARD_KERNEL.launch(dev, *head, *_kernel_map(lut, qam), *nco,
-                              dec.data_ptr())
+        (RX_HARD_FIRST_KERNEL if fv else RX_HARD_KERNEL).launch(
+            dev, *head, *_kernel_map(lut, qam), *nco, dec.data_ptr())
     return dec.reshape(shape)

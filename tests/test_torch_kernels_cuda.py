@@ -19,6 +19,7 @@ means and soft points ``atol=1e-5`` (``nvcc`` contracts multiply-adds to
 FMA, the plain version does not).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -411,12 +412,25 @@ def _syms(shape, dev, seed, bps=2, sentinels=False):
     return syms
 
 
+def _k1_counter(taps, sps, span):
+    """The launch count of the K1 entry a chain takes: the first version's
+    past the long core's shared memory (``txrx.pulse_long_route``)."""
+    return (chain_kernel.CHAIN_FIRST_KERNEL
+            if txrx.long_first(taps, sps, span) else chain_kernel.CHAIN_KERNEL)
+
+
+def _k3_counter(taps, sps, span, soft):
+    if txrx.long_first(taps, sps, span):
+        return txrx.RX_SOFT_FIRST_KERNEL if soft else txrx.RX_HARD_FIRST_KERNEL
+    return txrx.RX_SOFT_KERNEL if soft else txrx.RX_HARD_KERNEL
+
+
 def _chain_exact(syms, lut, taps, sps, span, sent=True, **kw):
     """K1 against ``chain_plain``: decisions equal wherever there is a
     symbol, and (``sent``) equal to the symbols sent."""
     args = (syms, lut, taps, sps, span, kw.get("qam"), kw.get("carrier"),
             kw.get("sym_offset", 0), None, 0, kw.get("cs", 256))
-    got = _launches(chain_kernel.CHAIN_KERNEL, chain_kernel.chain_kernel,
+    got = _launches(_k1_counter(taps, sps, span), chain_kernel.chain_kernel,
                     *args)
     want = chain_kernel.chain_plain(*args)
     real = syms >= 0
@@ -429,10 +443,9 @@ def _rx_exact(rails, k, lut, taps, sps, span, want_rails=None, **kw):
     (the plain version on ``want_rails``, default the same)."""
     want_rails = rails if want_rails is None else want_rails
     common = (kw.get("qam"), kw.get("carrier"), kw.get("sym_offset", 0))
-    for soft, kernel in ((False, txrx.RX_HARD_KERNEL),
-                         (True, txrx.RX_SOFT_KERNEL)):
-        got = _launches(kernel, txrx.rx_kernel, *rails, k, lut, taps, sps,
-                        span, soft, *common)
+    for soft in (False, True):
+        got = _launches(_k3_counter(taps, sps, span, soft), txrx.rx_kernel,
+                        *rails, k, lut, taps, sps, span, soft, *common)
         want = txrx.rx_plain(*want_rails, k, lut, taps, sps, span, soft,
                              *common)
         if soft:
@@ -555,7 +568,8 @@ def test_k3_continued_tiles(sps, span, mode, dev):
 
 
 #: K1's and K3's long route: more than 256 taps, more than 64 samples a
-#: symbol, or both; (96, 40) has a lookahead longer than K3's tile
+#: symbol, or both; (96, 40) has a lookahead longer than the first
+#: version's K3 tile
 LONG = [(8, 32), (20, 16), (96, 1), (96, 40)]
 
 
@@ -614,6 +628,205 @@ def test_k1_k3_long_route_modes(dev):
                         *args)
         want = chain_kernel.chain_plain(*args)
         assert float((got == want).double().mean()) >= 0.9999
+
+
+# ---- K1's and K3's long core against their first version ----
+
+#: the long core's shapes: LONG's and the reference CLI's rates, 220 baud
+#: at 10 kHz (sps 45, span 8); (256, 1) takes the first version by the rule
+LONG_CORE = LONG + [(45, 8), (256, 1)]
+LONG_CORE_IDS = [f"sps{a}_span{b}" for a, b in LONG_CORE]
+
+
+def _same(a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _core_first(fn, counter, first_counter, *args, **kw):
+    """``fn`` on its route (counted on ``counter``) and with the first
+    version forced (``first_counter``), bit for bit; the route's output."""
+    got = _launches(counter, fn, *args, **kw)
+    want = _launches(first_counter, fn, *args, first=True, **kw)
+    assert _same(got, want)
+    return got
+
+
+def _k1_core_first(syms, lut, taps, sps, span, qam=None, carrier=None,
+                   off=0, sigma=None, seed=0, cs=256):
+    return _core_first(chain_kernel.chain_kernel, _k1_counter(taps, sps, span),
+                       chain_kernel.CHAIN_FIRST_KERNEL, syms, lut, taps, sps,
+                       span, qam, carrier, off, sigma, seed, cs)
+
+
+def _k3_core_first(rails, k, lut, taps, sps, span, qam=None, carrier=None,
+                   off=0):
+    """K3 hard and soft on the core against the first version forced."""
+    for soft in (False, True):
+        first = (txrx.RX_SOFT_FIRST_KERNEL if soft
+                 else txrx.RX_HARD_FIRST_KERNEL)
+        _core_first(txrx.rx_kernel, _k3_counter(taps, sps, span, soft), first,
+                    *rails, k, lut, taps, sps, span, soft, qam, carrier, off)
+
+
+@pytest.mark.parametrize("sps,span", LONG_CORE, ids=LONG_CORE_IDS)
+@pytest.mark.parametrize("carrier", [False, True],
+                         ids=["baseband", "passband"])
+def test_long_core_equals_first_version(sps, span, carrier, dev):
+    """test_k1_k3_long_route's modes (baseband and passband, a carrier at a
+    fifth of the sample rate, sym_offset -7; K1 in tiles of 256 and of 100,
+    passes cut inside a register block) over 300 channels of 401 symbols,
+    a length that is no multiple of any tile or pass: K1, K3 hard and K3
+    soft on the long core equal the first version forced on the same
+    inputs, bit for bit (at (256, 1) both are the first version)."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    taps = _taps(sps, span).to(dev)
+    k = 401
+    syms = _syms((300, k), dev, sps + span + 1, sentinels=True)
+    sr = sps * 200  # hz * sr < 2^31 at every sps
+    c, off = ((sr // 5, sr), -7) if carrier else (None, 0)
+    for cs in (256, 100):
+        _k1_core_first(syms, lut, taps, sps, span, None, c, off, cs=cs)
+    clean = syms.clamp(min=0)
+    wave = txrx.tx_plain(clean, lut, taps, sps, span, None, c, off)
+    rails = (wave, None) if carrier else wave
+    g = torch.Generator(device=dev).manual_seed(sps + 1)
+    rails = tuple(None if w is None else
+                  w + 0.2 * torch.randn(w.shape, generator=g, device=dev)
+                  for w in rails)
+    _k3_core_first(rails, k, lut, taps, sps, span, None, c, off)
+
+
+@pytest.mark.parametrize("sps,span", LONG_CORE, ids=LONG_CORE_IDS)
+def test_long_core_equals_first_version_modes(sps, span, dev):
+    """test_k1_k3_long_route_modes's modes on the core against the first
+    version, bit for bit: algebraic 256-QAM, bf16 input at baseband and at
+    passband (sym_offset -16), and K1's in-kernel noise (the same draws,
+    so the same decisions), in tiles of 32 (more passes than decisions a
+    block)."""
+    taps = _taps(sps, span).to(dev)
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    syms = _syms((130, 300), dev, 23, bps=8)
+    _k1_core_first(syms, None, taps, sps, span, QAM256)
+    wave = txrx.tx_plain(syms, None, taps, sps, span, QAM256)
+    _k3_core_first(wave, 300, None, taps, sps, span, QAM256)
+    qsyms = _syms((130, 300), dev, 24)
+    sr = sps * 200
+    for c in (None, (sr // 5, sr)):
+        wave = txrx.tx_plain(qsyms, lut, taps, sps, span, None, c, -16, None,
+                             torch.bfloat16)
+        rails = wave if c is None else (wave, None)
+        _k3_core_first(rails, 300, lut, taps, sps, span, None, c, -16)
+        sigma = chain_kernel.snr_sigma(1.0, 6.0, c)
+        _k1_core_first(qsyms, lut, taps, sps, span, None, c, -8, sigma, 5, 32)
+
+
+@pytest.mark.parametrize("sps,span", [(8, 32), (45, 8)])
+@pytest.mark.parametrize("carrier", [False, True],
+                         ids=["baseband", "passband"])
+def test_long_core_streams_in_ragged_pushes_equal_one_shot(sps, span,
+                                                           carrier, dev):
+    """``StreamingFusedRx`` and ``StreamingFusedChain`` on a chain the
+    long core takes, in ragged pushes (its tiles and passes cut at every
+    offset), equal the one-shot ``rx_fused`` and ``roundtrip_fused``, each
+    push on the core."""
+    from modem_tpu_torch import StreamingFusedChain, StreamingFusedRx
+    from modem_tpu_torch.chain import PulseShapedChain
+    from modem_tpu_torch.models.psk import QPSK
+
+    sr = sps * 220
+    chain = PulseShapedChain(QPSK(0.0, 1.0), Rates(220, sr),
+                             span_symbols=span,
+                             carrier_hz=sr // 5 if carrier else None,
+                             device=dev)
+    assert chain.sps == sps and txrx.pulse_long_route(sps, span) == "core"
+    k = 1500
+    g = torch.Generator(device=dev).manual_seed(sps)
+    bits = torch.randint(0, 2, (7, 2 * k), generator=g, device=dev,
+                         dtype=torch.int32)
+    cuts = [0, 1, 7, 300, 813, 1024, 1499, k]
+    sc = StreamingFusedChain(chain, (7,))
+    out = [_launches(chain_kernel.CHAIN_KERNEL, sc.push, bits[:, 2 * a:2 * b])
+           for a, b in zip(cuts, cuts[1:])]
+    assert torch.equal(torch.cat(out + [sc.flush()], -1),
+                       chain.roundtrip_fused(bits))
+    wave = chain.tx_fused(bits)
+    rails = (wave,) if carrier else wave
+    n = rails[0].shape[-1]
+    st = StreamingFusedRx(chain, (7,))
+    scuts = [sps * c for c in cuts] + [n]
+    out = []
+    for a, b in zip(scuts, scuts[1:]):
+        part = tuple(r[:, a:b] for r in rails)
+        out.append(st.push(part[0] if carrier else part))
+    assert torch.equal(torch.cat(out, -1), chain.rx_fused(wave, k))
+    assert torch.equal(torch.cat(out, -1), bits)
+
+
+@pytest.mark.parametrize("sps,span,core", [(8, 32, True), (45, 8, True),
+                                           (96, 40, True), (256, 1, False)],
+                         ids=["sps8_span32", "sps45_span8", "sps96_span40",
+                              "sps256_span1"])
+def test_long_routes_by_the_profiler(sps, span, core, dev):
+    """Which kernel each long-route call ran, by the profiler: the long
+    core (``pulse_chain_long_core``, ``pulse_rx_long_core``) where the
+    rule takes it, the first version (``pulse_chain_kernel``,
+    ``pulse_rx_kernel``) past its shared memory and wherever
+    ``first=True`` forces it."""
+    lut = torch.as_tensor(_qpsk().astype(np.float32), device=dev)
+    taps = _taps(sps, span).to(dev)
+    syms = _syms((4, 300), dev, sps)
+    wi, wq = txrx.tx_plain(syms, lut, taps, sps, span)
+    cases = [("_chain_", chain_kernel.chain_kernel, (syms, lut, taps, sps,
+                                                     span), "pulse_chain"),
+             ("pulse_rx_", txrx.rx_kernel, (wi, wq, 300, lut, taps, sps, span,
+                                            False), "pulse_rx"),
+             ("pulse_rx_", txrx.rx_kernel, (wi, wq, 300, lut, taps, sps, span,
+                                            True), "pulse_rx")]
+    for family, fn, args, stem in cases:
+        want = f"{stem}_long_core" if core else f"{stem}_kernel"
+        names = _kernel_names(fn, *args, family=family)
+        assert len(names) == 1 and want in next(iter(names)), names
+        forced = _kernel_names(functools.partial(fn, first=True), *args,
+                               family=family)
+        assert (len(forced) == 1
+                and f"{stem}_kernel" in next(iter(forced))), forced
+
+
+#: the sps at which the host's rule is held to the C code at its edge
+ROUTE_EDGE_SPS = (8, 45, 96, 200)
+
+
+@pytest.mark.parametrize("sps", ROUTE_EDGE_SPS)
+def test_long_route_rule_holds_at_its_edge(sps, dev):
+    """The host's rule (``txrx.pulse_long_route``) mirrors the C code's
+    plans (``chain.cu``'s ``core_pass``, ``txrx.cu``'s
+    ``rx_core_threads``): at the last span of ``sps`` that the rule sends to
+    the long core, K1, K3 hard and K3 soft launch on the core with the
+    largest tables the rule allows for (a 64-point table and a carrier of
+    2048 phases, ``SIDE_FLOATS_MAX`` floats), and at the next span on the
+    first version, each launch counted on its entry and bit for bit with
+    the first version forced. (Against the first version, not the plain
+    version: the plain version's loop over thousands of taps would launch
+    about a million small kernels.)"""
+    last = 1
+    while txrx.pulse_long_route(sps, last + 1) == "core":
+        last += 1
+    assert txrx.pulse_long_route(sps, last) == "core"
+    grid = np.arange(8) * 2.0 - 7
+    lut = torch.as_tensor(np.stack(np.meshgrid(grid, grid), -1)
+                          .reshape(64, 2).astype(np.float32) / 7, device=dev)
+    carrier = (409, 2048)  # 2048 phases, the largest carrier table
+    assert 2 * 64 + 2 * 2048 == txrx.SIDE_FLOATS_MAX
+    for span, core in ((last, True), (last + 1, False)):
+        taps = _taps(sps, span).to(dev)
+        assert txrx.kernel_taps(taps, sps)[0] is None
+        assert txrx.long_first(taps, sps, span) is not core
+        syms = _syms((2, 64), dev, sps + span, bps=6)
+        _k1_core_first(syms, lut, taps, sps, span, None, carrier)
+        wave = txrx.tx_kernel(syms, lut, taps, sps, span, None, carrier)
+        _k3_core_first((wave, None), 64, lut, taps, sps, span, None, carrier)
 
 
 # ---- K2's routes: the short route (pulse_tx_core) against the long route
@@ -3696,6 +3909,8 @@ def test_nccl_world_of_one_collectives_and_stats(dev, nccl_mesh):
 
 #: every C entry of the kernel library (``cuda.SIGNATURES`` but the count)
 LAUNCH_ENTRIES = ["modem_chain", "modem_tx", "modem_rx_hard", "modem_rx_soft",
+                  "modem_chain_first", "modem_rx_hard_first",
+                  "modem_rx_soft_first",
                   "modem_fir", "modem_fir_long_first", "modem_demod",
                   "modem_fsk_chain",
                   "modem_fsk_tone_table", "modem_msk_chain", "modem_fsk_tx",

@@ -79,9 +79,10 @@ def test_source_imports_no_jax(path):
 
 
 @pytest.mark.parametrize(
-    "path", [ROOT / "chip_smoke.py"] + sorted(ROOT.glob("bench_*_torch.py")),
-    ids=lambda p: p.name)
+    "path", [ROOT / "chip_smoke.py", ROOT / "probe_long_core.py"]
+    + sorted(ROOT.glob("bench_*_torch.py")), ids=lambda p: p.name)
 def test_scripts_import_no_jax(path):
-    """``chip_smoke.py`` and the A/B scripts run where there is no JAX."""
+    """``chip_smoke.py``, the A/B scripts and the timing probes run where
+    there is no JAX."""
     bad = _imports(path) & {"jax", "jaxlib", "modem_tpu"}
     assert not bad, f"{path.name} imports {sorted(bad)}"
